@@ -1,0 +1,463 @@
+"""Drive the PyTorch/CUDA port (``cylon_tpu_torch``) on one NVIDIA GPU
+and check it.
+
+    python3 chip_smoke.py             # every phase; exit 0 only if all pass
+    python3 chip_smoke.py --profile   # also trace one bench-path stage
+
+Phases, each printing one JSON line:
+
+1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build: the CUDA kernels from ``cylon_tpu_torch/csrc`` (``nvcc``);
+3. kernels: every kernel against its plain PyTorch version on the same
+   CUDA tensors, bit for bit, at the main path's shapes; the time per
+   call of the kernel, the plain version and one PyTorch library call
+   (where one computes the same function), by CUDA events over calls
+   back to back and as device time from torch.profiler, beside the
+   memory bound; then the whole join on the card against the same join
+   on the CPU (plain versions) on a small input;
+4. dist_join: the public entry point at a world of one rank on 16M x 16M
+   rows (the per-rank share of the reference's 1B-row, 64-rank run),
+   checked against numpy: the row count exactly, the checksum
+   sum(v_l * v_r) at rtol 1e-9;
+5. bench: the port of ``bench.py``'s exchange-inclusive pipeline (1M rows
+   per side, 12 stages, fresh keys per stage): partition_ids ->
+   shuffle_local -> checked_recv -> join, the total checked against
+   numpy, and the launch counters checked per stage.
+
+Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
+the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+run away from the repository, it exits non-zero and prints no result.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: device memory rate by card name (NVIDIA data sheets), bytes/s
+_BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
+              ("H100", 3.35e12))
+
+DIST_ROWS = 16 << 20
+BENCH_ROWS = 1 << 20
+BENCH_DEPTH = 12
+REPS = 20
+#: the shapes each kernel meets on the bench path (the main path whose
+#: launches are counted): row_hash over one side's rows; the scans over
+#: the join's combined rows (two shuffled sides of capacity 2n each)
+BENCH_SHAPE = {"row_hash": BENCH_ROWS, "scan32": 4 * BENCH_ROWS,
+               "pair_max_scan": 4 * BENCH_ROWS}
+#: 2n is the bench's out_cap (its one max scan); 32M the dist_join
+#: phase's combined rows; the rest are ragged edges of the tiling
+TIMED = (BENCH_ROWS, 2 * BENCH_ROWS, 4 * BENCH_ROWS, 2 * DIST_ROWS)
+SHAPES = (4096, 4097, (2 << 20) + 3) + TIMED
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bandwidth(name: str) -> float:
+    for key, rate in _BANDWIDTH:
+        if key in name:
+            return rate
+    raise SystemExit(f"no memory rate known for card {name!r}")
+
+
+def time_ms(torch, fn, reps: int = REPS) -> float:
+    """CUDA-event time per call of ``fn``: ``reps`` calls back to back
+    after warm-up, over the count. Where a call's host work (Python,
+    argument checks, the launch) outlasts its device work, this reads the
+    host's rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_spans(torch, prof) -> list:
+    """(start_us, end_us, name) of every device-side event (kernels,
+    copies, sets) in a finished profile; raises if there are none."""
+    from torch.autograd import DeviceType
+
+    spans = [(ev.time_range.start, ev.time_range.end, ev.name)
+             for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    if not spans:
+        raise SystemExit("profile: the trace holds no device time")
+    return spans
+
+
+def device_ms(torch, fn, reps: int = REPS) -> float:
+    """Device time per call of ``fn`` from torch.profiler: the summed
+    durations of everything its calls ran on the card, over the count --
+    the host's share of a call left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e - s for s, e, _ in device_spans(torch, prof)) / reps / 1e3
+
+
+def compare(torch, a, b):
+    """(mismatching elements, max |a - b|) of two int32 outputs or
+    tuples of them."""
+    if isinstance(a, tuple):
+        pairs = [compare(torch, x, y) for x, y in zip(a, b)]
+        return sum(p[0] for p in pairs), max(p[1] for p in pairs)
+    bad = int((a != b).sum())
+    err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+        if a.numel() else 0
+    return bad, err
+
+
+# ------------------------------------------------------------ phase 3
+def kernel_phase(torch, rate):
+    from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    stats = {}
+    for n in SHAPES:
+        keys = torch.randint(-2 ** 62, 2 ** 62, (n,), dtype=torch.int64,
+                             device="cuda", generator=g)
+        pair = keys.view(torch.int32).view(-1, 2)
+        words = [pair[:, 0], pair[:, 1]]   # an int64 key, read in place
+        flags = (torch.rand(n, device="cuda", generator=g) < 0.5).to(
+            torch.int32)
+        marks = torch.rand(n, device="cuda", generator=g) < 0.02
+        iota = torch.arange(n, dtype=torch.int32, device="cuda")
+        hi = torch.where(marks, iota, 0)
+        lo = torch.where(marks, torch.randint(-2 ** 31, 2 ** 31 - 1, (n,),
+                                              dtype=torch.int32,
+                                              device="cuda", generator=g), 0)
+        packed = ((hi.to(torch.int64) ^ 0x80000000) << 32) \
+            | (lo.to(torch.int64) & 0xFFFFFFFF)
+        cases = {
+            "row_hash": (lambda: row_hash(words),
+                         lambda: row_hash.plain(words), None, 12 * n),
+            "row_hash/nparts": (lambda: row_hash(words, 64),
+                                lambda: row_hash.plain(words, 64), None,
+                                12 * n),
+            "scan32/add": (lambda: scan32(flags, "add"),
+                           lambda: scan32.plain(flags, "add"),
+                           lambda: torch.cumsum(flags, 0, dtype=torch.int32),
+                           8 * n),
+            "scan32/max": (lambda: scan32(hi, "max"),
+                           lambda: scan32.plain(hi, "max"),
+                           lambda: torch.cummax(hi, 0), 8 * n),
+            "pair_max_scan": (lambda: pair_max_scan(hi, lo),
+                              lambda: pair_max_scan.plain(hi, lo),
+                              lambda: torch.cummax(packed, 0), 16 * n),
+        }
+        for name, (kern, plain, library, nbytes) in cases.items():
+            bad, err = compare(torch, kern(), plain())
+            torch.cuda.synchronize()
+            row = {"phase": "kernel", "name": name, "n": n,
+                   "mismatches": bad, "max_abs_err": err,
+                   "tolerance": 0, "bound_us": nbytes / rate * 1e6}
+            if n in TIMED:
+                for label, fn in (("kernel", kern), ("plain", plain),
+                                  ("library", library)):
+                    row[f"{label}_ms"] = time_ms(torch, fn) if fn else None
+                    row[f"{label}_device_ms"] = (device_ms(torch, fn)
+                                                 if fn else None)
+            emit(row)
+            if bad:
+                raise SystemExit(f"{name} at n={n}: {bad} mismatches")
+            stats[(name, n)] = row
+    return stats
+
+
+def join_parity_phase(torch):
+    """The whole join on the card (kernels) against the same join on the
+    CPU (plain versions), every how and both orders, nulls included."""
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+
+    rng = np.random.default_rng(7)
+    n = 50_000
+    lk = rng.integers(0, 20_000, n)
+    rk = rng.integers(0, 20_000, n)
+    lv = rng.random(n) > 0.05
+    data_l = {"k": lk, "a": rng.normal(size=n)}
+    data_r = {"k": rk, "b": rng.integers(0, 9, n).astype(np.int32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        left = ct.Table.from_pydict(data_l, device=dev)
+        right = ct.Table.from_pydict(data_r, device=dev)
+        kcol = left.column("k")
+        left = left.add_column("k", ct.Column(
+            kcol.data, torch.from_numpy(lv).to(dev), kcol.dtype))
+        for how in ("inner", "left", "right", "outer"):
+            for ordered in (True, False):
+                res = ct.join(left, right, on="k", how=how, ordered=ordered,
+                              out_capacity=4 * n)
+                out.setdefault((how, ordered), []).append(res.to_pandas())
+    for key, (gpu, cpu) in out.items():
+        if not gpu.equals(cpu):
+            raise SystemExit(f"join {key}: the card and the CPU differ")
+    emit({"phase": "join_parity", "rows": n, "cases": len(out),
+          "equal": True})
+
+
+# ------------------------------------------------------------ phase 4
+def dist_join_phase(torch):
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    n = DIST_ROWS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+
+    def table():
+        k = torch.randint(0, n, (n,), dtype=torch.int64, device="cuda",
+                          generator=g)
+        v = torch.rand(n, dtype=torch.float64, device="cuda", generator=g)
+        return ct.Table({"k": Column(k, None, dtypes.int64),
+                         "v": Column(v, None, dtypes.float64)}, n)
+
+    left, right = table(), table()
+    env = ct.CylonEnv()
+    ct.dist_join(env, left, right, on="k", how="inner")   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = ct.dist_join(env, left, right, on="k", how="inner")
+    rows = res.num_rows
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    check = float((res.column("v_x").data[:rows]
+                   * res.column("v_y").data[:rows]).sum())
+    lk, rk = left.column("k").data.cpu().numpy(), \
+        right.column("k").data.cpu().numpy()
+    lv, rv = left.column("v").data.cpu().numpy(), \
+        right.column("v").data.cpu().numpy()
+    want_rows = int((np.bincount(lk, minlength=n).astype(np.int64)
+                     * np.bincount(rk, minlength=n)).sum())
+    want_check = float((np.bincount(lk, weights=lv, minlength=n)
+                        * np.bincount(rk, weights=rv, minlength=n)).sum())
+    keys_ok = bool(torch.isfinite(res.column("v_x").data[:rows]).all())
+    emit({"phase": "dist_join", "rows_per_side": n, "world": 1,
+          "result_rows": rows, "expected_rows": want_rows,
+          "checksum": check, "expected_checksum": want_check,
+          "wall_s": wall, "rows_per_s": 2 * n / wall,
+          "peak_bytes": peak, "launches": launches})
+    if rows != want_rows or not keys_ok:
+        raise SystemExit("dist_join: wrong row count or values")
+    if abs(check - want_check) > 1e-9 * abs(want_check):
+        raise SystemExit("dist_join: checksum off")
+    # a world of one never exchanges, so never hashes: one join's scans
+    if launches != {"row_hash": 0, "scan32": 5, "pair_max_scan": 5}:
+        raise SystemExit(f"dist_join: launches {launches}")
+
+
+# ------------------------------------------------------------ phase 5
+def bench_phase(torch, profile: bool):
+    """Port of bench.py's _bench_exchange_pipeline at its own size."""
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops.hash import partition_ids
+    from cylon_tpu_torch.parallel.shuffle import checked_recv, shuffle_local
+
+    n, depth = BENCH_ROWS, BENCH_DEPTH
+    out_cap = shuf_cap = 2 * n
+    comm = ct.LocalComm()
+    w = comm.world_size
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    kl = torch.randint(0, n, (depth, n), dtype=torch.int64, device="cuda",
+                       generator=g)
+    kr = torch.randint(0, n, (depth, n), dtype=torch.int64, device="cuda",
+                       generator=g)
+    av = torch.randn(depth, n, dtype=torch.float64, device="cuda",
+                     generator=g)
+    bv = torch.randn(depth, n, dtype=torch.float64, device="cuda",
+                     generator=g)
+
+    def side(k, v):
+        return ct.Table({"k": Column(k, None, dtypes.int64),
+                         "v": Column(v, None, dtypes.float64)}, n)
+
+    def stage(i):
+        lt, rt = side(kl[i], av[i]), side(kr[i], bv[i])
+        lpid = partition_ids([lt.column("k").data], w, [None])
+        rpid = partition_ids([rt.column("k").data], w, [None])
+        lsh, _ = checked_recv(shuffle_local(comm, lt, lpid, shuf_cap),
+                              shuf_cap)
+        rsh, _ = checked_recv(shuffle_local(comm, rt, rpid, shuf_cap),
+                              shuf_cap)
+        res = ct.join(lsh, rsh, on="k", how="inner", suffixes=("_l", "_r"),
+                      out_capacity=out_cap, ordered=False)
+        return res.nrows
+
+    def pipeline():
+        total = torch.zeros((), dtype=torch.int64, device="cuda")
+        for i in range(depth):
+            total += stage(i)   # in place: one running device counter
+        return int(total)
+
+    pipeline()                                  # warm-up
+    times = []
+    reset_launches()
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = pipeline()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = launch_counts()
+    want = 0
+    for i in range(depth):
+        a = np.bincount(kl[i].cpu().numpy(), minlength=n).astype(np.int64)
+        want += int((a * np.bincount(kr[i].cpu().numpy(), minlength=n)).sum())
+    expect = {"row_hash": 2 * depth, "scan32": 5 * depth,
+              "pair_max_scan": 5 * depth}
+    emit({"phase": "bench", "rows_per_side": n, "depth": depth,
+          "total_rows": total, "expected_rows": want, "times_s": times,
+          "rows_per_s": depth * n / min(times), "launches": launches,
+          "expected_launches": expect})
+    if total != want:
+        raise SystemExit("bench: wrong total")
+    if launches != expect:
+        raise SystemExit(f"bench: launches {launches} != {expect}")
+    if profile:
+        profile_stage(torch, stage)
+    return launches
+
+
+def profile_stage(torch, stage):
+    """One bench stage under torch.profiler: device time by kernel and
+    the device's busy share of the stage's wall time (the union of the
+    kernels' intervals; the operators that launched them are left out, so
+    no time counts twice)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(device_spans(torch, prof))
+    busy_us, end = 0.0, None
+    by_kernel = {}
+    for s, e, name in spans:
+        if end is None or s > end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+        us, calls = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (us + e - s, calls + 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    emit({"phase": "profile", "stage_wall_ms": wall * 1e3,
+          "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e6 / wall,
+          "kernel_launches": len(spans),
+          "top": [{"name": name[:90], "ms": us / 1e3, "calls": c}
+                  for name, (us, c) in top[:20]]})
+
+
+# ------------------------------------------------------------ main
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to drive",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "cylon_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no cylon_tpu_torch package beside {ROOT}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from cylon_tpu_torch.kernels import (build, pair_max_scan, row_hash,
+                                         scan32)
+
+    card = smi()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rate = bandwidth(card)
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "bandwidth_bytes_per_s": rate,
+          "allow_tf32": False})
+
+    t0 = time.perf_counter()
+    build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": Path(build.last_build.get("path", "")).name or None})
+
+    stats = kernel_phase(torch, rate)
+    join_parity_phase(torch)
+    dist_join_phase(torch)
+    launches = bench_phase(torch, "--profile" in argv)
+
+    # each kernel at the shape the bench path gives it: partition_ids'
+    # fused modulo, the join's add scans, its fills
+    entries = []
+    for wrapper, key in ((row_hash, "row_hash/nparts"),
+                         (scan32, "scan32/add"),
+                         (pair_max_scan, "pair_max_scan")):
+        n = BENCH_SHAPE[wrapper.__name__]
+        s = stats[(key, n)]
+        entries.append({
+            "name": wrapper.__name__, "route": "cuda",
+            "source": wrapper.source, "replaces": wrapper.replaces,
+            "launches": launches[wrapper.__name__],
+            "mismatches": sum(r["mismatches"] for (name, _), r in
+                              stats.items() if name.split("/")[0]
+                              == wrapper.__name__),
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
+            "device_ms": s["kernel_device_ms"],
+            "plain_device_ms": s["plain_device_ms"],
+            "library_device_ms": s["library_device_ms"]})
+    emit({"kernels": entries})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,152 @@
+"""Device column: one fixed-width tensor + optional validity + host
+dictionary.
+
+Port of ``cylon_tpu/column.py`` (parity: ``cpp/src/cylon/column.hpp:31``).
+A column is a single contiguous device buffer; nulls are a separate bool
+validity tensor (True = non-null); variable-width values live on the host
+in a :class:`Dictionary` with int32 codes on the device.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cylon_tpu_torch import dtypes
+from cylon_tpu_torch.errors import NotImplemented_, TypeError_
+
+
+class Dictionary:
+    """Host-side values of a STRING/BINARY column, sorted ascending so that
+    code order is value order. Hash and equality are by content."""
+
+    __slots__ = ("values", "_key")
+
+    def __init__(self, values):
+        arr = np.array(values, dtype=object)
+        arr.flags.writeable = False
+        self.values = arr
+        self._key = None
+
+    def _content_key(self) -> tuple:
+        if self._key is None:
+            self._key = tuple(self.values.tolist())
+        return self._key
+
+    def __hash__(self):
+        return hash(self._content_key())
+
+    def __eq__(self, other):
+        return self is other or (isinstance(other, Dictionary)
+                                 and self._content_key()
+                                 == other._content_key())
+
+    def __len__(self):
+        return len(self.values)
+
+    def __repr__(self):
+        return f"Dictionary(n={len(self.values)})"
+
+
+@dataclasses.dataclass
+class Column:
+    """data: [capacity, ...] tensor of ``dtype.physical``; validity:
+    [capacity] bool or None (all valid); dtype: logical type; dictionary:
+    host values of a dictionary-coded column."""
+
+    data: torch.Tensor
+    validity: Optional[torch.Tensor] = None
+    dtype: dtypes.DType = dtypes.int64
+    dictionary: Optional[Dictionary] = None
+
+    @staticmethod
+    def from_numpy(arr, capacity: "int | None" = None, *,
+                   device: torch.device) -> "Column":
+        """Host array -> Column on ``device`` (already resolved). Strings
+        become dictionary codes; NaT and None become validity; float NaN
+        stays NaN (pandas semantics). Pads to ``capacity``."""
+        arr = np.asarray(arr)
+        if arr.dtype.kind in ("U", "S", "O"):
+            import pandas as pd
+
+            isnull = np.asarray(pd.isna(arr))
+            if isnull.ndim == 0:
+                isnull = np.broadcast_to(isnull, arr.shape).copy()
+            filled = np.where(isnull, "", arr.astype(object))
+            codes, uniq = pd.factorize(filled, sort=True)
+            return Column._pad(codes.astype(np.int32),
+                               ~isnull if isnull.any() else None,
+                               dtypes.string, Dictionary(uniq), capacity,
+                               device)
+        if arr.dtype.kind in ("M", "m"):
+            isnat = np.isnat(arr)
+            data = np.where(isnat, 0, arr.view(np.int64))
+            return Column._pad(data, ~isnat if isnat.any() else None,
+                               dtypes.from_numpy_dtype(arr.dtype), None,
+                               capacity, device)
+        return Column._pad(arr, None, dtypes.from_numpy_dtype(arr.dtype),
+                           None, capacity, device)
+
+    @staticmethod
+    def _pad(data, validity, dtype, dictionary, capacity, device):
+        n = len(data)
+        cap = n if capacity is None else capacity
+        if cap < n:
+            raise TypeError_(f"capacity {cap} < data length {n}")
+        buf = np.zeros((cap,) + data.shape[1:], dtype=data.dtype)
+        buf[:n] = data
+        vbuf = None
+        if validity is not None:
+            vbuf = np.zeros(cap, dtype=bool)
+            vbuf[:n] = validity
+        t = torch.from_numpy(buf).to(device=device, dtype=dtype.physical)
+        v = None if vbuf is None else torch.from_numpy(vbuf).to(device)
+        return Column(t, v, dtype, dictionary)
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def decode_host(self, data: np.ndarray,
+                    validity: "np.ndarray | None") -> np.ndarray:
+        """Decode fetched host arrays: dictionary lookup, temporal views,
+        null substitution (NaN for floats, NaT for temporals, None
+        otherwise)."""
+        if self.dtype.is_bytes:
+            raise NotImplemented_("device-bytes strings arrive with the "
+                                  "strings slice (ROADMAP queue A)")
+        if self.dtype.is_dictionary:
+            if self.dictionary is None:
+                raise TypeError_("dictionary column without dictionary")
+            ncodes = len(self.dictionary)
+            out = (self.dictionary.values[np.clip(data, 0, ncodes - 1)]
+                   if ncodes else np.full(len(data), None, object))
+            out = np.asarray(out, dtype=object)
+        elif self.dtype.kind in (dtypes.Kind.TIMESTAMP, dtypes.Kind.DURATION,
+                                 dtypes.Kind.DATE64):
+            ch = "m" if self.dtype.kind == dtypes.Kind.DURATION else "M"
+            out = data.view(f"{ch}8[{self.dtype.unit or 'ns'}]")
+        else:
+            out = data
+        if validity is not None and (~validity).any():
+            mask = ~validity
+            if out.dtype.kind == "f":
+                out = out.copy()
+                out[mask] = np.nan
+            elif out.dtype.kind in "Mm":
+                out = out.copy()
+                out[mask] = np.datetime64("NaT") if out.dtype.kind == "M" \
+                    else np.timedelta64("NaT")
+            else:
+                out = out.astype(object)
+                out[mask] = None
+        return out
+
+    def __repr__(self):
+        return (f"Column({self.dtype!r}, cap={self.capacity}"
+                f"{', nullable' if self.validity is not None else ''})")

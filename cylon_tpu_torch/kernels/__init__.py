@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each wrapper takes its plain version for a CPU tensor and launches its
+kernel for a CUDA tensor (or raises); it counts launches in
+``wrapper.launches`` and names its plain version in ``wrapper.plain``.
+"""
+
+from cylon_tpu_torch.kernels.row_hash import row_hash
+from cylon_tpu_torch.kernels.scan import (SCAN_MIN_SIZE, pair_max_scan,
+                                          scan32, scan32_ok)
+
+#: every kernel wrapper of the package
+WRAPPERS = (row_hash, scan32, pair_max_scan)
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+__all__ = ["SCAN_MIN_SIZE", "WRAPPERS", "launch_counts", "pair_max_scan",
+           "reset_launches", "row_hash", "scan32", "scan32_ok"]

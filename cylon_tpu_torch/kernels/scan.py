@@ -1,0 +1,138 @@
+"""Inclusive scans as CUDA kernels: ``scan32`` (add, max) and
+``pair_max_scan``.
+
+Kernel source: ``cylon_tpu_torch/csrc/scan.cu``. It replaces the Pallas
+kernels ``scan32`` (``_scan_kernel`` / ``_scan32_impl``) and
+``pair_max_scan`` (``_pair_max_kernel`` / ``_pair_max_impl``) of
+``cylon_tpu/ops/pallas_kernels.py``, with the same gate
+(:func:`scan32_ok`).
+"""
+
+import torch
+
+from cylon_tpu_torch.kernels import build
+
+#: below this many elements the callers keep torch.cumsum / torch.cummax,
+#: as the JAX package keeps jnp.cumsum / lax.cummax below its gate
+SCAN_MIN_SIZE = 4096
+
+_KINDS = {"add": 0, "max": 1}
+_DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
+_PAIR_DTYPES = (torch.int32, torch.uint32)
+_M32 = 0xFFFFFFFF
+
+
+def scan32_ok(x: torch.Tensor) -> bool:
+    """Does ``x`` take the scan kernel? 1-D, at least SCAN_MIN_SIZE
+    elements, a 32-bit dtype (never bool)."""
+    return (x.dim() == 1 and x.shape[0] >= SCAN_MIN_SIZE
+            and x.dtype in _DTYPES)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64) & _M32
+
+
+def scan32_plain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The same scan in plain PyTorch. int32 add wraps (cumsum with
+    ``dtype=int32``); uint32 goes through int64, which torch.cumsum and
+    torch.cummax support."""
+    if x.dtype == torch.uint32:
+        v = _u32(x)
+        v = torch.cumsum(v, 0) & _M32 if kind == "add" \
+            else torch.cummax(v, 0).values
+        return v.to(torch.uint32)
+    if kind == "add":
+        return torch.cumsum(x, 0, dtype=x.dtype)
+    return torch.cummax(x, 0).values
+
+
+def _scratch(lib, n: int, device) -> torch.Tensor:
+    """One 8-byte carry per kernel tile (``kTile`` elements in scan.cu)."""
+    return torch.empty(2 * -(-n // lib.cylon_scan_tile()), dtype=torch.int32,
+                       device=device)
+
+
+def _check_cuda(name: str, *xs) -> None:
+    for x in xs:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {x.device}")
+        if x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous 1-D tensors")
+    if any(x.device != xs[0].device or x.shape != xs[0].shape for x in xs):
+        raise ValueError(f"{name}: operands differ in device or shape")
+
+
+def scan32(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Inclusive 1-D scan, ``kind`` "add" (int32 wraps) or "max" (NaN
+    propagates), over int32, uint32 or float32. A CPU tensor takes
+    :func:`scan32_plain`; a CUDA tensor launches the kernel or raises.
+    Callers gate on :func:`scan32_ok`."""
+    if kind not in _KINDS:
+        raise ValueError(f"scan32: unknown kind {kind!r}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"scan32: unsupported dtype {x.dtype}")
+    if x.device.type == "cpu":
+        return scan32_plain(x, kind)
+    _check_cuda("scan32", x)
+    out = torch.empty_like(x)
+    n = x.shape[0]
+    if n == 0:
+        return out
+    lib = build.library()
+    err = lib.cylon_scan32(x.data_ptr(), out.data_ptr(), n, _KINDS[kind],
+                           _DTYPES[x.dtype],
+                           _scratch(lib, n, x.device).data_ptr(),
+                           build.stream_of(x))
+    build.check(err, "scan32")
+    scan32.launches += 1
+    return out
+
+
+def pair_max_scan_plain(hi: torch.Tensor, lo: torch.Tensor):
+    """The same scan in plain PyTorch: each pair packs into one int64 with
+    the top bit of ``hi`` flipped, so that signed order is the unsigned
+    (hi, lo) order; torch.cummax, then unpack."""
+    key = ((_u32(hi) ^ 0x80000000) << 32) | _u32(lo)
+    m = torch.cummax(key, 0).values
+    ohi = ((m >> 32) & _M32) ^ 0x80000000
+    olo = m & _M32
+    return ohi.to(hi.dtype), olo.to(lo.dtype)
+
+
+def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
+    """Inclusive running lexicographic max over u32 (hi, lo) pairs (int32
+    or uint32 tensors holding the bits); returns both outputs. Positions
+    before any nonzero pair read (0, 0). A CPU tensor takes
+    :func:`pair_max_scan_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if hi.dtype not in _PAIR_DTYPES or lo.dtype not in _PAIR_DTYPES:
+        raise TypeError(f"pair_max_scan: unsupported dtypes {hi.dtype}, "
+                        f"{lo.dtype}")
+    if hi.device.type == "cpu" and lo.device.type == "cpu":
+        return pair_max_scan_plain(hi, lo)
+    _check_cuda("pair_max_scan", hi, lo)
+    out_hi = torch.empty_like(hi)
+    out_lo = torch.empty_like(lo)
+    n = hi.shape[0]
+    if n == 0:
+        return out_hi, out_lo
+    lib = build.library()
+    err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
+                                  out_hi.data_ptr(), out_lo.data_ptr(), n,
+                                  _scratch(lib, n, hi.device).data_ptr(),
+                                  build.stream_of(hi))
+    build.check(err, "pair_max_scan")
+    pair_max_scan.launches += 1
+    return out_hi, out_lo
+
+
+scan32.launches = 0
+scan32.plain = scan32_plain
+scan32.source = "cylon_tpu_torch/csrc/scan.cu"
+scan32.replaces = "cylon_tpu/ops/pallas_kernels.py:164 _scan_kernel"
+
+pair_max_scan.launches = 0
+pair_max_scan.plain = pair_max_scan_plain
+pair_max_scan.source = "cylon_tpu_torch/csrc/scan.cu"
+pair_max_scan.replaces = "cylon_tpu/ops/pallas_kernels.py:250 _pair_max_kernel"

@@ -1,0 +1,284 @@
+"""Relational equi-join (inner / left / right / full outer), sort algorithm.
+
+Port of ``cylon_tpu/ops/join.py:112-508`` (parity: ``join::JoinTables``,
+``join/join.cpp:92-98``; semantics follow pandas ``merge``).
+
+Dense-rank equi-join: the key columns of both sides are concatenated and
+grouped by ONE lexicographic sort; per-group right-run counts and starts
+broadcast to every row through scans and fills (the scan32 and
+pair_max_scan kernels); the variable-size result is a prefix-sum
+run-length expansion into a caller-bounded buffer; ``take_columns``
+gathers the output. The JAX package's ``_join_compiled`` is the plain
+function :func:`_join` here: torch runs eagerly.
+"""
+
+from typing import Sequence
+
+import torch
+
+from cylon_tpu_torch.column import Column
+from cylon_tpu_torch.errors import InvalidArgument, NotImplemented_
+from cylon_tpu_torch.ops import kernels
+from cylon_tpu_torch.ops.selection import take_columns
+
+#: sort key of the invalid output slots: above every u32 row or group id
+M32_MAX = 0xFFFFFFFF
+
+
+def _key_list(keys) -> list:
+    return [keys] if isinstance(keys, str) else list(keys or ())
+
+
+def join(left, right, *, on: "Sequence[str] | str | None" = None,
+         left_on: "Sequence[str] | str | None" = None,
+         right_on: "Sequence[str] | str | None" = None,
+         how: str = "inner", suffixes: tuple = ("_x", "_y"),
+         out_capacity: "int | None" = None, algorithm: str = "sort",
+         ordered: bool = True):
+    """Equi-join two tables (pandas ``merge`` semantics).
+
+    ``out_capacity`` bounds the static result size (default
+    ``left.capacity + right.capacity``, enough for any 1:N join); an
+    overflow shows as ``nrows == out_capacity + 1`` and makes
+    ``num_rows`` raise. ``ordered=False`` skips restoring pandas' output
+    order (one stable sort of the index pairs); the row set is the same,
+    and the order is still deterministic.
+    """
+    if on is not None:
+        left_on = right_on = _key_list(on)
+    else:
+        left_on, right_on = _key_list(left_on), _key_list(right_on)
+    if not left_on or len(left_on) != len(right_on):
+        raise InvalidArgument(f"bad join keys {left_on} / {right_on}")
+    how = {"outer": "fullouter", "full_outer": "fullouter"}.get(how, how)
+    if algorithm == "hash":
+        raise NotImplemented_(
+            'join(algorithm="hash") needs the bucket_build / bucket_probe '
+            "kernels of the hash-join slice (ROADMAP queue A); the default "
+            '"sort" is what the JAX package runs as well')
+    if algorithm != "sort":
+        raise InvalidArgument(f"unknown join algorithm {algorithm!r}")
+    if how == "right":
+        # right join = left join with the sides swapped, columns reordered
+        swapped = join(right, left, left_on=right_on, right_on=left_on,
+                       how="left", suffixes=(suffixes[1], suffixes[0]),
+                       out_capacity=out_capacity, ordered=ordered)
+        return _reorder_right_join(swapped, left, right, left_on, right_on,
+                                   suffixes)
+    if how not in ("inner", "left", "fullouter"):
+        raise InvalidArgument(f"unknown join type {how!r}")
+    if left.device != right.device:
+        raise InvalidArgument(f"join inputs lie on {left.device} and "
+                              f"{right.device}")
+    out_cap = (left.capacity + right.capacity if out_capacity is None
+               else int(out_capacity))
+    left, right = _aligned_keys(left, right, left_on, right_on)
+    return _join(left, right, left_on, right_on, how, tuple(suffixes),
+                 out_cap, ordered)
+
+
+def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered):
+    lkeys = [left.column(n).data for n in left_on]
+    rkeys = [right.column(n).data for n in right_on]
+    lvals = [left.column(n).validity for n in left_on]
+    rvals = [right.column(n).validity for n in right_on]
+    left_idx, right_idx, total = _join_indices(
+        lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how, out_cap,
+        ordered)
+    res = _assemble(left, right, list(left_on), list(right_on), suffixes,
+                    left_idx, right_idx, total, how)
+    return kernels.carry_overflow(res, left, right)
+
+
+def _aligned_keys(left, right, left_on, right_on):
+    """Check that the key columns have matching physical dtypes. String
+    keys (dictionary unification, device bytes) wait for the strings
+    slice."""
+    for ln, rn in zip(left_on, right_on):
+        lc, rc = left.column(ln), right.column(rn)
+        if lc.dtype.layout != rc.dtype.layout:
+            raise InvalidArgument(f"join key {ln}/{rn}: string vs non-string")
+        if lc.dtype.is_dictionary or lc.dtype.is_bytes:
+            raise NotImplemented_(
+                f"join key {ln}/{rn}: string keys need dictionary "
+                "unification, which arrives with the strings slice "
+                "(ROADMAP queue A)")
+        if lc.data.dtype != rc.data.dtype:
+            raise InvalidArgument(
+                f"join key {ln}/{rn}: dtype mismatch "
+                f"{lc.data.dtype} vs {rc.data.dtype} (cast first)")
+    return left, right
+
+
+def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
+                  ordered: bool = True):
+    """Core: (left_idx, right_idx, total) gather plans of length out_cap;
+    -1 in either marks the null side of an output row.
+
+    Everything runs in the combined group-sorted layout of one
+    ``group_sort`` over both sides' keys, with the row iota as the
+    sub-order (left rows, indices < cl, precede right rows in each group;
+    its uniqueness makes the order total). Per-group values broadcast to
+    every row by fills, not gathers; the run expansion is one packed row
+    gather; ``ordered`` restores pandas' order with one stable sort.
+    """
+    cl = lkeys[0].shape[0]
+    cr = rkeys[0].shape[0]
+    ncomb = cl + cr
+    dev = lkeys[0].device
+    hi = max(ncomb - 1, 0)
+
+    ckeys = [torch.cat([l, r]) for l, r in zip(lkeys, rkeys)]
+    cvals = []
+    for lv, rv in zip(lvals, rvals):
+        if lv is None and rv is None:
+            cvals.append(None)
+            continue
+        if lv is None:
+            lv = torch.ones(cl, dtype=torch.bool, device=dev)
+        if rv is None:
+            rv = torch.ones(cr, dtype=torch.bool, device=dev)
+        cvals.append(torch.cat([lv, rv]))
+    cvalid = torch.cat([kernels.valid_mask(cl, lrows, dev),
+                        kernels.valid_mask(cr, rrows, dev)])
+
+    iota_c = torch.arange(ncomb, dtype=torch.int32, device=dev)
+    want_gid = ordered and how == "fullouter"
+    gid_s, _, (orig_u,) = kernels.group_sort(
+        ckeys, cvalid, cvals,
+        suborder=[kernels.OrderKey(iota_c.to(torch.int64), 32)])
+    orig_s = orig_u.to(torch.int32)
+
+    valid_s = gid_s < ncomb
+    is_r = valid_s & (orig_s >= cl)
+    is_l = valid_s & (orig_s < cl)
+    boundary = valid_s & ((gid_s != torch.roll(gid_s, 1)) | (iota_c == 0))
+    is_end = valid_s & (torch.roll(boundary, -1) | ~torch.roll(valid_s, -1)
+                        | (iota_c == ncomb - 1))
+    is_r32 = is_r.to(torch.int32)
+    is_l32 = is_l.to(torch.int32)
+
+    cum_r = kernels.fast_cumsum(is_r32)
+    cum_l = kernels.fast_cumsum(is_l32)
+    s_g = kernels.forward_fill(boundary, iota_c)
+    rb = kernels.forward_fill(boundary, cum_r - is_r32)
+    lb = kernels.forward_fill(boundary, cum_l - is_l32)
+    rcnt = kernels.reverse_fill(is_end, cum_r) - rb    # rights in my group
+    lcnt = kernels.reverse_fill(is_end, cum_l) - lb
+    right_start = s_g + lcnt   # sorted position of the group's first right
+
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    match_counts = torch.where(is_l, rcnt, zero)
+    if how == "inner":
+        ecounts = match_counts
+    else:   # left / fullouter: an unmatched left row still emits one row
+        ecounts = torch.where(is_l, torch.clamp(match_counts, min=1), zero)
+
+    # run-length expansion: row i emits ecounts[i] output slots. Each
+    # run's sorted position lands at its start offset, and a running max
+    # fills the run. Offsets of nonempty runs are distinct, so a plain
+    # scatter equals the JAX ``.at[start].max``; slots past out_cap (no
+    # run, or an overflowing one) go to one extra slot, sliced away, in
+    # place of the JAX ``mode="drop"``.
+    offs = kernels.exclusive_cumsum(ecounts)
+    total = (offs[-1] + ecounts[-1]) if ncomb else zero
+    start = torch.where(ecounts > 0, offs.to(torch.int64),
+                        out_cap).clamp_(max=out_cap)
+    mark = torch.full((out_cap + 1,), -1, dtype=torch.int32, device=dev)
+    mark.index_put_((start,), iota_c)   # in place: fresh buffer
+    parent = kernels.fast_cummax(mark[:out_cap]).clamp_(0, hi)
+    # the gid column rides the packed gather only when the fullouter
+    # restore needs it
+    pcols = [offs, match_counts, right_start, orig_s]
+    if want_gid:
+        pcols.append(gid_s)
+    g = torch.stack(pcols, dim=1)[parent.to(torch.int64)]   # one row gather
+    j = torch.arange(out_cap, dtype=torch.int32, device=dev)
+    within = j - g[:, 0]
+    matched = g[:, 1] > 0
+    r_pos = torch.clamp(g[:, 2] + within, 0, hi).to(torch.int64)
+    right_idx = torch.where(matched, orig_s[r_pos] - cl, -1)
+    left_idx = g[:, 3]
+    slot_gid = g[:, 4] if want_gid else None
+
+    if how == "fullouter":
+        extra_mask = is_r & (lcnt == 0)
+        perm_s, n_extra = kernels.compact_mask(extra_mask, valid_s)
+        shifted = torch.clamp(j - total, 0, hi).to(torch.int64)
+        ecols = [orig_s] + ([gid_s] if want_gid else [])
+        epair = torch.stack(ecols, dim=1)[perm_s[shifted]]
+        in_main = j < total
+        left_idx = torch.where(in_main, left_idx, -1)
+        right_idx = torch.where(in_main, right_idx, epair[:, 0] - cl)
+        if want_gid:
+            slot_gid = torch.where(in_main, slot_gid, epair[:, 1])
+        total = total + n_extra
+
+    if ordered:
+        # pandas order by one stable sort of the index pairs. inner/left:
+        # left-frame order (a left row's slots keep right-frame order by
+        # stability). fullouter: the sorted key union with nulls last --
+        # exactly group order, so the group id is the key.
+        valid_slot = j < total
+        okey = slot_gid if how == "fullouter" else left_idx
+        okey = torch.where(valid_slot, okey.to(torch.int64), M32_MAX)
+        perm = torch.sort(okey, stable=True).indices
+        left_idx, right_idx = left_idx[perm], right_idx[perm]
+
+    return left_idx, right_idx, total.to(torch.int32)
+
+
+def _assemble(left, right, left_on, right_on, suffixes, left_idx, right_idx,
+              total, how):
+    """Gather output columns. Shared key names coalesce (left value, else
+    right for right-only rows); other name collisions get suffixes --
+    pandas merge naming."""
+    from cylon_tpu_torch.table import Table
+
+    shared_keys = [ln for ln, rn in zip(left_on, right_on) if ln == rn]
+    lgather = take_columns(left, left_idx, total,
+                           null_mask=left_idx < 0 if how == "fullouter"
+                           else None)
+    rgather = take_columns(right, right_idx, total,
+                           null_mask=right_idx < 0 if how != "inner"
+                           else None)
+    out = {}
+    overlap = set(left.column_names) & set(right.column_names)
+    for name in left.column_names:
+        c = lgather.column(name)
+        if name in shared_keys:
+            out[name] = _coalesce(c, rgather.column(name)) \
+                if how == "fullouter" else c
+        elif name in overlap:
+            out[name + suffixes[0]] = c
+        else:
+            out[name] = c
+    for name in right.column_names:
+        if name in shared_keys:
+            continue
+        out[name + suffixes[1] if name in overlap else name] = \
+            rgather.column(name)
+    return Table(out, total)
+
+
+def _coalesce(a: Column, b: Column) -> Column:
+    """a where valid, else b (key coalescing for full outer joins)."""
+    ones = torch.ones(a.capacity, dtype=torch.bool, device=a.data.device)
+    av = ones if a.validity is None else a.validity
+    bv = ones if b.validity is None else b.validity
+    return Column(torch.where(av, a.data, b.data), av | bv, a.dtype,
+                  a.dictionary)
+
+
+def _reorder_right_join(swapped, left, right, left_on, right_on, suffixes):
+    """Restore left-then-right column order after the swapped left join."""
+    shared_keys = {ln for ln, rn in zip(left_on, right_on) if ln == rn}
+    overlap = set(left.column_names) & set(right.column_names)
+    order = []
+    for name in left.column_names:
+        order.append(name + suffixes[0]
+                     if name in overlap and name not in shared_keys else name)
+    for name in right.column_names:
+        if name not in shared_keys:
+            order.append(name + suffixes[1] if name in overlap else name)
+    return swapped.select(order)

@@ -1,0 +1,274 @@
+"""Shared primitives of the join path: order keys, lexicographic sorts,
+group numbering, compaction, scans and fills.
+
+Port of ``cylon_tpu/ops/kernels.py:89-387, 538-599``. Rows are grouped by
+lexicographic dense rank (sort-based, collision-free). Tables are padded
+to ``capacity`` and carry ``nrows``; padding rows sort last through an
+explicit padding key.
+
+``lax.sort(operands, num_keys=k)`` has no torch counterpart. It becomes a
+least-significant-first chain of stable ``torch.sort`` passes over the
+packed key words (:func:`lexsort_perm`), which gives the lexicographic
+order with ties in row order -- exactly the JAX order whenever the JAX
+sort is stable or its keys are a total order.
+"""
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from cylon_tpu_torch.errors import NotImplemented_
+from cylon_tpu_torch.kernels import scan
+from cylon_tpu_torch.ops.hash import M32, canonical_float
+
+_MIN64 = -(1 << 63)
+_BITS = {torch.bool: 8, torch.uint8: 8, torch.int8: 8, torch.uint16: 16,
+         torch.int16: 16, torch.float16: 16, torch.uint32: 32,
+         torch.int32: 32, torch.float32: 32, torch.uint64: 64,
+         torch.int64: 64, torch.float64: 64}
+_SIGNED_VIEW = {16: torch.int16, 32: torch.int32, 64: torch.int64}
+
+
+class OrderKey(NamedTuple):
+    """An unsigned sort key of ``bits`` bits whose unsigned order is the
+    value order. ``value`` is int64: the key itself below 64 bits, the
+    u64 bit pattern at 64."""
+
+    value: torch.Tensor
+    bits: int
+
+
+def _ones(bits: int) -> int:
+    return -1 if bits == 64 else (1 << bits) - 1
+
+
+def order_key(data: torch.Tensor, ascending: bool = True) -> OrderKey:
+    """Map values to an unsigned key whose order is the value order:
+    signed ints get the sign bit flipped, floats the IEEE total-order
+    transform after canonicalisation (NaN sorts above +inf), bools widen
+    to 8 bits. ``ascending=False`` inverts every bit."""
+    dt = data.dtype
+    if dt not in _BITS:
+        raise TypeError(f"unsortable dtype {dt}")
+    bits = _BITS[dt]
+    if dt == torch.bool or dt in (torch.uint8, torch.uint16, torch.uint32):
+        key = data.to(torch.int64)
+    elif dt == torch.uint64:
+        key = data.view(torch.int64)
+    elif data.is_floating_point():
+        b = canonical_float(data).view(_SIGNED_VIEW[bits]).to(torch.int64)
+        if bits == 64:
+            key = torch.where(b < 0, ~b, b | _MIN64)
+        else:
+            sign = 1 << (bits - 1)
+            b = b & _ones(bits)
+            key = torch.where((b & sign) != 0, ~b & _ones(bits), b | sign)
+    elif bits == 64:
+        key = data ^ _MIN64
+    else:
+        key = data.to(torch.int64) + (1 << (bits - 1))
+    if not ascending:
+        key = ~key if bits == 64 else ~key & _ones(bits)
+    return OrderKey(key, bits)
+
+
+def sortable(k: OrderKey) -> torch.Tensor:
+    """int64 whose signed order is ``k``'s unsigned order."""
+    return k.value ^ _MIN64 if k.bits == 64 else k.value
+
+
+def valid_mask(cap: int, nrows, device=None) -> torch.Tensor:
+    """[cap] bool valid-row mask. ``nrows`` is a count ("first n rows are
+    valid") or already a [cap] bool mask (passed through)."""
+    if torch.is_tensor(nrows) and nrows.dim() == 1:
+        return nrows
+    if device is None:
+        device = nrows.device if torch.is_tensor(nrows) else "cpu"
+    return torch.arange(cap, dtype=torch.int32, device=device) < nrows
+
+
+def split_words(okeys: Sequence[torch.Tensor]) -> list:
+    """Expand 2-D [cap, w] operands (device-bytes strings) into their
+    word columns, earlier words first."""
+    out = []
+    for k in okeys:
+        if k.dim() == 2:
+            out.extend(k[:, i] for i in range(k.shape[1]))
+        else:
+            out.append(k)
+    return out
+
+
+def pack_order_keys(okeys: Sequence[OrderKey]) -> list:
+    """Greedily merge adjacent keys into shared words of at most 64 bits
+    (earlier fields take the higher bits, so word order is field order --
+    lossless). Fewer words mean fewer sort passes."""
+    groups: list = []
+    for k in okeys:
+        if groups and groups[-1][1] + k.bits <= 64:
+            groups[-1][0].append(k)
+            groups[-1][1] += k.bits
+        else:
+            groups.append([[k], k.bits])
+    packed = []
+    for fields, bits in groups:
+        if len(fields) == 1:
+            packed.append(fields[0])
+            continue
+        word = fields[0].value
+        for f in fields[1:]:
+            word = (word << f.bits) | f.value   # wraps into the u64 pattern
+        packed.append(OrderKey(word, bits))
+    return packed
+
+
+def lexsort_perm(operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """int64 permutation sorting rows by ``operands`` (int64, most
+    significant first), ties in row order: one stable torch.sort per
+    operand, least significant first."""
+    perm = None
+    for k in reversed(list(operands)):
+        kk = k if perm is None else k[perm]
+        idx = torch.sort(kk, stable=True).indices
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
+def sort_perm(keys: Sequence[torch.Tensor], nrows, *,
+              ascending=True) -> torch.Tensor:
+    """Permutation lexsorting rows by ``keys`` (priority = list order),
+    valid rows first, padding last; stable. Parity:
+    ``SortIndicesMultiColumns`` (``arrow_kernels.hpp:134-140``)."""
+    cap = keys[0].shape[0]
+    padding = ~valid_mask(cap, nrows, keys[0].device)
+    if isinstance(ascending, bool):
+        ascending = [ascending] * len(keys)
+    ops = pack_order_keys([OrderKey(padding.to(torch.int64), 8)]
+                          + [order_key(k, a) for k, a in zip(keys, ascending)])
+    return lexsort_perm([sortable(k) for k in ops])
+
+
+def compact_mask(mask: torch.Tensor, nrows):
+    """Stable-partition selected valid rows to the front. Returns
+    ``(perm, count)``: ``perm[:count]`` lists the selected rows in
+    original order."""
+    valid = mask & valid_mask(mask.shape[0], nrows, mask.device)
+    perm = torch.sort((~valid).to(torch.int8), stable=True).indices
+    return perm, valid.sum(dtype=torch.int32)
+
+
+def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum in x's dtype; gated 32-bit arrays take the scan
+    kernel (the plain version on the CPU)."""
+    if scan.scan32_ok(x):
+        return scan.scan32(x, "add")
+    return torch.cumsum(x, 0, dtype=x.dtype)
+
+
+def fast_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max; gated 32-bit arrays take the scan kernel."""
+    if scan.scan32_ok(x):
+        return scan.scan32(x, "max")
+    return torch.cummax(x, 0).values
+
+
+def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return fast_cumsum(x) - x
+
+
+def group_sort(keys: Sequence[torch.Tensor], nrows,
+               validities: "Sequence[torch.Tensor | None] | None" = None,
+               payloads: Sequence[torch.Tensor] = (),
+               suborder: Sequence[OrderKey] = ()):
+    """One lexicographic sort that groups rows by key and carries
+    ``payloads`` into group order.
+
+    Null keys equal each other and rank last at their level (the key
+    takes its maximum word, then an inverted-validity word breaks the tie
+    with a genuine maximum). ``suborder`` keys rank below the key columns
+    and order rows within a group without splitting it; their sorted
+    values lead the returned payloads.
+
+    Returns ``(gid_sorted [cap] int32, num_groups 0-d int32,
+    sorted_payloads)``; ``gid_sorted`` is monotone over valid rows and
+    ``cap`` on padding.
+    """
+    cap = keys[0].shape[0]
+    dev = keys[0].device
+    full = []
+    for i, k in enumerate(keys):
+        v = validities[i] if validities is not None else None
+        if k.dim() == 2:
+            raise NotImplemented_("device-bytes string keys arrive with the "
+                                  "strings slice (ROADMAP queue A)")
+        nk = order_key(k)
+        if v is None:
+            full.append(nk)
+            continue
+        full.append(OrderKey(torch.where(
+            v, nk.value, torch.full((), _ones(nk.bits), dtype=torch.int64,
+                                    device=dev)), nk.bits))
+        full.append(OrderKey((~v).to(torch.int64), 8))
+    vmask = valid_mask(cap, nrows, dev)
+    total_valid = vmask.sum(dtype=torch.int32)
+    key_ops = [sortable(k) for k in pack_order_keys(
+        [OrderKey((~vmask).to(torch.int64), 8)] + full)]
+    perm = lexsort_perm(key_ops + [sortable(k) for k in suborder])
+    sorted_keys = [k[perm] for k in key_ops]
+    sorted_payloads = [k.value[perm] for k in suborder] \
+        + [p[perm] for p in payloads]
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid_sorted = iota < total_valid
+    # the padding flag is 0 across valid rows, so boundaries on the packed
+    # words are boundaries on the raw key tuple there
+    neq_prev = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for k in sorted_keys:
+        neq_prev |= k != torch.roll(k, 1)   # in place: a fresh mask
+    boundary = ((iota == 0) | neq_prev) & valid_sorted
+    gid_sorted = fast_cumsum(boundary.to(torch.int32)) - 1
+    if cap:
+        num_groups = torch.where(total_valid > 0, gid_sorted[-1] + 1,
+                                 0).to(torch.int32)
+    else:
+        num_groups = torch.zeros((), dtype=torch.int32, device=dev)
+    gid_sorted = torch.where(valid_sorted, gid_sorted, cap)
+    return gid_sorted, num_groups, sorted_payloads
+
+
+def forward_fill(mark: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Broadcast ``val`` forward from marked positions (the most recent
+    mark wins); positions before the first mark get 0. Returns int32.
+
+    One running max over (position, value) pairs: gated sizes take the
+    pair_max_scan kernel; below the gate a u64 cummax (packed into int64:
+    positions stay below 2^31)."""
+    cap = val.shape[0]
+    iota = torch.arange(cap, dtype=torch.int32, device=val.device)
+    if scan.scan32_ok(val):
+        zero = torch.zeros((), dtype=torch.int32, device=val.device)
+        hi = torch.where(mark, iota, zero)
+        lo = torch.where(mark, val.to(torch.int32), zero)
+        _, filled = scan.pair_max_scan(hi, lo)
+        return filled
+    enc = torch.where(mark, (iota.to(torch.int64) << 32)
+                      | (val.to(torch.int64) & M32),
+                      torch.zeros((), dtype=torch.int64, device=val.device))
+    filled = torch.cummax(enc, 0).values
+    return (filled & M32).to(torch.int32)
+
+
+def reverse_fill(mark: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Broadcast ``val`` backward from marked positions (the nearest
+    following mark wins); positions after the last mark get 0."""
+    return forward_fill(mark.flip(0), val.flip(0)).flip(0)
+
+
+def carry_overflow(out, *inputs):
+    """If any input's ``nrows`` exceeds its capacity (an upstream bounded
+    operator overflowed), mark ``out`` the same way (``nrows = capacity +
+    1``) so that its host-side ``num_rows`` raises."""
+    bad = None
+    for t in inputs:
+        b = t.nrows > t.capacity
+        bad = b if bad is None else bad | b
+    return out.with_nrows(torch.where(bad, out.capacity + 1, out.nrows))

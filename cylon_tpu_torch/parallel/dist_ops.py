@@ -1,0 +1,146 @@
+"""Distributed join: partition -> exchange -> local join, on every rank.
+
+Port of ``cylon_tpu/parallel/dist_ops.py:850-947`` with its capacity
+defaults (``:254-269``) and its regrow-on-overflow loop (``:313-400``),
+parity ``DistributedJoin`` (``table.cpp:476``). Each rank calls
+:func:`dist_join` on its own shards (see
+:func:`cylon_tpu_torch.parallel.dtable.scatter_table`).
+"""
+
+import torch
+
+from cylon_tpu_torch.errors import OutOfCapacity
+from cylon_tpu_torch.ops.hash import partition_ids
+from cylon_tpu_torch.ops.join import _aligned_keys, join as _join_fn
+from cylon_tpu_torch.parallel.shuffle import checked_recv, poison, \
+    shuffle_local
+
+#: default headroom factor for post-shuffle local buffers (hash
+#: partitioning of uniform keys is balanced; skew beyond 2x should pass
+#: an explicit out_capacity)
+DEFAULT_SKEW = 2
+#: the regrow ladder's top: capacities double up to this multiple of the
+#: default before the overflow is raised
+MAX_SCALE = 1024
+
+
+def _out_cap_local(env, *tables, out_capacity=None, skew=DEFAULT_SKEW,
+                   scale: int = 1) -> int:
+    if out_capacity is not None:
+        return -(-out_capacity // env.world_size)
+    return sum(t.capacity for t in tables) * skew * scale
+
+
+def _partition_keys(lt, rt, left_on, right_on):
+    """Key columns and validities for partition hashing. A key nullable
+    on one side only gets an all-valid mask on the other: the validity
+    word joins a row's hash only where a mask exists, so without it equal
+    keys would hash to different ranks and never meet. (The JAX package
+    hashes the masks as they are and loses those matches.)"""
+    lkeys = [lt.column(c).data for c in left_on]
+    rkeys = [rt.column(c).data for c in right_on]
+    lvals = [lt.column(c).validity for c in left_on]
+    rvals = [rt.column(c).validity for c in right_on]
+    for i, (lv, rv) in enumerate(zip(lvals, rvals)):
+        if lv is None and rv is not None:
+            lvals[i] = torch.ones_like(lkeys[i], dtype=torch.bool)
+        elif rv is None and lv is not None:
+            rvals[i] = torch.ones_like(rkeys[i], dtype=torch.bool)
+    return lkeys, lvals, rkeys, rvals
+
+
+def _adaptive(env, build, args, adaptive: bool):
+    """Run ``build(scale)(*args)``, doubling the default capacities while
+    any rank overflowed (every bound defaulted: ``adaptive``). Explicit
+    capacities keep the raise-on-overflow contract: their overflow shows
+    in ``nrows`` and ``num_rows`` raises. The check is one all-gather of
+    the result counts, so every rank takes the same decision."""
+    scale = 1
+    while True:
+        out = build(scale)(*args)
+        if not adaptive:
+            return out
+        counts = env.comm.all_gather(out.nrows.reshape(1)).reshape(-1)
+        if bool((counts <= out.capacity).all()):
+            return out
+        for t in args:
+            tc = env.comm.all_gather(t.nrows.reshape(1)).reshape(-1)
+            if bool((tc > t.capacity).any()):
+                raise OutOfCapacity(
+                    f"input shard row counts {tc.tolist()} exceed its "
+                    "capacity: an upstream op overflowed an explicit "
+                    "out_capacity")
+        if scale >= MAX_SCALE:
+            raise OutOfCapacity(
+                f"shard row counts {counts.tolist()} still exceed local "
+                f"capacity {out.capacity} at {scale}x the default budget; "
+                "pass an explicit out_capacity")
+        scale *= 2
+
+
+def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
+              how: str = "inner", suffixes=("_x", "_y"),
+              out_capacity: "int | None" = None,
+              shuffle_capacity: "int | None" = None,
+              algorithm: str = "sort"):
+    """Distributed equi-join of this rank's shards ``left`` and ``right``
+    (parity: ``DistributedJoin``, table.cpp:476): shuffle both by key
+    hash, then join locally (``ordered=False``, as every shard of the JAX
+    package runs it). A world of one short-circuits to the local join,
+    like the reference's ``world==1`` branch (table.cpp:481)."""
+    if on is not None:
+        left_on = right_on = [on] if isinstance(on, str) else list(on)
+    else:
+        left_on = [left_on] if isinstance(left_on, str) else list(left_on)
+        right_on = [right_on] if isinstance(right_on, str) \
+            else list(right_on)
+
+    if env.world_size == 1:
+        def build1(scale):
+            cap = out_capacity if out_capacity is not None \
+                else (left.capacity + right.capacity) * scale
+
+            def run(lt, rt):
+                return _join_fn(lt, rt, left_on=left_on, right_on=right_on,
+                                how=how, suffixes=suffixes,
+                                out_capacity=cap, algorithm=algorithm,
+                                ordered=False)
+            return run
+
+        return _adaptive(env, build1, (left, right), out_capacity is None)
+
+    # string keys would hash table-local dictionary codes: refuse them
+    # before any rows move
+    _aligned_keys(left, right, left_on, right_on)
+    w = env.world_size
+    comm = env.comm
+
+    def build(scale):
+        shuf_l = _out_cap_local(env, left, out_capacity=shuffle_capacity,
+                                scale=scale)
+        shuf_r = _out_cap_local(env, right, out_capacity=shuffle_capacity,
+                                scale=scale)
+        join_l = shuf_l + shuf_r if out_capacity is None \
+            else -(-out_capacity // w)
+
+        def run(lt, rt):
+            # clamped shards + the overflow flags an upstream bounded op
+            # carried in (nrows == capacity + 1)
+            ltab, liof = checked_recv(lt, lt.capacity)
+            rtab, riof = checked_recv(rt, rt.capacity)
+            lkeys, lvals, rkeys, rvals = _partition_keys(ltab, rtab, left_on,
+                                                         right_on)
+            lpid = partition_ids(lkeys, w, lvals)
+            rpid = partition_ids(rkeys, w, rvals)
+            lsh, lof = checked_recv(shuffle_local(comm, ltab, lpid, shuf_l),
+                                    shuf_l)
+            rsh, rof = checked_recv(shuffle_local(comm, rtab, rpid, shuf_r),
+                                    shuf_r)
+            res = _join_fn(lsh, rsh, left_on=left_on, right_on=right_on,
+                           how=how, suffixes=suffixes, out_capacity=join_l,
+                           algorithm=algorithm, ordered=False)
+            return poison(res, liof, riof, lof, rof)
+        return run
+
+    adaptive = out_capacity is None and shuffle_capacity is None
+    return _adaptive(env, build, (left, right), adaptive)

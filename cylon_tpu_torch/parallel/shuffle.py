@@ -1,0 +1,163 @@
+"""The table shuffle: exact-count row exchange between ranks.
+
+Port of ``cylon_tpu/parallel/shuffle.py`` with ONE path, the exact-count
+exchange of its ragged route (``shuffle.py:131-152``), which replaces the
+reference's streaming all-to-all (``net/ops/all_to_all.hpp:65-170``):
+
+1. **count exchange**: every rank counts its rows by destination and
+   all-gathers the [W] vector, so every rank knows the W x W matrix;
+2. **payload exchange**: one stable destination sort, every column packed
+   into ONE [rows, words] u32 word matrix (int32 bit patterns), one
+   exchange of exactly the rows each pair needs, unpack.
+
+Received rows are grouped by sender rank, each sender's order kept.
+A receive larger than ``out_cap`` is truncated and reported as
+``nrows = out_cap + 1``, exactly as in JAX.
+"""
+
+import torch
+
+from cylon_tpu_torch.column import Column
+from cylon_tpu_torch.errors import NotImplemented_
+from cylon_tpu_torch.ops import kernels
+
+
+def exchange_arrays(comm, arrays, pid: torch.Tensor, n_local, out_cap: int):
+    """Send row i of every array to rank ``pid[i]``; receive the peers'.
+
+    arrays: [cap] tensors sharing the row dim; pid: [cap] int32
+    destinations; n_local: valid leading rows. Returns ``(out_arrays,
+    n_recv)`` with the arrays at capacity ``out_cap`` and ``n_recv`` the
+    0-d int32 received count, or ``out_cap + 1`` on overflow.
+    """
+    w = comm.world_size
+    cap = pid.shape[0]
+    dev = pid.device
+    valid = kernels.valid_mask(cap, n_local, dev)
+    pid = torch.where(valid, pid.to(torch.int32), w)
+
+    # group rows by destination: one stable sort (parity: the
+    # reference's per-target Split kernels, partition/partition.cpp:26)
+    order = kernels.sort_perm([pid], valid)
+    counts = torch.bincount(pid.to(torch.int64), minlength=w + 1)[:w]
+    cmat = comm.all_gather(counts.to(torch.int32)).cpu()   # [W send, W dest]
+    send_counts = cmat[comm.rank].tolist()
+    recv_counts = cmat[:, comm.rank].tolist()
+    n_send = sum(send_counts)
+    n_recv_true = sum(recv_counts)
+
+    packed, spec = _pack_words(arrays)
+    got = comm.exchange(packed.index_select(0, order[:n_send]), send_counts,
+                        recv_counts)
+    buf = torch.zeros((out_cap, packed.shape[1]), dtype=torch.int32,
+                      device=dev)
+    k = min(n_recv_true, out_cap)
+    buf[:k] = got[:k]
+    n_recv = out_cap + 1 if n_recv_true > out_cap else n_recv_true
+    return (_unpack_words(buf, spec),
+            torch.tensor(n_recv, dtype=torch.int32, device=dev))
+
+
+def transport_words(table) -> int:
+    """u32 words per row that the exchange moves for ``table`` (the
+    :func:`_pack_words` widths)."""
+    n = 0
+    for c in table.columns.values():
+        n += 2 if c.data.element_size() == 8 else 1
+        if c.validity is not None:
+            n += 1
+    return n
+
+
+def checked_recv(table, out_cap: int):
+    """Split a shuffled table into (usable table, overflow flag): the
+    count clamps to ``out_cap`` and the flag carries the overflow on."""
+    of = table.nrows > out_cap
+    return table.with_nrows(torch.clamp(table.nrows, max=out_cap)), of
+
+
+def poison(table, *flags):
+    """Mark a result table invalid (``nrows = capacity + 1``) if any
+    upstream shuffle on this rank overflowed."""
+    bad = flags[0]
+    for f in flags[1:]:
+        bad = bad | f
+    return table.with_nrows(torch.where(
+        bad, table.capacity + 1,
+        torch.clamp(table.nrows, max=table.capacity + 1)))
+
+
+def _pack_words(arrays):
+    """All arrays bit-packed into ONE [cap, words] int32 matrix, plus the
+    spec for :func:`_unpack_words`. 64-bit values ride as their (lo, hi)
+    words (the JAX ``i64pair`` and non-TPU ``bits64`` kinds), 32-bit ones
+    as one word, bool and 8/16-bit values zero-extended into one word."""
+    mats, spec = [], []
+    for a in arrays:
+        dt = a.dtype
+        if a.dim() != 1:
+            raise NotImplemented_("device-bytes string columns arrive with "
+                                  "the strings slice (ROADMAP queue A)")
+        size = a.element_size()
+        if dt == torch.bool:
+            mats.append(a.to(torch.int32)[:, None])
+            spec.append(("bool", 1, dt))
+        elif size == 8:
+            mats.append(a.contiguous().view(torch.int32).view(-1, 2))
+            spec.append(("bits64" if a.is_floating_point() else "i64pair",
+                         2, dt))
+        elif size == 4:
+            mats.append(a.contiguous().view(torch.int32)[:, None])
+            spec.append(("bits32", 1, dt))
+        else:
+            unsigned = torch.uint8 if size == 1 else torch.int16
+            mats.append((a.contiguous().view(unsigned).to(torch.int32)
+                         & ((1 << (8 * size)) - 1))[:, None])
+            spec.append(("small", 1, dt))
+    packed = mats[0] if len(mats) == 1 else torch.cat(mats, dim=1)
+    return packed, spec
+
+
+def _unpack_words(m: torch.Tensor, spec) -> list:
+    outs = []
+    off = 0
+    for kind, w, dt in spec:
+        sl = m[:, off:off + w]
+        off += w
+        if kind == "bool":
+            outs.append(sl[:, 0] != 0)
+        elif kind in ("bits64", "i64pair"):
+            outs.append(sl.contiguous().view(dt).view(-1))
+        elif kind == "bits32":
+            outs.append(sl[:, 0].contiguous().view(dt))
+        else:
+            narrow = torch.uint8 if dt.itemsize == 1 else torch.int16
+            outs.append(sl[:, 0].to(narrow).view(dt))
+    return outs
+
+
+def shuffle_local(comm, table, pid: torch.Tensor, out_cap: int):
+    """Rank-local table shuffle: every valid row moves to rank pid[row].
+    Parity: ``shuffle_table_by_hashing`` (``table.cpp:134``)."""
+    from cylon_tpu_torch.table import Table
+
+    arrays = []
+    layout = []   # (name, has_validity)
+    for name, c in table.columns.items():
+        arrays.append(c.data)
+        if c.validity is not None:
+            arrays.append(c.validity)
+        layout.append((name, c.validity is not None))
+    outs, n_recv = exchange_arrays(comm, arrays, pid, table.nrows, out_cap)
+    cols = {}
+    i = 0
+    for name, has_v in layout:
+        c = table.columns[name]
+        data = outs[i]
+        i += 1
+        validity = None
+        if has_v:
+            validity = outs[i]
+            i += 1
+        cols[name] = Column(data, validity, c.dtype, c.dictionary)
+    return Table(cols, n_recv)

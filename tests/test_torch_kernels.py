@@ -1,0 +1,177 @@
+"""The port's kernel wrappers, on the CPU, against the JAX Pallas kernels.
+
+On a CPU tensor each wrapper in ``cylon_tpu_torch.kernels`` runs its
+plain PyTorch version; here that version is held bit for bit against the
+Pallas kernel in interpret mode (``CYLON_PALLAS=interpret``, as
+``tests/test_pallas.py`` runs it) and against the jnp path the Pallas
+kernel replaces. The CUDA kernels themselves are held against the same
+plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cylon_tpu.ops import hash as jhash
+from cylon_tpu.ops import kernels as jkernels
+from cylon_tpu.ops import pallas_kernels as pk
+from cylon_tpu_torch import kernels as tk
+from cylon_tpu_torch.kernels import scan as tscan
+from cylon_tpu_torch.ops import kernels as tops
+
+#: a hash tile is 8 x 1024 elements, a scan tile 8 x 2048
+HASH_SIZES = [4096, 4097, 3 * 8192 + 5]
+SCAN_SIZES = [4096, 4097, 3 * 16384 + 5]
+SEED = 0x9747B28C   # the murmur seed both packages default to
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setenv("CYLON_PALLAS", "interpret")
+
+
+def _bits(a: np.ndarray) -> torch.Tensor:
+    """u32 numpy array -> the port's int32 bit-pattern tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+@pytest.mark.parametrize("nparts", [0, 7])
+@pytest.mark.parametrize("n,nwords", [(HASH_SIZES[0], 1), (HASH_SIZES[1], 2),
+                                      (HASH_SIZES[2], 3), (HASH_SIZES[1], 5),
+                                      (HASH_SIZES[2], 2)])
+def test_row_hash_plain_matches_pallas(n, nwords, nparts, pallas_interpret):
+    rng = np.random.default_rng(1000 * nwords + n)
+    words = [rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+             for _ in range(nwords)]
+    want = np.asarray(pk.row_hash([jnp.asarray(w) for w in words], nparts))
+    # the jnp chain the kernel replaces (hash.hash_columns' fallback)
+    h = jnp.full(n, jnp.uint32(SEED))
+    for w in words:
+        h = jhash._mix_word(h, jnp.asarray(w))
+    h = jhash._fmix32(h ^ jnp.uint32(4 * nwords))
+    if nparts:
+        h = (h % jnp.uint32(nparts)).astype(jnp.int32)
+    np.testing.assert_array_equal(np.asarray(h), want)
+
+    got = tk.row_hash([_bits(w) for w in words], nparts, seed=SEED)
+    assert got.dtype == torch.int32
+    got = got.numpy()
+    np.testing.assert_array_equal(got if nparts else got.view(np.uint32),
+                                  want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+@pytest.mark.parametrize("kind", ["add", "max"])
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_scan32_int_plain_matches_pallas(n, kind, dtype, pallas_interpret):
+    rng = np.random.default_rng(n)
+    info = np.iinfo(dtype)
+    # full-range values: the add wraps many times over
+    x = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    want = np.asarray(pk.scan32(jnp.asarray(x), kind))
+    jnp_path = (jnp.cumsum(jnp.asarray(x), dtype=x.dtype) if kind == "add"
+                else jax.lax.cummax(jnp.asarray(x)))
+    np.testing.assert_array_equal(np.asarray(jnp_path), want)
+    got = tscan.scan32(torch.from_numpy(x), kind)
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_scan32_float_plain_matches_pallas(n, pallas_interpret):
+    rng = np.random.default_rng(n + 1)
+    # add: positive values keep every prefix well away from 0, so a
+    # relative tolerance holds; the summation orders differ
+    pos = rng.random(n, dtype=np.float32)
+    want = np.asarray(pk.scan32(jnp.asarray(pos), "add"))
+    got = tscan.scan32(torch.from_numpy(pos), "add").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # max: bit-exact, NaN included (it propagates, as jnp.maximum does)
+    x = rng.normal(size=n).astype(np.float32)
+    x[n // 3] = np.nan
+    want = np.asarray(pk.scan32(jnp.asarray(x), "max"))
+    got = tscan.scan32(torch.from_numpy(x), "max").numpy()
+    assert np.isnan(got[n // 3:]).all()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(
+        np.asarray(jax.lax.cummax(jnp.asarray(x))).view(np.uint32),
+        want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_pair_max_scan_plain_matches_pallas(n, pallas_interpret):
+    rng = np.random.default_rng(n + 2)
+    mark = rng.random(n) < 0.05
+    # hi spans the whole u32 range, >= 2^31 included
+    hi = np.where(mark, rng.integers(0, 2 ** 32, n, dtype=np.uint32), 0
+                  ).astype(np.uint32)
+    lo = np.where(mark, rng.integers(0, 2 ** 32, n, dtype=np.uint32), 0
+                  ).astype(np.uint32)
+    assert (hi >= 2 ** 31).any()
+    wh, wl = (np.asarray(a) for a in
+              pk.pair_max_scan(jnp.asarray(hi), jnp.asarray(lo)))
+    enc = (jnp.asarray(hi).astype(jnp.uint64) << 32) \
+        | jnp.asarray(lo).astype(jnp.uint64)
+    u64 = np.asarray(jax.lax.cummax(enc))
+    np.testing.assert_array_equal((u64 >> 32).astype(np.uint32), wh)
+    np.testing.assert_array_equal((u64 & 0xFFFFFFFF).astype(np.uint32), wl)
+    gh, gl = tscan.pair_max_scan(_bits(hi), _bits(lo))
+    np.testing.assert_array_equal(gh.numpy().view(np.uint32), wh)
+    np.testing.assert_array_equal(gl.numpy().view(np.uint32), wl)
+
+
+@pytest.mark.parametrize("interpret", [True, False])
+@pytest.mark.parametrize("n", [100, 4097])
+def test_fills_match_jax(n, interpret, monkeypatch):
+    """forward_fill / reverse_fill: the pair_max_scan route above the
+    gate, the int64 cummax below it, against both JAX routes."""
+    monkeypatch.setenv("CYLON_PALLAS", "interpret" if interpret else "0")
+    rng = np.random.default_rng(n)
+    mark = rng.random(n) < 0.1
+    val = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int32)
+    for jfn, tfn in ((jkernels.forward_fill, tops.forward_fill),
+                     (jkernels.reverse_fill, tops.reverse_fill)):
+        want = np.asarray(jfn(jnp.asarray(mark), jnp.asarray(val)))
+        got = tfn(torch.from_numpy(mark), torch.from_numpy(val))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scan_gate_keeps_torch_below_min_size(monkeypatch):
+    calls = []
+    real = tscan.scan32
+
+    def counting(x, kind):
+        calls.append(x.shape[0])
+        return real(x, kind)
+
+    monkeypatch.setattr(tscan, "scan32", counting)
+    before = tk.launch_counts()
+    small = torch.ones(tscan.SCAN_MIN_SIZE - 1, dtype=torch.int32)
+    big = torch.ones(tscan.SCAN_MIN_SIZE, dtype=torch.int32)
+    assert tops.fast_cumsum(small)[-1] == small.shape[0]
+    assert tops.fast_cummax(small)[-1] == 1
+    assert calls == []
+    assert tops.fast_cumsum(big)[-1] == big.shape[0]
+    assert calls == [big.shape[0]]
+    # the plain version ran: no kernel was launched
+    assert tk.launch_counts() == before
+    assert not tscan.scan32_ok(torch.ones(5000, dtype=torch.int64))
+    assert not tscan.scan32_ok(torch.ones(5000, dtype=torch.bool))
+    assert not tscan.scan32_ok(torch.ones((64, 64), dtype=torch.int32))
+    assert pk.SCAN_MIN_SIZE == tscan.SCAN_MIN_SIZE
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU launches the kernel or raises; the
+    plain version is never taken for it (``meta`` stands in for a device
+    with no kernel)."""
+    x = torch.empty(5000, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tk.row_hash([x])
+    with pytest.raises(ValueError):
+        tk.scan32(x, "add")
+    with pytest.raises(ValueError):
+        tk.pair_max_scan(x, x)

@@ -1,0 +1,106 @@
+"""Package rules of the port: it never imports JAX or ``cylon_tpu``, it
+defaults to CUDA without quietly dropping to the CPU, and every kernel
+wrapper has a plain version, a launch counter and a row in ``PERF.md``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import cylon_tpu_torch
+from cylon_tpu_torch import kernels
+from cylon_tpu_torch.errors import DeviceUnavailable
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "cylon_tpu_torch"
+
+_PROBE = """
+import sys
+import numpy as np
+import cylon_tpu_torch as ct
+t = ct.Table.from_pydict({"k": np.arange(10) % 3, "a": np.arange(10.0)},
+                         device="cpu")
+r = ct.join(t, t, on="k", out_capacity=100)
+assert r.num_rows == 34, r.num_rows
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_import_and_join_pull_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "cylon_tpu"), \
+                f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailable):
+        cylon_tpu_torch.Table.from_pydict({"a": [1, 2, 3]})
+    with pytest.raises(DeviceUnavailable):
+        cylon_tpu_torch.Table.from_pydict({"a": [1, 2, 3]}, device="cuda")
+    t = cylon_tpu_torch.Table.from_pydict({"a": [1, 2, 3]}, device="cpu")
+    assert t.device.type == "cpu" and t.num_rows == 3
+
+
+def test_every_kernel_wrapper_has_plain_version_counter_and_perf_row():
+    perf = (ROOT / "PERF.md").read_text()
+    names = set()
+    for w in kernels.WRAPPERS:
+        names.add(w.__name__)
+        assert callable(w.plain) and w.plain.__module__ == w.__module__
+        assert isinstance(w.launches, int)
+        assert (ROOT / w.source).is_file(), w.source
+        assert f"`{w.__name__}`" in perf, f"{w.__name__} has no PERF.md row"
+    # every public wrapper module of the package is registered
+    for path in (PKG / "kernels").glob("*.py"):
+        if path.stem in ("__init__", "build"):
+            continue
+        mod = __import__(f"cylon_tpu_torch.kernels.{path.stem}",
+                         fromlist=["_"])
+        for obj in vars(mod).values():
+            if callable(obj) and hasattr(obj, "launches"):
+                assert obj.__name__ in names, obj.__name__
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""   # no card, whatever the host has
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
