@@ -2,24 +2,31 @@
 and check it.
 
     python3 chip_smoke.py             # every phase; exit 0 only if all pass
-    python3 chip_smoke.py --profile   # also trace one bench-path stage
+    python3 chip_smoke.py --profile   # also trace a bench stage and a hash join
 
 Phases, each printing one JSON line:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels from ``cylon_tpu_torch/csrc`` (``nvcc``);
 3. kernels: every kernel against its plain PyTorch version on the same
-   CUDA tensors, bit for bit, at the main path's shapes; the time per
-   call of the kernel, the plain version and one PyTorch library call
-   (where one computes the same function), by CUDA events over calls
-   back to back and as device time from torch.profiler, beside the
-   memory bound; then the whole join on the card against the same join
-   on the CPU (plain versions) on a small input;
+   CUDA tensors, bit for bit, at the main paths' shapes (``row_hash`` also
+   at 18 words; the bucket kernels also on an overflowing and an
+   all-duplicate build); the time per call of the kernel, the plain
+   version and one PyTorch library call (where one computes the same
+   function), by CUDA events over calls back to back and as device time
+   from torch.profiler, beside the memory bound; then the whole join on
+   the card against the same join on the CPU (plain versions) on a small
+   input, for the sort join and both routes of ``algorithm="hash"``;
 4. dist_join: the public entry point at a world of one rank on 16M x 16M
    rows (the per-rank share of the reference's 1B-row, 64-rank run),
    checked against numpy: the row count exactly, the checksum
    sum(v_l * v_r) at rtol 1e-9;
-5. bench: the port of ``bench.py``'s exchange-inclusive pipeline (1M rows
+5. hash_join: the same entry point with ``algorithm="hash"`` and
+   ``CYLON_TPU_JOIN_HASH_IMPL=bucketed`` (bucket_build / bucket_probe) on
+   a 16M-row dimension table (unique keys) joined to a 16M-row fact
+   table, checked against numpy as phase 4, the launches checked, and the
+   sort join's wall on the same tables beside it;
+6. bench: the port of ``bench.py``'s exchange-inclusive pipeline (1M rows
    per side, 12 stages, fresh keys per stage): partition_ids ->
    shuffle_local -> checked_recv -> join, the total checked against
    numpy, and the launch counters checked per stage.
@@ -45,15 +52,22 @@ DIST_ROWS = 16 << 20
 BENCH_ROWS = 1 << 20
 BENCH_DEPTH = 12
 REPS = 20
-#: the shapes each kernel meets on the bench path (the main path whose
-#: launches are counted): row_hash over one side's rows; the scans over
-#: the join's combined rows (two shuffled sides of capacity 2n each)
-BENCH_SHAPE = {"row_hash": BENCH_ROWS, "scan32": 4 * BENCH_ROWS,
-               "pair_max_scan": 4 * BENCH_ROWS}
+#: the shapes each kernel meets on its path (the path whose launches are
+#: counted): on the bench path row_hash over one side's rows and the scans
+#: over the join's combined rows (two shuffled sides of capacity 2n
+#: each); on the hash_join path the bucket kernels over one side's rows
+PATH_SHAPE = {"row_hash": BENCH_ROWS, "scan32": 4 * BENCH_ROWS,
+              "pair_max_scan": 4 * BENCH_ROWS, "bucket_build": DIST_ROWS,
+              "bucket_probe": DIST_ROWS}
 #: 2n is the bench's out_cap (its one max scan); 32M the dist_join
 #: phase's combined rows; the rest are ragged edges of the tiling
 TIMED = (BENCH_ROWS, 2 * BENCH_ROWS, 4 * BENCH_ROWS, 2 * DIST_ROWS)
 SHAPES = (4096, 4097, (2 << 20) + 3) + TIMED
+#: the bucket kernels: ragged sizes and the hash_join phase's side
+BUCKET_SHAPES = (4097, (2 << 20) + 3, DIST_ROWS)
+BUCKET_WIDTH = 16
+#: wide keys: nine int64 columns are 18 u32 words, past one 16-word chunk
+WIDE_COLUMNS = 9
 
 
 def emit(obj) -> None:
@@ -154,6 +168,13 @@ def kernel_phase(torch, rate):
                                               device="cuda", generator=g), 0)
         packed = ((hi.to(torch.int64) ^ 0x80000000) << 32) \
             | (lo.to(torch.int64) & 0xFFFFFFFF)
+        wide = []
+        if n in (4097, BENCH_ROWS):
+            for _ in range(WIDE_COLUMNS):
+                col = torch.randint(-2 ** 62, 2 ** 62, (n,),
+                                    dtype=torch.int64, device="cuda",
+                                    generator=g).view(torch.int32)
+                wide += [col.view(-1, 2)[:, 0], col.view(-1, 2)[:, 1]]
         cases = {
             "row_hash": (lambda: row_hash(words),
                          lambda: row_hash.plain(words), None, 12 * n),
@@ -171,6 +192,10 @@ def kernel_phase(torch, rate):
                               lambda: pair_max_scan.plain(hi, lo),
                               lambda: torch.cummax(packed, 0), 16 * n),
         }
+        if wide:
+            cases["row_hash/18words"] = (
+                lambda: row_hash(wide, 64), lambda: row_hash.plain(wide, 64),
+                None, (4 * len(wide) + 4) * n)
         for name, (kern, plain, library, nbytes) in cases.items():
             bad, err = compare(torch, kern(), plain())
             torch.cuda.synchronize()
@@ -190,12 +215,108 @@ def kernel_phase(torch, rate):
     return stats
 
 
+def bucket_kernel_phase(torch, rate, stats):
+    """bucket_build and bucket_probe against their plain versions, bit for
+    bit: the table, the overflow count and the mask. Build rows are a
+    dimension table's unique int64 keys, probe rows a fact table's keys,
+    both bucketed by their row hash as the hash join does, with a ragged
+    tail of padding rows (bucket -1); then an overflowing build (ids from
+    eight buckets) and an all-duplicate one (every id in one bucket)."""
+    from cylon_tpu_torch.kernels import bucket_build, bucket_probe, row_hash
+    from cylon_tpu_torch.ops.hash_join import table_slots
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    width = BUCKET_WIDTH
+
+    def words_of(keys):
+        pair = keys.view(torch.int32).view(-1, 2)
+        return [pair[:, 0], pair[:, 1]]
+
+    def bucket_ids(words, nb, valid):
+        h = row_hash(words)
+        return torch.where(torch.arange(h.shape[0], device="cuda") < valid,
+                           h & (nb - 1), -1)
+
+    def check(name, n, got, want, nbytes, kern, plain, extra):
+        bad, err = compare(torch, got, want)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "name": name, "n": n, "mismatches": bad,
+               "max_abs_err": err, "tolerance": 0,
+               "bound_us": nbytes / rate * 1e6, **extra}
+        if n == DIST_ROWS:
+            for label, fn in (("kernel", kern), ("plain", plain)):
+                row[f"{label}_ms"] = time_ms(torch, fn)
+                row[f"{label}_device_ms"] = device_ms(torch, fn)
+            row["library_ms"] = row["library_device_ms"] = None
+        emit(row)
+        if bad:
+            raise SystemExit(f"{name} at n={n}: {bad} mismatches")
+        stats[(name, n)] = row
+
+    for n in BUCKET_SHAPES:
+        nb = table_slots(n)
+        valid = n - 5   # a ragged tail of padding rows
+        bkeys = torch.randperm(n, device="cuda", generator=g)
+        pkeys = torch.randint(0, 2 * n, (n,), dtype=torch.int64,
+                              device="cuda", generator=g)
+        bwords, pwords = words_of(bkeys), words_of(pkeys)
+        bids = bucket_ids(bwords, nb, valid)
+        pbids = bucket_ids(pwords, nb, valid)
+        table, ovf = bucket_build(bids, nb, width)
+        want_t, want_o = bucket_build.plain(bids, nb, width)
+        if int(want_o):
+            raise SystemExit(f"bucket_build at n={n}: unique keys overflowed")
+        check("bucket_build", n, (table, ovf), (want_t, want_o),
+              4 * n + 4 * width * nb,
+              lambda: bucket_build(bids, nb, width),
+              lambda: bucket_build.plain(bids, nb, width),
+              {"overflow": int(ovf)})
+        mask = bucket_probe(pbids, pwords, table, bwords)
+        want_m = bucket_probe.plain(pbids, pwords, table, bwords)
+        occupied = int((table >= 0).sum())
+        check("bucket_probe", n, mask, want_m,
+              4 * n * (2 + len(pwords)) + 4 * occupied * (1 + len(bwords)),
+              lambda: bucket_probe(pbids, pwords, table, bwords),
+              lambda: bucket_probe.plain(pbids, pwords, table, bwords),
+              {"matched_rows": int((want_m != 0).sum()),
+               "occupied_entries": occupied})
+
+    for name, n, nbuckets in (("bucket_build/collisions", 65537, 8),
+                              ("bucket_build/all_duplicate", 4097, 1)):
+        nb = table_slots(n)
+        bids = torch.randint(0, nbuckets, (n,), dtype=torch.int32,
+                             device="cuda", generator=g) * (nb // 8 + 1)
+        table, ovf = bucket_build(bids, nb, width)
+        want_t, want_o = bucket_build.plain(bids, nb, width)
+        if not int(want_o) > 0:
+            raise SystemExit(f"{name}: the case does not overflow")
+        check(name, n, (table, ovf), (want_t, want_o),
+              4 * n + 4 * width * nb, None, None, {"overflow": int(ovf)})
+        # the probe on an overflowing table: the entries it holds
+        keys = torch.arange(n, dtype=torch.int64, device="cuda")
+        mask = bucket_probe(bids, words_of(keys), table, words_of(keys))
+        want_m = bucket_probe.plain(bids, words_of(keys), table,
+                                    words_of(keys))
+        check(name.replace("build", "probe"), n, mask, want_m,
+              4 * n * 4 + 4 * int((table >= 0).sum()) * 3, None, None, {})
+
+
 def join_parity_phase(torch):
     """The whole join on the card (kernels) against the same join on the
-    CPU (plain versions), every how and both orders, nulls included."""
+    CPU (plain versions), every how and both orders, nulls included; then
+    ``algorithm="hash"`` by both routes (``CYLON_TPU_JOIN_HASH_IMPL`` sort
+    and bucketed) for inner, left and right. The hash cases' build chains
+    stay within 16 (every null of a build side lands in one bucket): the
+    left keys are unique with a few nulls (inner and right build the
+    left), the right keys moderately duplicated (left builds the right).
+    One all-duplicate case must take the sort fallback."""
+    import os
+
     import numpy as np
 
     import cylon_tpu_torch as ct
+    from cylon_tpu_torch.kernels import launch_counts
 
     rng = np.random.default_rng(7)
     n = 50_000
@@ -204,23 +325,76 @@ def join_parity_phase(torch):
     lv = rng.random(n) > 0.05
     data_l = {"k": lk, "a": rng.normal(size=n)}
     data_r = {"k": rk, "b": rng.integers(0, 9, n).astype(np.int32)}
-    out = {}
-    for dev in ("cuda", "cpu"):
-        left = ct.Table.from_pydict(data_l, device=dev)
-        right = ct.Table.from_pydict(data_r, device=dev)
+    hash_l = {"k": rng.permutation(4 * n)[:n], "a": rng.normal(size=n)}
+    hash_lv = np.ones(n, bool)
+    hash_lv[rng.choice(n, 8, replace=False)] = False
+    hash_r = {"k": rng.integers(0, 4 * n, n), "b": rng.normal(size=n)}
+    dup = {"k": np.zeros(n // 10, np.int64), "a": rng.normal(size=n // 10)}
+
+    def tables(dl, dr, valid, dev):
+        left = ct.Table.from_pydict(dl, device=dev)
+        right = ct.Table.from_pydict(dr, device=dev)
         kcol = left.column("k")
-        left = left.add_column("k", ct.Column(
-            kcol.data, torch.from_numpy(lv).to(dev), kcol.dtype))
-        for how in ("inner", "left", "right", "outer"):
-            for ordered in (True, False):
-                res = ct.join(left, right, on="k", how=how, ordered=ordered,
-                              out_capacity=4 * n)
-                out.setdefault((how, ordered), []).append(res.to_pandas())
+        return left.add_column("k", ct.Column(
+            kcol.data, torch.from_numpy(valid).to(dev), kcol.dtype)), right
+
+    out = {}
+    bucket_launches = {}
+    saved = os.environ.get("CYLON_TPU_JOIN_HASH_IMPL")
+    try:
+        for dev in ("cuda", "cpu"):
+            left, right = tables(data_l, data_r, lv, dev)
+            for how in ("inner", "left", "right", "outer"):
+                for ordered in (True, False):
+                    res = ct.join(left, right, on="k", how=how,
+                                  ordered=ordered, out_capacity=4 * n)
+                    out.setdefault(("sort", how, ordered), []).append(
+                        res.to_pandas())
+            left, right = tables(hash_l, hash_r, hash_lv, dev)
+            for impl in ("sort", "bucketed"):
+                os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = impl
+                for how in ("inner", "left", "right"):
+                    for ordered in (True, False):
+                        before = launch_counts()
+                        res = ct.join(left, right, on="k", how=how,
+                                      algorithm="hash", ordered=ordered,
+                                      out_capacity=4 * n)
+                        key = (f"hash_{impl}", how, ordered)
+                        out.setdefault(key, []).append(res.to_pandas())
+                        if dev == "cuda":
+                            after = launch_counts()
+                            bucket_launches[key] = [
+                                after[k] - before[k]
+                                for k in ("bucket_build", "bucket_probe")]
+            # the smaller side builds an inner join: one 5000-long chain
+            os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = "bucketed"
+            dl, dr = tables(dup, hash_r, np.ones(n // 10, bool), dev)
+            before = launch_counts()
+            res = ct.join(dl, dr, on="k", how="inner", algorithm="hash",
+                          out_capacity=4 * n)
+            out.setdefault(("hash_overflow", "inner", True), []).append(
+                res.to_pandas())
+            if dev == "cuda":
+                after = launch_counts()
+                bucket_launches[("hash_overflow", "inner", True)] = [
+                    after[k] - before[k]
+                    for k in ("bucket_build", "bucket_probe")]
+    finally:
+        if saved is None:
+            os.environ.pop("CYLON_TPU_JOIN_HASH_IMPL", None)
+        else:
+            os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = saved
     for key, (gpu, cpu) in out.items():
         if not gpu.equals(cpu):
             raise SystemExit(f"join {key}: the card and the CPU differ")
+    for key, counts in bucket_launches.items():
+        want = [1, 1] if key[0] == "hash_bucketed" else [0, 0]
+        if counts != want:
+            raise SystemExit(f"join {key}: bucket kernel launches {counts}, "
+                             f"expected {want}")
     emit({"phase": "join_parity", "rows": n, "cases": len(out),
-          "equal": True})
+          "equal": True, "bucket_launches": {
+              "/".join(map(str, k)): v for k, v in bucket_launches.items()}})
 
 
 # ------------------------------------------------------------ phase 4
@@ -278,11 +452,111 @@ def dist_join_phase(torch):
     if abs(check - want_check) > 1e-9 * abs(want_check):
         raise SystemExit("dist_join: checksum off")
     # a world of one never exchanges, so never hashes: one join's scans
-    if launches != {"row_hash": 0, "scan32": 5, "pair_max_scan": 5}:
+    if launches != {"row_hash": 0, "scan32": 5, "pair_max_scan": 5,
+                    "bucket_build": 0, "bucket_probe": 0}:
         raise SystemExit(f"dist_join: launches {launches}")
+    return wall
 
 
 # ------------------------------------------------------------ phase 5
+#: the hash_join phase's launches, from the code: row_hash hashes the
+#: build side twice (the host chain pre-check, then the build) and the
+#: probe side once; one build, one probe; one scan32 for the emission's
+#: offsets (dist_join runs ordered=False, so no sort of the pairs, and a
+#: world of one never partitions)
+HASH_JOIN_LAUNCHES = {"row_hash": 3, "scan32": 1, "pair_max_scan": 0,
+                      "bucket_build": 1, "bucket_probe": 1}
+
+
+def hash_join_phase(torch, sort_wall_other, profile: bool):
+    """``dist_join(..., algorithm="hash")`` with the bucketed route at a
+    world of one on 16M x 16M rows: a dimension table (keys a random
+    permutation of [0, 16M), so the build chains stay near 11, within the
+    width of 16) joined to a fact table (keys uniform in [0, 32M), so
+    about half its rows match). Int64 keys and float64 values, as the
+    dist_join phase."""
+    import os
+
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    n = DIST_ROWS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    lk = torch.randperm(n, device="cuda", generator=g)
+    rk = torch.randint(0, 2 * n, (n,), dtype=torch.int64, device="cuda",
+                       generator=g)
+    lv = torch.rand(n, dtype=torch.float64, device="cuda", generator=g)
+    rv = torch.rand(n, dtype=torch.float64, device="cuda", generator=g)
+
+    def table(k, v):
+        return ct.Table({"k": Column(k, None, dtypes.int64),
+                         "v": Column(v, None, dtypes.float64)}, n)
+
+    left, right = table(lk, lv), table(rk, rv)
+    env = ct.CylonEnv()
+    saved = os.environ.get("CYLON_TPU_JOIN_HASH_IMPL")
+    os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = "bucketed"
+    try:
+        ct.dist_join(env, left, right, on="k", algorithm="hash")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ct.dist_join(env, left, right, on="k", algorithm="hash")
+        rows = res.num_rows
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            profile_call(torch, "hash_join_profile", lambda: ct.dist_join(
+                env, left, right, on="k", algorithm="hash").num_rows)
+    finally:
+        if saved is None:
+            os.environ.pop("CYLON_TPU_JOIN_HASH_IMPL", None)
+        else:
+            os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = saved
+    check = float((res.column("v_x").data[:rows]
+                   * res.column("v_y").data[:rows]).sum())
+    del res
+    ct.dist_join(env, left, right, on="k")   # the sort join, warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sort_rows = ct.dist_join(env, left, right, on="k").num_rows
+    torch.cuda.synchronize()
+    sort_wall = time.perf_counter() - t0
+
+    lkn, lvn = lk.cpu().numpy(), lv.cpu().numpy()
+    rkn, rvn = rk.cpu().numpy(), rv.cpu().numpy()
+    by_key = np.zeros(n)
+    by_key[lkn] = lvn
+    hit = rkn < n
+    want_rows = int(hit.sum())
+    want_check = float((by_key[rkn[hit]] * rvn[hit]).sum())
+    emit({"phase": "hash_join", "rows_per_side": n, "world": 1,
+          "hash_impl": "bucketed", "bucket_width": BUCKET_WIDTH,
+          "result_rows": rows, "expected_rows": want_rows,
+          "checksum": check, "expected_checksum": want_check,
+          "wall_s": wall, "rows_per_s": 2 * n / wall, "peak_bytes": peak,
+          "launches": launches, "expected_launches": HASH_JOIN_LAUNCHES,
+          "sort_join_wall_s": sort_wall,
+          "sort_join_wall_s_dist_join_phase": sort_wall_other})
+    if rows != want_rows or sort_rows != want_rows:
+        raise SystemExit("hash_join: wrong row count")
+    if abs(check - want_check) > 1e-9 * abs(want_check):
+        raise SystemExit("hash_join: checksum off")
+    if launches != HASH_JOIN_LAUNCHES:
+        raise SystemExit(f"hash_join: launches {launches} != "
+                         f"{HASH_JOIN_LAUNCHES}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 6
 def bench_phase(torch, profile: bool):
     """Port of bench.py's _bench_exchange_pipeline at its own size."""
     import numpy as np
@@ -346,7 +620,8 @@ def bench_phase(torch, profile: bool):
         a = np.bincount(kl[i].cpu().numpy(), minlength=n).astype(np.int64)
         want += int((a * np.bincount(kr[i].cpu().numpy(), minlength=n)).sum())
     expect = {"row_hash": 2 * depth, "scan32": 5 * depth,
-              "pair_max_scan": 5 * depth}
+              "pair_max_scan": 5 * depth, "bucket_build": 0,
+              "bucket_probe": 0}
     emit({"phase": "bench", "rows_per_side": n, "depth": depth,
           "total_rows": total, "expected_rows": want, "times_s": times,
           "rows_per_s": depth * n / min(times), "launches": launches,
@@ -356,22 +631,23 @@ def bench_phase(torch, profile: bool):
     if launches != expect:
         raise SystemExit(f"bench: launches {launches} != {expect}")
     if profile:
-        profile_stage(torch, stage)
+        profile_call(torch, "profile", lambda: stage(0))
     return launches
 
 
-def profile_stage(torch, stage):
-    """One bench stage under torch.profiler: device time by kernel and
-    the device's busy share of the stage's wall time (the union of the
-    kernels' intervals; the operators that launched them are left out, so
-    no time counts twice)."""
+def profile_call(torch, phase: str, fn):
+    """One call of ``fn`` (a bench stage, a hash join) under
+    torch.profiler: device time by kernel and the device's busy share of
+    the call's wall time (the union of the kernels' intervals; the
+    operators that launched them are left out, so no time counts
+    twice)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stage(0)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted(device_spans(torch, prof))
@@ -387,7 +663,7 @@ def profile_stage(torch, stage):
         us, calls = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (us + e - s, calls + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    emit({"phase": "profile", "stage_wall_ms": wall * 1e3,
+    emit({"phase": phase, "stage_wall_ms": wall * 1e3,
           "device_busy_ms": busy_us / 1e3,
           "device_busy_share": busy_us / 1e6 / wall,
           "kernel_launches": len(spans),
@@ -408,8 +684,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from cylon_tpu_torch.kernels import (build, pair_max_scan, row_hash,
-                                         scan32)
+    from cylon_tpu_torch.kernels import (build, bucket_build, bucket_probe,
+                                         pair_max_scan, row_hash, scan32)
 
     card = smi()
     print(card, flush=True)
@@ -426,22 +702,28 @@ def main(argv) -> int:
           "library": Path(build.last_build.get("path", "")).name or None})
 
     stats = kernel_phase(torch, rate)
+    bucket_kernel_phase(torch, rate, stats)
     join_parity_phase(torch)
-    dist_join_phase(torch)
+    sort_wall = dist_join_phase(torch)
+    hash_launches = hash_join_phase(torch, sort_wall, "--profile" in argv)
     launches = bench_phase(torch, "--profile" in argv)
 
-    # each kernel at the shape the bench path gives it: partition_ids'
-    # fused modulo, the join's add scans, its fills
+    # each kernel at the shape its path gives it: on the bench path
+    # partition_ids' fused modulo, the join's add scans, its fills; on the
+    # hash_join path the build and the probe
     entries = []
-    for wrapper, key in ((row_hash, "row_hash/nparts"),
-                         (scan32, "scan32/add"),
-                         (pair_max_scan, "pair_max_scan")):
-        n = BENCH_SHAPE[wrapper.__name__]
+    for wrapper, key, counts in (
+            (row_hash, "row_hash/nparts", launches),
+            (scan32, "scan32/add", launches),
+            (pair_max_scan, "pair_max_scan", launches),
+            (bucket_build, "bucket_build", hash_launches),
+            (bucket_probe, "bucket_probe", hash_launches)):
+        n = PATH_SHAPE[wrapper.__name__]
         s = stats[(key, n)]
         entries.append({
             "name": wrapper.__name__, "route": "cuda",
             "source": wrapper.source, "replaces": wrapper.replaces,
-            "launches": launches[wrapper.__name__],
+            "launches": counts[wrapper.__name__],
             "mismatches": sum(r["mismatches"] for (name, _), r in
                               stats.items() if name.split("/")[0]
                               == wrapper.__name__),

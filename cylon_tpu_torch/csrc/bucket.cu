@@ -1,0 +1,185 @@
+// The bucketed hash join's two kernels: bucket_build and bucket_probe.
+//
+// Replace the Pallas kernels of cylon_tpu/ops/pallas_kernels.py:
+//   bucket_build: _bucket_build_kernel / _bucket_build_impl
+//   bucket_probe: _bucket_probe_kernel / _bucket_probe_impl
+// The table is entry-major [width, nb] int32, as in the JAX package: entry e
+// of bucket b (table[e * nb + b]) holds the (e+1)-th smallest row id whose
+// bucket id is b, or -1. Bit-identical to the plain versions in
+// cylon_tpu_torch/kernels/bucket.py (ports of hash_join._build_jnp and
+// _probe_jnp).
+//
+// The Pallas bodies run one sequential loop per tile, because Mosaic cannot
+// vectorise data-dependent row work. Here one thread takes one row.
+//
+// bucket_build. Bound on an H100: the table fill (4 * width * nb bytes)
+// plus 4 * cap bytes of ids, at 3.35 TB/s. Each row is one to a few random
+// 4-byte atomics into a table far larger than L2, so every atomic costs a
+// 32-byte sector round trip and the kernel runs well above the byte bound.
+// Design: a first-free-slot insert with atomicCAS would place rows in
+// arrival order, which is not deterministic. Instead each slot is unsigned
+// and starts at 0xFFFFFFFF (-1 as int32, and the unsigned maximum); a row
+// carries its id v and walks e = 0..width-1 doing
+//   old = atomicMin(&table[e][b], v); v = max(old, v)
+// until it carries 0xFFFFFFFF. Slot 0 ends as the smallest id of the bucket
+// and passes every other id on, exactly once, so slot e ends as the (e+1)-th
+// smallest, whatever the order the atomics land in. An id still carried
+// past the last entry counts one overflow, so the count is
+// sum over buckets of max(count - width, 0), again in any order.
+//
+// bucket_probe. Bound: 4 * pcap bytes of bucket ids, 4 * nwords * pcap of
+// probe words and 4 * pcap of mask, plus the occupied table entries and
+// the build words once. Each probe row gathers its chain's entries and the
+// build rows' words at random addresses, a 32-byte sector per 4-byte read,
+// so it too runs well above the byte bound. Design: a thread reads its row's
+// bucket, walks the entries until the first -1 (entries fill from 0) and
+// sets bit e when every key word of build row table[e][b] equals the probe
+// row's; a mismatch stops its compare at the first differing word. The word
+// streams come as pointers and element strides, as in row_hash, so an int64
+// key's (lo, hi) words are read in place. Any number of words: a key of more
+// than kChunk words runs over chunks of kChunk word pairs, one launch each;
+// a later chunk tests only the bits the earlier ones left set (read back
+// from the mask), so the result is the AND over all words.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kChunk = 16;
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 132 * 16;
+constexpr uint32_t kEmpty = 0xFFFFFFFFu;
+
+struct WordPairs {
+  const uint32_t* probe[kChunk];
+  const uint32_t* build[kChunk];
+  long long probe_stride[kChunk];
+  long long build_stride[kChunk];
+  int count;
+};
+
+long long grid_for(long long n) {
+  long long blocks = (n + kThreads - 1) / kThreads;
+  return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bucket_build_kernel(const int32_t* __restrict__ bids, long long cap,
+                    long long nb, int width, uint32_t* table,
+                    int32_t* overflow) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += step) {
+    const int32_t b = bids[i];
+    if (b < 0) continue;
+    if (b >= nb) {  // no bucket to place it in: it stays unplaced
+      atomicAdd(overflow, 1);
+      continue;
+    }
+    uint32_t v = static_cast<uint32_t>(i);
+    uint32_t* slot = table + b;
+    for (int e = 0; e < width; ++e, slot += nb) {
+      const uint32_t old = atomicMin(slot, v);
+      v = old > v ? old : v;
+      if (v == kEmpty) break;
+    }
+    if (v != kEmpty) atomicAdd(overflow, 1);
+  }
+}
+
+// first: every entry is a candidate; later chunks test only the bits the
+// earlier chunks left set in mask.
+__global__ void __launch_bounds__(kThreads)
+bucket_probe_kernel(const int32_t* __restrict__ pbids, long long pcap,
+                    const int32_t* __restrict__ table, long long nb,
+                    int width, long long bcap, WordPairs words, int first,
+                    int32_t* mask) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < pcap; i += step) {
+    const int32_t b = pbids[i];
+    uint32_t m = 0;
+    if (b >= 0 && b < nb) {
+      const uint32_t cand = first ? kEmpty : static_cast<uint32_t>(mask[i]);
+      for (int e = 0; e < width; ++e) {
+        if (!((cand >> e) & 1u)) continue;
+        const int32_t rr = __ldg(table + e * nb + b);
+        if (rr < 0) break;
+        if (rr >= bcap) continue;
+        bool eq = true;
+        for (int j = 0; j < words.count && eq; ++j) {
+          eq = __ldg(words.probe[j] + i * words.probe_stride[j]) ==
+               __ldg(words.build[j] + rr * words.build_stride[j]);
+        }
+        if (eq) m |= 1u << e;
+      }
+    }
+    mask[i] = static_cast<int32_t>(m);
+  }
+}
+
+}  // namespace
+
+// bids: cap int32 bucket ids (-1 = skip). table: width * nb int32, filled
+// here. overflow: one int32, set here.
+extern "C" int cylon_bucket_build(const void* bids, long long cap,
+                                  long long nb, int width, void* table,
+                                  void* overflow, void* stream) {
+  if (cap < 0 || nb < 1 || width < 1 || width > 30) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(table, 0xFF, 4ull * width * nb, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(overflow, 0, sizeof(int32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cap == 0) return 0;
+  bucket_build_kernel<<<static_cast<unsigned>(grid_for(cap)), kThreads, 0,
+                        s>>>(static_cast<const int32_t*>(bids), cap, nb,
+                             width, static_cast<uint32_t*>(table),
+                             static_cast<int32_t*>(overflow));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pbids: pcap int32 bucket ids (-1 = no match). probe/build word streams:
+// host arrays of nwords device pointers and element strides. table: the
+// [width, nb] build table over bcap build rows. mask: pcap int32, set here.
+extern "C" int cylon_bucket_probe(const void* pbids, long long pcap,
+                                  const void* const* pwords,
+                                  const long long* pstrides,
+                                  const void* const* bwords,
+                                  const long long* bstrides, int nwords,
+                                  const void* table, long long nb,
+                                  int width, long long bcap, void* mask,
+                                  void* stream) {
+  if (pcap < 0 || nwords < 1 || nb < 1 || width < 1 || width > 30 ||
+      bcap < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pcap == 0) return 0;
+  for (int c = 0; c < nwords; c += kChunk) {
+    WordPairs words;
+    words.count = nwords - c < kChunk ? nwords - c : kChunk;
+    for (int j = 0; j < kChunk; ++j) {
+      const bool used = j < words.count;
+      words.probe[j] = used ? static_cast<const uint32_t*>(pwords[c + j])
+                            : nullptr;
+      words.build[j] = used ? static_cast<const uint32_t*>(bwords[c + j])
+                            : nullptr;
+      words.probe_stride[j] = used ? pstrides[c + j] : 0;
+      words.build_stride[j] = used ? bstrides[c + j] : 0;
+    }
+    bucket_probe_kernel<<<static_cast<unsigned>(grid_for(pcap)), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(pbids), pcap,
+        static_cast<const int32_t*>(table), nb, width, bcap, words, c == 0,
+        static_cast<int32_t*>(mask));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}

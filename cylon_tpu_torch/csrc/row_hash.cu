@@ -15,6 +15,16 @@
 // element strides passed by value, so an int64 key column is read in place
 // as its (lo, hi) words (stride 2) and no [W, cap] stack is ever built:
 // each input byte is read once, the output written once.
+//
+// Any number of words: the struct holds kChunk streams, and a key of more
+// words runs the chain over chunks of kChunk words, one launch per chunk on
+// the same stream. The running hash is carried between launches in the
+// output buffer (each thread reads back what it wrote for its own rows);
+// only the last launch applies fmix32 and the modulo. A key of up to
+// kChunk words -- every int64 key of up to 8 columns -- is one launch and
+// pays nothing for it; a wider key pays 8 bytes a row per extra chunk.
+// (The other design, a descriptor array in device memory, would add a
+// host-to-device copy to every call.)
 
 #include <cstdint>
 
@@ -22,13 +32,13 @@
 
 namespace {
 
-constexpr int kMaxWords = 16;
+constexpr int kChunk = 16;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 16;
 
 struct WordStreams {
-  const uint32_t* ptr[kMaxWords];
-  long long stride[kMaxWords];
+  const uint32_t* ptr[kChunk];
+  long long stride[kChunk];
   int count;
 };
 
@@ -53,19 +63,24 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// first: start from seed (else from out[i], the previous chunk's hash).
+// total_words > 0 marks the last chunk: finalise with the key's word count.
 __global__ void __launch_bounds__(kThreads)
-row_hash_kernel(WordStreams words, long long n, uint32_t seed,
-                uint32_t nparts, uint32_t* out) {
+row_hash_kernel(WordStreams words, long long n, uint32_t seed, int first,
+                int total_words, uint32_t nparts, uint32_t* out) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += step) {
-    uint32_t h = seed;
+    uint32_t h = first ? seed : out[i];
     for (int j = 0; j < words.count; ++j) {
       h = mix_word(h, __ldg(words.ptr[j] + i * words.stride[j]));
     }
-    h = fmix32(h ^ static_cast<uint32_t>(4 * words.count));
-    out[i] = nparts ? h % nparts : h;
+    if (total_words > 0) {
+      h = fmix32(h ^ static_cast<uint32_t>(4 * total_words));
+      if (nparts) h %= nparts;
+    }
+    out[i] = h;
   }
 }
 
@@ -78,21 +93,28 @@ extern "C" int cylon_row_hash(const void* const* ptrs,
                               long long n, unsigned int seed,
                               unsigned int nparts, void* out,
                               void* stream) {
-  if (nwords < 1 || nwords > kMaxWords || n < 0) {
+  if (nwords < 1 || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  WordStreams words;
-  words.count = nwords;
-  for (int j = 0; j < kMaxWords; ++j) {
-    words.ptr[j] = j < nwords ? static_cast<const uint32_t*>(ptrs[j])
-                              : nullptr;
-    words.stride[j] = j < nwords ? strides[j] : 0;
-  }
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  row_hash_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      words, n, seed, nparts, static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  for (int c = 0; c < nwords; c += kChunk) {
+    WordStreams words;
+    words.count = nwords - c < kChunk ? nwords - c : kChunk;
+    for (int j = 0; j < kChunk; ++j) {
+      const bool used = j < words.count;
+      words.ptr[j] = used ? static_cast<const uint32_t*>(ptrs[c + j])
+                          : nullptr;
+      words.stride[j] = used ? strides[c + j] : 0;
+    }
+    const bool last = c + kChunk >= nwords;
+    row_hash_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        words, n, seed, c == 0, last ? nwords : 0, nparts,
+        static_cast<uint32_t*>(out));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -5,12 +5,13 @@ kernel for a CUDA tensor (or raises); it counts launches in
 ``wrapper.launches`` and names its plain version in ``wrapper.plain``.
 """
 
+from cylon_tpu_torch.kernels.bucket import bucket_build, bucket_probe
 from cylon_tpu_torch.kernels.row_hash import row_hash
 from cylon_tpu_torch.kernels.scan import (SCAN_MIN_SIZE, pair_max_scan,
                                           scan32, scan32_ok)
 
 #: every kernel wrapper of the package
-WRAPPERS = (row_hash, scan32, pair_max_scan)
+WRAPPERS = (row_hash, scan32, pair_max_scan, bucket_build, bucket_probe)
 
 
 def reset_launches() -> None:
@@ -22,5 +23,6 @@ def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
-__all__ = ["SCAN_MIN_SIZE", "WRAPPERS", "launch_counts", "pair_max_scan",
-           "reset_launches", "row_hash", "scan32", "scan32_ok"]
+__all__ = ["SCAN_MIN_SIZE", "WRAPPERS", "bucket_build", "bucket_probe",
+           "launch_counts", "pair_max_scan", "reset_launches", "row_hash",
+           "scan32", "scan32_ok"]

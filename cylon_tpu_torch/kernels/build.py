@@ -36,6 +36,12 @@ _SIGNATURES = {
                       _P, _P], ctypes.c_int),
     "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P, _P],
                             ctypes.c_int),
+    "cylon_bucket_build": ([_P, ctypes.c_longlong, ctypes.c_longlong,
+                            ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "cylon_bucket_probe": ([_P, ctypes.c_longlong, _P, _P, _P, _P,
+                            ctypes.c_int, _P, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_longlong, _P, _P],
+                           ctypes.c_int),
 }
 
 _lock = threading.Lock()

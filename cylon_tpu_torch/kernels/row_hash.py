@@ -7,6 +7,7 @@ Pallas kernel ``row_hash`` (``cylon_tpu/ops/pallas_kernels.py``,
 Word streams are 1-D int32 (or uint32) tensors holding u32 bit patterns;
 they may be strided views, such as the (lo, hi) words of an int64 column
 (``column.view(torch.int32).view(-1, 2)[:, 0]``), and are read in place.
+A row key may have any number of words, as in the JAX package.
 """
 
 import ctypes
@@ -16,7 +17,6 @@ import torch
 from cylon_tpu_torch.kernels import build
 
 MURMUR_SEED = 0x9747B28C
-MAX_WORDS = 16
 _WORD_DTYPES = (torch.int32, torch.uint32)
 
 
@@ -38,9 +38,8 @@ def row_hash_plain(words, nparts: int = 0, *,
 
 
 def _check(words) -> int:
-    if not 1 <= len(words) <= MAX_WORDS:
-        raise ValueError(f"row_hash takes 1..{MAX_WORDS} word streams, "
-                         f"got {len(words)}")
+    if not words:
+        raise ValueError("row_hash needs at least one word stream")
     n = words[0].shape[0]
     dev = words[0].device
     for w in words:

@@ -105,6 +105,23 @@ def _row_words(arrays: Sequence[torch.Tensor],
     return words
 
 
+def paired_validities(lkeys: Sequence[torch.Tensor], lvals: Sequence,
+                      rkeys: Sequence[torch.Tensor], rvals: Sequence):
+    """Validity lists for hashing or comparing two sides' keys against
+    each other. A key nullable on one side only gets an all-valid mask on
+    the other: the validity word joins a row's words only where a mask
+    exists, so without it equal keys would hash (and compare) differently.
+    (The JAX package uses the masks as they are, and its hash partition
+    and bucketed hash join lose those matches.)"""
+    lvals, rvals = list(lvals), list(rvals)
+    for i, (lv, rv) in enumerate(zip(lvals, rvals)):
+        if lv is None and rv is not None:
+            lvals[i] = torch.ones_like(lkeys[i], dtype=torch.bool)
+        elif rv is None and lv is not None:
+            rvals[i] = torch.ones_like(rkeys[i], dtype=torch.bool)
+    return lvals, rvals
+
+
 def hash_columns(arrays: Sequence[torch.Tensor],
                  validities: "Sequence[torch.Tensor | None] | None" = None,
                  seed: int = MURMUR_SEED) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Relational equi-join (inner / left / right / full outer), sort algorithm.
+"""Relational equi-join (inner / left / right / full outer).
 
-Port of ``cylon_tpu/ops/join.py:112-508`` (parity: ``join::JoinTables``,
+Port of ``cylon_tpu/ops/join.py:51-508`` (parity: ``join::JoinTables``,
 ``join/join.cpp:92-98``; semantics follow pandas ``merge``).
 
 Dense-rank equi-join: the key columns of both sides are concatenated and
@@ -10,19 +10,69 @@ pair_max_scan kernels); the variable-size result is a prefix-sum
 run-length expansion into a caller-bounded buffer; ``take_columns``
 gathers the output. The JAX package's ``_join_compiled`` is the plain
 function :func:`_join` here: torch runs eagerly.
+
+``algorithm="hash"`` routes as in the JAX package
+(:func:`_route_algorithm`): by default to the sort join grouped by murmur
+bucket first (``group_sort(hash_first=True)``); with
+``CYLON_TPU_JOIN_HASH_IMPL=bucketed`` to the bucketed build / probe of
+:mod:`cylon_tpu_torch.ops.hash_join`, whose chains are checked on the
+host first. An over-budget chain, or ``how="fullouter"``, takes the sort
+join. Every route gives the same rows.
 """
 
+import logging
+import os
 from typing import Sequence
 
 import torch
 
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument, NotImplemented_
-from cylon_tpu_torch.ops import kernels
+from cylon_tpu_torch.ops import hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
 
 #: sort key of the invalid output slots: above every u32 row or group id
 M32_MAX = 0xFFFFFFFF
+
+#: routing downgrades already warned about: one warning a kind and process
+_warned: set = set()
+
+
+def _env_algorithm() -> "str | None":
+    """``CYLON_TPU_JOIN_ALGORITHM``: process-wide override of the per-call
+    ``algorithm`` ("sort" | "hash"; unset or other: the caller's)."""
+    v = os.environ.get("CYLON_TPU_JOIN_ALGORITHM", "").lower()
+    return v if v in ("sort", "hash") else None
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _warned:
+        _warned.add(key)
+        logging.getLogger("cylon_tpu_torch").warning(msg)
+
+
+def _route_algorithm(requested: str, how: str) -> str:
+    """Resolve the ``algorithm`` hint to the routine :func:`_join` runs:
+    "sort", "hash_sort" (the sort join grouped by murmur bucket first) or
+    "hash_bucketed" (build / probe; the caller pre-checks the chains).
+    "hash" is a hint, never an error: a ``how`` the bucketed join does not
+    support takes the sort join, with one warning.
+
+    The JAX package also counts each decision in its telemetry
+    (``join.algorithm``, ``join.overflow_fallbacks``); the port has no
+    telemetry yet, so the kernels' launch counters show the route.
+    """
+    if requested != "hash":
+        return requested
+    if not hash_join.supported(how):
+        _warn_once(f"hash-{how}",
+                   f'join(algorithm="hash", how="{how}"): bucketed hash '
+                   "join does not support this variant; taking the sort "
+                   "path (the hint is honored where supported, never an "
+                   "error)")
+        return "sort"
+    return "hash_sort" if hash_join.hash_impl() == "sort" \
+        else "hash_bucketed"
 
 
 def _key_list(keys) -> list:
@@ -51,22 +101,19 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
     if not left_on or len(left_on) != len(right_on):
         raise InvalidArgument(f"bad join keys {left_on} / {right_on}")
     how = {"outer": "fullouter", "full_outer": "fullouter"}.get(how, how)
-    if algorithm == "hash":
-        raise NotImplemented_(
-            'join(algorithm="hash") needs the bucket_build / bucket_probe '
-            "kernels of the hash-join slice (ROADMAP queue A); the default "
-            '"sort" is what the JAX package runs as well')
-    if algorithm != "sort":
-        raise InvalidArgument(f"unknown join algorithm {algorithm!r}")
     if how == "right":
         # right join = left join with the sides swapped, columns reordered
         swapped = join(right, left, left_on=right_on, right_on=left_on,
                        how="left", suffixes=(suffixes[1], suffixes[0]),
-                       out_capacity=out_capacity, ordered=ordered)
+                       out_capacity=out_capacity, algorithm=algorithm,
+                       ordered=ordered)
         return _reorder_right_join(swapped, left, right, left_on, right_on,
                                    suffixes)
     if how not in ("inner", "left", "fullouter"):
         raise InvalidArgument(f"unknown join type {how!r}")
+    algorithm = _env_algorithm() or algorithm
+    if algorithm not in ("sort", "hash"):
+        raise InvalidArgument(f"unknown join algorithm {algorithm!r}")
     if left.device != right.device:
         raise InvalidArgument(f"join inputs lie on {left.device} and "
                               f"{right.device}")
@@ -74,17 +121,30 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
                else int(out_capacity))
     left, right = _aligned_keys(left, right, left_on, right_on)
     return _join(left, right, left_on, right_on, how, tuple(suffixes),
-                 out_cap, ordered)
+                 out_cap, ordered, _route_algorithm(algorithm, how))
 
 
-def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered):
+def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
+          routine: str = "sort"):
     lkeys = [left.column(n).data for n in left_on]
     rkeys = [right.column(n).data for n in right_on]
     lvals = [left.column(n).validity for n in left_on]
     rvals = [right.column(n).validity for n in right_on]
-    left_idx, right_idx, total = _join_indices(
-        lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how, out_cap,
-        ordered)
+    if routine == "hash_bucketed":
+        # the build side's chains, checked on the host before the join
+        # (the JAX package's eager route; its traced route checks in-graph)
+        build, _, _ = hash_join.sides(lkeys, lvals, left.nrows, rkeys, rvals,
+                                      right.nrows, how)
+        if hash_join.chain_overflow(*build):
+            routine = "sort"
+    if routine == "hash_bucketed":
+        left_idx, right_idx, total = hash_join.bucketed_join_indices(
+            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+            out_cap, ordered)
+    else:
+        left_idx, right_idx, total = _join_indices(
+            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+            out_cap, ordered, hash_first=routine == "hash_sort")
     res = _assemble(left, right, list(left_on), list(right_on), suffixes,
                     left_idx, right_idx, total, how)
     return kernels.carry_overflow(res, left, right)
@@ -111,7 +171,7 @@ def _aligned_keys(left, right, left_on, right_on):
 
 
 def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
-                  ordered: bool = True):
+                  ordered: bool = True, hash_first: bool = False):
     """Core: (left_idx, right_idx, total) gather plans of length out_cap;
     -1 in either marks the null side of an output row.
 
@@ -121,6 +181,7 @@ def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
     its uniqueness makes the order total). Per-group values broadcast to
     every row by fills, not gathers; the run expansion is one packed row
     gather; ``ordered`` restores pandas' order with one stable sort.
+    ``hash_first`` groups by murmur bucket first (the "hash_sort" route).
     """
     cl = lkeys[0].shape[0]
     cr = rkeys[0].shape[0]
@@ -146,7 +207,8 @@ def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
     want_gid = ordered and how == "fullouter"
     gid_s, _, (orig_u,) = kernels.group_sort(
         ckeys, cvalid, cvals,
-        suborder=[kernels.OrderKey(iota_c.to(torch.int64), 32)])
+        suborder=[kernels.OrderKey(iota_c.to(torch.int64), 32)],
+        hash_first=hash_first)
     orig_s = orig_u.to(torch.int32)
 
     valid_s = gid_s < ncomb

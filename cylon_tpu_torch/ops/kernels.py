@@ -19,7 +19,7 @@ import torch
 
 from cylon_tpu_torch.errors import NotImplemented_
 from cylon_tpu_torch.kernels import scan
-from cylon_tpu_torch.ops.hash import M32, canonical_float
+from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns
 
 _MIN64 = -(1 << 63)
 _BITS = {torch.bool: 8, torch.uint8: 8, torch.int8: 8, torch.uint16: 16,
@@ -179,7 +179,8 @@ def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
 def group_sort(keys: Sequence[torch.Tensor], nrows,
                validities: "Sequence[torch.Tensor | None] | None" = None,
                payloads: Sequence[torch.Tensor] = (),
-               suborder: Sequence[OrderKey] = ()):
+               suborder: Sequence[OrderKey] = (),
+               hash_first: bool = False):
     """One lexicographic sort that groups rows by key and carries
     ``payloads`` into group order.
 
@@ -189,6 +190,11 @@ def group_sort(keys: Sequence[torch.Tensor], nrows,
     and order rows within a group without splitting it; their sorted
     values lead the returned payloads.
 
+    ``hash_first`` orders groups by murmur row hash instead of key rank
+    (the JAX package's rendition of the reference's HASH join): the u32
+    hash leads the key words, which then only break collisions, so group
+    identity stays exact but group ids are not in key order.
+
     Returns ``(gid_sorted [cap] int32, num_groups 0-d int32,
     sorted_payloads)``; ``gid_sorted`` is monotone over valid rows and
     ``cap`` on padding.
@@ -196,6 +202,9 @@ def group_sort(keys: Sequence[torch.Tensor], nrows,
     cap = keys[0].shape[0]
     dev = keys[0].device
     full = []
+    if hash_first:
+        full.append(OrderKey(hash_columns(keys, validities).to(torch.int64)
+                             & M32, 32))
     for i, k in enumerate(keys):
         v = validities[i] if validities is not None else None
         if k.dim() == 2:

@@ -143,3 +143,29 @@ def test_dist_join_w4_regrows_on_skew():
         return dist_num_rows(env, res)
 
     assert ThreadWorld(4).run(rank) == [n * n] * 4
+
+
+def test_dist_join_w4_on_nine_int64_keys():
+    """A key of nine int64 columns is 18 u32 words, more than the row
+    hash kernel's chunk of 16: the partition hash takes them all."""
+    rng = np.random.default_rng(9)
+    n = 300
+    on = [f"k{i}" for i in range(9)]
+    base = rng.integers(0, 40, n)
+    ldf = pd.DataFrame({c: base * (i + 1) for i, c in enumerate(on)})
+    ldf["a"] = rng.normal(size=n)
+    rbase = rng.integers(0, 40, n)
+    rdf = pd.DataFrame({c: rbase * (i + 1) for i, c in enumerate(on)})
+    rdf["b"] = rng.integers(0, 50, n)
+    tl = to_port(jct.Table.from_pandas(ldf))
+    tr = to_port(jct.Table.from_pandas(rdf))
+
+    def rank(comm):
+        env = CylonEnv(comm)
+        res = dist_join(env, scatter_table(env, tl), scatter_table(env, tr),
+                        on=on)
+        return gather_table(env, res).to_pandas()
+
+    want = ldf.merge(rdf, on=on)
+    assert len(want) > 0
+    _unordered_eq(ThreadWorld(4).run(rank)[0], want)

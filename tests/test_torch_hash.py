@@ -82,3 +82,26 @@ def test_equal_values_hash_equally():
     ha = thash.hash_columns([a], [v])
     hb = thash.hash_columns([b], [v])
     assert torch.equal(ha, hb)
+
+
+@pytest.mark.parametrize("mode", ["0", "interpret"])
+@pytest.mark.parametrize("ncols,nullable,nwords", [(9, False, 18),
+                                                   (11, True, 33)])
+def test_wide_keys_hash_like_jax(ncols, nullable, nwords, mode,
+                                 monkeypatch):
+    """Keys of more than 16 u32 words (nine int64 columns are 18 words,
+    eleven nullable ones 33; the CUDA kernel takes them in chunks of 16)
+    hash as the JAX package hashes them."""
+    monkeypatch.setenv("CYLON_PALLAS", mode)
+    rng = np.random.default_rng(nwords)
+    arrays = [rng.integers(-2 ** 62, 2 ** 62, N) for _ in range(ncols)]
+    validities = [rng.random(N) < 0.9 if nullable else None
+                  for _ in range(ncols)]
+    jarr, jval, tarr, tval = _both(arrays, validities)
+    assert len(thash._row_words(tarr, tval)) == nwords
+    want = np.asarray(jhash.hash_columns(jarr, jval))
+    got = thash.hash_columns(tarr, tval)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    want = np.asarray(jhash.partition_ids(jarr, 7, jval))
+    np.testing.assert_array_equal(thash.partition_ids(tarr, 7, tval).numpy(),
+                                  want)

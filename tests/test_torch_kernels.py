@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from cylon_tpu.ops import hash as jhash
+from cylon_tpu.ops import hash_join as jhj
 from cylon_tpu.ops import kernels as jkernels
 from cylon_tpu.ops import pallas_kernels as pk
 from cylon_tpu_torch import kernels as tk
@@ -164,6 +165,73 @@ def test_scan_gate_keeps_torch_below_min_size(monkeypatch):
     assert pk.SCAN_MIN_SIZE == tscan.SCAN_MIN_SIZE
 
 
+# (cap, nb, width, bucket id range, overflows): clean builds within and
+# past one 8 x 128 Pallas tile, and an overflowing one (few buckets)
+BUILD_CASES = [(700, 1024, 8, 1024, False), (1500, 2048, 16, 2048, False),
+               (900, 64, 3, 8, True)]
+
+
+@pytest.mark.parametrize("cap,nb,width,hi,overflows", BUILD_CASES)
+def test_bucket_build_plain_matches_pallas(cap, nb, width, hi, overflows,
+                                           pallas_interpret):
+    rng = np.random.default_rng(cap + width)
+    bids = rng.integers(-1, hi, cap).astype(np.int32)   # -1: skipped rows
+    want_t, want_o = pk.bucket_build(jnp.asarray(bids), nb, width)
+    twin_t, twin_o = jhj._build_jnp(jnp.asarray(bids), nb, width)
+    np.testing.assert_array_equal(np.asarray(twin_t), np.asarray(want_t))
+    assert int(twin_o) == int(want_o)
+    got_t, got_o = tk.bucket_build(torch.from_numpy(bids), nb, width)
+    assert got_t.dtype == torch.int32 and got_o.dtype == torch.int32
+    assert tuple(got_t.shape) == (width, nb) and got_o.dim() == 0
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    assert int(got_o) == int(want_o)
+    assert (int(got_o) > 0) == overflows
+
+
+@pytest.mark.parametrize("nwords", [1, 2, 3])
+def test_bucket_probe_plain_matches_pallas(nwords, pallas_interpret):
+    """Probe rows past the valid prefix carry -1; the words of a 64-bit
+    key are strided views, as ``_row_words`` gives them."""
+    rng = np.random.default_rng(nwords)
+    nb, width, bcap, pcap = 64, 16, 150, 1100
+    bkeys = rng.integers(0, 40, (bcap, nwords)).astype(np.uint32)
+    pkeys = rng.integers(0, 40, (pcap, nwords)).astype(np.uint32)
+    bbids = (bkeys.sum(1) % nb).astype(np.int32)
+    pbids = (pkeys.sum(1) % nb).astype(np.int32)
+    pbids[1000:] = -1
+    table, ovf = pk.bucket_build(jnp.asarray(bbids), nb, width)
+    assert int(ovf) == 0
+    jb = [jnp.asarray(bkeys[:, j]) for j in range(nwords)]
+    jp = [jnp.asarray(pkeys[:, j]) for j in range(nwords)]
+    want = np.asarray(pk.bucket_probe(jnp.asarray(pbids), jp, table, jb))
+    np.testing.assert_array_equal(
+        np.asarray(jhj._probe_jnp(jnp.asarray(pbids), jp, table, jb)), want)
+    assert want.max() > 0 and (want[1000:] == 0).all()
+
+    tb = _bits(bkeys)   # [rows, nwords]: column j is a strided view
+    tp = _bits(pkeys)
+    got = tk.bucket_probe(torch.from_numpy(pbids),
+                          [tp[:, j] for j in range(nwords)],
+                          torch.from_numpy(np.array(table)),
+                          [tb[:, j] for j in range(nwords)])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bucket_kernels_reject_bad_operands():
+    ids = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tk.bucket_build(ids, 16, 31)   # mask bits must fit an int32
+    with pytest.raises(ValueError):
+        tk.bucket_build(ids.to(torch.int64), 16, 4)
+    table, _ = tk.bucket_build(ids, 16, 4)
+    w = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tk.bucket_probe(ids, [w, w], table, [w])
+    with pytest.raises(ValueError):
+        tk.bucket_probe(ids, [w[:5]], table, [w])
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """A tensor that is not on the CPU launches the kernel or raises; the
     plain version is never taken for it (``meta`` stands in for a device
@@ -175,3 +243,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tk.scan32(x, "add")
     with pytest.raises(ValueError):
         tk.pair_max_scan(x, x)
+    with pytest.raises(ValueError):
+        tk.bucket_build(x, 16, 4)
+    with pytest.raises(ValueError):
+        tk.bucket_probe(x, [x], torch.full((4, 16), -1, dtype=torch.int32,
+                                           device="meta"), [x])
