@@ -106,49 +106,93 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_spans(torch, prof) -> list:
-    """(start_us, end_us, name) of every device-side event (kernels,
-    copies, sets) in a finished profile; raises if there are none."""
+def trace(torch, fn, reps: int = 1):
+    """``reps`` calls of ``fn`` under torch.profiler, then a synchronise:
+    ``(spans, wall_s)``, spans = (start_us, end_us, name) of every
+    device-side event (kernels, copies, sets). A trace that comes back
+    without device events (it happened once among a few hundred profiles
+    on the H100) is taken again, at most three times in all."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    spans = [(ev.time_range.start, ev.time_range.end, ev.name)
-             for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    if not spans:
-        raise SystemExit("profile: the trace holds no device time")
-    return spans
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = [(ev.time_range.start, ev.time_range.end, ev.name)
+                 for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+        if spans:
+            return spans, wall
+    raise SystemExit("profile: the trace holds no device time")
 
 
 def device_ms(torch, fn, reps: int = REPS) -> float:
     """Device time per call of ``fn`` from torch.profiler: the summed
     durations of everything its calls ran on the card, over the count --
     the host's share of a call left out."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e - s for s, e, _ in device_spans(torch, prof)) / reps / 1e3
+    spans, _ = trace(torch, fn, reps)
+    return sum(e - s for s, e, _ in spans) / reps / 1e3
 
 
 def compare(torch, a, b):
-    """(mismatching elements, max |a - b|) of two int32 outputs or
-    tuples of them."""
+    """(mismatching elements, max |a - b|) of two 32-bit outputs or
+    tuples of them, bit for bit: uint32 and float32 are compared as their
+    int32 bit patterns (so a NaN equals the same NaN, and -0.0 differs
+    from +0.0)."""
     if isinstance(a, tuple):
         pairs = [compare(torch, x, y) for x, y in zip(a, b)]
         return sum(p[0] for p in pairs), max(p[1] for p in pairs)
+    if a.dtype in (torch.uint32, torch.float32):
+        a, b = a.view(torch.int32), b.view(torch.int32)
     bad = int((a != b).sum())
     err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
         if a.numel() else 0
     return bad, err
 
 
+#: float32 add scans tiles in another order than torch.cumsum: both are
+#: float sums of positive terms whose rounding errors walk at random, a
+#: few 1e-6 of the prefix at 32M elements; 1e-4 leaves a wide margin
+F32_ADD_RTOL = 1e-4
+
+
+def max_rel_err(torch, got, want) -> float:
+    """max |got - want| / |want| over the elements where want != 0."""
+    got, want = got.to(torch.float64), want.to(torch.float64)
+    nz = want != 0
+    if not bool(nz.any()):
+        return 0.0
+    return float(((got - want).abs()[nz] / want.abs()[nz]).max())
+
+
+def float_max_input(torch, n, g):
+    """float32 values for the max scan: a negative first half with zeros
+    of both signs (so the running max sits at 0 and each later zero, of
+    either sign, takes its place), then normal values, NaNs from 3/4 on."""
+    x = torch.randn(n, device="cuda", generator=g)
+    half = n // 2
+    x[:half] = -x[:half].abs()
+    zeros = torch.rand(half, device="cuda", generator=g) < 0.01
+    signs = torch.where(torch.rand(half, device="cuda", generator=g) < 0.5,
+                        -0.0, 0.0)
+    x[:half] = torch.where(zeros, signs, x[:half])
+    nans = torch.rand(n, device="cuda", generator=g) < 0.001
+    nans[:3 * n // 4] = False
+    nans[3 * n // 4] = True
+    return torch.where(nans, float("nan"), x)
+
+
 # ------------------------------------------------------------ phase 3
 def kernel_phase(torch, rate):
     from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+    from cylon_tpu_torch.kernels.scan import single_pass
 
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
@@ -168,6 +212,11 @@ def kernel_phase(torch, rate):
                                               device="cuda", generator=g), 0)
         packed = ((hi.to(torch.int64) ^ 0x80000000) << 32) \
             | (lo.to(torch.int64) & 0xFFFFFFFF)
+        # uint32 values within 1000 of 2^32: every add wraps
+        near = torch.randint(-1000, 0, (n,), dtype=torch.int32,
+                             device="cuda", generator=g).view(torch.uint32)
+        fmax = float_max_input(torch, n, g)
+        fpos = torch.rand(n, device="cuda", generator=g)
         wide = []
         if n in (4097, BENCH_ROWS):
             for _ in range(WIDE_COLUMNS):
@@ -175,33 +224,63 @@ def kernel_phase(torch, rate):
                                     dtype=torch.int64, device="cuda",
                                     generator=g).view(torch.int32)
                 wide += [col.view(-1, 2)[:, 0], col.view(-1, 2)[:, 1]]
+        # name: (kernel, plain, library call, bytes, rtol against plain;
+        # 0 = bit for bit)
         cases = {
             "row_hash": (lambda: row_hash(words),
-                         lambda: row_hash.plain(words), None, 12 * n),
+                         lambda: row_hash.plain(words), None, 12 * n, 0),
             "row_hash/nparts": (lambda: row_hash(words, 64),
                                 lambda: row_hash.plain(words, 64), None,
-                                12 * n),
+                                12 * n, 0),
             "scan32/add": (lambda: scan32(flags, "add"),
                            lambda: scan32.plain(flags, "add"),
                            lambda: torch.cumsum(flags, 0, dtype=torch.int32),
-                           8 * n),
+                           8 * n, 0),
             "scan32/max": (lambda: scan32(hi, "max"),
                            lambda: scan32.plain(hi, "max"),
-                           lambda: torch.cummax(hi, 0), 8 * n),
+                           lambda: torch.cummax(hi, 0), 8 * n, 0),
+            "scan32/add_u32": (lambda: scan32(near, "add"),
+                               lambda: scan32.plain(near, "add"), None,
+                               8 * n, 0),
+            "scan32/max_f32": (lambda: scan32(fmax, "max"),
+                               lambda: scan32.plain(fmax, "max"),
+                               lambda: torch.cummax(fmax, 0), 8 * n, 0),
+            "scan32/add_f32": (lambda: scan32(fpos, "add"),
+                               lambda: scan32.plain(fpos, "add"),
+                               lambda: torch.cumsum(fpos, 0), 8 * n,
+                               F32_ADD_RTOL),
             "pair_max_scan": (lambda: pair_max_scan(hi, lo),
                               lambda: pair_max_scan.plain(hi, lo),
-                              lambda: torch.cummax(packed, 0), 16 * n),
+                              lambda: torch.cummax(packed, 0), 16 * n, 0),
         }
         if wide:
             cases["row_hash/18words"] = (
                 lambda: row_hash(wide, 64), lambda: row_hash.plain(wide, 64),
-                None, (4 * len(wide) + 4) * n)
-        for name, (kern, plain, library, nbytes) in cases.items():
-            bad, err = compare(torch, kern(), plain())
+                None, (4 * len(wide) + 4) * n, 0)
+        scans = {"scan32/add": (flags, "add"), "scan32/max": (hi, "max"),
+                 "scan32/add_u32": (near, "add"),
+                 "scan32/max_f32": (fmax, "max"),
+                 "scan32/add_f32": (fpos, "add")}
+        for name, (kern, plain, library, nbytes, rtol) in cases.items():
+            got = kern()
+            extra = {}
+            if rtol:
+                # against the plain version within rtol, and bit for bit
+                # against a second call of the kernel
+                rel = max_rel_err(torch, got, plain())
+                bad, err = compare(torch, got, kern())
+                bad += int(not rel <= rtol)
+                extra["max_rel_err"] = rel
+            else:
+                bad, err = compare(torch, got, plain())
             torch.cuda.synchronize()
+            if name in scans:
+                x, kind = scans[name]
+                extra["single_pass"] = single_pass(kind, x.dtype)
             row = {"phase": "kernel", "name": name, "n": n,
                    "mismatches": bad, "max_abs_err": err,
-                   "tolerance": 0, "bound_us": nbytes / rate * 1e6}
+                   "tolerance": rtol, "bound_us": nbytes / rate * 1e6,
+                   **extra}
             if n in TIMED:
                 for label, fn in (("kernel", kern), ("plain", plain),
                                   ("library", library)):
@@ -223,6 +302,7 @@ def bucket_kernel_phase(torch, rate, stats):
     tail of padding rows (bucket -1); then an overflowing build (ids from
     eight buckets) and an all-duplicate one (every id in one bucket)."""
     from cylon_tpu_torch.kernels import bucket_build, bucket_probe, row_hash
+    from cylon_tpu_torch.kernels.bucket import one_int64_key
     from cylon_tpu_torch.ops.hash_join import table_slots
 
     g = torch.Generator(device="cuda")
@@ -272,15 +352,41 @@ def bucket_kernel_phase(torch, rate, stats):
               lambda: bucket_build(bids, nb, width),
               lambda: bucket_build.plain(bids, nb, width),
               {"overflow": int(ovf)})
-        mask = bucket_probe(pbids, pwords, table, bwords)
-        want_m = bucket_probe.plain(pbids, pwords, table, bwords)
-        occupied = int((table >= 0).sum())
-        check("bucket_probe", n, mask, want_m,
-              4 * n * (2 + len(pwords)) + 4 * occupied * (1 + len(bwords)),
-              lambda: bucket_probe(pbids, pwords, table, bwords),
-              lambda: bucket_probe.plain(pbids, pwords, table, bwords),
-              {"matched_rows": int((want_m != 0).sum()),
-               "occupied_entries": occupied})
+        # the one-load int64 path, then two layouts that compare word by
+        # word: a nullable int64 key (lo, hi and the validity word, nulls
+        # zeroed, eight nulls a side) and two int32 key columns
+        bnull = torch.ones(n, dtype=torch.bool, device="cuda")
+        pnull = bnull.clone()
+        bnull[torch.randperm(n, device="cuda", generator=g)[:8]] = False
+        pnull[torch.randperm(n, device="cuda", generator=g)[:8]] = False
+        layouts = {
+            "bucket_probe": (bwords, pwords),
+            "bucket_probe/nullable_int64": (
+                nullable_words(torch, bkeys, bnull),
+                nullable_words(torch, pkeys, pnull)),
+            "bucket_probe/two_int32": (
+                [(bkeys >> 12).to(torch.int32),
+                 (bkeys & 4095).to(torch.int32)],
+                [(pkeys >> 12).to(torch.int32),
+                 (pkeys & 4095).to(torch.int32)]),
+        }
+        for name, (bw, pw) in layouts.items():
+            if name != "bucket_probe":   # a table over these words' buckets
+                bids = bucket_ids(bw, nb, valid)
+                table, _ = bucket_build(bids, nb, width)
+            pb = bucket_ids(pw, nb, valid)
+            one = one_int64_key(pw, bw)
+            if one != (name == "bucket_probe"):
+                raise SystemExit(f"{name}: one_int64_key gave {one}")
+            mask = bucket_probe(pb, pw, table, bw)
+            want_m = bucket_probe.plain(pb, pw, table, bw)
+            occupied = int((table >= 0).sum())
+            check(name, n, mask, want_m,
+                  4 * n * (2 + len(pw)) + 4 * occupied * (1 + len(bw)),
+                  lambda: bucket_probe(pb, pw, table, bw),
+                  lambda: bucket_probe.plain(pb, pw, table, bw),
+                  {"matched_rows": int((want_m != 0).sum()),
+                   "occupied_entries": occupied, "one_int64": one})
 
     for name, n, nbuckets in (("bucket_build/collisions", 65537, 8),
                               ("bucket_build/all_duplicate", 4097, 1)):
@@ -300,6 +406,16 @@ def bucket_kernel_phase(torch, rate, stats):
                                     words_of(keys))
         check(name.replace("build", "probe"), n, mask, want_m,
               4 * n * 4 + 4 * int((table >= 0).sum()) * 3, None, None, {})
+
+
+def nullable_words(torch, keys, valid):
+    """An int64 key column with a validity mask as the hash join words it
+    (``ops.hash._row_words``): lo and hi, zeroed where null, then the
+    validity word."""
+    pair = keys.view(torch.int32).view(-1, 2)
+    zero = torch.zeros((), dtype=torch.int32, device=keys.device)
+    return [torch.where(valid, pair[:, 0], zero),
+            torch.where(valid, pair[:, 1], zero), valid.to(torch.int32)]
 
 
 def join_parity_phase(torch):
@@ -641,16 +757,8 @@ def profile_call(torch, phase: str, fn):
     the call's wall time (the union of the kernels' intervals; the
     operators that launched them are left out, so no time counts
     twice)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted(device_spans(torch, prof))
+    spans, wall = trace(torch, fn)
+    spans.sort()
     busy_us, end = 0.0, None
     by_kernel = {}
     for s, e, name in spans:

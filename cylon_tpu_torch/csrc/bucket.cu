@@ -10,7 +10,8 @@
 // _probe_jnp).
 //
 // The Pallas bodies run one sequential loop per tile, because Mosaic cannot
-// vectorise data-dependent row work. Here one thread takes one row.
+// vectorise data-dependent row work. Here bucket_build gives a thread one
+// row, bucket_probe kRows.
 //
 // bucket_build. Bound on an H100: the table fill (4 * width * nb bytes)
 // plus 4 * cap bytes of ids, at 3.35 TB/s. Each row is one to a few random
@@ -30,16 +31,32 @@
 // bucket_probe. Bound: 4 * pcap bytes of bucket ids, 4 * nwords * pcap of
 // probe words and 4 * pcap of mask, plus the occupied table entries and
 // the build words once. Each probe row gathers its chain's entries and the
-// build rows' words at random addresses, a 32-byte sector per 4-byte read,
-// so it too runs well above the byte bound. Design: a thread reads its row's
-// bucket, walks the entries until the first -1 (entries fill from 0) and
-// sets bit e when every key word of build row table[e][b] equals the probe
-// row's; a mismatch stops its compare at the first differing word. The word
-// streams come as pointers and element strides, as in row_hash, so an int64
-// key's (lo, hi) words are read in place. Any number of words: a key of more
-// than kChunk words runs over chunks of kChunk word pairs, one launch each;
-// a later chunk tests only the bits the earlier ones left set (read back
-// from the mask), so the result is the AND over all words.
+// build rows' words at random addresses, a 32-byte sector per read, so it
+// runs well above the byte bound: at n = nb with unique build keys, a probe
+// row touches about 3 random sectors (the entries up to the first -1, and
+// one key per entry), and a chain of c entries is c + 1 entry reads. What
+// limits it is how many of those reads are in flight on the card, so the
+// design is for memory-level parallelism:
+//   - a thread keeps kRows probe rows, kThreads apart, so that a warp's
+//     bucket-id and probe-word loads stay coalesced, and issues their loads
+//     before it consumes any result;
+//   - the address of a row's next entry depends on its bucket id alone, so
+//     it is loaded in the same step as the build key of the current entry:
+//     one round trip an entry, not two. No sector is read that a walk to
+//     the first -1 does not read;
+//   - where the key is one int64 column on both sides (its (lo, hi) words
+//     4 bytes apart, stride 2, 8-byte aligned; the wrapper decides from the
+//     pointers and strides and passes a flag), the key is one 8-byte load
+//     on each side. Any other layout (a validity word, several columns)
+//     compares word by word, stopping at the first word that differs.
+// Bit e of a row's mask is set when every key word of build row
+// table[e][b] equals the probe row's; entries fill from 0, so a walk stops
+// at the first -1, and a row >= bcap is skipped. The word streams come as
+// pointers and element strides, as in row_hash, so an int64 key's words
+// are read in place. Any number of words: a key of more than kChunk words
+// runs over chunks of kChunk word pairs, one launch each; a later chunk
+// walks only the bits the earlier ones left set (read back from the mask),
+// so the result is the AND over all words.
 
 #include <cstdint>
 
@@ -49,6 +66,7 @@ namespace {
 
 constexpr int kChunk = 16;
 constexpr int kThreads = 256;
+constexpr int kRows = 4;  // probe rows a thread keeps in flight
 constexpr long long kMaxBlocks = 132 * 16;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 
@@ -60,9 +78,43 @@ struct WordPairs {
   int count;
 };
 
-long long grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
+long long grid_for(long long n, long long per_block) {
+  long long blocks = (n + per_block - 1) / per_block;
   return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
+// The key of bucket_probe, by word layout: `probe` / `build` load word 0
+// (the whole key for Int64Key) of a probe row / a build row, and
+// `words(w)` counts the words; AnyWords' `word` loads the later ones.
+struct Int64Key {
+  using K = unsigned long long;
+  __device__ static K probe(const WordPairs& w, long long i) {
+    return __ldg(reinterpret_cast<const K*>(w.probe[0]) + i);
+  }
+  __device__ static K build(const WordPairs& w, long long r) {
+    return __ldg(reinterpret_cast<const K*>(w.build[0]) + r);
+  }
+  __device__ static int words(const WordPairs&) { return 1; }
+};
+
+struct AnyWords {
+  using K = uint32_t;
+  __device__ static K probe(const WordPairs& w, long long i) {
+    return __ldg(w.probe[0] + i * w.probe_stride[0]);
+  }
+  __device__ static K build(const WordPairs& w, long long r) {
+    return __ldg(w.build[0] + r * w.build_stride[0]);
+  }
+  __device__ static int words(const WordPairs& w) { return w.count; }
+};
+
+// Is (lo, hi) one int64 column read in place: hi 4 bytes after lo, both of
+// stride 2, lo 8-byte aligned?
+bool int64_halves(const void* lo, const void* hi, long long lo_stride,
+                  long long hi_stride) {
+  const auto a = reinterpret_cast<uintptr_t>(lo);
+  return lo_stride == 2 && hi_stride == 2 && a % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(hi) == a + 4;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -90,35 +142,88 @@ bucket_build_kernel(const int32_t* __restrict__ bids, long long cap,
   }
 }
 
-// first: every entry is a candidate; later chunks test only the bits the
+// first: every entry is a candidate; later chunks walk only the bits the
 // earlier chunks left set in mask.
+template <class Key>
 __global__ void __launch_bounds__(kThreads)
 bucket_probe_kernel(const int32_t* __restrict__ pbids, long long pcap,
                     const int32_t* __restrict__ table, long long nb,
-                    int width, long long bcap, WordPairs words, int first,
+                    int width, long long bcap,
+                    const __grid_constant__ WordPairs words, int first,
                     int32_t* mask) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < pcap; i += step) {
-    const int32_t b = pbids[i];
-    uint32_t m = 0;
-    if (b >= 0 && b < nb) {
-      const uint32_t cand = first ? kEmpty : static_cast<uint32_t>(mask[i]);
-      for (int e = 0; e < width; ++e) {
-        if (!((cand >> e) & 1u)) continue;
-        const int32_t rr = __ldg(table + e * nb + b);
-        if (rr < 0) break;
-        if (rr >= bcap) continue;
-        bool eq = true;
-        for (int j = 0; j < words.count && eq; ++j) {
-          eq = __ldg(words.probe[j] + i * words.probe_stride[j]) ==
-               __ldg(words.build[j] + rr * words.build_stride[j]);
+  using K = typename Key::K;
+  const uint32_t all = (1u << width) - 1u;
+  const long long span = static_cast<long long>(kThreads) * kRows;
+  for (long long base = blockIdx.x * span; base < pcap;
+       base += static_cast<long long>(gridDim.x) * span) {
+    long long i[kRows];
+    int32_t b[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      i[r] = base + r * kThreads + threadIdx.x;
+      b[r] = i[r] < pcap ? pbids[i[r]] : -1;
+    }
+    uint32_t cand[kRows], m[kRows];
+    K key[kRows];
+    int e[kRows];     // the entry under test, -1 when the walk is over
+    int32_t cur[kRows];   // its build row
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      cand[r] = b[r] < 0 || b[r] >= nb ? 0u
+                : first               ? all
+                                      : static_cast<uint32_t>(mask[i[r]]);
+      key[r] = cand[r] ? Key::probe(words, i[r]) : K(0);
+      e[r] = cand[r] ? __ffs(cand[r]) - 1 : -1;
+      cur[r] = e[r] >= 0 ? __ldg(table + e[r] * nb + b[r]) : -1;
+      m[r] = 0;
+    }
+    for (;;) {
+      bool live[kRows];
+      int next[kRows];
+      int32_t ahead[kRows];
+      K bkey[kRows];
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        live[r] = e[r] >= 0 && cur[r] >= 0;
+        any |= live[r];
+        const uint32_t rest = live[r] ? cand[r] & ~((2u << e[r]) - 1u) : 0u;
+        next[r] = rest ? __ffs(rest) - 1 : -1;
+        ahead[r] = next[r] >= 0 ? __ldg(table + next[r] * nb + b[r]) : -1;
+        bkey[r] = live[r] && cur[r] < bcap ? Key::build(words, cur[r])
+                                           : ~key[r];
+      }
+      if (!any) break;
+      bool eq[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        eq[r] = live[r] && bkey[r] == key[r];
+      }
+      // later words: each row's pair loaded while it still matches, the
+      // rows' loads in flight together
+      for (int j = 1; j < Key::words(words); ++j) {
+        uint32_t pv[kRows], bv[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          pv[r] = eq[r] ? __ldg(words.probe[j] + i[r] * words.probe_stride[j])
+                        : 0u;
+          bv[r] = eq[r] ? __ldg(words.build[j] + cur[r] * words.build_stride[j])
+                        : 0u;
         }
-        if (eq) m |= 1u << e;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) eq[r] = eq[r] && pv[r] == bv[r];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (eq[r]) m[r] |= 1u << e[r];
+        e[r] = next[r];
+        cur[r] = ahead[r];
       }
     }
-    mask[i] = static_cast<int32_t>(m);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (i[r] < pcap) mask[i[r]] = static_cast<int32_t>(m[r]);
+    }
   }
 }
 
@@ -138,7 +243,8 @@ extern "C" int cylon_bucket_build(const void* bids, long long cap,
   err = cudaMemsetAsync(overflow, 0, sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cap == 0) return 0;
-  bucket_build_kernel<<<static_cast<unsigned>(grid_for(cap)), kThreads, 0,
+  bucket_build_kernel<<<static_cast<unsigned>(grid_for(cap, kThreads)),
+                        kThreads, 0,
                         s>>>(static_cast<const int32_t*>(bids), cap, nb,
                              width, static_cast<uint32_t*>(table),
                              static_cast<int32_t*>(overflow));
@@ -148,19 +254,29 @@ extern "C" int cylon_bucket_build(const void* bids, long long cap,
 // pbids: pcap int32 bucket ids (-1 = no match). probe/build word streams:
 // host arrays of nwords device pointers and element strides. table: the
 // [width, nb] build table over bcap build rows. mask: pcap int32, set here.
+// one_int64: the two words on each side are one int64 column's (lo, hi)
+// halves (checked here), compared as one 8-byte key.
 extern "C" int cylon_bucket_probe(const void* pbids, long long pcap,
                                   const void* const* pwords,
                                   const long long* pstrides,
                                   const void* const* bwords,
                                   const long long* bstrides, int nwords,
-                                  const void* table, long long nb,
-                                  int width, long long bcap, void* mask,
-                                  void* stream) {
+                                  int one_int64, const void* table,
+                                  long long nb, int width, long long bcap,
+                                  void* mask, void* stream) {
   if (pcap < 0 || nwords < 1 || nb < 1 || width < 1 || width > 30 ||
       bcap < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (one_int64 &&
+      (nwords != 2 ||
+       !int64_halves(pwords[0], pwords[1], pstrides[0], pstrides[1]) ||
+       !int64_halves(bwords[0], bwords[1], bstrides[0], bstrides[1]))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (pcap == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned>(grid_for(pcap, kThreads * kRows));
   for (int c = 0; c < nwords; c += kChunk) {
     WordPairs words;
     words.count = nwords - c < kChunk ? nwords - c : kChunk;
@@ -173,11 +289,16 @@ extern "C" int cylon_bucket_probe(const void* pbids, long long pcap,
       words.probe_stride[j] = used ? pstrides[c + j] : 0;
       words.build_stride[j] = used ? bstrides[c + j] : 0;
     }
-    bucket_probe_kernel<<<static_cast<unsigned>(grid_for(pcap)), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(pbids), pcap,
-        static_cast<const int32_t*>(table), nb, width, bcap, words, c == 0,
-        static_cast<int32_t*>(mask));
+    const auto* ids = static_cast<const int32_t*>(pbids);
+    const auto* tab = static_cast<const int32_t*>(table);
+    auto* out = static_cast<int32_t*>(mask);
+    if (one_int64) {
+      bucket_probe_kernel<Int64Key><<<grid, kThreads, 0, s>>>(
+          ids, pcap, tab, nb, width, bcap, words, 1, out);
+    } else {
+      bucket_probe_kernel<AnyWords><<<grid, kThreads, 0, s>>>(
+          ids, pcap, tab, nb, width, bcap, words, c == 0, out);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -46,6 +46,24 @@ def _words(ws, n: int, dev, name: str) -> None:
             raise ValueError(f"{name}: operands lie on several devices")
 
 
+def one_int64_key(pwords, bwords) -> bool:
+    """Is the key one int64 column on both sides, read in place: two
+    32-bit word streams a side, the (lo, hi) halves of one 8-byte-aligned
+    int64 tensor (hi 4 bytes after lo, both of stride 2)? Then the probe
+    compares each key with one 8-byte load a side; any other layout
+    compares word by word."""
+    if len(pwords) != 2 or len(bwords) != 2:
+        return False
+    for lo, hi in (pwords, bwords):
+        if lo.dtype not in _WORD_DTYPES or hi.dtype not in _WORD_DTYPES:
+            return False
+        if lo.stride(0) != 2 or hi.stride(0) != 2:
+            return False
+        if lo.data_ptr() % 8 or hi.data_ptr() != lo.data_ptr() + 4:
+            return False
+    return True
+
+
 def _cuda(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -169,8 +187,8 @@ def bucket_probe(pbids: torch.Tensor, pwords, table: torch.Tensor,
         (ctypes.c_longlong * k)(*[w.stride(0) for w in pwords]),
         (ctypes.c_void_p * k)(*[w.data_ptr() for w in bwords]),
         (ctypes.c_longlong * k)(*[w.stride(0) for w in bwords]),
-        k, table.data_ptr(), nb, width, bcap, mask.data_ptr(),
-        build.stream_of(pbids))
+        k, int(one_int64_key(pwords, bwords)), table.data_ptr(), nb, width,
+        bcap, mask.data_ptr(), build.stream_of(pbids))
     build.check(err, "bucket_probe")
     bucket_probe.launches += 1
     return mask

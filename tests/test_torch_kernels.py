@@ -19,7 +19,9 @@ from cylon_tpu.ops import hash_join as jhj
 from cylon_tpu.ops import kernels as jkernels
 from cylon_tpu.ops import pallas_kernels as pk
 from cylon_tpu_torch import kernels as tk
+from cylon_tpu_torch.kernels import bucket as tbucket
 from cylon_tpu_torch.kernels import scan as tscan
+from cylon_tpu_torch.ops import hash as thash
 from cylon_tpu_torch.ops import kernels as tops
 
 #: a hash tile is 8 x 1024 elements, a scan tile 8 x 2048
@@ -163,6 +165,79 @@ def test_scan_gate_keeps_torch_below_min_size(monkeypatch):
     assert not tscan.scan32_ok(torch.ones(5000, dtype=torch.bool))
     assert not tscan.scan32_ok(torch.ones((64, 64), dtype=torch.int32))
     assert pk.SCAN_MIN_SIZE == tscan.SCAN_MIN_SIZE
+
+
+@pytest.mark.parametrize("kind,dtype,single", [
+    ("add", torch.int32, True), ("add", torch.uint32, True),
+    ("add", torch.float32, False), ("max", torch.int32, True),
+    ("max", torch.uint32, True), ("max", torch.float32, True)])
+def test_scan32_route(kind, dtype, single):
+    """Every kind that is exactly associative takes the single-pass
+    look-back scan; float32 add keeps the three passes, whose fixed tiling
+    gives the same bits on every call."""
+    assert tscan.single_pass(kind, dtype) is single
+
+
+# n: (single-pass bytes: 8 per 4096-element tile + the 4-byte counter,
+#     three-pass bytes: 8 per 2048-element tile)
+@pytest.mark.parametrize("n,single_bytes,three_bytes", [
+    (1, 12, 8), (4096, 12, 16), (4097, 20, 24), (32 << 20, 65540, 131072)])
+def test_scan_scratch_bytes(n, single_bytes, three_bytes):
+    assert tscan.scratch_bytes(n, True) == single_bytes
+    assert tscan.scratch_bytes(n, False) == three_bytes
+    for single, nbytes in ((True, single_bytes), (False, three_bytes)):
+        s = tscan._scratch(n, single, "cpu")
+        assert s.dtype == torch.int32 and 4 * s.numel() >= nbytes
+
+
+def _int64_halves(t: torch.Tensor):
+    pair = t.view(torch.int32).view(-1, 2)
+    return [pair[:, 0], pair[:, 1]]
+
+
+def _layout(name: str):
+    """(probe words, build words) of one key layout, 64 rows a side."""
+    keys = torch.arange(64, dtype=torch.int64) * 0x100000001
+    other = keys.flip(0).clone()
+    if name == "int64":
+        return _int64_halves(keys), _int64_halves(other)
+    if name == "int64_row_slice":   # rows 1.., still 8-byte aligned
+        return _int64_halves(keys[1:]), _int64_halves(other[1:])
+    if name == "row_words_int64":   # what the hash join hands the probe
+        return (thash._row_words([keys], None),
+                thash._row_words([other], None))
+    if name == "swapped":
+        return _int64_halves(keys)[::-1], _int64_halves(other)[::-1]
+    if name == "offset":   # hi of one row and lo of the next: 4-byte aligned
+        flat = torch.cat([keys, keys[:1]]).view(torch.int32)[1:-1]
+        pair = flat.view(-1, 2)
+        return [pair[:, 0], pair[:, 1]], _int64_halves(other)
+    if name == "every_other_row":   # stride 4
+        quad = keys.view(torch.int32).view(-1, 4)
+        return [quad[:, 0], quad[:, 1]], _int64_halves(other[:32])
+    if name == "validity_word":
+        valid = torch.arange(64) % 7 != 0
+        return (thash._row_words([keys], [valid]),
+                thash._row_words([other], [valid]))
+    if name == "two_int32":
+        a = torch.arange(64, dtype=torch.int32)
+        return [a, a + 1], [a + 2, a + 3]
+    if name == "one_side_only":
+        a = torch.arange(64, dtype=torch.int32)
+        return _int64_halves(keys), [a, a + 1]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("int64", True), ("int64_row_slice", True), ("row_words_int64", True),
+    ("swapped", False), ("offset", False), ("every_other_row", False),
+    ("validity_word", False), ("two_int32", False), ("one_side_only", False)])
+def test_one_int64_key_detector(name, want):
+    """bucket_probe compares with one 8-byte load a side only where both
+    sides' words are the (lo, hi) halves of one 8-byte-aligned int64
+    column read in place; every other layout compares word by word."""
+    pw, bw = _layout(name)
+    assert tbucket.one_int64_key(pw, bw) is want
 
 
 # (cap, nb, width, bucket id range, overflows): clean builds within and
