@@ -10,8 +10,13 @@ Phases, each printing one JSON line:
 2. build: the CUDA kernels from ``cylon_tpu_torch/csrc`` (``nvcc``);
 3. kernels: every kernel against its plain PyTorch version on the same
    CUDA tensors, bit for bit, at the main paths' shapes (``row_hash`` also
-   at 18 words; the bucket kernels also on an overflowing and an
-   all-duplicate build); the time per call of the kernel, the plain
+   at 18 words; ``scan32`` in every kind: int32 add and max, uint32 add
+   that wraps, float32 max with NaNs and zeros of both signs, and float32
+   add against ``torch.cumsum`` within ``F32_ADD_RTOL`` and bit for bit
+   against a second call; ``bucket_probe`` on an int64 key, which takes
+   its one-load path, and on a nullable int64 key and two int32 columns,
+   which compare word by word; the bucket kernels also on an overflowing
+   and an all-duplicate build); the time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
    from torch.profiler, beside the memory bound; then the whole join on
@@ -192,7 +197,6 @@ def float_max_input(torch, n, g):
 # ------------------------------------------------------------ phase 3
 def kernel_phase(torch, rate):
     from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
-    from cylon_tpu_torch.kernels.scan import single_pass
 
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
@@ -257,10 +261,6 @@ def kernel_phase(torch, rate):
             cases["row_hash/18words"] = (
                 lambda: row_hash(wide, 64), lambda: row_hash.plain(wide, 64),
                 None, (4 * len(wide) + 4) * n, 0)
-        scans = {"scan32/add": (flags, "add"), "scan32/max": (hi, "max"),
-                 "scan32/add_u32": (near, "add"),
-                 "scan32/max_f32": (fmax, "max"),
-                 "scan32/add_f32": (fpos, "add")}
         for name, (kern, plain, library, nbytes, rtol) in cases.items():
             got = kern()
             extra = {}
@@ -274,9 +274,6 @@ def kernel_phase(torch, rate):
             else:
                 bad, err = compare(torch, got, plain())
             torch.cuda.synchronize()
-            if name in scans:
-                x, kind = scans[name]
-                extra["single_pass"] = single_pass(kind, x.dtype)
             row = {"phase": "kernel", "name": name, "n": n,
                    "mismatches": bad, "max_abs_err": err,
                    "tolerance": rtol, "bound_us": nbytes / rate * 1e6,

@@ -10,8 +10,7 @@
 // _probe_jnp).
 //
 // The Pallas bodies run one sequential loop per tile, because Mosaic cannot
-// vectorise data-dependent row work. Here bucket_build gives a thread one
-// row, bucket_probe kRows.
+// vectorise data-dependent row work. Here one thread takes one row.
 //
 // bucket_build. Bound on an H100: the table fill (4 * width * nb bytes)
 // plus 4 * cap bytes of ids, at 3.35 TB/s. Each row is one to a few random
@@ -30,33 +29,32 @@
 //
 // bucket_probe. Bound: 4 * pcap bytes of bucket ids, 4 * nwords * pcap of
 // probe words and 4 * pcap of mask, plus the occupied table entries and
-// the build words once. Each probe row gathers its chain's entries and the
-// build rows' words at random addresses, a 32-byte sector per read, so it
-// runs well above the byte bound: at n = nb with unique build keys, a probe
-// row touches about 3 random sectors (the entries up to the first -1, and
-// one key per entry), and a chain of c entries is c + 1 entry reads. What
-// limits it is how many of those reads are in flight on the card, so the
-// design is for memory-level parallelism:
-//   - a thread keeps kRows probe rows, kThreads apart, so that a warp's
-//     bucket-id and probe-word loads stay coalesced, and issues their loads
-//     before it consumes any result;
-//   - the address of a row's next entry depends on its bucket id alone, so
-//     it is loaded in the same step as the build key of the current entry:
-//     one round trip an entry, not two. No sector is read that a walk to
-//     the first -1 does not read;
+// the build words once. Each probe row reads its chain's entries up to the
+// first -1 and one build key per entry, at random addresses: at n = nb
+// with unique build keys that is about 3 random reads a row. On an H100 a
+// random read of 32 bytes takes as long as one of 64 (the memory fetches
+// at least 64 bytes for it), so the kernel is bound by the rate of random
+// reads, well above the byte bound, and more reads in flight (several rows
+// a thread) do not make it faster.
+// Design: one thread a probe row; what it can do is issue fewer and
+// earlier requests:
+//   - the address of the row's next candidate entry depends on its bucket
+//     id alone, so its load goes out beside the build key of the current
+//     entry: one round trip an entry, not two, and no sector is read that
+//     a walk to the first -1 does not read;
 //   - where the key is one int64 column on both sides (its (lo, hi) words
 //     4 bytes apart, stride 2, 8-byte aligned; the wrapper decides from the
-//     pointers and strides and passes a flag), the key is one 8-byte load
-//     on each side. Any other layout (a validity word, several columns)
-//     compares word by word, stopping at the first word that differs.
+//     pointers and strides and passes a flag, checked here), the key is one
+//     8-byte load a side. Any other layout (a validity word, several
+//     columns) compares word by word, stopping at the first that differs.
+//     Either way the probe row's first word (or key) is loaded once.
 // Bit e of a row's mask is set when every key word of build row
-// table[e][b] equals the probe row's; entries fill from 0, so a walk stops
-// at the first -1, and a row >= bcap is skipped. The word streams come as
-// pointers and element strides, as in row_hash, so an int64 key's words
-// are read in place. Any number of words: a key of more than kChunk words
-// runs over chunks of kChunk word pairs, one launch each; a later chunk
-// walks only the bits the earlier ones left set (read back from the mask),
-// so the result is the AND over all words.
+// table[e][b] equals the probe row's; a row >= bcap is skipped. The word
+// streams come as pointers and element strides, as in row_hash, so an
+// int64 key's words are read in place. Any number of words: a key of more
+// than kChunk words runs over chunks of kChunk word pairs, one launch
+// each; a later chunk walks only the bits the earlier ones left set (read
+// back from the mask), so the result is the AND over all words.
 
 #include <cstdint>
 
@@ -66,7 +64,6 @@ namespace {
 
 constexpr int kChunk = 16;
 constexpr int kThreads = 256;
-constexpr int kRows = 4;  // probe rows a thread keeps in flight
 constexpr long long kMaxBlocks = 132 * 16;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 
@@ -78,14 +75,14 @@ struct WordPairs {
   int count;
 };
 
-long long grid_for(long long n, long long per_block) {
-  long long blocks = (n + per_block - 1) / per_block;
+long long grid_for(long long n) {
+  long long blocks = (n + kThreads - 1) / kThreads;
   return blocks > kMaxBlocks ? kMaxBlocks : blocks;
 }
 
 // The key of bucket_probe, by word layout: `probe` / `build` load word 0
 // (the whole key for Int64Key) of a probe row / a build row, and
-// `words(w)` counts the words; AnyWords' `word` loads the later ones.
+// `words(w)` counts the words.
 struct Int64Key {
   using K = unsigned long long;
   __device__ static K probe(const WordPairs& w, long long i) {
@@ -153,77 +150,35 @@ bucket_probe_kernel(const int32_t* __restrict__ pbids, long long pcap,
                     int32_t* mask) {
   using K = typename Key::K;
   const uint32_t all = (1u << width) - 1u;
-  const long long span = static_cast<long long>(kThreads) * kRows;
-  for (long long base = blockIdx.x * span; base < pcap;
-       base += static_cast<long long>(gridDim.x) * span) {
-    long long i[kRows];
-    int32_t b[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      i[r] = base + r * kThreads + threadIdx.x;
-      b[r] = i[r] < pcap ? pbids[i[r]] : -1;
-    }
-    uint32_t cand[kRows], m[kRows];
-    K key[kRows];
-    int e[kRows];     // the entry under test, -1 when the walk is over
-    int32_t cur[kRows];   // its build row
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      cand[r] = b[r] < 0 || b[r] >= nb ? 0u
-                : first               ? all
-                                      : static_cast<uint32_t>(mask[i[r]]);
-      key[r] = cand[r] ? Key::probe(words, i[r]) : K(0);
-      e[r] = cand[r] ? __ffs(cand[r]) - 1 : -1;
-      cur[r] = e[r] >= 0 ? __ldg(table + e[r] * nb + b[r]) : -1;
-      m[r] = 0;
-    }
-    for (;;) {
-      bool live[kRows];
-      int next[kRows];
-      int32_t ahead[kRows];
-      K bkey[kRows];
-      bool any = false;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        live[r] = e[r] >= 0 && cur[r] >= 0;
-        any |= live[r];
-        const uint32_t rest = live[r] ? cand[r] & ~((2u << e[r]) - 1u) : 0u;
-        next[r] = rest ? __ffs(rest) - 1 : -1;
-        ahead[r] = next[r] >= 0 ? __ldg(table + next[r] * nb + b[r]) : -1;
-        bkey[r] = live[r] && cur[r] < bcap ? Key::build(words, cur[r])
-                                           : ~key[r];
-      }
-      if (!any) break;
-      bool eq[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        eq[r] = live[r] && bkey[r] == key[r];
-      }
-      // later words: each row's pair loaded while it still matches, the
-      // rows' loads in flight together
-      for (int j = 1; j < Key::words(words); ++j) {
-        uint32_t pv[kRows], bv[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          pv[r] = eq[r] ? __ldg(words.probe[j] + i[r] * words.probe_stride[j])
-                        : 0u;
-          bv[r] = eq[r] ? __ldg(words.build[j] + cur[r] * words.build_stride[j])
-                        : 0u;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < pcap; i += step) {
+    const int32_t b = pbids[i];
+    const uint32_t cand = b < 0 || b >= nb ? 0u
+                          : first          ? all
+                                           : static_cast<uint32_t>(mask[i]);
+    const K key = cand ? Key::probe(words, i) : K(0);
+    int e = cand ? __ffs(cand) - 1 : -1;  // the entry under test
+    int32_t cur = e >= 0 ? __ldg(table + e * nb + b) : -1;  // its build row
+    uint32_t m = 0;
+    while (e >= 0 && cur >= 0) {
+      // the next candidate entry's load goes out beside this entry's key
+      const uint32_t rest = cand & ~((2u << e) - 1u);
+      const int next = rest ? __ffs(rest) - 1 : -1;
+      const int32_t ahead = next >= 0 ? __ldg(table + next * nb + b) : -1;
+      if (cur < bcap) {
+        bool eq = Key::build(words, cur) == key;
+        for (int j = 1; j < Key::words(words) && eq; ++j) {
+          eq = __ldg(words.probe[j] + i * words.probe_stride[j]) ==
+               __ldg(words.build[j] + cur * words.build_stride[j]);
         }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) eq[r] = eq[r] && pv[r] == bv[r];
+        if (eq) m |= 1u << e;
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (eq[r]) m[r] |= 1u << e[r];
-        e[r] = next[r];
-        cur[r] = ahead[r];
-      }
+      e = next;
+      cur = ahead;
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i[r] < pcap) mask[i[r]] = static_cast<int32_t>(m[r]);
-    }
+    mask[i] = static_cast<int32_t>(m);
   }
 }
 
@@ -243,7 +198,7 @@ extern "C" int cylon_bucket_build(const void* bids, long long cap,
   err = cudaMemsetAsync(overflow, 0, sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cap == 0) return 0;
-  bucket_build_kernel<<<static_cast<unsigned>(grid_for(cap, kThreads)),
+  bucket_build_kernel<<<static_cast<unsigned>(grid_for(cap)),
                         kThreads, 0,
                         s>>>(static_cast<const int32_t*>(bids), cap, nb,
                              width, static_cast<uint32_t*>(table),
@@ -276,7 +231,7 @@ extern "C" int cylon_bucket_probe(const void* pbids, long long pcap,
   }
   if (pcap == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto grid = static_cast<unsigned>(grid_for(pcap, kThreads * kRows));
+  const auto grid = static_cast<unsigned>(grid_for(pcap));
   for (int c = 0; c < nwords; c += kChunk) {
     WordPairs words;
     words.count = nwords - c < kChunk ? nwords - c : kChunk;

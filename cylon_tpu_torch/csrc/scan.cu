@@ -9,33 +9,8 @@
 // once and write its output once: 8 bytes per element for scan32, 16 for a
 // pair. It does one operation per element, nothing next to the memory.
 //
-// Two designs. Every combine in both keeps operand order (earlier elements
-// on the left), so the float max, which is not commutative in the sign of
-// zero or the payload of NaN, gives exactly the sequential result.
-//
-// Single pass, decoupled look-back (Merrill and Garland, "Single-pass
-// Parallel Prefix Scan with Decoupled Look-back", 2016), for the kinds that
-// are exactly associative: int32/uint32 add (it wraps modulo 2^32) and the
-// three max kinds. MaxF32's rule -- the first NaN, else the later of equal
-// values -- selects the same element under any grouping. Tiles are 256
-// threads x 16 elements (4096). A block takes its tile id from an atomic
-// counter, so every lower id belongs to a block that is already running;
-// it loads the tile with coalesced 16-byte loads into shared memory
-// (swizzled, so that neither the striped writes nor each thread's reads of
-// its 16 contiguous elements conflict on banks), scans it as the three-pass
-// kernel does, and publishes its aggregate, then its inclusive prefix, as
-// one 64-bit status word (a 2-bit flag over the 32-bit value), stored with
-// release and loaded with acquire semantics. Warp 0 looks back over 32
-// predecessors' status words at a time; a __ballot_sync finds the nearest
-// inclusive prefix, and the aggregates up to it fold into the tile's
-// exclusive prefix, while the other warps write their tile-local results to
-// shared memory. The prefix goes in front of each element as the tile is
-// stored. Traffic is 1 read and 1 write of the data, as the bound counts;
-// the scratch (one status word per tile and the counter) is zeroed by one
-// cudaMemsetAsync before the kernel.
-//
-// Three passes, for float32 add and for pair_max_scan, over tiles of 256
-// threads x 8 elements (2048 per tile):
+// Design: simple and right, three passes over tiles of 256 threads x 8
+// elements (2048 per tile):
 //   1. tile_reduce: each block reduces its tile to one total;
 //   2. carry_scan: one block scans the tile totals, in place, into
 //      exclusive carries;
@@ -43,21 +18,23 @@
 //      thread's 8 contiguous elements, __shfl_up_sync warp scans of the
 //      thread totals, a shared-memory pass over the warp totals -- and
 //      puts its carry in front.
-// Float addition is not associative, and a look-back groups the tile
-// aggregates differently from run to run; the fixed tiling here gives the
-// same bits on every call. A pair's 64-bit value leaves no room for a flag
-// in a 64-bit status word. Traffic is 2 reads and 1 write.
+// Traffic is 2 reads and 1 write of the input size, against the bound's
+// 1 and 1; a single-pass decoupled look-back scan would close that gap.
+// Tiles go through shared memory so that global loads and stores stay
+// coalesced while each thread owns 8 CONTIGUOUS elements. Every combine
+// keeps operand order (earlier elements on the left), so the float max,
+// which is not commutative in the sign of zero or the payload of NaN,
+// gives exactly the sequential result.
 //
-// int32 add is done in uint32_t: signed overflow is undefined in C++.
-// float32 max propagates NaN, as jnp.maximum does; fmaxf would drop it. A
-// pair is packed into one unsigned 64-bit value, hi in the top half, so the
-// unsigned max is the lexicographic max; the identity is 0, so positions
-// before any nonzero pair read (0, 0).
+// int32 add wraps modulo 2^32 (it is done in uint32_t: signed overflow is
+// undefined in C++). float32 max propagates NaN, as jnp.maximum does;
+// fmaxf would drop it. A pair is packed into one unsigned 64-bit value, hi
+// in the top half, so the unsigned max is the lexicographic max; the
+// identity is 0, so positions before any nonzero pair read (0, 0).
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <cstring>
 
 #include <cuda_runtime.h>
 
@@ -69,14 +46,6 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kSmem = kTile + kTile / 32;  // one pad slot per 32: no bank conflicts
 constexpr int kCarryThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
-
-// the single-pass scan: its tile, and its status flags (bits 32-33)
-constexpr int kLbItems = 16;
-constexpr int kLbTile = kThreads * kLbItems;
-constexpr int kLbUnits = kLbTile / 4;  // 16-byte units of a tile
-constexpr int kLbVecs = kLbItems / 4;  // 16-byte units of a thread
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
 
 struct AddU32 {
   using T = uint32_t;
@@ -273,238 +242,11 @@ tile_scan(IO io, long long n, const typename Op::T* carries) {
   store_tile<Op>(io, base, n, smem, v);
 }
 
-// ---------------------------------------------- single pass, look-back
-
-template <class T>
-__device__ __forceinline__ uint32_t bits_of(T v) {
-  static_assert(sizeof(T) == 4, "32-bit values only");
-  uint32_t b;
-  memcpy(&b, &v, 4);
-  return b;
-}
-
-template <class T>
-__device__ __forceinline__ T of_bits(uint32_t b) {
-  T v;
-  memcpy(&v, &b, 4);
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// The shared-memory slot of 16-byte unit u: XOR-swizzled, so that 8
-// threads writing consecutive units and 8 threads reading units 4 apart
-// both hit 8 different groups of 4 banks.
-__device__ __forceinline__ int swz(int u) { return u ^ ((u >> 3) & 7); }
-
-// Coalesced loads of the tile into shared memory; past n the identity
-// fills in. kVec: 16-byte loads (x 16-byte aligned), else 4-byte loads.
-template <class Op, bool kVec>
-__device__ void lb_load(const typename Op::T* __restrict__ in,
-                        long long base, long long n, typename Op::T* smem) {
-  using T = typename Op::T;
-  if constexpr (kVec) {
-    for (int k = 0; k < kLbUnits / kThreads; ++k) {
-      const int u = k * kThreads + threadIdx.x;
-      const long long i = base + 4 * u;
-      uint4 q;
-      if (i + 3 < n) {
-        q = *reinterpret_cast<const uint4*>(in + i);
-      } else {
-        T w[4];
-        for (int c = 0; c < 4; ++c) w[c] = i + c < n ? in[i + c] : Op::id();
-        memcpy(&q, w, 16);
-      }
-      reinterpret_cast<uint4*>(smem)[swz(u)] = q;
-    }
-  } else {
-    for (int k = 0; k < kLbItems; ++k) {
-      const int j = k * kThreads + threadIdx.x;
-      const long long i = base + j;
-      smem[4 * swz(j >> 2) + (j & 3)] = i < n ? in[i] : Op::id();
-    }
-  }
-}
-
-// The tile from shared memory to the output, the prefix in front.
-template <class Op, bool kVec>
-__device__ void lb_store(typename Op::T* __restrict__ out, long long base,
-                         long long n, const typename Op::T* smem,
-                         bool has_prefix, typename Op::T prefix) {
-  using T = typename Op::T;
-  if constexpr (kVec) {
-    for (int k = 0; k < kLbUnits / kThreads; ++k) {
-      const int u = k * kThreads + threadIdx.x;
-      const long long i = base + 4 * u;
-      const uint4 q = reinterpret_cast<const uint4*>(smem)[swz(u)];
-      T w[4];
-      memcpy(w, &q, 16);
-      if (has_prefix) {
-        for (int c = 0; c < 4; ++c) w[c] = Op::op(prefix, w[c]);
-      }
-      if (i + 3 < n) {
-        uint4 r;
-        memcpy(&r, w, 16);
-        *reinterpret_cast<uint4*>(out + i) = r;
-      } else {
-        for (int c = 0; c < 4; ++c) {
-          if (i + c < n) out[i + c] = w[c];
-        }
-      }
-    }
-  } else {
-    for (int k = 0; k < kLbItems; ++k) {
-      const int j = k * kThreads + threadIdx.x;
-      const long long i = base + j;
-      if (i < n) {
-        const T w = smem[4 * swz(j >> 2) + (j & 3)];
-        out[i] = has_prefix ? Op::op(prefix, w) : w;
-      }
-    }
-  }
-}
-
-// Warp 0: the exclusive prefix of tile `tile` (> 0) from its
-// predecessors' status words, nearest in lane 0. Waits until each of the
-// 32 in the window has published, folds the values up to the nearest
-// inclusive prefix (the farther tile on the left), and steps 32 tiles back
-// while there is none. Tile 0 always publishes a prefix.
-template <class Op>
-__device__ typename Op::T look_back(const unsigned long long* status,
-                                    long long tile) {
-  using T = typename Op::T;
-  const int lane = threadIdx.x & 31;
-  T acc = Op::id();
-  bool started = false;
-  for (long long end = tile - 1;; end -= 32) {
-    const long long idx = end - lane;
-    unsigned long long s;
-    do {
-      s = idx >= 0 ? load_acquire(status + idx)
-                   : kPrefix | bits_of(Op::id());
-    } while (!__all_sync(kFull, (s >> 32) != 0));
-    const unsigned prefixes = __ballot_sync(kFull, (s >> 32) == 2);
-    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-    T v = lane <= stop ? of_bits<T>(static_cast<uint32_t>(s)) : Op::id();
-    for (int d = 1; d < 32; d <<= 1) {
-      const T up = __shfl_down_sync(kFull, v, d);
-      if (lane + d < 32) v = Op::op(up, v);
-    }
-    v = __shfl_sync(kFull, v, 0);
-    acc = started ? Op::op(v, acc) : v;
-    started = true;
-    if (prefixes) return acc;
-  }
-}
-
-template <class Op, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-lookback_scan(const typename Op::T* __restrict__ in,
-              typename Op::T* __restrict__ out, long long n,
-              unsigned long long* status, unsigned* counter) {
-  using T = typename Op::T;
-  __shared__ __align__(16) T smem[kLbTile];
-  __shared__ T wbuf[33];
-  __shared__ unsigned tile_s;
-  __shared__ T prefix_s;
-  if (threadIdx.x == 0) tile_s = atomicAdd(counter, 1u);
-  __syncthreads();
-  const unsigned tile = tile_s;
-  const long long base = static_cast<long long>(tile) * kLbTile;
-  lb_load<Op, kVec>(in, base, n, smem);
-  __syncthreads();
-  T v[kLbItems];
-  for (int q = 0; q < kLbVecs; ++q) {
-    const uint4 u =
-        reinterpret_cast<const uint4*>(smem)[swz(kLbVecs * threadIdx.x + q)];
-    memcpy(v + 4 * q, &u, 16);
-  }
-  for (int k = 1; k < kLbItems; ++k) v[k] = Op::op(v[k - 1], v[k]);
-  T total;
-  // its barriers also end every thread's reads of smem above
-  const T ex = block_exclusive<Op>(v[kLbItems - 1], wbuf, total);
-  if (threadIdx.x == 0) {
-    store_release(status + tile,
-                  (tile == 0 ? kPrefix : kAggregate) | bits_of(total));
-  }
-  for (int k = 0; k < kLbItems; ++k) v[k] = Op::op(ex, v[k]);
-  if (tile > 0 && threadIdx.x < 32) {
-    const T p = look_back<Op>(status, tile);
-    if (threadIdx.x == 0) {
-      prefix_s = p;
-      store_release(status + tile, kPrefix | bits_of(Op::op(p, total)));
-    }
-  }
-  for (int q = 0; q < kLbVecs; ++q) {
-    uint4 u;
-    memcpy(&u, v + 4 * q, 16);
-    reinterpret_cast<uint4*>(smem)[swz(kLbVecs * threadIdx.x + q)] = u;
-  }
-  __syncthreads();
-  lb_store<Op, kVec>(out, base, n, smem, tile > 0, prefix_s);
-}
-
-// Scratch: ntiles status words, then the tile counter.
-long long lookback_scratch(long long n) {
-  return 8 * ((n + kLbTile - 1) / kLbTile) + 4;
-}
-
-template <class Op>
-int run_lookback(const void* x, void* y, long long n, void* scratch,
-                 long long scratch_bytes, void* stream) {
-  using T = typename Op::T;
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  if (scratch_bytes < lookback_scratch(n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long ntiles = (n + kLbTile - 1) / kLbTile;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, lookback_scratch(n), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto* status = static_cast<unsigned long long*>(scratch);
-  auto* counter = reinterpret_cast<unsigned*>(status + ntiles);
-  const T* in = static_cast<const T*>(x);
-  T* out = static_cast<T*>(y);
-  const bool vec = (reinterpret_cast<uintptr_t>(x) |
-                    reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  if (vec) {
-    lookback_scan<Op, true><<<static_cast<unsigned>(ntiles), kThreads, 0,
-                              s>>>(in, out, n, status, counter);
-  } else {
-    lookback_scan<Op, false><<<static_cast<unsigned>(ntiles), kThreads, 0,
-                               s>>>(in, out, n, status, counter);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------- three passes
-
-long long three_pass_scratch(long long n) {
-  return 8 * ((n + kTile - 1) / kTile);
-}
-
 template <class Op, class IO>
-int run_scan(const IO& io, long long n, void* scratch,
-             long long scratch_bytes, void* stream) {
+int run_scan(const IO& io, long long n, void* scratch, void* stream) {
   using T = typename Op::T;
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  if (scratch_bytes < three_pass_scratch(n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ntiles = (n + kTile - 1) / kTile;
   T* carries = nullptr;
@@ -519,40 +261,36 @@ int run_scan(const IO& io, long long n, void* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Op>
+int run_flat(const void* x, void* y, long long n, void* scratch,
+             void* stream) {
+  FlatIO<Op> io{static_cast<const typename Op::T*>(x),
+                static_cast<typename Op::T*>(y)};
+  return run_scan<Op>(io, n, scratch, stream);
+}
+
 }  // namespace
 
-// kind: 0 add, 1 max. dtype: 0 int32, 1 uint32, 2 float32. scratch:
-// scratch_bytes of device memory, as kernels/scan.py sizes it -- 8 bytes
-// per 4096-element tile plus 4 on the single-pass path, 8 bytes per
-// 2048-element tile for float32 add.
+// Elements per tile: the wrapper sizes the scratch as 8 bytes per tile.
+extern "C" int cylon_scan_tile() { return kTile; }
+
+// kind: 0 add, 1 max. dtype: 0 int32, 1 uint32, 2 float32.
 extern "C" int cylon_scan32(const void* x, void* y, long long n, int kind,
-                            int dtype, void* scratch, long long scratch_bytes,
-                            void* stream) {
+                            int dtype, void* scratch, void* stream) {
   if (kind == 0 && (dtype == 0 || dtype == 1)) {
-    return run_lookback<AddU32>(x, y, n, scratch, scratch_bytes, stream);
+    return run_flat<AddU32>(x, y, n, scratch, stream);
   }
-  if (kind == 0 && dtype == 2) {
-    FlatIO<AddF32> io{static_cast<const float*>(x), static_cast<float*>(y)};
-    return run_scan<AddF32>(io, n, scratch, scratch_bytes, stream);
-  }
-  if (kind == 1 && dtype == 0) {
-    return run_lookback<MaxI32>(x, y, n, scratch, scratch_bytes, stream);
-  }
-  if (kind == 1 && dtype == 1) {
-    return run_lookback<MaxU32>(x, y, n, scratch, scratch_bytes, stream);
-  }
-  if (kind == 1 && dtype == 2) {
-    return run_lookback<MaxF32>(x, y, n, scratch, scratch_bytes, stream);
-  }
+  if (kind == 0 && dtype == 2) return run_flat<AddF32>(x, y, n, scratch, stream);
+  if (kind == 1 && dtype == 0) return run_flat<MaxI32>(x, y, n, scratch, stream);
+  if (kind == 1 && dtype == 1) return run_flat<MaxU32>(x, y, n, scratch, stream);
+  if (kind == 1 && dtype == 2) return run_flat<MaxF32>(x, y, n, scratch, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// scratch: 8 bytes per 2048-element tile.
 extern "C" int cylon_pair_max_scan(const void* hi, const void* lo,
                                    void* out_hi, void* out_lo, long long n,
-                                   void* scratch, long long scratch_bytes,
-                                   void* stream) {
+                                   void* scratch, void* stream) {
   PairIO io{static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
             static_cast<uint32_t*>(out_hi), static_cast<uint32_t*>(out_lo)};
-  return run_scan<MaxU64>(io, n, scratch, scratch_bytes, stream);
+  return run_scan<MaxU64>(io, n, scratch, stream);
 }

@@ -31,10 +31,11 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "cylon_row_hash": ([_P, _P, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_uint, ctypes.c_uint, _P, _P], ctypes.c_int),
+    "cylon_scan_tile": ([], ctypes.c_int),
     "cylon_scan32": ([_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      _P, ctypes.c_longlong, _P], ctypes.c_int),
-    "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P,
-                             ctypes.c_longlong, _P], ctypes.c_int),
+                      _P, _P], ctypes.c_int),
+    "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P, _P],
+                            ctypes.c_int),
     "cylon_bucket_build": ([_P, ctypes.c_longlong, ctypes.c_longlong,
                             ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "cylon_bucket_probe": ([_P, ctypes.c_longlong, _P, _P, _P, _P,

@@ -5,9 +5,7 @@ Kernel source: ``cylon_tpu_torch/csrc/scan.cu``. It replaces the Pallas
 kernels ``scan32`` (``_scan_kernel`` / ``_scan32_impl``) and
 ``pair_max_scan`` (``_pair_max_kernel`` / ``_pair_max_impl``) of
 ``cylon_tpu/ops/pallas_kernels.py``, with the same gate
-(:func:`scan32_ok`). ``scan32`` runs a single-pass decoupled look-back
-scan, except float32 add, which keeps the three-pass scan of
-``pair_max_scan`` (:func:`single_pass`).
+(:func:`scan32_ok`).
 """
 
 import torch
@@ -17,10 +15,6 @@ from cylon_tpu_torch.kernels import build
 #: below this many elements the callers keep torch.cumsum / torch.cummax,
 #: as the JAX package keeps jnp.cumsum / lax.cummax below its gate
 SCAN_MIN_SIZE = 4096
-
-#: elements per tile of the single-pass and the three-pass scan (scan.cu)
-LOOKBACK_TILE = 4096
-THREE_PASS_TILE = 2048
 
 _KINDS = {"add": 0, "max": 1}
 _DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
@@ -53,25 +47,9 @@ def scan32_plain(x: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.cummax(x, 0).values
 
 
-def single_pass(kind: str, dtype: torch.dtype) -> bool:
-    """Does scan32 of this kind and dtype take the single-pass look-back
-    scan? Every kind but float32 add, whose sum would change its bits
-    with the grouping of the tile aggregates; that one, and
-    pair_max_scan, take the three-pass scan."""
-    return not (kind == "add" and dtype == torch.float32)
-
-
-def scratch_bytes(n: int, single: bool) -> int:
-    """Device scratch of a scan over n elements, as scan.cu checks it:
-    one 8-byte status word per tile of 4096 plus the 4-byte tile counter
-    (single pass), or one 8-byte carry per tile of 2048 (three passes)."""
-    if single:
-        return 8 * -(-n // LOOKBACK_TILE) + 4
-    return 8 * -(-n // THREE_PASS_TILE)
-
-
-def _scratch(n: int, single: bool, device) -> torch.Tensor:
-    return torch.empty(-(-scratch_bytes(n, single) // 4), dtype=torch.int32,
+def _scratch(lib, n: int, device) -> torch.Tensor:
+    """One 8-byte carry per kernel tile (``kTile`` elements in scan.cu)."""
+    return torch.empty(2 * -(-n // lib.cylon_scan_tile()), dtype=torch.int32,
                        device=device)
 
 
@@ -101,11 +79,11 @@ def scan32(x: torch.Tensor, kind: str) -> torch.Tensor:
     n = x.shape[0]
     if n == 0:
         return out
-    single = single_pass(kind, x.dtype)
-    err = build.library().cylon_scan32(
-        x.data_ptr(), out.data_ptr(), n, _KINDS[kind], _DTYPES[x.dtype],
-        _scratch(n, single, x.device).data_ptr(), scratch_bytes(n, single),
-        build.stream_of(x))
+    lib = build.library()
+    err = lib.cylon_scan32(x.data_ptr(), out.data_ptr(), n, _KINDS[kind],
+                           _DTYPES[x.dtype],
+                           _scratch(lib, n, x.device).data_ptr(),
+                           build.stream_of(x))
     build.check(err, "scan32")
     scan32.launches += 1
     return out
@@ -139,10 +117,11 @@ def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
     n = hi.shape[0]
     if n == 0:
         return out_hi, out_lo
-    err = build.library().cylon_pair_max_scan(
-        hi.data_ptr(), lo.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(),
-        n, _scratch(n, False, hi.device).data_ptr(), scratch_bytes(n, False),
-        build.stream_of(hi))
+    lib = build.library()
+    err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
+                                  out_hi.data_ptr(), out_lo.data_ptr(), n,
+                                  _scratch(lib, n, hi.device).data_ptr(),
+                                  build.stream_of(hi))
     build.check(err, "pair_max_scan")
     pair_max_scan.launches += 1
     return out_hi, out_lo

@@ -167,29 +167,6 @@ def test_scan_gate_keeps_torch_below_min_size(monkeypatch):
     assert pk.SCAN_MIN_SIZE == tscan.SCAN_MIN_SIZE
 
 
-@pytest.mark.parametrize("kind,dtype,single", [
-    ("add", torch.int32, True), ("add", torch.uint32, True),
-    ("add", torch.float32, False), ("max", torch.int32, True),
-    ("max", torch.uint32, True), ("max", torch.float32, True)])
-def test_scan32_route(kind, dtype, single):
-    """Every kind that is exactly associative takes the single-pass
-    look-back scan; float32 add keeps the three passes, whose fixed tiling
-    gives the same bits on every call."""
-    assert tscan.single_pass(kind, dtype) is single
-
-
-# n: (single-pass bytes: 8 per 4096-element tile + the 4-byte counter,
-#     three-pass bytes: 8 per 2048-element tile)
-@pytest.mark.parametrize("n,single_bytes,three_bytes", [
-    (1, 12, 8), (4096, 12, 16), (4097, 20, 24), (32 << 20, 65540, 131072)])
-def test_scan_scratch_bytes(n, single_bytes, three_bytes):
-    assert tscan.scratch_bytes(n, True) == single_bytes
-    assert tscan.scratch_bytes(n, False) == three_bytes
-    for single, nbytes in ((True, single_bytes), (False, three_bytes)):
-        s = tscan._scratch(n, single, "cpu")
-        assert s.dtype == torch.int32 and 4 * s.numel() >= nbytes
-
-
 def _int64_halves(t: torch.Tensor):
     pair = t.view(torch.int32).view(-1, 2)
     return [pair[:, 0], pair[:, 1]]
