@@ -19,7 +19,10 @@
 //      thread totals, a shared-memory pass over the warp totals -- and
 //      puts its carry in front.
 // Traffic is 2 reads and 1 write of the input size, against the bound's
-// 1 and 1; a single-pass decoupled look-back scan would close that gap.
+// 1 and 1. A single-pass decoupled look-back scan moves 1 and 1, but on an
+// H100 it lost to this design at 4M and 2M elements: the input of such a
+// scan sits in L2, so the second read is cheap, while a tile's wait for
+// its predecessors' prefixes cost more (PERF.md).
 // Tiles go through shared memory so that global loads and stores stay
 // coalesced while each thread owns 8 CONTIGUOUS elements. Every combine
 // keeps operand order (earlier elements on the left), so the float max,
