@@ -16,7 +16,12 @@ Phases, each printing one JSON line:
    against a second call; ``bucket_probe`` on an int64 key, which takes
    its one-load path, and on a nullable int64 key and two int32 columns,
    which compare word by word; the bucket kernels also on an overflowing
-   and an all-duplicate build); the time per call of the kernel, the plain
+   and an all-duplicate build; ``bucket_build`` also at widths 1 and 30,
+   below one tile, at nb = 4 cap, with ids past nb, on no rows, on a
+   ragged last chunk, on the global-counter path (nb 64M) and with one
+   bucket holding 1 % of 16M rows, each build also against a second call,
+   the 16M builds with their device time by pass and peak memory); the
+   time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
    from torch.profiler, beside the memory bound; then the whole join on
@@ -137,13 +142,21 @@ def trace(torch, fn, reps: int = 1):
     raise SystemExit("profile: the trace holds no device time")
 
 
-def device_ms(torch, fn, reps: int = REPS) -> float:
-    """Device time per call of ``fn`` from torch.profiler: the summed
-    durations of everything its calls ran on the card, over the count --
-    the host's share of a call left out."""
+def device_ms_by_kernel(torch, fn, reps: int = REPS) -> dict:
+    """Device time per call of ``fn`` from torch.profiler, by the name of
+    what its calls ran on the card (kernels, copies, sets)."""
     fn()
     spans, _ = trace(torch, fn, reps)
-    return sum(e - s for s, e, _ in spans) / reps / 1e3
+    by = {}
+    for s, e, name in spans:
+        by[name] = by.get(name, 0.0) + (e - s) / reps / 1e3
+    return by
+
+
+def device_ms(torch, fn, reps: int = REPS) -> float:
+    """Device time per call of ``fn``: the summed durations of everything
+    its calls ran on the card -- the host's share of a call left out."""
+    return sum(device_ms_by_kernel(torch, fn, reps).values())
 
 
 def compare(torch, a, b):
@@ -315,13 +328,36 @@ def bucket_kernel_phase(torch, rate, stats):
         return torch.where(torch.arange(h.shape[0], device="cuda") < valid,
                            h & (nb - 1), -1)
 
+    def repeat_mismatches(bids, nb, w, first):
+        """A second call on the same input must give the same bits."""
+        first = (first[0].clone(), first[1].clone())
+        return compare(torch, first, bucket_build(bids, nb, w))[0]
+
+    def build_passes(bids, nb, w):
+        """The build's device time by pass, and its peak device memory
+        over the memory it started with: the table, the count matrices
+        and one staging buffer (the coarse pass stages in the table)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t, _ = bucket_build(bids, nb, w)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        table_bytes = t.numel() * 4
+        del t
+        by = device_ms_by_kernel(torch, lambda: bucket_build(bids, nb, w))
+        return {"passes_device_ms": {k[:60]: v for k, v in by.items()},
+                "peak_bytes": peak, "peak_bytes_over_table":
+                peak - table_bytes}
+
     def check(name, n, got, want, nbytes, kern, plain, extra):
         bad, err = compare(torch, got, want)
+        bad += extra.get("repeat_mismatches", 0)
         torch.cuda.synchronize()
         row = {"phase": "kernel", "name": name, "n": n, "mismatches": bad,
                "max_abs_err": err, "tolerance": 0,
                "bound_us": nbytes / rate * 1e6, **extra}
-        if n == DIST_ROWS:
+        if n == DIST_ROWS and kern is not None:
             for label, fn in (("kernel", kern), ("plain", plain)):
                 row[f"{label}_ms"] = time_ms(torch, fn)
                 row[f"{label}_device_ms"] = device_ms(torch, fn)
@@ -344,11 +380,16 @@ def bucket_kernel_phase(torch, rate, stats):
         want_t, want_o = bucket_build.plain(bids, nb, width)
         if int(want_o):
             raise SystemExit(f"bucket_build at n={n}: unique keys overflowed")
+        extra = {"overflow": int(ovf),
+                 "repeat_mismatches": repeat_mismatches(bids, nb, width,
+                                                        (table, ovf))}
+        if n == DIST_ROWS:
+            extra.update(build_passes(bids, nb, width))
+            main_bids = bids
         check("bucket_build", n, (table, ovf), (want_t, want_o),
               4 * n + 4 * width * nb,
               lambda: bucket_build(bids, nb, width),
-              lambda: bucket_build.plain(bids, nb, width),
-              {"overflow": int(ovf)})
+              lambda: bucket_build.plain(bids, nb, width), extra)
         # the one-load int64 path, then two layouts that compare word by
         # word: a nullable int64 key (lo, hi and the validity word, nulls
         # zeroed, eight nulls a side) and two int32 key columns
@@ -403,6 +444,49 @@ def bucket_kernel_phase(torch, rate, stats):
                                     words_of(keys))
         check(name.replace("build", "probe"), n, mask, want_m,
               4 * n * 4 + 4 * int((table >= 0).sum()) * 3, None, None, {})
+
+    # the partitioned build at the edges of its plan: one entry a bucket
+    # and thirty, fewer buckets than a tile holds, nb = 4 cap, ids >= nb
+    # among -1 rows, no rows, a ragged last chunk, more tiles than a count
+    # block's shared counters (the global-counter path), and at 16M one
+    # bucket holding 1 % of the rows (it overflows; timed)
+    n2 = (2 << 20) + 3
+
+    def ids(n, lo, hi):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device="cuda",
+                             generator=g)
+
+    hot = main_bids.clone()
+    hot[torch.rand(DIST_ROWS, device="cuda", generator=g) < 0.01] = 12345
+    build_cases = (
+        ("bucket_build/width1", ids(n2, 0, 1 << 22), 1 << 22, 1),
+        ("bucket_build/width30", ids(n2, 0, 1 << 22), 1 << 22, 30),
+        ("bucket_build/nb16", ids(4097, -1, 16), 16, width),
+        ("bucket_build/nb_4cap", ids(n2, 0, 4 * n2), 4 * n2, width),
+        ("bucket_build/ids_past_nb", ids(n2, -1, (1 << 21) + (1 << 15)),
+         1 << 21, width),
+        ("bucket_build/cap0", ids(0, 0, 1), 1024, width),
+        ("bucket_build/ragged_chunk", ids(300_001, -1, 1 << 18), 1 << 18,
+         width),
+        ("bucket_build/nb64M", ids(1 << 20, 0, 64 << 20), 64 << 20, width),
+        ("bucket_build/hot_bucket", hot, DIST_ROWS, width),
+    )
+    for name, bids, nb, w in build_cases:
+        cap = bids.shape[0]
+        got = bucket_build(bids, nb, w)
+        want = bucket_build.plain(bids, nb, w)
+        extra = {"nb": nb, "width": w, "overflow": int(got[1]),
+                 "repeat_mismatches": repeat_mismatches(bids, nb, w, got)}
+        if name.endswith("hot_bucket"):
+            if not int(want[1]) > 0:
+                raise SystemExit(f"{name}: the case does not overflow")
+            extra["kernel_ms"] = time_ms(torch, lambda: bucket_build(
+                bids, nb, w))
+            extra["kernel_device_ms"] = device_ms(
+                torch, lambda: bucket_build(bids, nb, w))
+            extra.update(build_passes(bids, nb, w))
+        check(name, cap, got, want, 4 * cap + 4 * w * nb, None, None, extra)
+        del got, want
 
 
 def nullable_words(torch, keys, valid):

@@ -13,13 +13,24 @@ b, or -1. The JAX package gates its kernels on a VMEM budget; here the
 table lives in device memory, so a CUDA tensor always takes the kernel,
 within the limits the kernels have: fewer than 2^31 rows (int32 row ids)
 and ``width <= 30`` (the probe mask's bits).
+
+The build partitions the rows by tiles of T consecutive buckets (a count,
+then two scatter levels of at most 128 digits each, each block sorting a
+batch by digit in shared memory), then one block a tile builds its
+``[width, T]`` slice of the table in shared memory and writes it out
+whole; ``bucket.cu`` says why. :func:`build_plan` picks T, the chunks and
+groups of rows the blocks take, and the scratch; the launcher computes the
+same plan and refuses any other. The scratch is one staging buffer of 8
+bytes a row and the count matrices; the first level stages in the table's
+own memory where it fits.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from cylon_tpu_torch.kernels import build
+from cylon_tpu_torch.kernels import build, scan
 
 MAX_WIDTH = 30
 MAX_ROWS = 2 ** 31 - 1
@@ -71,6 +82,74 @@ def _cuda(x: torch.Tensor, name: str) -> None:
 
 # ------------------------------------------------------------- build
 
+#: shared memory of one tile's table, and of a chunk's tile counters
+TILE_BYTES = 64 * 1024
+HIST_TILES = 16 * 1024
+#: the count and coarse passes aim at two blocks an SM of an H100 (132
+#: SMs); the fine pass takes each coarse digit's rows in GROUPS parts
+TARGET_CHUNKS = 264
+MIN_CHUNK = 4096
+CHUNK_ALIGN = 1024
+GROUPS = 16
+
+
+class BuildPlan(NamedTuple):
+    """How ``bucket_build``'s kernel cuts a build (``plan_of`` in
+    ``bucket.cu`` computes the same)."""
+    tile: int          # T buckets a tile, a power of two <= nb
+    tiles: int         # ceil(nb / T)
+    chunk: int         # rows a count (and coarse scatter) block takes
+    chunks: int
+    shared_hist: bool  # two-level partition; else global tile counters
+    fine_bits: int     # F = 2 ** fine_bits tiles a coarse digit
+    coarse: int        # P = ceil(tiles / F) coarse digits
+    group_chunks: int  # chunks a fine scatter block takes
+    groups: int
+    tile_bytes: int    # shared memory of a tile build block
+    hist_bytes: int    # shared memory of a count block
+    scan_len: int      # elements of the longest scan
+    count_words: int   # uint32 scratch for the counts (and a transpose)
+    staging: int       # (row id, bucket) entries a staging buffer, even
+
+
+def build_plan(cap: int, nb: int, width: int) -> BuildPlan:
+    """The tile T is the largest power of two with T <= nb and
+    T * width * 4 <= TILE_BYTES. Chunks of at least MIN_CHUNK rows, about
+    TARGET_CHUNKS of them. Where the tiles' counters fit shared memory
+    (at most HIST_TILES tiles) the rows reach their tiles in two scatter
+    passes of at most 128 digits each: a coarse one by the top bits of the
+    tile id, into [coarse digit, chunk] runs, and a fine one that takes
+    each coarse digit's rows of a chunk group to their tiles. Else one
+    scatter through [tiles] global counters."""
+    if cap < 0 or nb < 1 or not 1 <= width <= MAX_WIDTH:
+        raise ValueError(f"build_plan: no plan for cap {cap}, nb {nb}, "
+                         f"width {width}")
+    tile = 1
+    while 2 * tile <= nb and 2 * tile * width * 4 <= TILE_BYTES:
+        tile *= 2
+    tiles = -(-nb // tile)
+    chunk = max(-(-cap // TARGET_CHUNKS), MIN_CHUNK)
+    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    chunks = -(-cap // chunk) if cap else 1
+    shared = tiles <= HIST_TILES
+    fine_bits = ((tiles - 1).bit_length() + 1) // 2
+    coarse = -(-tiles >> fine_bits)
+    group_chunks = -(-chunks // GROUPS)
+    groups = -(-chunks // group_chunks)
+    if shared:
+        scan_len = max(coarse * chunks, tiles * groups)
+        count_words = coarse * chunks + 2 * tiles * groups
+    else:
+        scan_len, count_words = tiles, 2 * tiles
+    return BuildPlan(
+        tile=tile, tiles=tiles, chunk=chunk, chunks=chunks,
+        shared_hist=shared, fine_bits=fine_bits, coarse=coarse,
+        group_chunks=group_chunks, groups=groups,
+        tile_bytes=4 * width * tile, hist_bytes=4 * tiles if shared else 0,
+        scan_len=scan_len, count_words=count_words,
+        staging=max(cap + cap % 2, 2))
+
+
 def bucket_build_plain(bids: torch.Tensor, nb: int, width: int):
     """``width`` scatter-min rounds: each round the smallest unplaced row
     of every bucket wins its entry. Row ids outside ``[-1, nb)`` stay
@@ -110,11 +189,26 @@ def bucket_build(bids: torch.Tensor, nb: int, width: int):
         return bucket_build_plain(bids, nb, width)
     _cuda(bids, "bucket_build")
     bids = bids.contiguous()
-    table = torch.empty((width, nb), dtype=torch.int32, device=bids.device)
-    overflow = torch.empty((), dtype=torch.int32, device=bids.device)
-    err = build.library().cylon_bucket_build(
-        bids.data_ptr(), bids.shape[0], nb, width, table.data_ptr(),
-        overflow.data_ptr(), build.stream_of(bids))
+    dev = bids.device
+    plan = build_plan(bids.shape[0], nb, width)
+    lib = build.library()
+    table = torch.empty((width, nb), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    counts = torch.empty(plan.count_words, dtype=torch.int32, device=dev)
+    scratch = scan._scratch(lib, plan.scan_len, dev)
+    staging_b = torch.empty(2 * plan.staging, dtype=torch.int32, device=dev)
+    # the coarse pass stages in the table's memory where it fits (the tile
+    # build writes the table after the last read of it); the global-counter
+    # path has no coarse pass
+    in_table = 4 * width * nb >= 8 * plan.staging or not plan.shared_hist
+    staging_a = table if in_table else \
+        torch.empty(2 * plan.staging, dtype=torch.int32, device=dev)
+    err = lib.cylon_bucket_build(
+        bids.data_ptr(), bids.shape[0], nb, width, plan.tile, plan.chunk,
+        int(plan.shared_hist), counts.data_ptr(), plan.count_words,
+        scratch.data_ptr(), scratch.shape[0], staging_a.data_ptr(),
+        staging_a.numel() // 2, staging_b.data_ptr(), plan.staging,
+        table.data_ptr(), overflow.data_ptr(), build.stream_of(bids))
     build.check(err, "bucket_build")
     bucket_build.launches += 1
     return table, overflow

@@ -37,7 +37,11 @@ _SIGNATURES = {
     "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P, _P],
                             ctypes.c_int),
     "cylon_bucket_build": ([_P, ctypes.c_longlong, ctypes.c_longlong,
-                            ctypes.c_int, _P, _P, _P], ctypes.c_int),
+                            ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_longlong, ctypes.c_int, _P,
+                            ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                            ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                            _P, _P], ctypes.c_int),
     "cylon_bucket_probe": ([_P, ctypes.c_longlong, _P, _P, _P, _P,
                             ctypes.c_int, ctypes.c_int, _P,
                             ctypes.c_longlong, ctypes.c_int,

@@ -218,9 +218,12 @@ def test_one_int64_key_detector(name, want):
 
 
 # (cap, nb, width, bucket id range, overflows): clean builds within and
-# past one 8 x 128 Pallas tile, and an overflowing one (few buckets)
+# past one 8 x 128 Pallas tile, and an overflowing one (few buckets); one
+# entry a bucket, thirty, and nb below the tile the width allows (16
+# buckets at width 16, where 64 KB hold 1024)
 BUILD_CASES = [(700, 1024, 8, 1024, False), (1500, 2048, 16, 2048, False),
-               (900, 64, 3, 8, True)]
+               (900, 64, 3, 8, True), (800, 512, 1, 512, True),
+               (1200, 256, 30, 256, False), (300, 16, 16, 16, True)]
 
 
 @pytest.mark.parametrize("cap,nb,width,hi,overflows", BUILD_CASES)
@@ -238,6 +241,197 @@ def test_bucket_build_plain_matches_pallas(cap, nb, width, hi, overflows,
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
     assert int(got_o) == int(want_o)
     assert (int(got_o) > 0) == overflows
+
+
+@pytest.mark.parametrize("width", [1, 16, 30])
+@pytest.mark.parametrize("nb", [16, 17, 1024, 3 << 20, 64 << 20, 1 << 30])
+def test_build_plan_tiles_fit_shared_memory(nb, width):
+    """T is a power of two, at most nb, and a tile's table fits its
+    shared-memory budget; the chunks cover the rows; a shared histogram
+    only where its counters fit; scratch sized for every row."""
+    for cap in (0, 1, 4097, 16 << 20):
+        plan = tbucket.build_plan(cap, nb, width)
+        t = plan.tile
+        assert t & (t - 1) == 0 and 1 <= t <= nb
+        assert plan.tile_bytes == 4 * width * t <= tbucket.TILE_BYTES
+        # the largest such power of two
+        assert 2 * t > nb or 8 * width * t > tbucket.TILE_BYTES
+        assert plan.tiles == -(-nb // t) and (plan.tiles - 1) * t < nb
+        assert plan.chunk % tbucket.CHUNK_ALIGN == 0
+        assert plan.chunk >= tbucket.MIN_CHUNK
+        assert plan.chunks * plan.chunk >= cap > (plan.chunks - 1) * plan.chunk \
+            or cap == 0 and plan.chunks == 1
+        assert plan.chunks <= tbucket.TARGET_CHUNKS
+        assert plan.shared_hist == (plan.tiles <= tbucket.HIST_TILES)
+        if plan.shared_hist:
+            # two scatter levels of at most 128 digits each
+            fan = 1 << plan.fine_bits
+            assert plan.hist_bytes == 4 * plan.tiles <= 64 * 1024
+            assert fan <= 128 and plan.coarse <= 128
+            assert plan.coarse == -(-plan.tiles // fan)
+            assert plan.groups <= tbucket.GROUPS
+            assert (plan.groups - 1) * plan.group_chunks < plan.chunks \
+                <= plan.groups * plan.group_chunks
+            cmat, fmat = plan.coarse * plan.chunks, plan.tiles * plan.groups
+            assert plan.count_words == cmat + 2 * fmat
+            assert plan.scan_len == max(cmat, fmat)
+        else:
+            assert plan.hist_bytes == 0 and plan.scan_len == plan.tiles
+            assert plan.count_words == 2 * plan.tiles
+        assert plan.staging % 2 == 0 and plan.staging >= max(cap, 2)
+
+
+def test_build_plan_main_shape():
+    """The hash join's 16M build: 1024-bucket tiles of 64 KB, 16384
+    tiles counted in shared memory over 261 chunks."""
+    plan = tbucket.build_plan(16 << 20, 16 << 20, 16)
+    assert (plan.tile, plan.tiles, plan.chunks) == (1024, 16384, 261)
+    assert plan.shared_hist and plan.tile_bytes == 64 * 1024
+    # nb = 64M at width 16: too many tiles for shared counters
+    assert not tbucket.build_plan(1 << 20, 64 << 20, 16).shared_hist
+    with pytest.raises(ValueError):
+        tbucket.build_plan(10, 0, 4)
+
+
+_EMPTY = 0xFFFFFFFF
+
+
+def _partitioned_build(bids: np.ndarray, nb: int, width: int, seed: int):
+    """A numpy model of the CUDA build's passes, with the orders the card
+    leaves open drawn at random: the order rows take their slots in a
+    run of the staging buffers, and the order a tile's rows are carried
+    in."""
+    cap = bids.shape[0]
+    plan = tbucket.build_plan(cap, nb, width)
+    t_sz = plan.tile
+    rng = np.random.default_rng(seed)
+    over = int((bids >= nb).sum())                 # count: ids >= nb
+    rows = np.flatnonzero((bids >= 0) & (bids < nb))
+    tile_of = bids[rows] // t_sz
+    chunk_of = rows // plan.chunk
+
+    def scatter(entries, runs, starts, size):
+        """Each entry to the next free slot of its run, in any order."""
+        out = np.zeros((max(size, 1), 2), np.int64)
+        cursor = starts.copy()
+        for k in rng.permutation(len(runs)):
+            out[cursor[runs[k]]] = entries[k]
+            cursor[runs[k]] += 1
+        return out
+
+    if plan.shared_hist:
+        # count: [coarse digit, chunk] and [tile, group] counts, scanned
+        digit_of = tile_of >> plan.fine_bits
+        group_of = chunk_of // plan.group_chunks
+        coarse = np.zeros((plan.coarse, plan.chunks), np.int64)
+        np.add.at(coarse, (digit_of, chunk_of), 1)
+        fine = np.zeros((plan.tiles, plan.groups), np.int64)
+        np.add.at(fine, (tile_of, group_of), 1)
+        cends = np.cumsum(coarse.ravel())
+        ends = np.cumsum(fine.ravel())
+        # coarse scatter: (row, bucket id) into [digit, chunk] runs
+        a = scatter(np.stack([rows, bids[rows]], 1),
+                    digit_of * plan.chunks + chunk_of,
+                    cends - coarse.ravel(), rows.shape[0])
+        # fine scatter: block (digit, group) reads its runs of a
+        b_rows, b_runs = [], []
+        for d in range(plan.coarse):
+            for g in range(plan.groups):
+                j0 = g * plan.group_chunks
+                j1 = min(j0 + plan.group_chunks, plan.chunks)
+                lo = 0 if d * plan.chunks + j0 == 0 \
+                    else cends[d * plan.chunks + j0 - 1]
+                hi = cends[d * plan.chunks + j1 - 1]
+                for row, bid in a[lo:hi]:
+                    b_rows.append((row, bid % t_sz))
+                    b_runs.append((bid // t_sz) * plan.groups + g)
+        staging = scatter(np.array(b_rows).reshape(-1, 2), np.array(b_runs),
+                          ends - fine.ravel(), rows.shape[0])
+        stride = plan.groups
+    else:                                          # global tile counters
+        counts = np.bincount(tile_of, minlength=plan.tiles)
+        ends = np.cumsum(counts)
+        staging = scatter(np.stack([rows, bids[rows] % t_sz], 1), tile_of,
+                          ends - counts, rows.shape[0])
+        stride = 1
+    table = np.full((width, nb), -1, np.int64)
+    for t in range(plan.tiles):                    # tile build
+        lo = 0 if t == 0 else int(ends[t * stride - 1])
+        hi = int(ends[(t + 1) * stride - 1])
+        tile = np.full((width, t_sz), _EMPTY, np.int64)
+        for k in lo + rng.permutation(hi - lo):
+            v, lb = staging[k]
+            placed = False
+            for e in range(width):
+                if v > tile[width - 1, lb]:        # never placed: stop
+                    break
+                old = tile[e, lb]
+                tile[e, lb] = min(old, v)
+                v = max(old, v)
+                if v == _EMPTY:
+                    placed = True
+                    break
+            over += not placed
+        n = min(t_sz, nb - t * t_sz)
+        part = tile[:, :n]
+        table[:, t * t_sz:t * t_sz + n] = np.where(part == _EMPTY, -1, part)
+    return table.astype(np.int32), over
+
+
+# (cap, nb, width, bucket id range, TILE_BYTES, HIST_TILES): every case
+# has a hot bucket that overflows; ids >= nb mixed with -1 rows where the
+# range passes nb; widths 1, 16 and 30; small tile budgets, so that a
+# small build spans many tiles; nb not a power of two (a partial last
+# tile); several chunks, and chunk groups of two; the global-counter
+# path (few HIST_TILES)
+MODEL_CASES = [(1500, 2048, 16, 2048, 64 << 10, 16 << 10),
+               (1200, 64, 16, 8, 64 << 10, 16 << 10),
+               (800, 512, 1, 512, 256, 16 << 10),
+               (900, 512, 1, 600, 256, 16 << 10),
+               (1000, 128, 30, 128, 1024, 16 << 10),
+               (1000, 128, 30, 160, 1024, 16 << 10),
+               (700, 42, 30, 46, 1024, 16 << 10),
+               (9000, 1024, 16, 1100, 4096, 16 << 10),
+               (40000, 4096, 16, 4200, 4096, 16 << 10),
+               (1300, 2048, 1, 2048, 1024, 4),
+               (1100, 256, 16, 300, 1024, 4)]
+
+
+@pytest.mark.parametrize("cap,nb,width,hi,tile_bytes,hist_tiles",
+                         MODEL_CASES)
+def test_partitioned_build_model_matches_pallas(cap, nb, width, hi,
+                                                tile_bytes, hist_tiles,
+                                                monkeypatch,
+                                                pallas_interpret):
+    """The four passes give the reference's table and overflow count bit
+    for bit whatever order the rows arrive in: the carry's
+    order-independence, on the CPU. The reference is the Pallas kernel
+    in interpret mode where every id is below nb (past nb its table
+    writes are out of bounds), and its jnp twin and the plain version
+    always."""
+    monkeypatch.setattr(tbucket, "TILE_BYTES", tile_bytes)
+    monkeypatch.setattr(tbucket, "HIST_TILES", hist_tiles)
+    plan = tbucket.build_plan(cap, nb, width)
+    assert plan.tiles > 1 or nb <= 64
+    assert plan.shared_hist == (hist_tiles > 4)
+    rng = np.random.default_rng(cap * 31 + width)
+    bids = rng.integers(-1, hi, cap).astype(np.int32)
+    bids[rng.random(cap) < 0.1] = 3    # a hot bucket
+    want_t, want_o = jhj._build_jnp(jnp.asarray(bids), nb, width)
+    want_t, want_o = np.asarray(want_t), int(want_o)
+    if hi <= nb:
+        kern_t, kern_o = pk.bucket_build(jnp.asarray(bids), nb, width)
+        np.testing.assert_array_equal(np.asarray(kern_t), want_t)
+        assert int(kern_o) == want_o
+    plain_t, plain_o = tbucket.bucket_build_plain(torch.from_numpy(bids), nb,
+                                                  width)
+    np.testing.assert_array_equal(plain_t.numpy(), want_t)
+    assert int(plain_o) == want_o
+    for seed in range(2):
+        got_t, got_o = _partitioned_build(bids, nb, width, seed)
+        np.testing.assert_array_equal(got_t, want_t)
+        assert got_o == want_o
+    assert want_o > 0
 
 
 @pytest.mark.parametrize("nwords", [1, 2, 3])
