@@ -39,7 +39,13 @@ Phases, each printing one JSON line:
 6. bench: the port of ``bench.py``'s exchange-inclusive pipeline (1M rows
    per side, 12 stages, fresh keys per stage): partition_ids ->
    shuffle_local -> checked_recv -> join, the total checked against
-   numpy, and the launch counters checked per stage.
+   numpy, and the launch counters checked per stage;
+7. strings: string keys at the dist_join phase's scale (16M rows a
+   side): TPC-H's C_NAME as device bytes through the sort join and the
+   bucketed hash join, N_NAME as dictionary codes through the sort join,
+   the exchange of a bytes table, and the kernels at these shapes
+   (``row_hash`` on 6 and 21 word streams, ``bucket_probe`` word by
+   word); see :func:`strings_phase`.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -860,6 +866,407 @@ def profile_call(torch, phase: str, fn):
                   for name, (us, c) in top[:20]]})
 
 
+# ------------------------------------------------------------ phase 7
+#: TPC-H's C_NAME, "Customer#%09d": 18 bytes, so 5 words of device bytes
+CUSTOMER_PREFIX = b"Customer#"
+CUSTOMER_BYTES = 18
+#: TPC-H's N_NAME in N_NATIONKEY order (the spec's nation table)
+NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+           "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+           "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+           "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+           "UNITED KINGDOM", "UNITED STATES")
+#: rows of the prefix rendered from Python strings by bytescol.encode_host
+ENCODE_PREFIX = 1 << 20
+#: output rows decoded on the host and parsed back to their keys
+DECODE_SAMPLE = 4096
+#: the wide key of the kernel cases: 80 bytes, 20 words and a validity
+#: word, two row_hash launches (16-word chunks)
+WIDE_KEY_BYTES = 80
+#: the sort join's launches at a world of one on any key: one group_sort
+#: (one add scan), the join's counts and offsets, its five fills
+SORT_JOIN_LAUNCHES = {"row_hash": 0, "scan32": 5, "pair_max_scan": 5,
+                      "bucket_build": 0, "bucket_probe": 0}
+
+
+def render_customer(torch, keys):
+    """[n] int64 keys -> [n, 5] int32 words of "Customer#%09d", rendered
+    on the device with integer ops: big-endian bytes, zero-padded from 18
+    to 20 bytes, every word below 2^31 (ASCII)."""
+    digits = [(keys // 10 ** (8 - i)) % 10 + 0x30 for i in range(9)]
+    head = [int(b) for b in CUSTOMER_PREFIX]
+    byte = [torch.full_like(keys, b) for b in head] + digits + \
+        [torch.zeros_like(keys)] * 2
+    words = [(byte[4 * j] << 24) | (byte[4 * j + 1] << 16)
+             | (byte[4 * j + 2] << 8) | byte[4 * j + 3] for j in range(5)]
+    return torch.stack(words, dim=1).to(torch.int32)
+
+
+def parse_customer(values) -> list:
+    """Decoded "Customer#%09d" strings -> their integer keys."""
+    out = []
+    for v in values:
+        if not (isinstance(v, str) and v.startswith("Customer#")
+                and len(v) == CUSTOMER_BYTES):
+            raise SystemExit(f"strings: decoded {v!r} is no C_NAME")
+        out.append(int(v[len("Customer#"):]))
+    return out
+
+
+def pairs_exist(np, keys, vals, want_keys, want_vals) -> bool:
+    """Does every (want_keys[i], want_vals[i]) occur among the rows
+    (keys, vals)? One sort, then a short scan of each key's run."""
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], vals[order]
+    lo = np.searchsorted(ks, want_keys, "left")
+    hi = np.searchsorted(ks, want_keys, "right")
+    return all(bool((vs[a:b] == v).any())
+               for a, b, v in zip(lo, hi, want_vals))
+
+
+def timed_join(torch, fn):
+    """Warm-up, then one call from zeroed launch counters: (result, rows,
+    wall seconds, launches, peak device bytes)."""
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    rows = res.num_rows
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, rows, wall, launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def strings_phase(torch, rate, stats, profile: bool):
+    """String keys through the public entry points at the dist_join
+    phase's scale, 16M rows a side at a world of one:
+
+    1. device bytes, sort join: C_NAME keys uniform in [0, 16M), rendered
+       on the device, held bit for bit against ``bytescol.encode_host``
+       (through ``Table.from_pydict(..., string_storage="bytes")``) on a
+       1M-row prefix made of Python strings; ``dist_join`` checked against
+       numpy (row count, sum(v_l * v_r) at rtol 1e-9) and 4096 output
+       rows decoded and parsed back to keys present on both sides; its
+       wall beside the int64 ``dist_join`` on the same integer keys;
+    2. device bytes, bucketed hash join: the hash_join phase's keys
+       (a permutation of [0, 16M) against uniform [0, 32M)) as C_NAME;
+       one bucket_build and one bucket_probe (the word-by-word path);
+    3. dictionary codes: a 16M-row fact table of N_NAME (uniform over the
+       25 nations, ingested as strings) joined to the 25-row nation table,
+       whose dictionary is in N_NATIONKEY order, so that
+       ``unify_dictionaries`` re-encodes both sides;
+    4. the exchange of a bytes table: ``partition_ids`` over the key,
+       ``shuffle_local`` through ``LocalComm`` as the bench phase drives
+       it; the words that arrive equal the host's gather in that order;
+    5. the kernels at these shapes, bit for bit against their plain
+       versions, timed and bounded as in the kernel phase: ``row_hash``
+       on the C_NAME key's 5 words and a validity word, on an 80-byte key
+       (21 words, two launches), and ``bucket_probe`` word by word.
+
+    ``profile`` adds a device trace of each join of items 1 and 2, and of
+    the int64 sort join beside item 1."""
+    import os
+
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import (bucket_build, bucket_probe,
+                                         launch_counts, row_hash)
+    from cylon_tpu_torch.kernels.bucket import one_int64_key
+    from cylon_tpu_torch.ops.hash import _row_words, partition_ids
+    from cylon_tpu_torch.ops.hash_join import table_slots
+    from cylon_tpu_torch.parallel.shuffle import shuffle_local
+
+    n = DIST_ROWS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    env = ct.CylonEnv()
+    bytes_dt = dtypes.string_bytes(CUSTOMER_BYTES)
+
+    def table(words, v, key_dtype=bytes_dt):
+        return ct.Table({"k": Column(words, None, key_dtype),
+                         "v": Column(v, None, dtypes.float64)},
+                        words.shape[0])
+
+    def rand_values(m):
+        return torch.rand(m, dtype=torch.float64, device="cuda",
+                          generator=g)
+
+    # -- the rendering against the host codec
+    kl = torch.randint(0, n, (n,), dtype=torch.int64, device="cuda",
+                       generator=g)
+    kr = torch.randint(0, n, (n,), dtype=torch.int64, device="cuda",
+                       generator=g)
+    wl, wr = render_customer(torch, kl), render_customer(torch, kr)
+    prefix = kl[:ENCODE_PREFIX].cpu().numpy()
+    t0 = time.perf_counter()
+    host = ct.Table.from_pydict(
+        {"k": np.array([f"Customer#{k:09d}" for k in prefix], object)},
+        device="cuda", string_storage="bytes").column("k")
+    encode_s = time.perf_counter() - t0
+    encode_bad = int((host.data != wl[:ENCODE_PREFIX]).sum())
+    if repr(host.dtype) != repr(bytes_dt) or encode_bad:
+        raise SystemExit(f"strings: encode_host and the device rendering "
+                         f"differ ({host.dtype!r}, {encode_bad} words)")
+    del host
+
+    # -- 1. bytes-key sort join, beside the int64 join on the same keys
+    vl, vr = rand_values(n), rand_values(n)
+    left, right = table(wl, vl), table(wr, vr)
+    res, rows, wall, launches, peak = timed_join(
+        torch, lambda: ct.dist_join(env, left, right, on="k"))
+    check = float((res.column("v_x").data[:rows]
+                   * res.column("v_y").data[:rows]).sum())
+    sample = torch.randint(0, max(rows, 1), (DECODE_SAMPLE,), device="cuda",
+                           generator=g)
+    kcol = res.column("k")
+    got_keys = np.array(parse_customer(kcol.decode_host(
+        kcol.data[sample].cpu().numpy(), None)))
+    sx = res.column("v_x").data[sample].cpu().numpy()
+    sy = res.column("v_y").data[sample].cpu().numpy()
+    del res, kcol
+    lk, rk = kl.cpu().numpy(), kr.cpu().numpy()
+    lvh, rvh = vl.cpu().numpy(), vr.cpu().numpy()
+    want_rows = int((np.bincount(lk, minlength=n).astype(np.int64)
+                     * np.bincount(rk, minlength=n)).sum())
+    want_check = float((np.bincount(lk, weights=lvh, minlength=n)
+                        * np.bincount(rk, weights=rvh, minlength=n)).sum())
+    decoded_ok = pairs_exist(np, lk, lvh, got_keys, sx) and \
+        pairs_exist(np, rk, rvh, got_keys, sy)
+    ileft = table(kl, vl, dtypes.int64)
+    iright = table(kr, vr, dtypes.int64)
+    _, irows, iwall, _, ipeak = timed_join(
+        torch, lambda: ct.dist_join(env, ileft, iright, on="k"))
+    if profile:
+        profile_call(torch, "strings_profile_bytes_sort_join",
+                     lambda: ct.dist_join(env, left, right,
+                                          on="k").num_rows)
+        profile_call(torch, "strings_profile_int64_sort_join",
+                     lambda: ct.dist_join(env, ileft, iright,
+                                          on="k").num_rows)
+    del ileft, iright
+    emit({"phase": "strings", "case": "bytes_sort_join",
+          "rows_per_side": n, "world": 1, "key": "C_NAME",
+          "key_dtype": repr(bytes_dt),
+          "encode_prefix_rows": ENCODE_PREFIX, "encode_host_s": encode_s,
+          "encode_mismatched_words": encode_bad,
+          "result_rows": rows, "expected_rows": want_rows,
+          "checksum": check, "expected_checksum": want_check,
+          "decoded_rows": DECODE_SAMPLE, "decoded_ok": decoded_ok,
+          "wall_s": wall, "peak_bytes": peak, "launches": launches,
+          "expected_launches": SORT_JOIN_LAUNCHES,
+          "int64_wall_s": iwall, "int64_peak_bytes": ipeak,
+          "int64_result_rows": irows, "wall_ratio_to_int64": wall / iwall})
+    if rows != want_rows or irows != want_rows or not decoded_ok:
+        raise SystemExit("strings: bytes sort join gave wrong rows")
+    if abs(check - want_check) > 1e-9 * abs(want_check):
+        raise SystemExit("strings: bytes sort join checksum off")
+    if launches != SORT_JOIN_LAUNCHES:
+        raise SystemExit(f"strings: bytes sort join launches {launches}")
+    del left, right
+
+    # -- 2. bytes-key bucketed hash join
+    dk = torch.randperm(n, device="cuda", generator=g)
+    fk = torch.randint(0, 2 * n, (n,), dtype=torch.int64, device="cuda",
+                       generator=g)
+    dw, fw = render_customer(torch, dk), render_customer(torch, fk)
+    dv, fv = rand_values(n), rand_values(n)
+    dim, fact = table(dw, dv), table(fw, fv)
+    saved = os.environ.get("CYLON_TPU_JOIN_HASH_IMPL")
+    os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = "bucketed"
+    try:
+        res, rows, hwall, hlaunches, hpeak = timed_join(
+            torch, lambda: ct.dist_join(env, dim, fact, on="k",
+                                        algorithm="hash"))
+        if profile:
+            profile_call(torch, "strings_profile_bytes_hash_join",
+                         lambda: ct.dist_join(env, dim, fact, on="k",
+                                              algorithm="hash").num_rows)
+    finally:
+        if saved is None:
+            os.environ.pop("CYLON_TPU_JOIN_HASH_IMPL", None)
+        else:
+            os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = saved
+    check = float((res.column("v_x").data[:rows]
+                   * res.column("v_y").data[:rows]).sum())
+    sample = torch.randint(0, max(rows, 1), (DECODE_SAMPLE,), device="cuda",
+                           generator=g)
+    kcol = res.column("k")
+    got_keys = np.array(parse_customer(kcol.decode_host(
+        kcol.data[sample].cpu().numpy(), None)))
+    sx = res.column("v_x").data[sample].cpu().numpy()
+    sy = res.column("v_y").data[sample].cpu().numpy()
+    del res, kcol
+    dkn, dvn = dk.cpu().numpy(), dv.cpu().numpy()
+    fkn, fvn = fk.cpu().numpy(), fv.cpu().numpy()
+    by_key = np.zeros(n)
+    by_key[dkn] = dvn
+    hit = fkn < n
+    want_rows = int(hit.sum())
+    want_check = float((by_key[fkn[hit]] * fvn[hit]).sum())
+    decoded_ok = bool((got_keys < n).all()) and bool(
+        (by_key[np.minimum(got_keys, n - 1)] == sx).all()) and \
+        pairs_exist(np, fkn, fvn, got_keys, sy)
+    emit({"phase": "strings", "case": "bytes_hash_join",
+          "rows_per_side": n, "world": 1, "hash_impl": "bucketed",
+          "bucket_width": BUCKET_WIDTH, "result_rows": rows,
+          "expected_rows": want_rows, "checksum": check,
+          "expected_checksum": want_check, "decoded_ok": decoded_ok,
+          "wall_s": hwall, "peak_bytes": hpeak, "launches": hlaunches,
+          "expected_launches": HASH_JOIN_LAUNCHES})
+    if rows != want_rows or not decoded_ok:
+        raise SystemExit("strings: bytes hash join gave wrong rows")
+    if abs(check - want_check) > 1e-9 * abs(want_check):
+        raise SystemExit("strings: bytes hash join checksum off")
+    if hlaunches != HASH_JOIN_LAUNCHES:
+        raise SystemExit(f"strings: bytes hash join launches {hlaunches}")
+
+    # -- 5. the kernels at this path's shapes (the probe on the tables
+    # above: its build from the dimension keys' words)
+    nb = table_slots(n)
+    valid = torch.rand(n, device="cuda", generator=g) >= 0.01
+    cases = {}
+    words6 = _row_words([wl], [valid])
+    cases["row_hash/c_name_6words"] = (words6, (4 * 6 + 4) * n, 1)
+    lens = torch.randint(1, WIDE_KEY_BYTES + 1, (n, 1), device="cuda",
+                         generator=g)
+    raw = torch.randint(0x21, 0x7F, (n, WIDE_KEY_BYTES), device="cuda",
+                        generator=g)
+    raw = torch.where(torch.arange(WIDE_KEY_BYTES, device="cuda") < lens,
+                      raw, 0).view(n, WIDE_KEY_BYTES // 4, 4)
+    wide = ((raw[:, :, 0] << 24) | (raw[:, :, 1] << 16)
+            | (raw[:, :, 2] << 8) | raw[:, :, 3]).to(torch.int64)
+    wide = (wide - ((wide >> 31) << 32)).to(torch.int32)   # u32 patterns
+    words21 = _row_words([wide], [valid])
+    cases["row_hash/80_bytes_21words"] = (words21, (4 * 21 + 4) * n, 2)
+    for name, (words, nbytes, chunks) in cases.items():
+        before = row_hash.launches
+        got = row_hash(words)
+        launched = row_hash.launches - before
+        bad, err = compare(torch, got, row_hash.plain(words))
+        row = {"phase": "kernel", "name": name, "n": n,
+               "words": len(words), "mismatches": bad, "max_abs_err": err,
+               "tolerance": 0, "launches_a_call": launched,
+               "bound_us": nbytes / rate * 1e6,
+               "kernel_ms": time_ms(torch, lambda: row_hash(words)),
+               "kernel_device_ms": device_ms(torch, lambda: row_hash(words)),
+               "plain_ms": time_ms(torch, lambda: row_hash.plain(words)),
+               "plain_device_ms": device_ms(
+                   torch, lambda: row_hash.plain(words)),
+               "library_ms": None, "library_device_ms": None}
+        emit(row)
+        if bad or launched != chunks:
+            raise SystemExit(f"{name}: {bad} mismatches, {launched} "
+                             f"launches a call")
+        stats[(name, n)] = row
+    del words6, words21, wide, raw
+    bwords, pwords = _row_words([dw], None), _row_words([fw], None)
+    bids = row_hash(bwords) & (nb - 1)
+    pbids = row_hash(pwords) & (nb - 1)
+    btable, ovf = bucket_build(bids, nb, BUCKET_WIDTH)
+    if int(ovf) or one_int64_key(pwords, bwords):
+        raise SystemExit("strings: probe case overflowed or took the "
+                         "int64 path")
+    mask = bucket_probe(pbids, pwords, btable, bwords)
+    want_m = bucket_probe.plain(pbids, pwords, btable, bwords)
+    bad, err = compare(torch, mask, want_m)
+    occupied = int((btable >= 0).sum())
+    row = {"phase": "kernel", "name": "bucket_probe/c_name_5words", "n": n,
+           "words": len(pwords), "mismatches": bad, "max_abs_err": err,
+           "tolerance": 0, "matched_rows": int((want_m != 0).sum()),
+           "occupied_entries": occupied, "one_int64": False,
+           "bound_us": (4 * n * (2 + len(pwords))
+                        + 4 * occupied * (1 + len(bwords))) / rate * 1e6,
+           "kernel_ms": time_ms(torch, lambda: bucket_probe(
+               pbids, pwords, btable, bwords)),
+           "kernel_device_ms": device_ms(torch, lambda: bucket_probe(
+               pbids, pwords, btable, bwords)),
+           "plain_ms": time_ms(torch, lambda: bucket_probe.plain(
+               pbids, pwords, btable, bwords)),
+           "plain_device_ms": device_ms(torch, lambda: bucket_probe.plain(
+               pbids, pwords, btable, bwords)),
+           "library_ms": None, "library_device_ms": None}
+    emit(row)
+    if bad:
+        raise SystemExit(f"bucket_probe/c_name_5words: {bad} mismatches")
+    stats[("bucket_probe/c_name_5words", n)] = row
+    del dim, fact, btable, mask, want_m, bwords, pwords, bids, pbids
+
+    # -- 3. dictionary keys: N_NAME, the nation table in N_NATIONKEY order
+    codes = torch.randint(0, len(NATIONS), (n,), device="cuda",
+                          generator=g).cpu().numpy()
+    fv = rand_values(n)
+    t0 = time.perf_counter()
+    fact = ct.Table.from_pydict(
+        {"n": np.array(NATIONS, object)[codes], "v": fv.cpu().numpy()},
+        device="cuda", string_storage="dict")
+    ingest_s = time.perf_counter() - t0
+    nv = rand_values(len(NATIONS))
+    nation = ct.Table({
+        "n": Column(torch.arange(len(NATIONS), dtype=torch.int32,
+                                 device="cuda"), None, dtypes.string,
+                    ct.Dictionary(list(NATIONS))),
+        "w": Column(nv, None, dtypes.float64)}, len(NATIONS))
+    if fact.column("n").dictionary == nation.column("n").dictionary:
+        raise SystemExit("strings: the dictionaries agree; nothing to "
+                         "re-encode")
+    res, rows, dwall, dlaunches, dpeak = timed_join(
+        torch, lambda: ct.dist_join(env, fact, nation, on="n"))
+    check = float((res.column("v").data[:rows]
+                   * res.column("w").data[:rows]).sum())
+    out_names = res.column("n").to_numpy(DECODE_SAMPLE)
+    del res
+    fvn, nvn = fv.cpu().numpy(), nv.cpu().numpy()
+    want_check = float((fvn * nvn[codes]).sum())
+    emit({"phase": "strings", "case": "dict_join", "rows": n,
+          "dimension_rows": len(NATIONS), "world": 1, "key": "N_NAME",
+          "ingest_s": ingest_s, "result_rows": rows, "expected_rows": n,
+          "checksum": check, "expected_checksum": want_check,
+          "wall_s": dwall, "peak_bytes": dpeak, "launches": dlaunches,
+          "expected_launches": SORT_JOIN_LAUNCHES})
+    if rows != n or not set(out_names) <= set(NATIONS):
+        raise SystemExit("strings: dictionary join gave wrong rows")
+    if abs(check - want_check) > 1e-9 * abs(want_check):
+        raise SystemExit("strings: dictionary join checksum off")
+    if dlaunches != SORT_JOIN_LAUNCHES:
+        raise SystemExit(f"strings: dictionary join launches {dlaunches}")
+    del fact, nation
+
+    # -- 4. the exchange of a bytes table
+    comm = ct.LocalComm()
+    t = table(wl, vl)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pid = partition_ids([t.column("k").data], comm.world_size, [None])
+    sh = shuffle_local(comm, t, pid, n)
+    got_rows = int(sh.nrows)
+    torch.cuda.synchronize()
+    xwall = time.perf_counter() - t0
+    after = launch_counts()
+    order = np.argsort(pid.cpu().numpy(), kind="stable")
+    want_w = wl.cpu().numpy()[order]
+    want_v = vl.cpu().numpy()[order]
+    got_w = sh.column("k").data[:got_rows].cpu().numpy()
+    got_v = sh.column("v").data[:got_rows].cpu().numpy()
+    same = got_rows == n and np.array_equal(got_w, want_w) and \
+        np.array_equal(got_v.view(np.int64), want_v.view(np.int64))
+    xl = {k: after[k] - before[k] for k in after}
+    emit({"phase": "strings", "case": "exchange", "rows": n,
+          "world": comm.world_size, "words_a_row": got_w.shape[1] + 2,
+          "received_rows": got_rows, "bit_identical": same,
+          "wall_s": xwall, "launches": xl})
+    if not same or xl["row_hash"] != 1:
+        raise SystemExit("strings: the exchange changed the words")
+
+
 # ------------------------------------------------------------ main
 def main(argv) -> int:
     import torch
@@ -896,6 +1303,7 @@ def main(argv) -> int:
     sort_wall = dist_join_phase(torch)
     hash_launches = hash_join_phase(torch, sort_wall, "--profile" in argv)
     launches = bench_phase(torch, "--profile" in argv)
+    strings_phase(torch, rate, stats, "--profile" in argv)
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the

@@ -3,8 +3,11 @@ dictionary.
 
 Port of ``cylon_tpu/column.py`` (parity: ``cpp/src/cylon/column.hpp:31``).
 A column is a single contiguous device buffer; nulls are a separate bool
-validity tensor (True = non-null); variable-width values live on the host
-in a :class:`Dictionary` with int32 codes on the device.
+validity tensor (True = non-null). String columns take one of two
+storages: int32 codes on the device with their values on the host in a
+:class:`Dictionary`, or device bytes (:mod:`cylon_tpu_torch.ops.bytescol`:
+each row's UTF-8 bytes as ``[capacity, nwords]`` big-endian u32 words,
+held as int32 bit patterns).
 """
 
 import dataclasses
@@ -14,20 +17,36 @@ import numpy as np
 import torch
 
 from cylon_tpu_torch import dtypes
-from cylon_tpu_torch.errors import NotImplemented_, TypeError_
+from cylon_tpu_torch.errors import TypeError_
 
 
 class Dictionary:
     """Host-side values of a STRING/BINARY column, sorted ascending so that
     code order is value order. Hash and equality are by content."""
 
-    __slots__ = ("values", "_key")
+    __slots__ = ("values", "_key", "_vhash")
 
     def __init__(self, values):
         arr = np.array(values, dtype=object)
         arr.flags.writeable = False
         self.values = arr
         self._key = None
+        self._vhash = {}
+
+    def value_hashes(self, device) -> torch.Tensor:
+        """[len] int32 tensor on ``device`` of stable per-value hashes
+        (the crc32 of each value's string form, as its u32 bit pattern),
+        cached per device. Partition hashing maps codes through it, so
+        that relations ingested apart, whose codes differ, send equal
+        values to the same rank (``dist_ops._partition_keys``)."""
+        dev = torch.device(device)
+        if dev not in self._vhash:
+            import zlib
+
+            hv = np.array([zlib.crc32(str(v).encode())
+                           for v in self.values], np.uint32)
+            self._vhash[dev] = torch.from_numpy(hv.view(np.int32)).to(dev)
+        return self._vhash[dev]
 
     def _content_key(self) -> tuple:
         if self._key is None:
@@ -62,14 +81,28 @@ class Column:
 
     @staticmethod
     def from_numpy(arr, capacity: "int | None" = None, *,
-                   device: torch.device) -> "Column":
+                   device: torch.device,
+                   string_storage: str = "dict") -> "Column":
         """Host array -> Column on ``device`` (already resolved). Strings
-        become dictionary codes; NaT and None become validity; float NaN
-        stays NaN (pandas semantics). Pads to ``capacity``."""
+        take the storage ``string_storage`` names: ``"dict"`` (int32
+        codes and a host dictionary), ``"bytes"`` (device bytes) or
+        ``"auto"`` (:func:`~cylon_tpu_torch.ops.bytescol.choose_storage`
+        picks by sampled cardinality). None, NaN, pd.NA and NaT become
+        validity, except that float NaN in a float column stays NaN
+        (pandas semantics). Pads to ``capacity``."""
         arr = np.asarray(arr)
         if arr.dtype.kind in ("U", "S", "O"):
             import pandas as pd
 
+            from cylon_tpu_torch.ops import bytescol
+
+            if string_storage == "auto":
+                string_storage = bytescol.choose_storage(arr)
+            if string_storage == "bytes":
+                return bytescol.from_numpy(arr, capacity, device=device)
+            if string_storage != "dict":
+                raise TypeError_(f"unknown string_storage "
+                                 f"{string_storage!r}")
             isnull = np.asarray(pd.isna(arr))
             if isnull.ndim == 0:
                 isnull = np.broadcast_to(isnull, arr.shape).copy()
@@ -112,14 +145,22 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    def to_numpy(self, nrows: "int | None" = None) -> np.ndarray:
+        """The first ``nrows`` rows (default: all) decoded on the host."""
+        n = self.capacity if nrows is None else nrows
+        validity = None if self.validity is None \
+            else self.validity[:n].cpu().numpy()
+        return self.decode_host(self.data[:n].cpu().numpy(), validity)
+
     def decode_host(self, data: np.ndarray,
                     validity: "np.ndarray | None") -> np.ndarray:
-        """Decode fetched host arrays: dictionary lookup, temporal views,
-        null substitution (NaN for floats, NaT for temporals, None
-        otherwise)."""
+        """Decode fetched host arrays: bytes words to str, dictionary
+        lookup, temporal views, null substitution (NaN for floats, NaT
+        for temporals, None otherwise)."""
         if self.dtype.is_bytes:
-            raise NotImplemented_("device-bytes strings arrive with the "
-                                  "strings slice (ROADMAP queue A)")
+            from cylon_tpu_torch.ops import bytescol
+
+            return bytescol.decode_host(data, validity)
         if self.dtype.is_dictionary:
             if self.dictionary is None:
                 raise TypeError_("dictionary column without dictionary")
@@ -146,6 +187,36 @@ class Column:
                 out = out.astype(object)
                 out[mask] = None
         return out
+
+    def astype(self, dtype: dtypes.DType) -> "Column":
+        """Cast (parity: ``table.pyx:2446`` astype). Between the two
+        string storages: dictionary -> bytes is a device gather of the
+        host-encoded values; bytes -> dictionary a host round trip; bytes
+        -> bytes pads or truncates to the declared width."""
+        if self.dtype.is_bytes or dtype.is_bytes:
+            from cylon_tpu_torch.ops import bytescol
+
+            if self.dtype.is_dictionary and dtype.is_bytes:
+                return bytescol.dict_to_bytes(self, dtype.bytes_width)
+            if self.dtype.is_bytes and dtype.is_bytes:
+                nw = dtype.bytes_width // bytescol.WORD
+                cur = self.data.shape[1]
+                if nw == cur:
+                    return self
+                # narrowing truncates to the declared width
+                data = bytescol.pad_words(self.data, nw) if nw > cur \
+                    else self.data[:, :nw]
+                return Column(data, self.validity, dtypes.string_bytes(
+                    nw * bytescol.WORD), None)
+            if self.dtype.is_bytes and dtype.is_dictionary:
+                return bytescol.bytes_to_dict(self, self.capacity)
+            raise TypeError_("cast between string bytes and non-string "
+                             "requires host round-trip")
+        if self.dtype.is_dictionary != dtype.is_dictionary:
+            raise TypeError_(
+                "cast between string and non-string requires host round-trip")
+        return Column(self.data.to(dtype.physical), self.validity, dtype,
+                      self.dictionary if dtype.is_dictionary else None)
 
     def __repr__(self):
         return (f"Column({self.dtype!r}, cap={self.capacity}"

@@ -5,8 +5,11 @@ A ``cylon_tpu.Table`` travels as plain numpy arrays,
 ``{name: (data, validity or None, logical dtype name)}`` plus ``nrows``,
 so the port never imports ``cylon_tpu`` (which imports JAX). The dtype
 name is the JAX package's spelling (``repr`` of its ``DType``: ``int64``,
-``float64``, ``timestamp[ns]``, ...). Tests feed the same inputs to both
-packages through this module.
+``float64``, ``timestamp[ns]``, ``string[bytes:20]``, ...). A device-bytes
+column travels as the JAX package's ``[cap, nwords]`` uint32 words; the
+port holds them as int32 bit patterns, taken with ``ndarray.view`` (exact)
+and never with a value cast. Tests feed the same inputs to both packages
+through this module.
 """
 
 from typing import Mapping
@@ -29,8 +32,10 @@ def from_arrays(columns: Mapping[str, tuple], nrows: int, device=None,
     cols = {}
     for name, (data, validity, dtype_name) in columns.items():
         dt = dtypes.from_name(dtype_name)
-        t = torch.from_numpy(np.array(data)).to(device=dev,
-                                                dtype=dt.physical)
+        data = np.array(data)
+        if dt.is_bytes:
+            data = data.astype(np.uint32, copy=False).view(np.int32)
+        t = torch.from_numpy(data).to(device=dev, dtype=dt.physical)
         v = None if validity is None else torch.from_numpy(
             np.array(validity, dtype=bool)).to(dev)
         d = Dictionary(dictionaries[name]) if name in dictionaries else None
@@ -40,10 +45,12 @@ def from_arrays(columns: Mapping[str, tuple], nrows: int, device=None,
 
 def to_arrays(table: Table) -> "tuple[dict, int]":
     """The inverse: a port Table as ``({name: (data, validity, dtype
-    name)}, nrows)`` of host numpy arrays at full capacity."""
+    name)}, nrows)`` of host numpy arrays at full capacity (bytes columns
+    as uint32 words, as the JAX package holds them)."""
     cols = {}
     for name, c in table.columns.items():
-        cols[name] = (c.data.cpu().numpy(),
+        data = c.data.cpu().numpy()
+        cols[name] = (data.view(np.uint32) if c.dtype.is_bytes else data,
                       None if c.validity is None
                       else c.validity.cpu().numpy(), repr(c.dtype))
     return cols, int(table.nrows)

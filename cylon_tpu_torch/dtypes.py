@@ -3,9 +3,9 @@
 Port of ``cylon_tpu/dtypes.py`` (parity: ``cpp/src/cylon/data_types.hpp``).
 Every device column is one fixed-width tensor. STRING/BINARY columns are
 dictionary codes (int32 on the device, values on the host) or device
-bytes (``[cap, nwords]`` u32 words); both exist here as types, and the
-operators of this slice raise :class:`~cylon_tpu_torch.errors.NotImplemented_`
-on string keys. Temporal types are int64 on the device with their unit here.
+bytes (``[cap, nwords]`` big-endian u32 words held as int32 bit patterns,
+:mod:`cylon_tpu_torch.ops.bytescol`). Temporal types are int64 on the
+device with their unit here.
 """
 
 import dataclasses

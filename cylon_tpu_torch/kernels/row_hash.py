@@ -7,7 +7,9 @@ Pallas kernel ``row_hash`` (``cylon_tpu/ops/pallas_kernels.py``,
 Word streams are 1-D int32 (or uint32) tensors holding u32 bit patterns;
 they may be strided views, such as the (lo, hi) words of an int64 column
 (``column.view(torch.int32).view(-1, 2)[:, 0]``), and are read in place.
-A row key may have any number of words, as in the JAX package.
+A row key may have any number of words, as in the JAX package: the
+kernel takes them in chunks of :data:`CHUNK`, one launch a chunk, and
+``row_hash.launches`` counts every launch.
 """
 
 import ctypes
@@ -17,6 +19,8 @@ import torch
 from cylon_tpu_torch.kernels import build
 
 MURMUR_SEED = 0x9747B28C
+#: word streams one launch takes (``kChunk`` in row_hash.cu)
+CHUNK = 16
 _WORD_DTYPES = (torch.int32, torch.uint32)
 
 
@@ -80,7 +84,7 @@ def row_hash(words, nparts: int = 0, *,
     err = lib.cylon_row_hash(ptrs, strides, k, n, seed & 0xFFFFFFFF,
                              nparts, out.data_ptr(), build.stream_of(out))
     build.check(err, "row_hash")
-    row_hash.launches += 1
+    row_hash.launches += -(-k // CHUNK)
     return out
 
 

@@ -19,7 +19,6 @@ from typing import Sequence
 
 import torch
 
-from cylon_tpu_torch.errors import NotImplemented_
 from cylon_tpu_torch.kernels import row_hash
 from cylon_tpu_torch.kernels.row_hash import MURMUR_SEED
 
@@ -69,11 +68,12 @@ def canonical_float(data: torch.Tensor) -> torch.Tensor:
 
 def _words32(data: torch.Tensor) -> list:
     """Column -> list of u32 word streams (int32 bit patterns). The words
-    of a 64-bit column are strided views of it, read in place."""
+    of a 64-bit column, and the word columns of a device-bytes column
+    ([cap, nwords]), are strided views of it, read in place. Bytes hash
+    by content, so relations ingested apart send equal strings to the
+    same rank with no dictionary in between."""
     if data.dim() == 2:
-        raise NotImplemented_(
-            "device-bytes string columns arrive with the strings slice "
-            "(ROADMAP queue A)")
+        return [data[:, i] for i in range(data.shape[1])]
     if data.dtype == torch.bool:
         return [data.to(torch.int32)]
     if data.is_floating_point():
@@ -114,11 +114,15 @@ def paired_validities(lkeys: Sequence[torch.Tensor], lvals: Sequence,
     (The JAX package uses the masks as they are, and its hash partition
     and bucketed hash join lose those matches.)"""
     lvals, rvals = list(lvals), list(rvals)
+
+    def ones(key):   # [cap], also for a [cap, nwords] bytes key
+        return torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+
     for i, (lv, rv) in enumerate(zip(lvals, rvals)):
         if lv is None and rv is not None:
-            lvals[i] = torch.ones_like(lkeys[i], dtype=torch.bool)
+            lvals[i] = ones(lkeys[i])
         elif rv is None and lv is not None:
-            rvals[i] = torch.ones_like(rkeys[i], dtype=torch.bool)
+            rvals[i] = ones(rkeys[i])
     return lvals, rvals
 
 

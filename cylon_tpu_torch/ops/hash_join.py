@@ -8,6 +8,9 @@ probe the other). A power-of-2 bucket table of fixed-width chains
 computes (:mod:`cylon_tpu_torch.ops.hash`); the canonical u32 key-word
 streams (``hash._row_words``: nulls zeroed plus a validity word, so null ==
 null as in ``kernels.group_sort``) are the exact collision tiebreakers.
+A device-bytes key enters as its word columns (``hash._words32``), so a
+string key hashes and compares by content and the probe takes its
+word-by-word path.
 
 Both phases run through the kernel wrappers ``bucket_build`` and
 ``bucket_probe`` (:mod:`cylon_tpu_torch.kernels.bucket`): the CUDA kernels

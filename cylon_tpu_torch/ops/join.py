@@ -27,8 +27,8 @@ from typing import Sequence
 import torch
 
 from cylon_tpu_torch.column import Column
-from cylon_tpu_torch.errors import InvalidArgument, NotImplemented_
-from cylon_tpu_torch.ops import hash_join, kernels
+from cylon_tpu_torch.errors import InvalidArgument
+from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
 
 #: sort key of the invalid output slots: above every u32 row or group id
@@ -151,22 +151,32 @@ def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
 
 
 def _aligned_keys(left, right, left_on, right_on):
-    """Check that the key columns have matching physical dtypes. String
-    keys (dictionary unification, device bytes) wait for the strings
-    slice."""
+    """The tables with their key columns brought to one layout, so that
+    the match and the output gather (and coalesce) see the same words:
+    device bytes against bytes or a dictionary through
+    ``bytescol.align_storages`` (the dictionary side becomes bytes, the
+    widths align), dictionary against dictionary through
+    ``dictenc.unify_dictionaries``; string against non-string is refused,
+    as are numeric keys of different physical dtypes."""
     for ln, rn in zip(left_on, right_on):
         lc, rc = left.column(ln), right.column(rn)
-        if lc.dtype.layout != rc.dtype.layout:
+        if lc.dtype.is_bytes or rc.dtype.is_bytes:
+            if lc.dtype.layout != rc.dtype.layout:
+                raise InvalidArgument(
+                    f"join key {ln}/{rn}: string vs non-string")
+            lc, rc = bytescol.align_storages([lc, rc])
+        elif lc.dtype.is_dictionary != rc.dtype.is_dictionary:
             raise InvalidArgument(f"join key {ln}/{rn}: string vs non-string")
-        if lc.dtype.is_dictionary or lc.dtype.is_bytes:
-            raise NotImplemented_(
-                f"join key {ln}/{rn}: string keys need dictionary "
-                "unification, which arrives with the strings slice "
-                "(ROADMAP queue A)")
-        if lc.data.dtype != rc.data.dtype:
+        elif lc.dtype.is_dictionary:
+            lc, rc = dictenc.unify_dictionaries([lc, rc])
+        elif lc.data.dtype != rc.data.dtype:
             raise InvalidArgument(
                 f"join key {ln}/{rn}: dtype mismatch "
                 f"{lc.data.dtype} vs {rc.data.dtype} (cast first)")
+        else:
+            continue
+        left = left.add_column(ln, lc)
+        right = right.add_column(rn, rc)
     return left, right
 
 
@@ -328,7 +338,11 @@ def _coalesce(a: Column, b: Column) -> Column:
     ones = torch.ones(a.capacity, dtype=torch.bool, device=a.data.device)
     av = ones if a.validity is None else a.validity
     bv = ones if b.validity is None else b.validity
-    return Column(torch.where(av, a.data, b.data), av | bv, a.dtype,
+    # content equality, as unify_dictionaries' pass-through
+    if a.dtype.is_dictionary and a.dictionary != b.dictionary:
+        raise InvalidArgument("coalesce across different dictionaries")
+    pick = av[:, None] if a.data.dim() == 2 else av
+    return Column(torch.where(pick, a.data, b.data), av | bv, a.dtype,
                   a.dictionary)
 
 

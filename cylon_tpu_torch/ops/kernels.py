@@ -17,9 +17,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from cylon_tpu_torch.errors import NotImplemented_
 from cylon_tpu_torch.kernels import scan
-from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns
+from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns, u32
 
 _MIN64 = -(1 << 63)
 _BITS = {torch.bool: 8, torch.uint8: 8, torch.int8: 8, torch.uint16: 16,
@@ -186,7 +185,12 @@ def group_sort(keys: Sequence[torch.Tensor], nrows,
 
     Null keys equal each other and rank last at their level (the key
     takes its maximum word, then an inverted-validity word breaks the tie
-    with a genuine maximum). ``suborder`` keys rank below the key columns
+    with a genuine maximum). A device-bytes key ([cap, nwords] words) is
+    its words in order, each keyed as UNSIGNED 32 bits (the int32 bit
+    patterns' signed order would put bytes >= 0x80 before ASCII); a null
+    row zeroes every word, and its first word takes the maximum and the
+    inverted-validity tiebreak, so the empty string sorts first and null
+    last, as in pandas. ``suborder`` keys rank below the key columns
     and order rows within a group without splitting it; their sorted
     values lead the returned payloads.
 
@@ -208,8 +212,17 @@ def group_sort(keys: Sequence[torch.Tensor], nrows,
     for i, k in enumerate(keys):
         v = validities[i] if validities is not None else None
         if k.dim() == 2:
-            raise NotImplemented_("device-bytes string keys arrive with the "
-                                  "strings slice (ROADMAP queue A)")
+            words = [k[:, j] for j in range(k.shape[1])]
+            if v is not None:
+                zero = torch.zeros((), dtype=k.dtype, device=dev)
+                words = [torch.where(v, w, zero) for w in words]
+            keys_u = [OrderKey(u32(w), 32) for w in words]
+            if v is not None:
+                keys_u[0] = OrderKey(torch.where(v, keys_u[0].value, M32),
+                                     32)
+                keys_u.insert(1, OrderKey((~v).to(torch.int64), 8))
+            full.extend(keys_u)
+            continue
         nk = order_key(k)
         if v is None:
             full.append(nk)

@@ -12,19 +12,22 @@ from typing import Sequence
 import torch
 
 from cylon_tpu_torch.column import Column
-from cylon_tpu_torch.errors import NotImplemented_
 
 
 def _packable(data: torch.Tensor) -> bool:
-    """1-D fixed-width columns ride the packed gather. Unlike the JAX
-    package, float64 rides too: it stays out there only because the
-    TPU's x64 emulation cannot bitcast doubles, and a GPU can."""
-    return data.dim() == 1
+    """1-D fixed-width columns ride the packed gather, and so does a
+    device-bytes column, whose [cap, nwords] int32 words already are
+    words. Unlike the JAX package, float64 rides too: it stays out there
+    only because the TPU's x64 emulation cannot bitcast doubles, and a
+    GPU can."""
+    return data.dim() == 1 or (data.dim() == 2 and data.dtype == torch.int32)
 
 
 def _to_words(data: torch.Tensor) -> torch.Tensor:
     """[cap] column -> [cap, w] int32 words (bit-preserving; 8- and
-    16-bit values zero-extend)."""
+    16-bit values zero-extend); a bytes column is its words."""
+    if data.dim() == 2:
+        return data
     size = data.element_size()
     if data.dtype == torch.bool:
         return data.to(torch.int32)[:, None]
@@ -69,9 +72,6 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     w = 0
     for name in use:
         c = table.column(name)
-        if c.dtype.is_bytes:
-            raise NotImplemented_("device-bytes string columns arrive with "
-                                  "the strings slice (ROADMAP queue A)")
         sl = None
         if _packable(c.data):
             cw = _to_words(c.data)
@@ -94,6 +94,8 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     for name, c, sl, vslot in layout:
         if sl is None:
             data = c.data.index_select(0, safe)
+        elif c.data.dim() == 2:   # bytes: the words are the data
+            data = out_words[:, sl]
         else:
             data = _from_words(out_words[:, sl], c.data.dtype)
         validity = None if vslot is None else out_words[:, vslot] != 0

@@ -18,7 +18,6 @@ A receive larger than ``out_cap`` is truncated and reported as
 import torch
 
 from cylon_tpu_torch.column import Column
-from cylon_tpu_torch.errors import NotImplemented_
 from cylon_tpu_torch.ops import kernels
 
 
@@ -63,7 +62,10 @@ def transport_words(table) -> int:
     :func:`_pack_words` widths)."""
     n = 0
     for c in table.columns.values():
-        n += 2 if c.data.element_size() == 8 else 1
+        if c.data.dim() == 2:
+            n += c.data.shape[1]
+        else:
+            n += 2 if c.data.element_size() == 8 else 1
         if c.validity is not None:
             n += 1
     return n
@@ -89,17 +91,22 @@ def poison(table, *flags):
 
 def _pack_words(arrays):
     """All arrays bit-packed into ONE [cap, words] int32 matrix, plus the
-    spec for :func:`_unpack_words`. 64-bit values ride as their (lo, hi)
-    words (the JAX ``i64pair`` and non-TPU ``bits64`` kinds), 32-bit ones
-    as one word, bool and 8/16-bit values zero-extended into one word."""
+    spec for :func:`_unpack_words`. A device-bytes column ([cap, nwords]
+    int32 words) rides as its words, the spec keeping its width (the JAX
+    ``words`` kind); 64-bit values ride as their (lo, hi) words (the JAX
+    ``i64pair`` and non-TPU ``bits64`` kinds), 32-bit ones as one word,
+    bool and 8/16-bit values zero-extended into one word."""
     mats, spec = [], []
     for a in arrays:
         dt = a.dtype
-        if a.dim() != 1:
-            raise NotImplemented_("device-bytes string columns arrive with "
-                                  "the strings slice (ROADMAP queue A)")
         size = a.element_size()
-        if dt == torch.bool:
+        if a.dim() == 2:
+            if dt != torch.int32:
+                raise TypeError(f"_pack_words: a 2-D array must be int32 "
+                                f"words, got {dt}")
+            mats.append(a)
+            spec.append(("words", a.shape[1], dt))
+        elif dt == torch.bool:
             mats.append(a.to(torch.int32)[:, None])
             spec.append(("bool", 1, dt))
         elif size == 8:
@@ -124,7 +131,9 @@ def _unpack_words(m: torch.Tensor, spec) -> list:
     for kind, w, dt in spec:
         sl = m[:, off:off + w]
         off += w
-        if kind == "bool":
+        if kind == "words":
+            outs.append(sl)
+        elif kind == "bool":
             outs.append(sl[:, 0] != 0)
         elif kind in ("bits64", "i64pair"):
             outs.append(sl.contiguous().view(dt).view(-1))

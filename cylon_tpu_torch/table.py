@@ -115,31 +115,48 @@ class Table:
 
     # -- host bridges ----------------------------------------------------
     @staticmethod
+    def _storage_of(string_storage, name: str) -> str:
+        """A plain string applies to every string column; a mapping
+        names a column's storage, ``"dict"`` by default."""
+        if isinstance(string_storage, Mapping):
+            return string_storage.get(name, "dict")
+        return string_storage
+
+    @staticmethod
     def from_pydict(data: Mapping[str, object],
-                    capacity: "int | None" = None,
-                    device=None) -> "Table":
-        """Host arrays -> Table on ``device`` (``None``: CUDA)."""
+                    capacity: "int | None" = None, device=None,
+                    string_storage="dict") -> "Table":
+        """Host arrays -> Table on ``device`` (``None``: CUDA).
+        ``string_storage``: ``"dict"``, ``"bytes"``, ``"auto"`` or a
+        mapping of column name to one of them (see
+        :meth:`Column.from_numpy`)."""
         dev = _device.resolve(device)
         arrays = {n: np.asarray(v) for n, v in data.items()}
         n = len(next(iter(arrays.values()))) if arrays else 0
         for name, a in arrays.items():
             if len(a) != n:
                 raise InvalidArgument(f"column {name} length {len(a)} != {n}")
-        cols = {name: Column.from_numpy(a, capacity, device=dev)
-                for name, a in arrays.items()}
+        cols = {name: Column.from_numpy(
+            a, capacity, device=dev,
+            string_storage=Table._storage_of(string_storage, name))
+            for name, a in arrays.items()}
         return Table(cols, torch.tensor(n, dtype=torch.int32, device=dev))
 
     @staticmethod
     def from_numpy(names: Sequence[str], arrays: Sequence[np.ndarray],
-                   capacity: "int | None" = None, device=None) -> "Table":
-        return Table.from_pydict(dict(zip(names, arrays)), capacity, device)
+                   capacity: "int | None" = None, device=None,
+                   string_storage="dict") -> "Table":
+        return Table.from_pydict(dict(zip(names, arrays)), capacity, device,
+                                 string_storage)
 
     @staticmethod
-    def from_pandas(df, capacity: "int | None" = None,
-                    device=None) -> "Table":
+    def from_pandas(df, capacity: "int | None" = None, device=None,
+                    string_storage="dict") -> "Table":
         """pandas DataFrame -> Table; nullable extension columns (Int64,
         Float64, boolean, ...) keep their type and carry their mask as
-        validity."""
+        validity. String columns (object or pandas' ``str`` dtype, whose
+        missing values read back as NaN) take ``string_storage`` as in
+        :meth:`from_pydict`, with None, NaN and pd.NA as nulls."""
         dev = _device.resolve(device)
         cols = {}
         for name in df.columns:
@@ -156,8 +173,9 @@ class Table:
                                  col.dtype, col.dictionary)
                 cols[str(name)] = col
                 continue
-            cols[str(name)] = Column.from_numpy(s.to_numpy(), capacity,
-                                                device=dev)
+            cols[str(name)] = Column.from_numpy(
+                s.to_numpy(), capacity, device=dev,
+                string_storage=Table._storage_of(string_storage, str(name)))
         return Table(cols, torch.tensor(len(df), dtype=torch.int32,
                                         device=dev))
 
@@ -174,9 +192,29 @@ class Table:
         return out
 
     def to_pandas(self):
+        """Valid rows as a DataFrame: string columns of both storages as
+        object columns of str with None for null."""
         import pandas as pd
 
         return pd.DataFrame(self._host_columns())
+
+    def row(self, i: int):
+        """Typed host view of row ``i`` (parity: ``cylon::Row``,
+        ``row.hpp:23``): one-element slices of every column, decoded on
+        the host."""
+        from cylon_tpu_torch.row import Row
+
+        n = self.num_rows
+        if not -n <= i < n:
+            raise IndexError(f"row {i} out of range [0, {n})")
+        i %= n
+        values = []
+        for c in self._columns.values():
+            validity = None if c.validity is None \
+                else c.validity[i:i + 1].cpu().numpy()
+            v = c.decode_host(c.data[i:i + 1].cpu().numpy(), validity)[0]
+            values.append(v.item() if hasattr(v, "item") else v)
+        return Row(list(self._columns), values)
 
     def __repr__(self):
         try:

@@ -22,7 +22,7 @@ import cylon_tpu as jct
 from cylon_tpu.ops import hash_join as jhj
 from cylon_tpu.ops.join import join as jjoin
 from cylon_tpu_torch import kernels as tk
-from cylon_tpu_torch.errors import NotImplemented_
+from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import hash_join as thj
 from cylon_tpu_torch.ops import join as tjoin_mod
 from cylon_tpu_torch.ops.join import join as tjoin
@@ -405,7 +405,11 @@ def test_dist_join_w1_hash_is_the_local_join(rng, bucketed, spy):
 
 
 def test_string_keys_still_raise():
+    """String keys join by hash now (``tests/test_torch_strings.py``);
+    a string key against a numeric one still raises."""
     t = Table.from_pydict({"k": np.array(["a", "b"], dtype=object)},
                           device="cpu")
-    with pytest.raises(NotImplemented_):
-        tjoin(t, t, on="k", algorithm="hash")
+    u = Table.from_pydict({"k": np.array([1, 2])}, device="cpu")
+    with pytest.raises(InvalidArgument):
+        tjoin(t, u, on="k", algorithm="hash")
+    assert tjoin(t, t, on="k", algorithm="hash").num_rows == 2
