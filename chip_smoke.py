@@ -876,6 +876,8 @@ NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
            "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
            "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
            "UNITED KINGDOM", "UNITED STATES")
+#: the nations of TPC-H's region ASIA (Q5's filter on R_NAME)
+ASIA = ("INDIA", "INDONESIA", "JAPAN", "CHINA", "VIETNAM")
 #: rows of the prefix rendered from Python strings by bytescol.encode_host
 ENCODE_PREFIX = 1 << 20
 #: output rows decoded on the host and parsed back to their keys
@@ -958,8 +960,9 @@ def strings_phase(torch, rate, stats, profile: bool):
        one bucket_build and one bucket_probe (the word-by-word path);
     3. dictionary codes: a 16M-row fact table of N_NAME (uniform over the
        25 nations, ingested as strings) joined to the 25-row nation table,
-       whose dictionary is in N_NATIONKEY order, so that
-       ``unify_dictionaries`` re-encodes both sides;
+       ingested apart in N_NATIONKEY order (its sorted dictionary is the
+       fact's), and to the 5 nations of region ASIA, whose dictionary
+       differs, so that ``unify_dictionaries`` re-encodes the 16M codes;
     4. the exchange of a bytes table: ``partition_ids`` over the key,
        ``shuffle_local`` through ``LocalComm`` as the bench phase drives
        it; the words that arrive equal the host's gather in that order;
@@ -1208,36 +1211,43 @@ def strings_phase(torch, rate, stats, profile: bool):
         {"n": np.array(NATIONS, object)[codes], "v": fv.cpu().numpy()},
         device="cuda", string_storage="dict")
     ingest_s = time.perf_counter() - t0
-    nv = rand_values(len(NATIONS))
-    nation = ct.Table({
-        "n": Column(torch.arange(len(NATIONS), dtype=torch.int32,
-                                 device="cuda"), None, dtypes.string,
-                    ct.Dictionary(list(NATIONS))),
-        "w": Column(nv, None, dtypes.float64)}, len(NATIONS))
-    if fact.column("n").dictionary == nation.column("n").dictionary:
-        raise SystemExit("strings: the dictionaries agree; nothing to "
-                         "re-encode")
-    res, rows, dwall, dlaunches, dpeak = timed_join(
-        torch, lambda: ct.dist_join(env, fact, nation, on="n"))
-    check = float((res.column("v").data[:rows]
-                   * res.column("w").data[:rows]).sum())
-    out_names = res.column("n").to_numpy(DECODE_SAMPLE)
-    del res
-    fvn, nvn = fv.cpu().numpy(), nv.cpu().numpy()
-    want_check = float((fvn * nvn[codes]).sum())
-    emit({"phase": "strings", "case": "dict_join", "rows": n,
-          "dimension_rows": len(NATIONS), "world": 1, "key": "N_NAME",
-          "ingest_s": ingest_s, "result_rows": rows, "expected_rows": n,
-          "checksum": check, "expected_checksum": want_check,
-          "wall_s": dwall, "peak_bytes": dpeak, "launches": dlaunches,
-          "expected_launches": SORT_JOIN_LAUNCHES})
-    if rows != n or not set(out_names) <= set(NATIONS):
-        raise SystemExit("strings: dictionary join gave wrong rows")
-    if abs(check - want_check) > 1e-9 * abs(want_check):
-        raise SystemExit("strings: dictionary join checksum off")
-    if dlaunches != SORT_JOIN_LAUNCHES:
-        raise SystemExit(f"strings: dictionary join launches {dlaunches}")
-    del fact, nation
+    fvn = fv.cpu().numpy()
+    for case, names in (("dict_join", NATIONS), ("dict_join_asia", ASIA)):
+        nv = rand_values(len(names))
+        dim = ct.Table.from_pydict(
+            {"n": np.array(names, object), "w": nv.cpu().numpy()},
+            device="cuda", string_storage="dict")
+        reencode = fact.column("n").dictionary != dim.column("n").dictionary
+        if reencode != (names is ASIA):
+            raise SystemExit(f"strings: {case}: the dictionaries "
+                             f"{'differ' if reencode else 'agree'}")
+        res, rows, dwall, dlaunches, dpeak = timed_join(
+            torch, lambda: ct.dist_join(env, fact, dim, on="n"))
+        check = float((res.column("v").data[:rows]
+                       * res.column("w").data[:rows]).sum())
+        out_names = res.column("n").to_numpy(DECODE_SAMPLE)
+        del res
+        # the dimension's weight of each fact row, 0 where it has none
+        weight = np.zeros(len(NATIONS))
+        weight[[NATIONS.index(x) for x in names]] = nv.cpu().numpy()
+        want_rows = int(np.isin(codes, [NATIONS.index(x)
+                                        for x in names]).sum())
+        want_check = float((fvn * weight[codes]).sum())
+        emit({"phase": "strings", "case": case, "rows": n,
+              "dimension_rows": len(names), "world": 1, "key": "N_NAME",
+              "reencoded": reencode, "ingest_s": ingest_s,
+              "result_rows": rows, "expected_rows": want_rows,
+              "checksum": check, "expected_checksum": want_check,
+              "wall_s": dwall, "peak_bytes": dpeak, "launches": dlaunches,
+              "expected_launches": SORT_JOIN_LAUNCHES})
+        if rows != want_rows or not set(out_names) <= set(names):
+            raise SystemExit(f"strings: {case} gave wrong rows")
+        if abs(check - want_check) > 1e-9 * abs(want_check):
+            raise SystemExit(f"strings: {case} checksum off")
+        if dlaunches != SORT_JOIN_LAUNCHES:
+            raise SystemExit(f"strings: {case} launches {dlaunches}")
+        del dim
+    del fact
 
     # -- 4. the exchange of a bytes table
     comm = ct.LocalComm()

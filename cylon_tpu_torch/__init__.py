@@ -16,10 +16,6 @@ in both storages: dictionary codes (``ops.dictenc``) and device bytes
 
 from cylon_tpu_torch import dtypes
 from cylon_tpu_torch.column import Column, Dictionary
-from cylon_tpu_torch.config import (CSVReadOptions, CSVWriteOptions,
-                                    DeadlinePolicy, JoinAlgorithm,
-                                    JoinConfig, JoinType, ParquetOptions,
-                                    RetryPolicy, SortOptions)
 from cylon_tpu_torch.context import CylonEnv
 from cylon_tpu_torch.errors import (CylonError, DeviceUnavailable,
                                     InvalidArgument, KeyError_,
@@ -33,11 +29,8 @@ from cylon_tpu_torch.parallel.dtable import (dist_num_rows, gather_table,
 from cylon_tpu_torch.row import Row
 from cylon_tpu_torch.table import Table
 
-__all__ = ["CSVReadOptions", "CSVWriteOptions", "Column", "CylonEnv",
-           "CylonError", "DeadlinePolicy", "DeviceUnavailable",
-           "Dictionary", "InvalidArgument", "JoinAlgorithm", "JoinConfig",
-           "JoinType", "KeyError_", "LocalComm", "NotImplemented_",
-           "OutOfCapacity", "ParquetOptions", "RetryPolicy", "Row",
-           "SortOptions", "Table", "ThreadWorld", "TypeError_",
-           "dist_join", "dist_num_rows", "dtypes", "gather_table", "join",
-           "scatter_table"]
+__all__ = ["Column", "CylonEnv", "CylonError", "DeviceUnavailable",
+           "Dictionary", "InvalidArgument", "KeyError_", "LocalComm",
+           "NotImplemented_", "OutOfCapacity", "Row", "Table", "ThreadWorld",
+           "TypeError_", "dist_join", "dist_num_rows", "dtypes",
+           "gather_table", "join", "scatter_table"]

@@ -24,29 +24,13 @@ class Dictionary:
     """Host-side values of a STRING/BINARY column, sorted ascending so that
     code order is value order. Hash and equality are by content."""
 
-    __slots__ = ("values", "_key", "_vhash")
+    __slots__ = ("values", "_key")
 
     def __init__(self, values):
         arr = np.array(values, dtype=object)
         arr.flags.writeable = False
         self.values = arr
         self._key = None
-        self._vhash = {}
-
-    def value_hashes(self, device) -> torch.Tensor:
-        """[len] int32 tensor on ``device`` of stable per-value hashes
-        (the crc32 of each value's string form, as its u32 bit pattern),
-        cached per device. Partition hashing maps codes through it, so
-        that relations ingested apart, whose codes differ, send equal
-        values to the same rank (``dist_ops._partition_keys``)."""
-        dev = torch.device(device)
-        if dev not in self._vhash:
-            import zlib
-
-            hv = np.array([zlib.crc32(str(v).encode())
-                           for v in self.values], np.uint32)
-            self._vhash[dev] = torch.from_numpy(hv.view(np.int32)).to(dev)
-        return self._vhash[dev]
 
     def _content_key(self) -> tuple:
         if self._key is None:

@@ -20,18 +20,11 @@ def _remap(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     return table[torch.clamp(codes, 0, len(remap) - 1).to(torch.int64)]
 
 
-def unify_dictionaries(cols: list) -> list:
-    """Re-encode dictionary columns onto one merged sorted dictionary.
-    Other columns pass through unchanged."""
-    dict_cols = [c for c in cols if c.dtype.is_dictionary]
-    if not dict_cols:
-        return cols
-    dicts = [c.dictionary for c in dict_cols]
-    first = dicts[0]
-    # content equality: relations ingested apart over one value set share
-    # codes already and need no remap
-    if first is not None and all(d == first for d in dicts):
-        return cols
+def merge_dictionaries(dicts: list) -> tuple:
+    """``(shared, remaps)``: the sorted merge of ``dicts`` (None reads as
+    empty) and, for each input, the numpy array that maps its codes onto
+    ``shared``. Deterministic in the inputs and their order, so ranks that
+    merge the same dictionaries agree on every code."""
     # ONE factorize merges and remaps: uniques come back in pandas'
     # safe-sorted order, the order ingest uses, and mixed-type object
     # values are handled
@@ -52,19 +45,33 @@ def unify_dictionaries(cols: list) -> list:
         inv[order] = np.arange(len(order))
         merged = merged[order]
         flat_codes = inv[flat_codes]
-    shared = Dictionary(merged)
     offsets = np.cumsum([0] + [len(v) for v in vals])
-    out = []
-    di = 0
-    for c in cols:
-        if not c.dtype.is_dictionary:
-            out.append(c)
-            continue
-        remap = flat_codes[offsets[di]:offsets[di + 1]]
-        di += 1
-        codes = _remap(c.data, remap) if len(remap) else c.data
-        out.append(Column(codes, c.validity, c.dtype, shared))
-    return out
+    return Dictionary(merged), [flat_codes[offsets[i]:offsets[i + 1]]
+                                for i in range(len(vals))]
+
+
+def remap_codes(col: Column, remap: np.ndarray, shared: Dictionary):
+    """``col`` re-encoded onto ``shared`` through ``remap``."""
+    codes = _remap(col.data, remap) if len(remap) else col.data
+    return Column(codes, col.validity, col.dtype, shared)
+
+
+def unify_dictionaries(cols: list) -> list:
+    """Re-encode dictionary columns onto one merged sorted dictionary.
+    Other columns pass through unchanged."""
+    dict_cols = [c for c in cols if c.dtype.is_dictionary]
+    if not dict_cols:
+        return cols
+    dicts = [c.dictionary for c in dict_cols]
+    first = dicts[0]
+    # content equality: relations ingested apart over one value set share
+    # codes already and need no remap
+    if first is not None and all(d == first for d in dicts):
+        return cols
+    shared, remaps = merge_dictionaries(dicts)
+    remaps = iter(remaps)
+    return [remap_codes(c, next(remaps), shared) if c.dtype.is_dictionary
+            else c for c in cols]
 
 
 def unify_table_dictionaries(tables: list) -> list:

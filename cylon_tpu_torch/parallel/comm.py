@@ -5,8 +5,9 @@ JAX package has none: its collectives are mesh primitives inside
 ``shard_map``). A communicator has a ``world_size``, a ``rank`` and two
 collectives:
 
-- :meth:`all_gather` of a 1-D count vector (the same length on every
-  rank) -> ``[W, len]``, row s from rank s;
+- :meth:`all_gather` of a 1-D vector (counts, a layout summary, a
+  dictionary's padded bytes; the same length and dtype on every rank)
+  -> ``[W, len]``, row s from rank s;
 - :meth:`exchange` of a ``[rows, words]`` int32 word matrix whose rows are
   grouped by destination, with the per-destination send counts and the
   per-sender receive counts -> the received rows grouped by sender in rank

@@ -16,7 +16,6 @@ import pytest
 import torch
 
 import cylon_tpu as jct
-from cylon_tpu import config as jconfig
 from cylon_tpu import dtypes as jdtypes
 from cylon_tpu.column import Column as JColumn
 from cylon_tpu.ops import bytescol as jbc
@@ -29,7 +28,6 @@ from cylon_tpu.parallel import dist_join as jdist_join
 from cylon_tpu.parallel import dist_to_pandas as jdist_to_pandas
 from cylon_tpu.parallel import scatter_table as jscatter
 import cylon_tpu_torch as ct
-from cylon_tpu_torch import config as tconfig
 from cylon_tpu_torch import convert, dtypes
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument, TypeError_
@@ -39,7 +37,8 @@ from cylon_tpu_torch.ops.join import join as tjoin
 from cylon_tpu_torch.ops.kernels import group_sort
 from cylon_tpu_torch.ops.selection import take_columns as ttake
 from cylon_tpu_torch.parallel.dist_ops import dist_join
-from cylon_tpu_torch.parallel.dtable import gather_table, scatter_table
+from cylon_tpu_torch.parallel.dtable import gather_table, scatter_table, \
+    world_layout
 from test_torch_join import assert_same_table
 
 #: values with non-ASCII bytes (>= 0x80), an empty string and a prefix
@@ -266,10 +265,6 @@ def test_dictionary_helpers_match_jax():
         tf, tcode = dictenc.encode_fill_value(tcols[0], value)
         assert tcode == jcode
         np.testing.assert_array_equal(tf.data.numpy(), np.asarray(jf.data))
-    # the value hashes: crc32 of each value, the same bits as the JAX table
-    np.testing.assert_array_equal(
-        tcols[0].dictionary.value_hashes("cpu").numpy().view(np.uint32),
-        np.asarray(jcols[0].dictionary.value_hashes()))
 
 
 # --------------------------------------------------------------- hashing
@@ -485,7 +480,7 @@ def _world(tl, tr, **kw):
 def test_dist_join_w4_matches_pandas(storages):
     """Relations ingested apart (their own widths, their own
     dictionaries) co-locate equal strings: bytes hash by content,
-    dictionary codes through their value hashes."""
+    dictionary keys by their codes on the unified dictionary."""
     ldf, rdf = _frames(41 + STORAGES.index(storages), 260, 200)
     tl = ct.Table.from_pandas(ldf, device="cpu", string_storage=storages[0])
     tr = ct.Table.from_pandas(rdf, device="cpu", string_storage=storages[1])
@@ -503,38 +498,83 @@ def test_dist_join_w4_bytes_matches_jax(env4):
     _assert_rows(got, want, ordered=False)
 
 
-def test_dist_join_w4_shards_ingested_per_rank():
-    """Each rank ingests its own rows, so its bytes widths differ from
-    its peers'; the exchange pads them to the widest first."""
+def _quarters(df):
+    """``df`` cut into four rank shares; rank 0's share holds no null and
+    no "apple", so its dictionary and validity differ from its peers'."""
+    parts = [df.iloc[ix] for ix in np.array_split(np.arange(len(df)), 4)]
+    k = parts[0]["k"]
+    parts[0] = parts[0][k.notna() & (k != "apple")]
+    return parts
+
+
+@pytest.mark.parametrize("storages", STORAGES[:3])
+def test_dist_join_w4_shards_ingested_per_rank(storages):
+    """Each rank ingests its own rows, so its bytes widths, dictionaries
+    and validity masks differ from its peers': dist_join brings them to
+    one layout before any rows move, and the joined strings are the
+    ones pandas joins."""
     ldf, rdf = _frames(53, 200, 160)
-    lparts = np.array_split(np.arange(len(ldf)), 4)
-    rparts = np.array_split(np.arange(len(rdf)), 4)
+    lparts, rparts = _quarters(ldf), _quarters(rdf)
 
     def rank(comm):
         env = ct.CylonEnv(comm)
-        lt = ct.Table.from_pandas(ldf.iloc[lparts[comm.rank]], device="cpu",
-                                  string_storage="bytes")
-        rt = ct.Table.from_pandas(rdf.iloc[rparts[comm.rank]], device="cpu",
-                                  string_storage="bytes")
+        lt = ct.Table.from_pandas(lparts[comm.rank], device="cpu",
+                                  string_storage=storages[0])
+        rt = ct.Table.from_pandas(rparts[comm.rank], device="cpu",
+                                  string_storage=storages[1])
         res = dist_join(env, lt, rt, on="k")
-        return res.column("k").data.shape[1], \
+        dict_side = lt if storages[0] == "dict" else rt
+        return dict_side.column("k"), res.column("k"), \
             gather_table(env, res).to_pandas()
 
     out = ct.ThreadWorld(4).run(rank)
-    assert {w for w, _ in out} == {5}
-    _assert_rows(out[0][1], ldf.merge(rdf, on="k"), ordered=False)
+    if storages == ("bytes", "bytes"):
+        assert {k.data.shape[1] for _, k, _ in out} == {5}
+    else:
+        assert len({tuple(k.dictionary.values) for k, _, _ in out}) > 1
+    assert out[0][0].validity is None
+    assert any(k.validity is not None for k, _, _ in out[1:])
+    want = pd.concat(lparts).merge(pd.concat(rparts), on="k")
+    for _, _, got in out:
+        _assert_rows(got, want, ordered=False)
 
 
-def test_row_and_config_copies():
+def test_gather_table_reconciles_per_rank_dictionaries():
+    """Shards ingested apart, gathered: every rank's codes read back as
+    the strings that rank ingested."""
+    ldf, _ = _frames(59, 120, 8)
+    parts = _quarters(ldf)
+
+    def rank(comm):
+        env = ct.CylonEnv(comm)
+        t = ct.Table.from_pandas(parts[comm.rank], device="cpu")
+        return gather_table(env, t).to_pandas()
+
+    for got in ct.ThreadWorld(4).run(rank):
+        _assert_rows(got, pd.concat(parts))
+
+
+def test_world_layout_refuses_mixed_storages():
+    """A column stored as device bytes on one rank and as dictionary
+    codes on the others cannot be exchanged: every rank refuses."""
+    vals = np.array(["a", "bb", None], object)
+
+    def rank(comm):
+        env = ct.CylonEnv(comm)
+        t = ct.Table.from_pydict({"k": vals}, device="cpu",
+                                 string_storage="bytes" if comm.rank == 2
+                                 else "dict")
+        with pytest.raises(InvalidArgument, match="string_storage"):
+            world_layout(env, t)
+        return True
+
+    assert ct.ThreadWorld(4).run(rank) == [True] * 4
+
+
+def test_row_copy():
     t = ct.Table.from_pydict({"s": np.array(["é", None], object),
                               "x": np.array([1, 2])}, device="cpu",
                              string_storage="bytes")
     r = t.row(-1)
     assert r.get_string("s") is None and r.get_int64("x") == 2
     assert t.row(0).to_dict() == {"s": "é", "x": 1}
-    for name in ("JoinConfig", "SortOptions", "RetryPolicy",
-                 "CSVReadOptions", "ParquetOptions"):
-        tcls, jcls = getattr(tconfig, name), getattr(jconfig, name)
-        assert list(tcls.__dataclass_fields__) == \
-            list(jcls.__dataclass_fields__)
-    assert tconfig.JoinConfig.make("left", "hash").join_type.value == "left"
