@@ -20,13 +20,19 @@ Phases, each printing one JSON line:
    below one tile, at nb = 4 cap, with ids past nb, on no rows, on a
    ragged last chunk, on the global-counter path (nb 64M) and with one
    bucket holding 1 % of 16M rows, each build also against a second call,
-   the 16M builds with their device time by pass and peak memory); the
+   the 16M builds with their device time by pass and peak memory;
+   ``pair_max_scan`` also on no marks, a mark on every element, one mark
+   at element 0, ties on hi that lo decides and hi and lo at or above
+   2^31, at every shape and at its dispatch threshold and one pair on
+   each side of it, so that both of its paths run); the
    time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
    from torch.profiler, beside the memory bound; then the whole join on
    the card against the same join on the CPU (plain versions) on a small
-   input, for the sort join and both routes of ``algorithm="hash"``;
+   input, for the sort join and both routes of ``algorithm="hash"``, and
+   a join with an empty side (capacity 0, and no valid row in a capacity
+   of 8) in every ``how`` by both algorithms;
 4. dist_join: the public entry point at a world of one rank on 16M x 16M
    rows (the per-rank share of the reference's 1B-row, 64-rank run),
    checked against numpy: the row count exactly, the checksum
@@ -216,9 +222,12 @@ def float_max_input(torch, n, g):
 # ------------------------------------------------------------ phase 3
 def kernel_phase(torch, rate):
     from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+    from scan_race import pair_inputs
 
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
+    g_pairs = torch.Generator(device="cuda")
+    g_pairs.manual_seed(10)
     stats = {}
     for n in SHAPES:
         keys = torch.randint(-2 ** 62, 2 ** 62, (n,), dtype=torch.int64,
@@ -280,6 +289,16 @@ def kernel_phase(torch, rate):
             cases["row_hash/18words"] = (
                 lambda: row_hash(wide, 64), lambda: row_hash.plain(wide, 64),
                 None, (4 * len(wide) + 4) * n, 0)
+        # pair_max_scan's edge inputs, checked and not timed
+        untimed = set()
+        for case, (ehi, elo) in pair_inputs(torch, n, g_pairs).items():
+            if case != "path":
+                name = f"pair_max_scan/{case}"
+                untimed.add(name)
+                cases[name] = (
+                    lambda ehi=ehi, elo=elo: pair_max_scan(ehi, elo),
+                    lambda ehi=ehi, elo=elo: pair_max_scan.plain(ehi, elo),
+                    None, 16 * n, 0)
         for name, (kern, plain, library, nbytes, rtol) in cases.items():
             got = kern()
             extra = {}
@@ -297,7 +316,7 @@ def kernel_phase(torch, rate):
                    "mismatches": bad, "max_abs_err": err,
                    "tolerance": rtol, "bound_us": nbytes / rate * 1e6,
                    **extra}
-            if n in TIMED:
+            if n in TIMED and name not in untimed:
                 for label, fn in (("kernel", kern), ("plain", plain),
                                   ("library", library)):
                     row[f"{label}_ms"] = time_ms(torch, fn) if fn else None
@@ -307,7 +326,34 @@ def kernel_phase(torch, rate):
             if bad:
                 raise SystemExit(f"{name} at n={n}: {bad} mismatches")
             stats[(name, n)] = row
+    pair_split_phase(torch, rate, stats)
     return stats
+
+
+def pair_split_phase(torch, rate, stats):
+    """pair_max_scan at its dispatch threshold and one pair on each side
+    of it (``PAIR_SPLIT`` and below: two passes; above: one pass with a
+    look-back), on every input of ``scan_race.pair_inputs``, bit for bit
+    against the plain version."""
+    from cylon_tpu_torch.kernels import pair_max_scan
+    from cylon_tpu_torch.kernels.scan import PAIR_SPLIT
+    from scan_race import pair_inputs
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    for n in (PAIR_SPLIT - 1, PAIR_SPLIT, PAIR_SPLIT + 1):
+        for case, (hi, lo) in pair_inputs(torch, n, g).items():
+            name = f"pair_max_scan/split_{case}"
+            bad, err = compare(torch, pair_max_scan(hi, lo),
+                               pair_max_scan.plain(hi, lo))
+            row = {"phase": "kernel", "name": name, "n": n,
+                   "path": "two passes" if n <= PAIR_SPLIT else "look-back",
+                   "mismatches": bad, "max_abs_err": err, "tolerance": 0,
+                   "bound_us": 16 * n / rate * 1e6}
+            emit(row)
+            if bad:
+                raise SystemExit(f"{name} at n={n}: {bad} mismatches")
+            stats[(name, n)] = row
 
 
 def bucket_kernel_phase(torch, rate, stats):
@@ -582,6 +628,27 @@ def join_parity_phase(torch):
                 bucket_launches[("hash_overflow", "inner", True)] = [
                     after[k] - before[k]
                     for k in ("bucket_build", "bucket_probe")]
+            # an empty side: capacity 0 on the left, no valid row in a
+            # capacity of 8 on the right, by both algorithms
+            el = ct.Table.from_pydict({"k": np.zeros(0, np.int64),
+                                       "a": np.zeros(0)}, device=dev)
+            er = ct.Table.from_pydict({"k": np.zeros(0, np.int64),
+                                       "b": np.zeros(0, np.int32)},
+                                      capacity=8, device=dev)
+            sl = ct.Table.from_pydict({c: v[:100] for c, v in data_l.items()},
+                                      device=dev)
+            sr = ct.Table.from_pydict({c: v[:100] for c, v in data_r.items()},
+                                      device=dev)
+            for impl in ("sort", "bucketed"):
+                os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = impl
+                for how in ("inner", "left", "right", "outer"):
+                    for side, (a, b) in (("empty_left", (el, sr)),
+                                         ("empty_right", (sl, er))):
+                        res = ct.join(a, b, on="k", how=how,
+                                      algorithm="sort" if impl == "sort"
+                                      else "hash")
+                        out.setdefault((f"{side}_{impl}", how, True),
+                                       []).append(res.to_pandas())
     finally:
         if saved is None:
             os.environ.pop("CYLON_TPU_JOIN_HASH_IMPL", None)
@@ -590,13 +657,23 @@ def join_parity_phase(torch):
     for key, (gpu, cpu) in out.items():
         if not gpu.equals(cpu):
             raise SystemExit(f"join {key}: the card and the CPU differ")
+    empty_rows = {k: len(v[0]) for k, v in out.items()
+                  if k[0].startswith("empty")}
+    for (side, how, _), rows in empty_rows.items():
+        # the rows of the side that is not empty, where the join keeps them
+        keeps = how == "outer" or how == ("right" if side.startswith(
+            "empty_left") else "left")
+        if rows != (100 if keeps else 0):
+            raise SystemExit(f"join {side} {how}: {rows} rows")
     for key, counts in bucket_launches.items():
         want = [1, 1] if key[0] == "hash_bucketed" else [0, 0]
         if counts != want:
             raise SystemExit(f"join {key}: bucket kernel launches {counts}, "
                              f"expected {want}")
     emit({"phase": "join_parity", "rows": n, "cases": len(out),
-          "equal": True, "bucket_launches": {
+          "equal": True, "empty_side_rows": {
+              "/".join(map(str, k[:2])): v for k, v in empty_rows.items()},
+          "bucket_launches": {
               "/".join(map(str, k)): v for k, v in bucket_launches.items()}})
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from cylon_tpu_torch import dtypes
+from cylon_tpu_torch.device import from_host
 from cylon_tpu_torch.errors import TypeError_
 
 
@@ -117,8 +118,8 @@ class Column:
         if validity is not None:
             vbuf = np.zeros(cap, dtype=bool)
             vbuf[:n] = validity
-        t = torch.from_numpy(buf).to(device=device, dtype=dtype.physical)
-        v = None if vbuf is None else torch.from_numpy(vbuf).to(device)
+        t = from_host(buf, device, dtype.physical)
+        v = None if vbuf is None else from_host(vbuf, device)
         return Column(t, v, dtype, dictionary)
 
     @property

@@ -15,7 +15,6 @@ through this module.
 from typing import Mapping
 
 import numpy as np
-import torch
 
 from cylon_tpu_torch import device as _device
 from cylon_tpu_torch import dtypes
@@ -35,9 +34,9 @@ def from_arrays(columns: Mapping[str, tuple], nrows: int, device=None,
         data = np.array(data)
         if dt.is_bytes:
             data = data.astype(np.uint32, copy=False).view(np.int32)
-        t = torch.from_numpy(data).to(device=dev, dtype=dt.physical)
-        v = None if validity is None else torch.from_numpy(
-            np.array(validity, dtype=bool)).to(dev)
+        t = _device.from_host(data, dev, dt.physical)
+        v = None if validity is None else _device.from_host(
+            np.array(validity, dtype=bool), dev)
         d = Dictionary(dictionaries[name]) if name in dictionaries else None
         cols[name] = Column(t, v, dt, d)
     return Table(cols, int(nrows))

@@ -9,7 +9,7 @@
 // once and write its output once: 8 bytes per element for scan32, 16 for a
 // pair. It does one operation per element, nothing next to the memory.
 //
-// Design: simple and right, three passes over tiles of 256 threads x 8
+// scan32: simple and right, three passes over tiles of 256 threads x 8
 // elements (2048 per tile):
 //   1. tile_reduce: each block reduces its tile to one total;
 //   2. carry_scan: one block scans the tile totals, in place, into
@@ -31,9 +31,12 @@
 //
 // int32 add wraps modulo 2^32 (it is done in uint32_t: signed overflow is
 // undefined in C++). float32 max propagates NaN, as jnp.maximum does;
-// fmaxf would drop it. A pair is packed into one unsigned 64-bit value, hi
-// in the top half, so the unsigned max is the lexicographic max; the
-// identity is 0, so positions before any nonzero pair read (0, 0).
+// fmaxf would drop it.
+//
+// pair_max_scan has kernels of its own (below, where its design is set
+// out): a pair is packed into one unsigned 64-bit value, hi in the top
+// half, so the unsigned max is the lexicographic max, and that max is
+// commutative and idempotent, which its two paths use.
 
 #include <climits>
 #include <cmath>
@@ -86,12 +89,6 @@ struct MaxF32 {
   }
 };
 
-struct MaxU64 {
-  using T = unsigned long long;
-  __device__ static T id() { return 0ull; }
-  __device__ static T op(T a, T b) { return b >= a ? b : a; }
-};
-
 template <class Op>
 struct FlatIO {
   using T = typename Op::T;
@@ -99,21 +96,6 @@ struct FlatIO {
   T* out;
   __device__ T load(long long i) const { return in[i]; }
   __device__ void store(long long i, T v) const { out[i] = v; }
-};
-
-struct PairIO {
-  using T = unsigned long long;
-  const uint32_t* hi;
-  const uint32_t* lo;
-  uint32_t* out_hi;
-  uint32_t* out_lo;
-  __device__ T load(long long i) const {
-    return (static_cast<T>(hi[i]) << 32) | lo[i];
-  }
-  __device__ void store(long long i, T v) const {
-    out_hi[i] = static_cast<uint32_t>(v >> 32);
-    out_lo[i] = static_cast<uint32_t>(v);
-  }
 };
 
 __device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
@@ -272,6 +254,383 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
   return run_scan<Op>(io, n, scratch, stream);
 }
 
+// ------------------------------------------------------- pair_max_scan
+// The scan of (hi, lo) u32 pairs, the u64 cummax of (hi << 32) | lo with
+// identity 0. It moves 16 bytes a pair at the bound. The launcher picks
+// one of two paths from n alone (both raced on an H100 against the three
+// passes above, which this scan ran before; PERF.md):
+//
+// * n <= kPairSplit (3M pairs: what the scan reads and writes fits in the
+//   50 MB L2): two passes over tiles of 4096 pairs. pair_tile_max reduces
+//   each tile to its max; pair_tile_scan scans each tile and takes as its
+//   carry the max of the totals before it, which each block reduces
+//   itself (at most 768 totals, from L2), so no carry kernel runs. The
+//   second read of the input mostly hits L2.
+// * above: one pass with a decoupled look-back (Merrill and Garland,
+//   2016) over tiles of 16384 pairs, one 1024-thread block an SM. A block
+//   takes its tile from an atomic counter, so every lower tile belongs to
+//   a block that is already running; it publishes its tile's max, and
+//   warp 0 looks back over 32 predecessors at a time, folding their
+//   values down to the nearest inclusive prefix, then publishes its own.
+//   Large tiles keep the chains of look-backs short. A tile's state is a
+//   u64 value and a u32 flag: the value is stored first, then the flag
+//   with release semantics, and a reader loads the flag with acquire
+//   semantics before the value, so no status is ever seen without its
+//   value. One value slot serves both the tile's max and its inclusive
+//   prefix: a reader that finds either folds in a max over tiles before
+//   its own, which for an idempotent max is the same. The flag carries
+//   the call's epoch (flag = epoch << 2 | status), so the state needs no
+//   memset: the wrapper keeps it zeroed once, and a flag of an earlier
+//   call reads as not yet published. The block that draws the last tile
+//   resets the counter.
+//
+// Both paths hold a tile in registers, 16 pairs a thread: warp w scans
+// the contiguous span base + w * kPairWarpSpan in chunks of 128 pairs,
+// lane l holding pairs 4l .. 4l + 3 of each chunk, loaded with one
+// 16-byte load of hi and one of lo (4-byte loads where a pointer is not
+// 16-byte aligned). A chunk scans in each lane, then across the warp by
+// __shfl_up_sync, carrying the chunk's max to the next; the warps' maxima
+// meet in shared memory, and the carry goes in front as the tile is
+// stored. No shared-memory transpose: a tile's threads meet only to pass
+// the warps' maxima and, on the look-back path, the tile and its prefix.
+// The last read of the input and the output's stores are marked
+// streaming (evict first), which leaves L2 to the data still to be read.
+constexpr int kPairChunks = 4;
+constexpr int kPairItems = 4 * kPairChunks;       // pairs a thread
+constexpr int kPairWarpSpan = 128 * kPairChunks;  // pairs a warp
+constexpr int kTwoPassWarps = 8;
+constexpr int kTwoPassThreads = 32 * kTwoPassWarps;
+constexpr int kTwoPassTile = kTwoPassWarps * kPairWarpSpan;  // 4096
+constexpr int kLookBackWarps = 32;
+constexpr int kLookBackThreads = 32 * kLookBackWarps;
+constexpr int kLookBackTile = kLookBackWarps * kPairWarpSpan;  // 16384
+// The largest n that takes the two passes; a build may set it (-D) to run
+// one path at every size.
+#ifndef CYLON_PAIR_SCAN_SPLIT
+#define CYLON_PAIR_SCAN_SPLIT 3145728
+#endif
+constexpr long long kPairSplit = CYLON_PAIR_SCAN_SPLIT;
+constexpr unsigned kPairAggregate = 1u;
+constexpr unsigned kPairPrefix = 2u;
+constexpr unsigned kPairEpochs = 1u << 30;
+
+using u64 = unsigned long long;
+
+__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a > b ? a : b; }
+
+__device__ __forceinline__ u64 warp_max(u64 v) {
+  for (int d = 16; d > 0; d >>= 1) v = umax(v, __shfl_xor_sync(kFull, v, d));
+  return v;
+}
+
+// The first pair of this thread's 4 in chunk c of the tile at `base`.
+__device__ __forceinline__ long long pair_index(long long base, int c) {
+  return base + (threadIdx.x >> 5) * kPairWarpSpan + c * 128 +
+         4 * (threadIdx.x & 31);
+}
+
+// kLast: the input's last read, marked streaming.
+template <bool kLast>
+__device__ __forceinline__ uint4 load4(const uint32_t* p) {
+  if constexpr (kLast) return __ldcs(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Past n the identity 0 fills in.
+template <bool kVec, bool kLast>
+__device__ __forceinline__ void pair_load(const uint32_t* __restrict__ hi,
+                                          const uint32_t* __restrict__ lo,
+                                          long long base, long long n,
+                                          u64 (&v)[kPairItems]) {
+#pragma unroll
+  for (int c = 0; c < kPairChunks; ++c) {
+    const long long i = pair_index(base, c);
+    uint32_t h[4], l[4];
+    if (kVec && i + 3 < n) {
+      const uint4 qh = load4<kLast>(hi + i);
+      const uint4 ql = load4<kLast>(lo + i);
+      h[0] = qh.x; h[1] = qh.y; h[2] = qh.z; h[3] = qh.w;
+      l[0] = ql.x; l[1] = ql.y; l[2] = ql.z; l[3] = ql.w;
+    } else {
+      for (int k = 0; k < 4; ++k) {
+        h[k] = i + k < n ? hi[i + k] : 0u;
+        l[k] = i + k < n ? lo[i + k] : 0u;
+      }
+    }
+    for (int k = 0; k < 4; ++k) {
+      v[4 * c + k] = (static_cast<u64>(h[k]) << 32) | l[k];
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void pair_store(uint32_t* __restrict__ out_hi,
+                                           uint32_t* __restrict__ out_lo,
+                                           long long base, long long n,
+                                           const u64 (&v)[kPairItems]) {
+#pragma unroll
+  for (int c = 0; c < kPairChunks; ++c) {
+    const long long i = pair_index(base, c);
+    const u64* x = v + 4 * c;
+    if (kVec && i + 3 < n) {
+      __stcs(reinterpret_cast<uint4*>(out_hi + i),
+             make_uint4(static_cast<uint32_t>(x[0] >> 32),
+                        static_cast<uint32_t>(x[1] >> 32),
+                        static_cast<uint32_t>(x[2] >> 32),
+                        static_cast<uint32_t>(x[3] >> 32)));
+      __stcs(reinterpret_cast<uint4*>(out_lo + i),
+             make_uint4(static_cast<uint32_t>(x[0]),
+                        static_cast<uint32_t>(x[1]),
+                        static_cast<uint32_t>(x[2]),
+                        static_cast<uint32_t>(x[3])));
+    } else {
+      for (int k = 0; k < 4; ++k) {
+        if (i + k < n) {
+          out_hi[i + k] = static_cast<uint32_t>(x[k] >> 32);
+          out_lo[i + k] = static_cast<uint32_t>(x[k]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ u64 thread_max(const u64 (&v)[kPairItems]) {
+  u64 m = v[0];
+  for (int k = 1; k < kPairItems; ++k) m = umax(m, v[k]);
+  return m;
+}
+
+// The running max over this warp's span, in place, chunk by chunk; the
+// tile's earlier warps and tiles are not in it yet.
+__device__ __forceinline__ void pair_warp_scan(u64 (&v)[kPairItems]) {
+  const int lane = threadIdx.x & 31;
+  u64 run = 0;
+#pragma unroll
+  for (int c = 0; c < kPairChunks; ++c) {
+    u64* x = v + 4 * c;
+    x[1] = umax(x[0], x[1]);
+    x[2] = umax(x[1], x[2]);
+    x[3] = umax(x[2], x[3]);
+    u64 inc = x[3];
+    for (int d = 1; d < 32; d <<= 1) {
+      const u64 up = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc = umax(up, inc);
+    }
+    u64 ex = __shfl_up_sync(kFull, inc, 1);
+    if (lane == 0) ex = 0;
+    const u64 pre = umax(run, ex);
+    for (int k = 0; k < 4; ++k) x[k] = umax(pre, x[k]);
+    run = umax(run, __shfl_sync(kFull, inc, 31));
+  }
+}
+
+// The max of the warps before this one, from the warps' maxima.
+__device__ __forceinline__ u64 earlier_warps(const u64* wmax) {
+  u64 m = 0;
+  for (int w = 0; w < (static_cast<int>(threadIdx.x) >> 5); ++w) {
+    m = umax(m, wmax[w]);
+  }
+  return m;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTwoPassThreads)
+pair_tile_max(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+              long long n, u64* __restrict__ totals) {
+  __shared__ u64 wmax[kTwoPassWarps];
+  u64 v[kPairItems];
+  pair_load<kVec, false>(hi, lo,
+                         static_cast<long long>(blockIdx.x) * kTwoPassTile,
+                         n, v);
+  const u64 m = warp_max(thread_max(v));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    u64 t = 0;
+    for (int w = 0; w < kTwoPassWarps; ++w) t = umax(t, wmax[w]);
+    totals[blockIdx.x] = t;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTwoPassThreads)
+pair_tile_scan(const uint32_t* __restrict__ hi,
+               const uint32_t* __restrict__ lo, uint32_t* __restrict__ out_hi,
+               uint32_t* __restrict__ out_lo, long long n,
+               const u64* __restrict__ totals) {
+  __shared__ u64 wmax[kTwoPassWarps];
+  __shared__ u64 wcarry[kTwoPassWarps];
+  const long long base = static_cast<long long>(blockIdx.x) * kTwoPassTile;
+  u64 v[kPairItems];
+  pair_load<kVec, true>(hi, lo, base, n, v);
+  // the carry, while the loads are in flight: the max of the totals of
+  // the tiles before this one
+  u64 carry = 0;
+  for (unsigned t = threadIdx.x; t < blockIdx.x; t += kTwoPassThreads) {
+    carry = umax(carry, totals[t]);
+  }
+  carry = warp_max(carry);
+  const u64 m = warp_max(thread_max(v));
+  pair_warp_scan(v);
+  if ((threadIdx.x & 31) == 0) {
+    wmax[threadIdx.x >> 5] = m;
+    wcarry[threadIdx.x >> 5] = carry;
+  }
+  __syncthreads();
+  u64 pre = earlier_warps(wmax);
+  for (int w = 0; w < kTwoPassWarps; ++w) pre = umax(pre, wcarry[w]);
+  for (int k = 0; k < kPairItems; ++k) v[k] = umax(pre, v[k]);
+  pair_store<kVec>(out_hi, out_lo, base, n, v);
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ u64 load_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void publish(u64* values, unsigned* flags,
+                                        unsigned tile, u64 v, unsigned epoch,
+                                        unsigned status) {
+  store_relaxed(values + tile, v);
+  store_release(flags + tile, (epoch << 2) | status);
+}
+
+// Warp 0: the max of the tiles before `tile` (> 0). Waits until each of
+// the 32 predecessors in the window has published in this call, folds the
+// values down to the nearest inclusive prefix, and steps 32 tiles back
+// while there is none. Tile 0 always publishes a prefix.
+__device__ u64 pair_look_back(const u64* values, const unsigned* flags,
+                              unsigned tile, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  u64 acc = 0;
+  for (long long end = static_cast<long long>(tile) - 1;; end -= 32) {
+    const long long idx = end - lane;
+    unsigned status;
+    do {
+      status = kPairPrefix;
+      if (idx >= 0) {
+        const unsigned f = load_acquire(flags + idx);
+        status = (f >> 2) == epoch ? (f & 3u) : 0u;
+      }
+    } while (!__all_sync(kFull, status != 0));
+    const u64 val = idx >= 0 ? load_relaxed(values + idx) : 0;
+    const unsigned prefixes = __ballot_sync(kFull, status == kPairPrefix);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    acc = umax(acc, warp_max(lane <= stop ? val : 0));
+    if (prefixes) return acc;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kLookBackThreads)
+pair_lookback_scan(const uint32_t* __restrict__ hi,
+                   const uint32_t* __restrict__ lo,
+                   uint32_t* __restrict__ out_hi,
+                   uint32_t* __restrict__ out_lo, long long n,
+                   unsigned* counter, unsigned* flags, u64* values,
+                   unsigned epoch) {
+  __shared__ unsigned tile_s;
+  __shared__ u64 wmax[kLookBackWarps];
+  __shared__ u64 prefix_s;
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(counter, 1u);
+    if (t == gridDim.x - 1) *counter = 0u;  // every block has drawn
+    tile_s = t;
+  }
+  __syncthreads();
+  const unsigned tile = tile_s;
+  const long long base = static_cast<long long>(tile) * kLookBackTile;
+  u64 v[kPairItems];
+  pair_load<kVec, true>(hi, lo, base, n, v);
+  const u64 m = warp_max(thread_max(v));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    u64 total = 0;
+    for (int w = 0; w < kLookBackWarps; ++w) total = umax(total, wmax[w]);
+    if (tile == 0) {
+      if (threadIdx.x == 0) {
+        publish(values, flags, tile, total, epoch, kPairPrefix);
+        prefix_s = 0;
+      }
+    } else {
+      if (threadIdx.x == 0) {
+        publish(values, flags, tile, total, epoch, kPairAggregate);
+      }
+      const u64 p = pair_look_back(values, flags, tile, epoch);
+      if (threadIdx.x == 0) {
+        publish(values, flags, tile, umax(p, total), epoch, kPairPrefix);
+        prefix_s = p;
+      }
+    }
+  }
+  pair_warp_scan(v);
+  const u64 wpre = earlier_warps(wmax);
+  __syncthreads();
+  const u64 pre = umax(prefix_s, wpre);
+  for (int k = 0; k < kPairItems; ++k) v[k] = umax(pre, v[k]);
+  pair_store<kVec>(out_hi, out_lo, base, n, v);
+}
+
+long long pair_tile(long long n) {
+  return n <= kPairSplit ? kTwoPassTile : kLookBackTile;
+}
+
+long long pair_tiles(long long n) {
+  return (n + pair_tile(n) - 1) / pair_tile(n);
+}
+
+// Scratch: the tile counter (8 bytes), a u32 flag a tile (rounded up to 8
+// bytes), a u64 value a tile. The two passes keep their totals in the
+// values.
+long long pair_scratch(long long n) {
+  const long long t = pair_tiles(n);
+  return 8 + 4 * (t + (t & 1)) + 8 * t;
+}
+
+template <bool kVec>
+int run_pair(const uint32_t* hi, const uint32_t* lo, uint32_t* out_hi,
+             uint32_t* out_lo, long long n, char* scratch, unsigned epoch,
+             cudaStream_t s) {
+  const long long ntiles = pair_tiles(n);
+  auto* counter = reinterpret_cast<unsigned*>(scratch);
+  auto* flags = reinterpret_cast<unsigned*>(scratch + 8);
+  auto* values =
+      reinterpret_cast<u64*>(scratch + 8 + 4 * (ntiles + (ntiles & 1)));
+  const unsigned grid = static_cast<unsigned>(ntiles);
+  if (n <= kPairSplit) {
+    if (ntiles > 1) {
+      pair_tile_max<kVec><<<grid, kTwoPassThreads, 0, s>>>(hi, lo, n,
+                                                           values);
+    }
+    pair_tile_scan<kVec><<<grid, kTwoPassThreads, 0, s>>>(hi, lo, out_hi,
+                                                          out_lo, n, values);
+  } else {
+    pair_lookback_scan<kVec><<<grid, kLookBackThreads, 0, s>>>(
+        hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Elements per tile: the wrapper sizes the scratch as 8 bytes per tile.
@@ -290,10 +649,37 @@ extern "C" int cylon_scan32(const void* x, void* y, long long n, int kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The pairs a tile holds at n, the largest n that takes the two passes,
+// and the scratch bytes for n pairs.
+extern "C" long long cylon_pair_scan_tile(long long n) { return pair_tile(n); }
+extern "C" long long cylon_pair_scan_split() { return kPairSplit; }
+extern "C" long long cylon_pair_scan_scratch(long long n) {
+  return pair_scratch(n);
+}
+
+// scratch: cylon_pair_scan_scratch(n) bytes, 8-byte aligned, zeroed once
+// and kept for the calls that follow on one stream; epoch: 1 .. 2^30 - 1,
+// a new one each call on that scratch.
 extern "C" int cylon_pair_max_scan(const void* hi, const void* lo,
                                    void* out_hi, void* out_lo, long long n,
-                                   void* scratch, void* stream) {
-  PairIO io{static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-            static_cast<uint32_t*>(out_hi), static_cast<uint32_t*>(out_lo)};
-  return run_scan<MaxU64>(io, n, scratch, stream);
+                                   void* scratch, long long scratch_bytes,
+                                   unsigned epoch, void* stream) {
+  if (n < 0 || scratch_bytes < pair_scratch(n) || epoch == 0 ||
+      epoch >= kPairEpochs || pair_tiles(n) > INT_MAX ||
+      reinterpret_cast<uintptr_t>(scratch) % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const auto* h = static_cast<const uint32_t*>(hi);
+  const auto* l = static_cast<const uint32_t*>(lo);
+  auto* oh = static_cast<uint32_t*>(out_hi);
+  auto* ol = static_cast<uint32_t*>(out_lo);
+  auto* sc = static_cast<char*>(scratch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = ((reinterpret_cast<uintptr_t>(hi) |
+                     reinterpret_cast<uintptr_t>(lo) |
+                     reinterpret_cast<uintptr_t>(out_hi) |
+                     reinterpret_cast<uintptr_t>(out_lo)) % 16) == 0;
+  return vec ? run_pair<true>(h, l, oh, ol, n, sc, epoch, s)
+             : run_pair<false>(h, l, oh, ol, n, sc, epoch, s);
 }

@@ -6,6 +6,7 @@ means ``"cuda"``, and without a CUDA device that is an error, never a quiet
 drop to the CPU. Operators follow their inputs' device.
 """
 
+import numpy as np
 import torch
 
 from cylon_tpu_torch.errors import DeviceUnavailable
@@ -20,3 +21,15 @@ def resolve(device=None) -> torch.device:
             "cylon_tpu_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def from_host(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a contiguous tensor on ``device`` (in ``dtype``,
+    default the array's), with unit strides even when it has no
+    elements: ``torch.from_numpy`` gives an empty array stride 0, which
+    ``.contiguous()`` keeps and a ``.view`` to another element size
+    refuses."""
+    t = torch.from_numpy(arr)
+    if t.numel() == 0:
+        t = torch.empty(t.shape, dtype=t.dtype)
+    return t.to(device=device, dtype=dtype)

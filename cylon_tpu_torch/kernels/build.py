@@ -34,7 +34,11 @@ _SIGNATURES = {
     "cylon_scan_tile": ([], ctypes.c_int),
     "cylon_scan32": ([_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       _P, _P], ctypes.c_int),
-    "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P, _P],
+    "cylon_pair_scan_tile": ([ctypes.c_longlong], ctypes.c_longlong),
+    "cylon_pair_scan_split": ([], ctypes.c_longlong),
+    "cylon_pair_scan_scratch": ([ctypes.c_longlong], ctypes.c_longlong),
+    "cylon_pair_max_scan": ([_P, _P, _P, _P, ctypes.c_longlong, _P,
+                             ctypes.c_longlong, ctypes.c_uint, _P],
                             ctypes.c_int),
     "cylon_bucket_build": ([_P, ctypes.c_longlong, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_longlong,

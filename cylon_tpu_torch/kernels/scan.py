@@ -100,6 +100,42 @@ def pair_max_scan_plain(hi: torch.Tensor, lo: torch.Tensor):
     return ohi.to(hi.dtype), olo.to(lo.dtype)
 
 
+#: pair_max_scan's paths: two passes over tiles of PAIR_TILE pairs up to
+#: PAIR_SPLIT pairs, above it one pass with a look-back over tiles of
+#: PAIR_LOOKBACK_TILE (scan.cu; the wrapper checks the library against
+#: these before its first launch)
+PAIR_TILE = 4096
+PAIR_LOOKBACK_TILE = 16384
+PAIR_SPLIT = 3 << 20
+#: the look-back's flags hold the call's epoch in 30 bits
+_PAIR_EPOCHS = 1 << 30
+
+#: (device, stream) -> [zeroed scratch, last epoch]: the look-back's tile
+#: state, kept across calls so that no call needs a memset (scan.cu)
+_pair_state: dict = {}
+
+
+def _pair_scratch(lib, n: int, device, stream: int):
+    """The pair scan's scratch for ``n`` pairs on ``stream`` and the
+    call's epoch. Zeroed when it is made, grown or its epochs run out;
+    calls on one stream run in order, so they may share it."""
+    need = -(-lib.cylon_pair_scan_scratch(n) // 8)
+    key = (device, stream)
+    state = _pair_state.get(key)
+    if state is None or state[0].numel() < need or \
+            state[1] + 1 >= _PAIR_EPOCHS:
+        if (lib.cylon_pair_scan_split(), lib.cylon_pair_scan_tile(
+                PAIR_SPLIT), lib.cylon_pair_scan_tile(PAIR_SPLIT + 1)) != (
+                PAIR_SPLIT, PAIR_TILE, PAIR_LOOKBACK_TILE):
+            raise RuntimeError("pair_max_scan: the library's tiles or split "
+                               "differ from kernels.scan's constants")
+        size = max(need, state[0].numel() if state else 0)
+        state = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+        _pair_state[key] = state
+    state[1] += 1
+    return state[0], state[1]
+
+
 def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
     """Inclusive running lexicographic max over u32 (hi, lo) pairs (int32
     or uint32 tensors holding the bits); returns both outputs. Positions
@@ -118,10 +154,12 @@ def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
     if n == 0:
         return out_hi, out_lo
     lib = build.library()
+    stream = build.stream_of(hi)
+    scratch, epoch = _pair_scratch(lib, n, hi.device, stream)
     err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
                                   out_hi.data_ptr(), out_lo.data_ptr(), n,
-                                  _scratch(lib, n, hi.device).data_ptr(),
-                                  build.stream_of(hi))
+                                  scratch.data_ptr(), 8 * scratch.numel(),
+                                  epoch, stream)
     build.check(err, "pair_max_scan")
     pair_max_scan.launches += 1
     return out_hi, out_lo

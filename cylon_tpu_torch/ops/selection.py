@@ -64,7 +64,10 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     side of an outer join; its payload is zeroed)."""
     from cylon_tpu_torch.table import Table
 
-    safe = torch.clamp(idx, 0, max(table.capacity - 1, 0)).to(torch.int64)
+    if table.capacity == 0:
+        # no row to read: every slot reads one zero row of padding
+        table = table.with_capacity(1)
+    safe = torch.clamp(idx, 0, table.capacity - 1).to(torch.int64)
     use = list(names if names is not None else table.column_names)
 
     layout = []   # (name, column, word slice | None, validity word | None)

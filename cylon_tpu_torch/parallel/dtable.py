@@ -11,7 +11,11 @@ import hashlib
 import numpy as np
 import torch
 
+from cylon_tpu_torch import dtypes
+from cylon_tpu_torch.device import from_host
+from cylon_tpu_torch.dtypes import Layout, string_bytes
 from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity
+from cylon_tpu_torch.ops.bytescol import WORD, pad_words, width_words
 from cylon_tpu_torch.parallel.shuffle import _pack_words, _unpack_words
 
 
@@ -69,21 +73,21 @@ def dist_num_rows(env, table) -> int:
     return sum(shard_counts(env, table))
 
 
-def _value_blob(dictionary) -> tuple:
-    """A dictionary's values as ``(lengths, blob)``: each value's bytes
-    behind a tag byte (``s`` and its UTF-8 for a str, ``b`` and itself
-    for bytes) and their concatenation, the form in which ranks gather
-    each other's dictionaries."""
+def _value_blob(values) -> tuple:
+    """Values as ``(lengths, blob)``: each value's bytes behind a tag
+    byte (``s`` and its UTF-8 for a str, ``b`` and itself for bytes) and
+    their concatenation, the form in which ranks gather each other's
+    dictionaries, column names and type names."""
     raw = []
-    for v in ([] if dictionary is None else dictionary.values):
+    for v in values:
         if isinstance(v, str):
             raw.append(b"s" + v.encode())
         elif isinstance(v, bytes):
             raw.append(b"b" + v)
         else:
             raise InvalidArgument(
-                f"dictionary value {v!r}: only str and bytes values are "
-                "exchanged between ranks")
+                f"value {v!r}: only str and bytes values are exchanged "
+                "between ranks")
     return (np.array([len(b) for b in raw], np.int64),
             np.frombuffer(b"".join(raw), np.uint8))
 
@@ -94,12 +98,15 @@ def _digest(lengths, blob) -> int:
     return int.from_bytes(h[:8], "little", signed=True)
 
 
-def _gather_dictionaries(env, device, lengths, blob) -> list:
-    """Every rank's dictionary, in rank order, from each rank's value blob
-    (three all-gathers: the sizes, then the lengths and the bytes padded
-    to the largest)."""
-    from cylon_tpu_torch.column import Dictionary
+def _values_digest(values) -> int:
+    return _digest(*_value_blob(values))
 
+
+def _gather_values(env, device, values) -> list:
+    """Every rank's ``values`` (a list of str or bytes), in rank order, as
+    object arrays (three all-gathers: the sizes, then the lengths and the
+    bytes padded to the largest)."""
+    lengths, blob = _value_blob(values)
     comm = env.comm
     sizes = comm.all_gather(torch.tensor([len(lengths), len(blob)],
                                          dtype=torch.int64, device=device))
@@ -110,63 +117,161 @@ def _gather_dictionaries(env, device, lengths, blob) -> list:
     lpad[:len(lengths)] = lengths
     bpad = np.zeros(bmax, np.uint8)
     bpad[:len(blob)] = blob
-    all_l = comm.all_gather(torch.from_numpy(lpad).to(device)).cpu().numpy()
-    all_b = comm.all_gather(torch.from_numpy(bpad).to(device)).cpu().numpy()
+    all_l = comm.all_gather(from_host(lpad, device)).cpu().numpy()
+    all_b = comm.all_gather(from_host(bpad, device)).cpu().numpy()
     out = []
     for (n, nb), ls, bs in zip(sizes, all_l, all_b):
         ends = np.cumsum(ls[:n])
         raw = bs[:nb].tobytes()
         vals = [raw[e - ln:e] for ln, e in zip(ls[:n], ends)]
         vals = [v[1:].decode() if v[:1] == b"s" else v[1:] for v in vals]
-        out.append(Dictionary(np.array(vals, object)))
+        out.append(np.array(vals, object))
     return out
+
+
+def _dictionary_values(c) -> list:
+    return [] if c.dictionary is None else list(c.dictionary.values)
+
+
+def _type_name(dtype) -> str:
+    """The logical type a column must share across ranks: its dtype's
+    name, a string column's kind whatever its storage."""
+    return dtype.kind.name.lower() if dtype.layout == Layout.VARIABLE_WIDTH \
+        else repr(dtype)
+
+
+def _in_rank0_order(env, table):
+    """``table`` with its columns in rank 0's order. A fixed-size header
+    goes first (the column count, a digest of the set of names and one
+    of their order), so that tables of different widths never mis-shape
+    a gather; the names themselves are gathered only where the headers
+    differ. A different set of names raises on every rank."""
+    names = table.column_names
+    header = torch.tensor([len(names), _values_digest(sorted(names)),
+                           _values_digest(names)], dtype=torch.int64,
+                          device=table.device)
+    heads = env.comm.all_gather(header).tolist()
+    if all(h == heads[0] for h in heads):
+        return table
+    every = _gather_values(env, table.device, names)
+    if any(h[:2] != heads[0][:2] for h in heads):
+        raise InvalidArgument(
+            "the ranks' tables hold different columns (by rank: "
+            f"{[list(e) for e in every]}): every shard of a distributed "
+            "table needs the same column names")
+    return table.select(list(every[0]))
+
+
+def _check_types(env, table, digests) -> None:
+    """Raise on every rank if a column's logical type differs between
+    ranks; ``digests`` [W, ncols] are every rank's type-name digests."""
+    bad = [i for i in range(digests.shape[1])
+           if len(set(digests[:, i].tolist())) > 1]
+    if not bad:
+        return
+    names = table.column_names
+    every = _gather_values(env, table.device,
+                           [_type_name(table.column(n).dtype)
+                            for n in names])
+    detail = "; ".join(f"column {names[i]!r}: "
+                       f"{[str(e[i]) for e in every]}" for i in bad)
+    raise InvalidArgument(
+        f"column dtypes differ across ranks (by rank) -- {detail}: cast "
+        "every shard to one dtype first")
+
+
+def _bytes_words(c) -> "tuple[bool, int]":
+    """Could this string column be device bytes, and in how many words?
+    A bytes column is; a dictionary column is when every value is a str
+    without a NUL byte (the case ``choose_storage`` sends to dictionary
+    codes)."""
+    if c.dtype.is_bytes:
+        return True, c.data.shape[1]
+    vals = _dictionary_values(c)
+    ok = all(isinstance(v, str) and "\x00" not in v for v in vals)
+    nbytes = max((len(v.encode()) for v in vals), default=0) if ok else 0
+    return ok, width_words(nbytes)
+
+
+def _one_storage(env, table, mixed: list) -> dict:
+    """String columns stored as device bytes on some ranks and as
+    dictionary codes on others, each brought to one storage chosen alike
+    on every rank: device bytes at the widest width any rank needs, or
+    dictionary codes where any rank's values cannot be bytes. One
+    all-gather. Returns ``{name: column}``, this rank's columns in the
+    chosen storage."""
+    mine = torch.tensor([_bytes_words(table.column(n)) for n in mixed],
+                        dtype=torch.int64, device=table.device)
+    got = env.comm.all_gather(mine.reshape(-1)).reshape(
+        env.world_size, len(mixed), 2)
+    out = {}
+    for i, n in enumerate(mixed):
+        c = table.column(n)
+        oks, words = got[:, i].T.tolist()
+        if all(oks):
+            out[n] = c.astype(string_bytes(max(words) * WORD))
+        else:
+            out[n] = c.astype(dtypes.string) if c.dtype.is_bytes else c
+    return out
+
+
+#: a column's storage in the layout summary
+_FIXED, _BYTES, _DICT = 0, 1, 2
 
 
 def world_layout(env, table):
     """``table`` brought to the layout every rank's shard shares, so that
     rows exchanged between ranks line up and read back as they were
     sent. Ranks that ingest their own rows hold different layouts of one
-    table: another width for a device-bytes column, a validity mask on
-    some ranks only, another dictionary (a code read against another
-    rank's dictionary names another string). Each bytes column is padded
-    to the widest word count any rank holds, a validity mask is added
-    where any rank has one, and each dictionary column whose dictionary
-    differs between ranks is re-encoded onto the merge of all of them
+    table: their columns in another order, another width for a
+    device-bytes column, a validity mask on some ranks only, another
+    dictionary (a code read against another rank's dictionary names
+    another string), or another storage for a string column
+    (``string_storage="auto"`` decides per rank).
+
+    Each rank's columns take rank 0's order. A string column stored as
+    device bytes on some ranks and as codes on others converts to one
+    storage (:func:`_one_storage`). Each bytes column is padded to the
+    widest word count any rank holds, a validity mask is added where any
+    rank has one, and each dictionary column whose dictionary differs
+    between ranks is re-encoded onto the merge of all of them
     (:func:`cylon_tpu_torch.ops.dictenc.merge_dictionaries`, in rank
-    order, so every rank takes the same codes). One all-gather of a
-    per-column summary; three more for each dictionary that differs.
-    A column stored one way on one rank and another way on another (bytes
-    against codes, say) is refused."""
-    from cylon_tpu_torch.column import Column
-    from cylon_tpu_torch.dtypes import string_bytes
-    from cylon_tpu_torch.ops.bytescol import WORD, pad_words
+    order, so every rank takes the same codes). Another set of column
+    names, or a column whose logical type differs between ranks (int64
+    against float64, a string against a number), raises
+    :class:`InvalidArgument` on every rank: nothing is cast.
+
+    Collectives: one all-gather of a fixed-size header and one of a
+    per-column summary; the column or type names where they differ, one
+    more for columns of mixed storage, three more for each dictionary
+    that differs."""
+    from cylon_tpu_torch.column import Column, Dictionary
     from cylon_tpu_torch.ops.dictenc import merge_dictionaries, remap_codes
 
     if env.world_size == 1:
         return table
+    table = _in_rank0_order(env, table)
     names = table.column_names
-    blobs, summary = {}, []
+    summary = []
     for n in names:
         c = table.column(n)
-        digest = 0
-        if c.dtype.is_dictionary:
-            blobs[n] = _value_blob(c.dictionary)
-            digest = _digest(*blobs[n])
-        summary.append([2 if c.dtype.is_dictionary else int(c.dtype.is_bytes),
-                        c.data.shape[1] if c.dtype.is_bytes else 0,
-                        int(c.validity is not None), digest])
+        kind = _DICT if c.dtype.is_dictionary else \
+            _BYTES if c.dtype.is_bytes else _FIXED
+        summary.append([
+            kind, c.data.shape[1] if c.dtype.is_bytes else 0,
+            int(c.validity is not None),
+            _values_digest(_dictionary_values(c)) if kind == _DICT else 0,
+            _values_digest([_type_name(c.dtype)])])
     mine = torch.tensor(summary, dtype=torch.int64, device=table.device)
     ranks = env.comm.all_gather(mine.reshape(-1)).reshape(
-        env.world_size, len(names), 4)
+        env.world_size, len(names), 5)
+    _check_types(env, table, ranks[:, :, 4])
+    mixed = [n for i, n in enumerate(names)
+             if set(ranks[:, i, 0].tolist()) == {_BYTES, _DICT}]
+    converted = _one_storage(env, table, mixed) if mixed else {}
     for i, n in enumerate(names):
-        kinds, widths, masks, digests = ranks[:, i].T.tolist()
-        c = table.column(n)
-        if len(set(kinds)) > 1:
-            raise InvalidArgument(
-                f"column {n!r} is stored differently across ranks (by "
-                f"rank: {kinds}; 0 fixed width, 1 device bytes, 2 "
-                "dictionary codes): ingest every shard with one "
-                "string_storage")
+        _, widths, masks, digests = ranks[:, i, :4].T.tolist()
+        c = converted.get(n, table.column(n))
         if c.dtype.is_bytes and c.data.shape[1] < max(widths):
             nw = max(widths)
             c = Column(pad_words(c.data, nw), c.validity,
@@ -175,8 +280,11 @@ def world_layout(env, table):
             c = Column(c.data, torch.ones(c.capacity, dtype=torch.bool,
                                           device=c.data.device),
                        c.dtype, c.dictionary)
-        if c.dtype.is_dictionary and len(set(digests)) > 1:
-            dicts = _gather_dictionaries(env, table.device, *blobs[n])
+        # a column that became codes on the bytes ranks took a dictionary
+        # no digest saw
+        if c.dtype.is_dictionary and (len(set(digests)) > 1 or n in mixed):
+            dicts = [Dictionary(v) for v in _gather_values(
+                env, table.device, _dictionary_values(c))]
             shared, remaps = merge_dictionaries(dicts)
             c = remap_codes(c, remaps[env.rank], shared)
         if c is not table.column(n):

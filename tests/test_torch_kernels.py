@@ -8,6 +8,9 @@ kernel replaces. The CUDA kernels themselves are held against the same
 plain versions on the card by ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +126,172 @@ def test_pair_max_scan_plain_matches_pallas(n, pallas_interpret):
     gh, gl = tscan.pair_max_scan(_bits(hi), _bits(lo))
     np.testing.assert_array_equal(gh.numpy().view(np.uint32), wh)
     np.testing.assert_array_equal(gl.numpy().view(np.uint32), wl)
+
+
+def _scan_cu_constants() -> dict:
+    """pair_max_scan's constants as ``csrc/scan.cu`` defines them."""
+    src = (Path(tscan.__file__).resolve().parent.parent / "csrc"
+           / "scan.cu").read_text()
+
+    def get(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    return {"chunks": get(r"kPairChunks = (\d+);"),
+            "two_pass_warps": get(r"kTwoPassWarps = (\d+);"),
+            "look_back_warps": get(r"kLookBackWarps = (\d+);"),
+            "split": get(r"#define CYLON_PAIR_SCAN_SPLIT (\d+)")}
+
+
+def test_pair_scan_constants_match_scan_cu():
+    """The wrapper's tiles and split are scan.cu's (the wrapper checks the
+    built library against them on the card)."""
+    k = _scan_cu_constants()
+    assert tscan.PAIR_TILE == k["two_pass_warps"] * 128 * k["chunks"]
+    assert tscan.PAIR_LOOKBACK_TILE == \
+        k["look_back_warps"] * 128 * k["chunks"]
+    assert tscan.PAIR_SPLIT == k["split"]
+
+
+def _ex_max(a: np.ndarray, axis: int) -> np.ndarray:
+    """Exclusive running max along ``axis``, identity 0."""
+    inc = np.maximum.accumulate(a, axis=axis)
+    zero = np.zeros_like(np.take(inc, [0], axis=axis))
+    return np.concatenate([zero, np.delete(inc, -1, axis=axis)], axis=axis)
+
+
+def _look_back(totals: np.ndarray, rng, eager: float,
+               window: int = 32) -> np.ndarray:
+    """Each tile's exclusive prefix as the look-back finds it, the blocks
+    advancing in a random interleaving. Tiles start in order (the atomic
+    counter), ``eager`` the chance that the next one starts before a
+    running one steps. A tile's first step publishes its max (tile 0 its
+    inclusive prefix); each later step waits until the ``window``
+    predecessors before its window's end have published, folds their
+    values down to the nearest inclusive prefix, and publishes its own in
+    the same value slot, or moves the window back."""
+    nt = len(totals)
+    status = np.zeros(nt, np.int8)   # 0 not yet, 1 its max, 2 its prefix
+    value = np.zeros(nt, np.uint64)
+    carry = np.zeros(nt, np.uint64)
+    end = np.arange(nt) - 1
+    acc = np.zeros(nt, np.uint64)
+    started, running = 0, []
+    while started < nt or running:
+        if started < nt and (not running or rng.random() < eager):
+            running.append(started)
+            started += 1
+            continue
+        t = running[rng.integers(len(running))]
+        if status[t] == 0:
+            value[t], status[t] = totals[t], 2 if t == 0 else 1
+            if t == 0:
+                running.remove(t)
+            continue
+        idx = end[t] - np.arange(window)
+        st = np.where(idx >= 0, status[np.maximum(idx, 0)], 2)
+        if not (st > 0).all():
+            continue                 # spins: a predecessor has not published
+        val = np.where(idx >= 0, value[np.maximum(idx, 0)], np.uint64(0))
+        pref = np.flatnonzero(st == 2)
+        stop = pref[0] if len(pref) else window - 1
+        acc[t] = max(acc[t], val[:stop + 1].max())
+        if len(pref):
+            carry[t] = acc[t]
+            value[t], status[t] = max(acc[t], totals[t]), 2
+            running.remove(t)
+        else:
+            end[t] -= window
+    return carry
+
+
+def _pair_scan_model(hi: np.ndarray, lo: np.ndarray, split: int, rng,
+                     eager: float = 0.5):
+    """A numpy replay of scan.cu's pair_max_scan with its own constants:
+    the dispatch (n <= split: two passes, the carry the max of the totals
+    before a tile; above: the look-back order of :func:`_look_back`), each
+    path's tile split, and the scan of a tile in registers (warp w's span
+    in chunks of 128, lane l's 4 pairs, the lane scan, the warp scan of
+    the lane totals, the chunk carry, the earlier warps' maxima)."""
+    k = _scan_cu_constants()
+    two_pass = hi.shape[0] <= split
+    warps = k["two_pass_warps" if two_pass else "look_back_warps"]
+    chunks = k["chunks"]
+    tile = warps * chunks * 128
+    n = hi.shape[0]
+    ntiles = -(-n // tile)
+    x = np.zeros(ntiles * tile, np.uint64)
+    x[:n] = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    x = x.reshape(ntiles, warps, chunks, 32, 4)
+    inc = np.maximum.accumulate(x, axis=4)               # in each lane
+    lane_inc = np.maximum.accumulate(inc[..., 3], axis=3)
+    chunk_max = lane_inc[..., 31]                        # [tile, warp, chunk]
+    pre = np.maximum(_ex_max(chunk_max, 2)[..., None],
+                     _ex_max(lane_inc, 3))               # [t, w, c, lane]
+    warp_max = chunk_max.max(axis=2)                     # [tile, warp]
+    totals = warp_max.max(axis=1)
+    carry = _ex_max(totals, 0) if two_pass else _look_back(totals, rng,
+                                                           eager)
+    front = np.maximum(carry[:, None], _ex_max(warp_max, 1))
+    out = np.maximum(np.maximum(front[:, :, None, None], pre)[..., None],
+                     inc).reshape(-1)[:n]
+    return ((out >> np.uint64(32)).astype(np.uint32),
+            (out & np.uint64(0xFFFFFFFF)).astype(np.uint32), two_pass)
+
+
+def _model_inputs(n: int, seed: int) -> dict:
+    """Sparse marks with hi and lo over the whole u32 range, ties on hi
+    that lo decides, and no marks at all."""
+    rng = np.random.default_rng(seed)
+    mark = rng.random(n) < 0.05
+    full = rng.integers(0, 2 ** 32, (2, n), dtype=np.uint32)
+    return {"sparse": (np.where(mark, full[0], 0).astype(np.uint32),
+                       np.where(mark, full[1], 0).astype(np.uint32)),
+            "ties": ((np.arange(n) >> 9).astype(np.uint32), full[1]),
+            "none": (np.zeros(n, np.uint32), np.zeros(n, np.uint32))}
+
+
+PAIR_TILE, PAIR_SPLIT = tscan.PAIR_TILE, tscan.PAIR_SPLIT
+LB_TILE = tscan.PAIR_LOOKBACK_TILE
+
+
+@pytest.mark.parametrize("n", [PAIR_TILE, PAIR_TILE + 1, LB_TILE + 1,
+                               40 * LB_TILE + 5, PAIR_SPLIT - 1, PAIR_SPLIT,
+                               PAIR_SPLIT + 1])
+def test_pair_scan_model_matches_plain_and_pallas(n, pallas_interpret):
+    """The model of both paths, bit for bit against the plain version, the
+    u64 lax.cummax, and below two tiles the Pallas kernel in interpret
+    mode: one tile and one pair more of each path's tiling, many tiles,
+    and the split and one pair on each side of it. Below the split both
+    paths run (the look-back forced, as a build with
+    CYLON_PAIR_SCAN_SPLIT=0 does it), the look-back in three
+    interleavings, the last starting every tile before any looks back (so
+    that windows step back past 32 tiles); at the split and one pair on
+    each side, the path the kernel's dispatch picks."""
+    rng = np.random.default_rng(n)
+    inputs = _model_inputs(n, n + 7)
+    if n >= PAIR_SPLIT - 1:   # the three largest sizes: one input each
+        inputs = {"sparse": inputs["sparse"]}
+    for case, (hi, lo) in inputs.items():
+        ph, pl = tscan.pair_max_scan_plain(_bits(hi), _bits(lo))
+        want = (ph.numpy().view(np.uint32), pl.numpy().view(np.uint32))
+        enc = (jnp.asarray(hi).astype(jnp.uint64) << 32) \
+            | jnp.asarray(lo).astype(jnp.uint64)
+        u64 = np.asarray(jax.lax.cummax(enc))
+        np.testing.assert_array_equal((u64 >> 32).astype(np.uint32), want[0])
+        np.testing.assert_array_equal((u64 & 0xFFFFFFFF).astype(np.uint32),
+                                      want[1])
+        if n < 2 * PAIR_TILE and case == "sparse":
+            kh, kl = pk.pair_max_scan(jnp.asarray(hi), jnp.asarray(lo))
+            np.testing.assert_array_equal(np.asarray(kh), want[0])
+            np.testing.assert_array_equal(np.asarray(kl), want[1])
+        runs = [(PAIR_SPLIT, 0.5)]
+        if n < PAIR_SPLIT - 1:
+            runs = [(n, 0.5), (0, 0.2), (0, 0.7), (0, 1.0)]
+        for split, eager in runs:
+            gh, gl, two_pass = _pair_scan_model(hi, lo, split, rng, eager)
+            assert two_pass == (n <= split), case
+            np.testing.assert_array_equal(gh, want[0], err_msg=case)
+            np.testing.assert_array_equal(gl, want[1], err_msg=case)
 
 
 @pytest.mark.parametrize("interpret", [True, False])

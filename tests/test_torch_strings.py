@@ -556,19 +556,43 @@ def test_gather_table_reconciles_per_rank_dictionaries():
 
 def test_world_layout_refuses_mixed_storages():
     """A column stored as device bytes on one rank and as dictionary
-    codes on the others cannot be exchanged: every rank refuses."""
+    codes on the others (``string_storage="auto"`` decides per rank) is
+    no longer refused: every rank converts it to device bytes, at one
+    width, and the strings read back as each rank ingested them."""
     vals = np.array(["a", "bb", None], object)
+    more = np.array(["a much longer value é", "a", None], object)
 
     def rank(comm):
         env = ct.CylonEnv(comm)
-        t = ct.Table.from_pydict({"k": vals}, device="cpu",
+        t = ct.Table.from_pydict({"k": more if comm.rank == 2 else vals},
+                                 device="cpu",
                                  string_storage="bytes" if comm.rank == 2
                                  else "dict")
-        with pytest.raises(InvalidArgument, match="string_storage"):
+        k = world_layout(env, t).column("k")
+        return repr(k.dtype), gather_table(env, t).to_pandas()
+
+    want = pd.DataFrame({"k": np.concatenate([vals, vals, more, vals])})
+    out = ct.ThreadWorld(4).run(rank)
+    assert {d for d, _ in out} == {"string[bytes:24]"}
+    for _, got in out:
+        _assert_rows(got, want)
+
+
+def test_world_layout_refuses_a_string_against_a_number():
+    """A column that is a string on one rank and an integer on the others
+    is a dtype mismatch: every rank raises, naming each rank's type."""
+    def rank(comm):
+        env = ct.CylonEnv(comm)
+        k = np.array(["a", "b"], object) if comm.rank == 1 \
+            else np.arange(2)
+        t = ct.Table.from_pydict({"k": k}, device="cpu",
+                                 string_storage="bytes")
+        with pytest.raises(InvalidArgument,
+                           match=r"'k': \['int64', 'string', 'int64'"):
             world_layout(env, t)
         return True
 
-    assert ct.ThreadWorld(4).run(rank) == [True] * 4
+    assert ct.ThreadWorld(4, timeout=30).run(rank) == [True] * 4
 
 
 def test_row_copy():
