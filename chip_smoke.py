@@ -23,9 +23,10 @@ Phases, each printing one JSON line:
    the 16M builds with their device time by pass and peak memory;
    ``pair_max_scan`` also on no marks, a mark on every element, one mark
    at element 0, ties on hi that lo decides and hi and lo at or above
-   2^31, at every shape and at its dispatch threshold and one pair on
-   each side of it, so that both of its paths run); the
-   time per call of the kernel, the plain
+   2^31, at every shape and at the split between its tile widths and
+   one pair on each side of it, so that both widths run, and a wide call
+   after a narrow one whose tile values read as the next call's flags);
+   the time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
    from torch.profiler, beside the memory bound; then the whole join on
@@ -219,10 +220,34 @@ def float_max_input(torch, n, g):
     return torch.where(nans, float("nan"), x)
 
 
+def pair_inputs(torch, n, g):
+    """The kernel phase's pair input (2 % marks; hi the position, lo
+    random), then no marks, every element marked, one mark at 0, ties on
+    hi that lo decides, and hi and lo at or above 2^31."""
+    iota = torch.arange(n, dtype=torch.int32, device=g.device)
+
+    def rand32():
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                             device=g.device, generator=g)
+
+    marks = torch.rand(n, device=g.device, generator=g) < 0.02
+    zero = torch.zeros(n, dtype=torch.int32, device=g.device)
+    one = zero.clone()
+    one[0] = 1
+    ties = (iota >> 10) + 1
+    return {
+        "path": (torch.where(marks, iota, 0), torch.where(marks, rand32(), 0)),
+        "no_marks": (zero, zero),
+        "all_marks": (iota, rand32()),
+        "one_mark_at_0": (one, one * 7),
+        "ties_on_hi": (ties, rand32()),
+        "high_bits": (rand32() | -2 ** 31, rand32() | -2 ** 31),
+    }
+
+
 # ------------------------------------------------------------ phase 3
 def kernel_phase(torch, rate):
     from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
-    from scan_race import pair_inputs
 
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
@@ -326,18 +351,18 @@ def kernel_phase(torch, rate):
             if bad:
                 raise SystemExit(f"{name} at n={n}: {bad} mismatches")
             stats[(name, n)] = row
-    pair_split_phase(torch, rate, stats)
+    pair_tiling_phase(torch, rate, stats)
+    pair_scratch_phase(torch, stats)
     return stats
 
 
-def pair_split_phase(torch, rate, stats):
-    """pair_max_scan at its dispatch threshold and one pair on each side
-    of it (``PAIR_SPLIT`` and below: two passes; above: one pass with a
-    look-back), on every input of ``scan_race.pair_inputs``, bit for bit
-    against the plain version."""
+def pair_tiling_phase(torch, rate, stats):
+    """pair_max_scan at the split between its tile widths and one pair on
+    each side of it (``PAIR_SPLIT`` and below: narrow tiles; above: wide
+    ones), on every input of :func:`pair_inputs`, bit for bit against
+    the plain version."""
     from cylon_tpu_torch.kernels import pair_max_scan
     from cylon_tpu_torch.kernels.scan import PAIR_SPLIT
-    from scan_race import pair_inputs
 
     g = torch.Generator(device="cuda")
     g.manual_seed(11)
@@ -347,13 +372,46 @@ def pair_split_phase(torch, rate, stats):
             bad, err = compare(torch, pair_max_scan(hi, lo),
                                pair_max_scan.plain(hi, lo))
             row = {"phase": "kernel", "name": name, "n": n,
-                   "path": "two passes" if n <= PAIR_SPLIT else "look-back",
+                   "tiles": "narrow" if n <= PAIR_SPLIT else "wide",
                    "mismatches": bad, "max_abs_err": err, "tolerance": 0,
                    "bound_us": 16 * n / rate * 1e6}
             emit(row)
             if bad:
                 raise SystemExit(f"{name} at n={n}: {bad} mismatches")
             stats[(name, n)] = row
+
+
+def pair_scratch_phase(torch, stats):
+    """pair_max_scan's kept scratch across calls of other sizes: a wide
+    call sizes it, a narrow call then leaves tile values whose words read
+    as the next call's flags (``4 * epoch + 1`` and ``+ 2``: an aggregate
+    and a prefix), and the wide call after it must still match the plain
+    version bit for bit. The kernel keeps its flags where no value is
+    written, so a stale value never reads as a flag."""
+    from cylon_tpu_torch.kernels import pair_max_scan
+    from cylon_tpu_torch.kernels import scan as tscan
+    from cylon_tpu_torch.kernels.build import stream_of
+
+    n = 2 * DIST_ROWS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    hi, lo = pair_inputs(torch, n, g)["path"]
+    pair_max_scan(hi, lo)
+    key = (hi.device, stream_of(hi))
+    nxt = tscan._pair_state[key][1] + 2   # the wide call's epoch
+    fill = torch.full((tscan.PAIR_SPLIT,), 4 * nxt + 1, dtype=torch.int32,
+                      device="cuda")
+    pair_max_scan(fill, fill + 1)
+    got = pair_max_scan(hi, lo)
+    assert tscan._pair_state[key][1] == nxt, "the epochs did not follow"
+    bad, err = compare(torch, got, pair_max_scan.plain(hi, lo))
+    row = {"phase": "kernel", "name": "pair_max_scan/stale_scratch", "n": n,
+           "epoch": nxt, "mismatches": bad, "max_abs_err": err,
+           "tolerance": 0}
+    emit(row)
+    if bad:
+        raise SystemExit(f"pair_max_scan/stale_scratch: {bad} mismatches")
+    stats[("pair_max_scan/stale_scratch", n)] = row
 
 
 def bucket_kernel_phase(torch, rate, stats):

@@ -33,10 +33,10 @@
 // undefined in C++). float32 max propagates NaN, as jnp.maximum does;
 // fmaxf would drop it.
 //
-// pair_max_scan has kernels of its own (below, where its design is set
+// pair_max_scan has a kernel of its own (below, where its design is set
 // out): a pair is packed into one unsigned 64-bit value, hi in the top
 // half, so the unsigned max is the lexicographic max, and that max is
-// commutative and idempotent, which its two paths use.
+// commutative and idempotent, which its look-back uses.
 
 #include <climits>
 #include <cmath>
@@ -256,60 +256,49 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 
 // ------------------------------------------------------- pair_max_scan
 // The scan of (hi, lo) u32 pairs, the u64 cummax of (hi << 32) | lo with
-// identity 0. It moves 16 bytes a pair at the bound. The launcher picks
-// one of two paths from n alone (both raced on an H100 against the three
-// passes above, which this scan ran before; PERF.md):
+// identity 0. It moves 16 bytes a pair at the bound. One pass with a
+// decoupled look-back (Merrill and Garland, 2016), one launch, no carry
+// kernel: the three passes this scan ran before read the input twice,
+// from HBM once the 4M-pair input and output (64 MB) overflow the 50 MB
+// L2 (raced on an H100; PERF.md).
 //
-// * n <= kPairSplit (3M pairs: what the scan reads and writes fits in the
-//   50 MB L2): two passes over tiles of 4096 pairs. pair_tile_max reduces
-//   each tile to its max; pair_tile_scan scans each tile and takes as its
-//   carry the max of the totals before it, which each block reduces
-//   itself (at most 768 totals, from L2), so no carry kernel runs. The
-//   second read of the input mostly hits L2.
-// * above: one pass with a decoupled look-back (Merrill and Garland,
-//   2016) over tiles of 16384 pairs, one 1024-thread block an SM. A block
-//   takes its tile from an atomic counter, so every lower tile belongs to
-//   a block that is already running; it publishes its tile's max, and
-//   warp 0 looks back over 32 predecessors at a time, folding their
-//   values down to the nearest inclusive prefix, then publishes its own.
-//   Large tiles keep the chains of look-backs short. A tile's state is a
-//   u64 value and a u32 flag: the value is stored first, then the flag
-//   with release semantics, and a reader loads the flag with acquire
-//   semantics before the value, so no status is ever seen without its
-//   value. One value slot serves both the tile's max and its inclusive
-//   prefix: a reader that finds either folds in a max over tiles before
-//   its own, which for an idempotent max is the same. The flag carries
-//   the call's epoch (flag = epoch << 2 | status), so the state needs no
-//   memset: the wrapper keeps it zeroed once, and a flag of an earlier
-//   call reads as not yet published. The block that draws the last tile
-//   resets the counter.
+// A block takes its tile from an atomic counter, so every lower tile
+// belongs to a block that is already running; it publishes its tile's
+// max, and warp 0 looks back over 32 predecessors at a time, folding
+// their values down to the nearest inclusive prefix, then publishes its
+// own. A tile's state is a u64 value and a u32 flag: the value is stored
+// first, then the flag with release semantics, and a reader loads the
+// flag with acquire semantics before the value, so no status is ever
+// seen without its value. One value slot serves both the tile's max and
+// its inclusive prefix: a reader that finds either folds in a max over
+// tiles before its own, which for an idempotent max is the same. The
+// flag carries the call's epoch (flag = epoch << 2 | status), so the
+// state needs no memset: the wrapper keeps it zeroed once, and a flag of
+// an earlier call reads as not yet published. The block that draws the
+// last tile resets the counter.
 //
-// Both paths hold a tile in registers, 16 pairs a thread: warp w scans
+// Tiles are wide (16384 pairs, one 1024-thread block an SM), which keeps
+// the chains of look-backs short, above kPairSplit pairs; at and below it
+// they are 4096 pairs (256 threads), so that a small input still spreads
+// over the SMs (at 256K pairs the wide tiles fill 16 of 132). The
+// launcher picks the width from n alone; the code is the same.
+//
+// A block holds its tile in registers, 16 pairs a thread: warp w scans
 // the contiguous span base + w * kPairWarpSpan in chunks of 128 pairs,
 // lane l holding pairs 4l .. 4l + 3 of each chunk, loaded with one
 // 16-byte load of hi and one of lo (4-byte loads where a pointer is not
 // 16-byte aligned). A chunk scans in each lane, then across the warp by
 // __shfl_up_sync, carrying the chunk's max to the next; the warps' maxima
-// meet in shared memory, and the carry goes in front as the tile is
-// stored. No shared-memory transpose: a tile's threads meet only to pass
-// the warps' maxima and, on the look-back path, the tile and its prefix.
-// The last read of the input and the output's stores are marked
-// streaming (evict first), which leaves L2 to the data still to be read.
+// meet in shared memory, and the tile's prefix goes in front as it is
+// stored. No shared-memory transpose. The input's read and the output's
+// stores are marked streaming (evict first): neither is read again.
 constexpr int kPairChunks = 4;
 constexpr int kPairItems = 4 * kPairChunks;       // pairs a thread
 constexpr int kPairWarpSpan = 128 * kPairChunks;  // pairs a warp
-constexpr int kTwoPassWarps = 8;
-constexpr int kTwoPassThreads = 32 * kTwoPassWarps;
-constexpr int kTwoPassTile = kTwoPassWarps * kPairWarpSpan;  // 4096
-constexpr int kLookBackWarps = 32;
-constexpr int kLookBackThreads = 32 * kLookBackWarps;
-constexpr int kLookBackTile = kLookBackWarps * kPairWarpSpan;  // 16384
-// The largest n that takes the two passes; a build may set it (-D) to run
-// one path at every size.
-#ifndef CYLON_PAIR_SCAN_SPLIT
-#define CYLON_PAIR_SCAN_SPLIT 3145728
-#endif
-constexpr long long kPairSplit = CYLON_PAIR_SCAN_SPLIT;
+constexpr int kNarrowWarps = 8;
+constexpr int kWideWarps = 32;
+// The largest n that takes the narrow tiles.
+constexpr long long kPairSplit = 1LL << 20;
 constexpr unsigned kPairAggregate = 1u;
 constexpr unsigned kPairPrefix = 2u;
 constexpr unsigned kPairEpochs = 1u << 30;
@@ -329,15 +318,8 @@ __device__ __forceinline__ long long pair_index(long long base, int c) {
          4 * (threadIdx.x & 31);
 }
 
-// kLast: the input's last read, marked streaming.
-template <bool kLast>
-__device__ __forceinline__ uint4 load4(const uint32_t* p) {
-  if constexpr (kLast) return __ldcs(reinterpret_cast<const uint4*>(p));
-  return *reinterpret_cast<const uint4*>(p);
-}
-
 // Past n the identity 0 fills in.
-template <bool kVec, bool kLast>
+template <bool kVec>
 __device__ __forceinline__ void pair_load(const uint32_t* __restrict__ hi,
                                           const uint32_t* __restrict__ lo,
                                           long long base, long long n,
@@ -347,8 +329,8 @@ __device__ __forceinline__ void pair_load(const uint32_t* __restrict__ hi,
     const long long i = pair_index(base, c);
     uint32_t h[4], l[4];
     if (kVec && i + 3 < n) {
-      const uint4 qh = load4<kLast>(hi + i);
-      const uint4 ql = load4<kLast>(lo + i);
+      const uint4 qh = __ldcs(reinterpret_cast<const uint4*>(hi + i));
+      const uint4 ql = __ldcs(reinterpret_cast<const uint4*>(lo + i));
       h[0] = qh.x; h[1] = qh.y; h[2] = qh.z; h[3] = qh.w;
       l[0] = ql.x; l[1] = ql.y; l[2] = ql.z; l[3] = ql.w;
     } else {
@@ -433,56 +415,6 @@ __device__ __forceinline__ u64 earlier_warps(const u64* wmax) {
   return m;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kTwoPassThreads)
-pair_tile_max(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
-              long long n, u64* __restrict__ totals) {
-  __shared__ u64 wmax[kTwoPassWarps];
-  u64 v[kPairItems];
-  pair_load<kVec, false>(hi, lo,
-                         static_cast<long long>(blockIdx.x) * kTwoPassTile,
-                         n, v);
-  const u64 m = warp_max(thread_max(v));
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    u64 t = 0;
-    for (int w = 0; w < kTwoPassWarps; ++w) t = umax(t, wmax[w]);
-    totals[blockIdx.x] = t;
-  }
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kTwoPassThreads)
-pair_tile_scan(const uint32_t* __restrict__ hi,
-               const uint32_t* __restrict__ lo, uint32_t* __restrict__ out_hi,
-               uint32_t* __restrict__ out_lo, long long n,
-               const u64* __restrict__ totals) {
-  __shared__ u64 wmax[kTwoPassWarps];
-  __shared__ u64 wcarry[kTwoPassWarps];
-  const long long base = static_cast<long long>(blockIdx.x) * kTwoPassTile;
-  u64 v[kPairItems];
-  pair_load<kVec, true>(hi, lo, base, n, v);
-  // the carry, while the loads are in flight: the max of the totals of
-  // the tiles before this one
-  u64 carry = 0;
-  for (unsigned t = threadIdx.x; t < blockIdx.x; t += kTwoPassThreads) {
-    carry = umax(carry, totals[t]);
-  }
-  carry = warp_max(carry);
-  const u64 m = warp_max(thread_max(v));
-  pair_warp_scan(v);
-  if ((threadIdx.x & 31) == 0) {
-    wmax[threadIdx.x >> 5] = m;
-    wcarry[threadIdx.x >> 5] = carry;
-  }
-  __syncthreads();
-  u64 pre = earlier_warps(wmax);
-  for (int w = 0; w < kTwoPassWarps; ++w) pre = umax(pre, wcarry[w]);
-  for (int k = 0; k < kPairItems; ++k) v[k] = umax(pre, v[k]);
-  pair_store<kVec>(out_hi, out_lo, base, n, v);
-}
-
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
@@ -540,8 +472,8 @@ __device__ u64 pair_look_back(const u64* values, const unsigned* flags,
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kLookBackThreads)
+template <bool kVec, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 pair_lookback_scan(const uint32_t* __restrict__ hi,
                    const uint32_t* __restrict__ lo,
                    uint32_t* __restrict__ out_hi,
@@ -549,7 +481,7 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
                    unsigned* counter, unsigned* flags, u64* values,
                    unsigned epoch) {
   __shared__ unsigned tile_s;
-  __shared__ u64 wmax[kLookBackWarps];
+  __shared__ u64 wmax[kWarps];
   __shared__ u64 prefix_s;
   if (threadIdx.x == 0) {
     const unsigned t = atomicAdd(counter, 1u);
@@ -558,15 +490,16 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
   }
   __syncthreads();
   const unsigned tile = tile_s;
-  const long long base = static_cast<long long>(tile) * kLookBackTile;
+  const long long base = static_cast<long long>(tile) * kWarps *
+                         kPairWarpSpan;
   u64 v[kPairItems];
-  pair_load<kVec, true>(hi, lo, base, n, v);
+  pair_load<kVec>(hi, lo, base, n, v);
   const u64 m = warp_max(thread_max(v));
   if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x < 32) {
     u64 total = 0;
-    for (int w = 0; w < kLookBackWarps; ++w) total = umax(total, wmax[w]);
+    for (int w = 0; w < kWarps; ++w) total = umax(total, wmax[w]);
     if (tile == 0) {
       if (threadIdx.x == 0) {
         publish(values, flags, tile, total, epoch, kPairPrefix);
@@ -592,40 +525,40 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
 }
 
 long long pair_tile(long long n) {
-  return n <= kPairSplit ? kTwoPassTile : kLookBackTile;
+  return (n <= kPairSplit ? kNarrowWarps : kWideWarps) * kPairWarpSpan;
 }
 
 long long pair_tiles(long long n) {
   return (n + pair_tile(n) - 1) / pair_tile(n);
 }
 
-// Scratch: the tile counter (8 bytes), a u32 flag a tile (rounded up to 8
-// bytes), a u64 value a tile. The two passes keep their totals in the
-// values.
+// Scratch: the tile counter (8 bytes), then a u32 flag a tile, then a
+// u64 value a tile, both regions sized from the scratch's own capacity
+// (an even number of tiles), never from n. A flag slot is therefore only
+// ever written with flags, by any call on that scratch, so a stale word
+// is a flag of an earlier epoch and never a value.
 long long pair_scratch(long long n) {
   const long long t = pair_tiles(n);
-  return 8 + 4 * (t + (t & 1)) + 8 * t;
+  return 8 + 12 * (t + (t & 1));
+}
+
+long long pair_capacity(long long scratch_bytes) {
+  return scratch_bytes < 8 ? 0 : ((scratch_bytes - 8) / 12) & ~1LL;
 }
 
 template <bool kVec>
 int run_pair(const uint32_t* hi, const uint32_t* lo, uint32_t* out_hi,
-             uint32_t* out_lo, long long n, char* scratch, unsigned epoch,
-             cudaStream_t s) {
-  const long long ntiles = pair_tiles(n);
+             uint32_t* out_lo, long long n, char* scratch,
+             long long capacity, unsigned epoch, cudaStream_t s) {
   auto* counter = reinterpret_cast<unsigned*>(scratch);
   auto* flags = reinterpret_cast<unsigned*>(scratch + 8);
-  auto* values =
-      reinterpret_cast<u64*>(scratch + 8 + 4 * (ntiles + (ntiles & 1)));
-  const unsigned grid = static_cast<unsigned>(ntiles);
+  auto* values = reinterpret_cast<u64*>(scratch + 8 + 4 * capacity);
+  const unsigned grid = static_cast<unsigned>(pair_tiles(n));
   if (n <= kPairSplit) {
-    if (ntiles > 1) {
-      pair_tile_max<kVec><<<grid, kTwoPassThreads, 0, s>>>(hi, lo, n,
-                                                           values);
-    }
-    pair_tile_scan<kVec><<<grid, kTwoPassThreads, 0, s>>>(hi, lo, out_hi,
-                                                          out_lo, n, values);
+    pair_lookback_scan<kVec, kNarrowWarps><<<grid, 32 * kNarrowWarps, 0, s>>>(
+        hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
   } else {
-    pair_lookback_scan<kVec><<<grid, kLookBackThreads, 0, s>>>(
+    pair_lookback_scan<kVec, kWideWarps><<<grid, 32 * kWideWarps, 0, s>>>(
         hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
   }
   return static_cast<int>(cudaGetLastError());
@@ -649,7 +582,7 @@ extern "C" int cylon_scan32(const void* x, void* y, long long n, int kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The pairs a tile holds at n, the largest n that takes the two passes,
+// The pairs a tile holds at n, the largest n that takes the narrow tiles,
 // and the scratch bytes for n pairs.
 extern "C" long long cylon_pair_scan_tile(long long n) { return pair_tile(n); }
 extern "C" long long cylon_pair_scan_split() { return kPairSplit; }
@@ -680,6 +613,7 @@ extern "C" int cylon_pair_max_scan(const void* hi, const void* lo,
                      reinterpret_cast<uintptr_t>(lo) |
                      reinterpret_cast<uintptr_t>(out_hi) |
                      reinterpret_cast<uintptr_t>(out_lo)) % 16) == 0;
-  return vec ? run_pair<true>(h, l, oh, ol, n, sc, epoch, s)
-             : run_pair<false>(h, l, oh, ol, n, sc, epoch, s);
+  const long long cap = pair_capacity(scratch_bytes);
+  return vec ? run_pair<true>(h, l, oh, ol, n, sc, cap, epoch, s)
+             : run_pair<false>(h, l, oh, ol, n, sc, cap, epoch, s);
 }

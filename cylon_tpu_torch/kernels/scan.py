@@ -8,6 +8,8 @@ kernels ``scan32`` (``_scan_kernel`` / ``_scan32_impl``) and
 (:func:`scan32_ok`).
 """
 
+import threading
+
 import torch
 
 from cylon_tpu_torch.kernels import build
@@ -100,40 +102,46 @@ def pair_max_scan_plain(hi: torch.Tensor, lo: torch.Tensor):
     return ohi.to(hi.dtype), olo.to(lo.dtype)
 
 
-#: pair_max_scan's paths: two passes over tiles of PAIR_TILE pairs up to
-#: PAIR_SPLIT pairs, above it one pass with a look-back over tiles of
-#: PAIR_LOOKBACK_TILE (scan.cu; the wrapper checks the library against
-#: these before its first launch)
+#: pair_max_scan's tiles: one look-back pass over tiles of PAIR_TILE
+#: pairs up to PAIR_SPLIT pairs, of PAIR_WIDE_TILE above (scan.cu; the
+#: wrapper checks the library against these before its first launch)
 PAIR_TILE = 4096
-PAIR_LOOKBACK_TILE = 16384
-PAIR_SPLIT = 3 << 20
+PAIR_WIDE_TILE = 16384
+PAIR_SPLIT = 1 << 20
 #: the look-back's flags hold the call's epoch in 30 bits
 _PAIR_EPOCHS = 1 << 30
 
 #: (device, stream) -> [zeroed scratch, last epoch]: the look-back's tile
 #: state, kept across calls so that no call needs a memset (scan.cu)
 _pair_state: dict = {}
+#: threads that share a stream (ThreadWorld ranks) take epochs in turn:
+#: two calls with one epoch on one scratch would read each other's flags
+_pair_lock = threading.Lock()
 
 
 def _pair_scratch(lib, n: int, device, stream: int):
     """The pair scan's scratch for ``n`` pairs on ``stream`` and the
-    call's epoch. Zeroed when it is made, grown or its epochs run out;
-    calls on one stream run in order, so they may share it."""
+    call's epoch, unique on that scratch. Zeroed when it is made, grown
+    or its epochs run out; calls on one stream run in order, so they may
+    share it. The kernel lays its flags out from the scratch's size, not
+    from ``n``, so calls of any size leave only flags in the flag slots."""
     need = -(-lib.cylon_pair_scan_scratch(n) // 8)
     key = (device, stream)
-    state = _pair_state.get(key)
-    if state is None or state[0].numel() < need or \
-            state[1] + 1 >= _PAIR_EPOCHS:
-        if (lib.cylon_pair_scan_split(), lib.cylon_pair_scan_tile(
-                PAIR_SPLIT), lib.cylon_pair_scan_tile(PAIR_SPLIT + 1)) != (
-                PAIR_SPLIT, PAIR_TILE, PAIR_LOOKBACK_TILE):
-            raise RuntimeError("pair_max_scan: the library's tiles or split "
-                               "differ from kernels.scan's constants")
-        size = max(need, state[0].numel() if state else 0)
-        state = [torch.zeros(size, dtype=torch.int64, device=device), 0]
-        _pair_state[key] = state
-    state[1] += 1
-    return state[0], state[1]
+    with _pair_lock:
+        state = _pair_state.get(key)
+        if state is None or state[0].numel() < need or \
+                state[1] + 1 >= _PAIR_EPOCHS:
+            if (lib.cylon_pair_scan_split(), lib.cylon_pair_scan_tile(
+                    PAIR_SPLIT), lib.cylon_pair_scan_tile(PAIR_SPLIT + 1)) \
+                    != (PAIR_SPLIT, PAIR_TILE, PAIR_WIDE_TILE):
+                raise RuntimeError("pair_max_scan: the library's tiles or "
+                                   "split differ from kernels.scan's "
+                                   "constants")
+            size = max(need, state[0].numel() if state else 0)
+            state = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+            _pair_state[key] = state
+        state[1] += 1
+        return state[0], state[1]
 
 
 def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):

@@ -7,12 +7,11 @@ its prepare step (``:880-899``), parity ``DistributedJoin``
 (see :func:`cylon_tpu_torch.parallel.dtable.scatter_table`).
 """
 
-import torch
-
 from cylon_tpu_torch.errors import OutOfCapacity
 from cylon_tpu_torch.ops.hash import paired_validities, partition_ids
 from cylon_tpu_torch.ops.join import _aligned_keys, join as _join_fn
-from cylon_tpu_torch.parallel.dtable import shard_sizes, world_layout
+from cylon_tpu_torch.parallel.dtable import shard_sizes, \
+    world_layout_sized
 from cylon_tpu_torch.parallel.shuffle import checked_recv, poison, \
     shuffle_local
 
@@ -131,13 +130,12 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
     # key columns of both sides in one layout (bytes at one width,
     # dictionaries unified), so the codes co-locate equal keys and the
     # local joins' alignment is a no-op
-    left, right = world_layout(env, left), world_layout(env, right)
+    left, lcaps = world_layout_sized(env, left)
+    right, rcaps = world_layout_sized(env, right)
     left, right = _aligned_keys(left, right, left_on, right_on)
     w = env.world_size
     comm = env.comm
-    caps = comm.all_gather(torch.tensor(
-        [left.capacity, right.capacity], dtype=torch.int64,
-        device=left.device)).sum(0).tolist()
+    caps = [sum(lcaps), sum(rcaps)]
 
     def build(scale):
         shuf_l = _out_cap_local(env, caps[0], shuffle_capacity,

@@ -140,26 +140,28 @@ def _type_name(dtype) -> str:
         else repr(dtype)
 
 
-def _in_rank0_order(env, table):
-    """``table`` with its columns in rank 0's order. A fixed-size header
-    goes first (the column count, a digest of the set of names and one
-    of their order), so that tables of different widths never mis-shape
-    a gather; the names themselves are gathered only where the headers
+def _in_rank0_order(env, table) -> tuple:
+    """``table`` with its columns in rank 0's order, and every rank's
+    capacity in rank order. A fixed-size header goes first (the column
+    count, a digest of the set of names and one of their order, the
+    capacity), so that tables of different widths never mis-shape a
+    gather; the names themselves are gathered only where the headers
     differ. A different set of names raises on every rank."""
     names = table.column_names
     header = torch.tensor([len(names), _values_digest(sorted(names)),
-                           _values_digest(names)], dtype=torch.int64,
-                          device=table.device)
+                           _values_digest(names), table.capacity],
+                          dtype=torch.int64, device=table.device)
     heads = env.comm.all_gather(header).tolist()
-    if all(h == heads[0] for h in heads):
-        return table
+    caps = [h[3] for h in heads]
+    if all(h[:3] == heads[0][:3] for h in heads):
+        return table, caps
     every = _gather_values(env, table.device, names)
     if any(h[:2] != heads[0][:2] for h in heads):
         raise InvalidArgument(
             "the ranks' tables hold different columns (by rank: "
             f"{[list(e) for e in every]}): every shard of a distributed "
             "table needs the same column names")
-    return table.select(list(every[0]))
+    return table.select(list(every[0])), caps
 
 
 def _check_types(env, table, digests) -> None:
@@ -220,6 +222,11 @@ _FIXED, _BYTES, _DICT = 0, 1, 2
 
 
 def world_layout(env, table):
+    """:func:`world_layout_sized` without the capacities."""
+    return world_layout_sized(env, table)[0]
+
+
+def world_layout_sized(env, table) -> tuple:
     """``table`` brought to the layout every rank's shard shares, so that
     rows exchanged between ranks line up and read back as they were
     sent. Ranks that ingest their own rows hold different layouts of one
@@ -244,13 +251,16 @@ def world_layout(env, table):
     Collectives: one all-gather of a fixed-size header and one of a
     per-column summary; the column or type names where they differ, one
     more for columns of mixed storage, three more for each dictionary
-    that differs."""
+    that differs.
+
+    Returns the table and every rank's capacity in rank order (from the
+    header)."""
     from cylon_tpu_torch.column import Column, Dictionary
     from cylon_tpu_torch.ops.dictenc import merge_dictionaries, remap_codes
 
     if env.world_size == 1:
-        return table
-    table = _in_rank0_order(env, table)
+        return table, [table.capacity]
+    table, caps = _in_rank0_order(env, table)
     names = table.column_names
     summary = []
     for n in names:
@@ -289,7 +299,7 @@ def world_layout(env, table):
             c = remap_codes(c, remaps[env.rank], shared)
         if c is not table.column(n):
             table = table.add_column(n, c)
-    return table
+    return table, caps
 
 
 def gather_table(env, table):

@@ -137,19 +137,62 @@ def _scan_cu_constants() -> dict:
         return int(re.search(pattern, src).group(1))
 
     return {"chunks": get(r"kPairChunks = (\d+);"),
-            "two_pass_warps": get(r"kTwoPassWarps = (\d+);"),
-            "look_back_warps": get(r"kLookBackWarps = (\d+);"),
-            "split": get(r"#define CYLON_PAIR_SCAN_SPLIT (\d+)")}
+            "narrow_warps": get(r"kNarrowWarps = (\d+);"),
+            "wide_warps": get(r"kWideWarps = (\d+);"),
+            "split": 1 << get(r"kPairSplit = 1LL << (\d+);")}
 
 
 def test_pair_scan_constants_match_scan_cu():
     """The wrapper's tiles and split are scan.cu's (the wrapper checks the
     built library against them on the card)."""
     k = _scan_cu_constants()
-    assert tscan.PAIR_TILE == k["two_pass_warps"] * 128 * k["chunks"]
-    assert tscan.PAIR_LOOKBACK_TILE == \
-        k["look_back_warps"] * 128 * k["chunks"]
+    assert tscan.PAIR_TILE == k["narrow_warps"] * 128 * k["chunks"]
+    assert tscan.PAIR_WIDE_TILE == k["wide_warps"] * 128 * k["chunks"]
     assert tscan.PAIR_SPLIT == k["split"]
+
+
+class _PairLib:
+    """scan.cu's pair-scan sizing, as the wrapper reads it from the
+    library."""
+
+    @staticmethod
+    def cylon_pair_scan_split():
+        return tscan.PAIR_SPLIT
+
+    @staticmethod
+    def cylon_pair_scan_tile(n):
+        return tscan.PAIR_TILE if n <= tscan.PAIR_SPLIT \
+            else tscan.PAIR_WIDE_TILE
+
+    @classmethod
+    def cylon_pair_scan_scratch(cls, n):
+        t = -(-n // cls.cylon_pair_scan_tile(n))
+        return 8 + 12 * (t + (t & 1))
+
+
+def test_pair_scratch_epochs_unique_across_threads(monkeypatch):
+    """Threads that share a stream (ThreadWorld ranks) each take an epoch
+    of their own on the kept scratch; a larger call grows it (zeroed,
+    epochs from 1), a smaller one keeps it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setattr(tscan, "_pair_state", {})
+    lib, dev = _PairLib(), torch.device("cpu")
+    small, big = tscan.PAIR_SPLIT, 40 * tscan.PAIR_SPLIT
+
+    def take(_):
+        return tscan._pair_scratch(lib, small, dev, 7)[1]
+
+    with ThreadPoolExecutor(8) as pool:
+        epochs = list(pool.map(take, range(800)))
+    assert sorted(epochs) == list(range(1, 801))
+    first = tscan._pair_scratch(lib, small, dev, 7)[0]
+    grown, e = tscan._pair_scratch(lib, big, dev, 7)
+    assert e == 1 and grown.numel() * 8 >= lib.cylon_pair_scan_scratch(big)
+    assert grown.numel() > first.numel() and not grown.any()
+    kept, e = tscan._pair_scratch(lib, small, dev, 7)
+    assert kept.data_ptr() == grown.data_ptr() and e == 2
+    assert tscan._pair_scratch(lib, small, dev, 8)[1] == 1   # another stream
 
 
 def _ex_max(a: np.ndarray, axis: int) -> np.ndarray:
@@ -207,14 +250,14 @@ def _look_back(totals: np.ndarray, rng, eager: float,
 def _pair_scan_model(hi: np.ndarray, lo: np.ndarray, split: int, rng,
                      eager: float = 0.5):
     """A numpy replay of scan.cu's pair_max_scan with its own constants:
-    the dispatch (n <= split: two passes, the carry the max of the totals
-    before a tile; above: the look-back order of :func:`_look_back`), each
-    path's tile split, and the scan of a tile in registers (warp w's span
-    in chunks of 128, lane l's 4 pairs, the lane scan, the warp scan of
-    the lane totals, the chunk carry, the earlier warps' maxima)."""
+    the tile width's dispatch (n <= split: narrow tiles, else wide), the
+    tile split, the look-back order of :func:`_look_back`, and the scan of
+    a tile in registers (warp w's span in chunks of 128, lane l's 4 pairs,
+    the lane scan, the warp scan of the lane totals, the chunk carry, the
+    earlier warps' maxima)."""
     k = _scan_cu_constants()
-    two_pass = hi.shape[0] <= split
-    warps = k["two_pass_warps" if two_pass else "look_back_warps"]
+    narrow = hi.shape[0] <= split
+    warps = k["narrow_warps" if narrow else "wide_warps"]
     chunks = k["chunks"]
     tile = warps * chunks * 128
     n = hi.shape[0]
@@ -229,13 +272,12 @@ def _pair_scan_model(hi: np.ndarray, lo: np.ndarray, split: int, rng,
                      _ex_max(lane_inc, 3))               # [t, w, c, lane]
     warp_max = chunk_max.max(axis=2)                     # [tile, warp]
     totals = warp_max.max(axis=1)
-    carry = _ex_max(totals, 0) if two_pass else _look_back(totals, rng,
-                                                           eager)
+    carry = _look_back(totals, rng, eager)
     front = np.maximum(carry[:, None], _ex_max(warp_max, 1))
     out = np.maximum(np.maximum(front[:, :, None, None], pre)[..., None],
                      inc).reshape(-1)[:n]
     return ((out >> np.uint64(32)).astype(np.uint32),
-            (out & np.uint64(0xFFFFFFFF)).astype(np.uint32), two_pass)
+            (out & np.uint64(0xFFFFFFFF)).astype(np.uint32), narrow)
 
 
 def _model_inputs(n: int, seed: int) -> dict:
@@ -251,25 +293,24 @@ def _model_inputs(n: int, seed: int) -> dict:
 
 
 PAIR_TILE, PAIR_SPLIT = tscan.PAIR_TILE, tscan.PAIR_SPLIT
-LB_TILE = tscan.PAIR_LOOKBACK_TILE
+WIDE_TILE = tscan.PAIR_WIDE_TILE
 
 
-@pytest.mark.parametrize("n", [PAIR_TILE, PAIR_TILE + 1, LB_TILE + 1,
-                               40 * LB_TILE + 5, PAIR_SPLIT - 1, PAIR_SPLIT,
-                               PAIR_SPLIT + 1])
+@pytest.mark.parametrize("n", [PAIR_TILE, PAIR_TILE + 1, WIDE_TILE + 1,
+                               40 * WIDE_TILE + 5, PAIR_SPLIT - 1,
+                               PAIR_SPLIT, PAIR_SPLIT + 1,
+                               3 * PAIR_SPLIT + 1])
 def test_pair_scan_model_matches_plain_and_pallas(n, pallas_interpret):
-    """The model of both paths, bit for bit against the plain version, the
-    u64 lax.cummax, and below two tiles the Pallas kernel in interpret
-    mode: one tile and one pair more of each path's tiling, many tiles,
-    and the split and one pair on each side of it. Below the split both
-    paths run (the look-back forced, as a build with
-    CYLON_PAIR_SCAN_SPLIT=0 does it), the look-back in three
-    interleavings, the last starting every tile before any looks back (so
-    that windows step back past 32 tiles); at the split and one pair on
-    each side, the path the kernel's dispatch picks."""
+    """The model, bit for bit against the plain version, the u64
+    lax.cummax, and below two tiles the Pallas kernel in interpret mode:
+    one narrow tile and one pair more, a few and many narrow tiles, the
+    split and one pair on each side of it, and many wide tiles. Below the
+    split the look-back runs in three interleavings, the last starting
+    every tile before any looks back (so that windows step back past 32
+    tiles); from the split up, in one."""
     rng = np.random.default_rng(n)
     inputs = _model_inputs(n, n + 7)
-    if n >= PAIR_SPLIT - 1:   # the three largest sizes: one input each
+    if n >= PAIR_SPLIT - 1:   # the largest sizes: one input each
         inputs = {"sparse": inputs["sparse"]}
     for case, (hi, lo) in inputs.items():
         ph, pl = tscan.pair_max_scan_plain(_bits(hi), _bits(lo))
@@ -284,12 +325,10 @@ def test_pair_scan_model_matches_plain_and_pallas(n, pallas_interpret):
             kh, kl = pk.pair_max_scan(jnp.asarray(hi), jnp.asarray(lo))
             np.testing.assert_array_equal(np.asarray(kh), want[0])
             np.testing.assert_array_equal(np.asarray(kl), want[1])
-        runs = [(PAIR_SPLIT, 0.5)]
-        if n < PAIR_SPLIT - 1:
-            runs = [(n, 0.5), (0, 0.2), (0, 0.7), (0, 1.0)]
-        for split, eager in runs:
-            gh, gl, two_pass = _pair_scan_model(hi, lo, split, rng, eager)
-            assert two_pass == (n <= split), case
+        eagers = (0.2, 0.7, 1.0) if n < PAIR_SPLIT - 1 else (0.5,)
+        for eager in eagers:
+            gh, gl, narrow = _pair_scan_model(hi, lo, PAIR_SPLIT, rng, eager)
+            assert narrow == (n <= PAIR_SPLIT), case
             np.testing.assert_array_equal(gh, want[0], err_msg=case)
             np.testing.assert_array_equal(gl, want[1], err_msg=case)
 
