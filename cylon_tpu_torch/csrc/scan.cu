@@ -290,8 +290,10 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 // 16-byte aligned). A chunk scans in each lane, then across the warp by
 // __shfl_up_sync, carrying the chunk's max to the next; the warps' maxima
 // meet in shared memory, and the tile's prefix goes in front as it is
-// stored. No shared-memory transpose. The input's read and the output's
-// stores are marked streaming (evict first): neither is read again.
+// stored. No shared-memory transpose. Loads and stores carry no cache
+// hint: marked evict-first, the scan's own lines were the first to leave
+// an L2 that also held other data, and an input and output that fit in L2
+// (up to about 3M pairs) then came from HBM (PERF.md).
 constexpr int kPairChunks = 4;
 constexpr int kPairItems = 4 * kPairChunks;       // pairs a thread
 constexpr int kPairWarpSpan = 128 * kPairChunks;  // pairs a warp
@@ -329,8 +331,8 @@ __device__ __forceinline__ void pair_load(const uint32_t* __restrict__ hi,
     const long long i = pair_index(base, c);
     uint32_t h[4], l[4];
     if (kVec && i + 3 < n) {
-      const uint4 qh = __ldcs(reinterpret_cast<const uint4*>(hi + i));
-      const uint4 ql = __ldcs(reinterpret_cast<const uint4*>(lo + i));
+      const uint4 qh = *reinterpret_cast<const uint4*>(hi + i);
+      const uint4 ql = *reinterpret_cast<const uint4*>(lo + i);
       h[0] = qh.x; h[1] = qh.y; h[2] = qh.z; h[3] = qh.w;
       l[0] = ql.x; l[1] = ql.y; l[2] = ql.z; l[3] = ql.w;
     } else {
@@ -355,16 +357,14 @@ __device__ __forceinline__ void pair_store(uint32_t* __restrict__ out_hi,
     const long long i = pair_index(base, c);
     const u64* x = v + 4 * c;
     if (kVec && i + 3 < n) {
-      __stcs(reinterpret_cast<uint4*>(out_hi + i),
-             make_uint4(static_cast<uint32_t>(x[0] >> 32),
-                        static_cast<uint32_t>(x[1] >> 32),
-                        static_cast<uint32_t>(x[2] >> 32),
-                        static_cast<uint32_t>(x[3] >> 32)));
-      __stcs(reinterpret_cast<uint4*>(out_lo + i),
-             make_uint4(static_cast<uint32_t>(x[0]),
-                        static_cast<uint32_t>(x[1]),
-                        static_cast<uint32_t>(x[2]),
-                        static_cast<uint32_t>(x[3])));
+      *reinterpret_cast<uint4*>(out_hi + i) =
+          make_uint4(static_cast<uint32_t>(x[0] >> 32),
+                     static_cast<uint32_t>(x[1] >> 32),
+                     static_cast<uint32_t>(x[2] >> 32),
+                     static_cast<uint32_t>(x[3] >> 32));
+      *reinterpret_cast<uint4*>(out_lo + i) =
+          make_uint4(static_cast<uint32_t>(x[0]), static_cast<uint32_t>(x[1]),
+                     static_cast<uint32_t>(x[2]), static_cast<uint32_t>(x[3]));
     } else {
       for (int k = 0; k < 4; ++k) {
         if (i + k < n) {
