@@ -23,9 +23,9 @@ Phases, each printing one JSON line:
    the 16M builds with their device time by pass and peak memory;
    ``pair_max_scan`` also on no marks, a mark on every element, one mark
    at element 0, ties on hi that lo decides and hi and lo at or above
-   2^31, at every shape and at the split between its tile widths and
-   one pair on each side of it, so that both widths run, and a wide call
-   after a narrow one whose tile values read as the next call's flags);
+   2^31, at every shape and at its dispatch threshold and one pair on
+   each side of it, so that both of its paths run, and a look-back call
+   after a three-pass one whose carries read as the next call's flags);
    the time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
@@ -351,16 +351,16 @@ def kernel_phase(torch, rate):
             if bad:
                 raise SystemExit(f"{name} at n={n}: {bad} mismatches")
             stats[(name, n)] = row
-    pair_tiling_phase(torch, rate, stats)
+    pair_split_phase(torch, rate, stats)
     pair_scratch_phase(torch, stats)
     return stats
 
 
-def pair_tiling_phase(torch, rate, stats):
-    """pair_max_scan at the split between its tile widths and one pair on
-    each side of it (``PAIR_SPLIT`` and below: narrow tiles; above: wide
-    ones), on every input of :func:`pair_inputs`, bit for bit against
-    the plain version."""
+def pair_split_phase(torch, rate, stats):
+    """pair_max_scan at its dispatch threshold and one pair on each side
+    of it (``PAIR_SPLIT`` and below: the three passes; above: one pass
+    with a look-back), on every input of :func:`pair_inputs`, bit for bit
+    against the plain version."""
     from cylon_tpu_torch.kernels import pair_max_scan
     from cylon_tpu_torch.kernels.scan import PAIR_SPLIT
 
@@ -372,7 +372,8 @@ def pair_tiling_phase(torch, rate, stats):
             bad, err = compare(torch, pair_max_scan(hi, lo),
                                pair_max_scan.plain(hi, lo))
             row = {"phase": "kernel", "name": name, "n": n,
-                   "tiles": "narrow" if n <= PAIR_SPLIT else "wide",
+                   "path": "three passes" if n <= PAIR_SPLIT
+                   else "look-back",
                    "mismatches": bad, "max_abs_err": err, "tolerance": 0,
                    "bound_us": 16 * n / rate * 1e6}
             emit(row)
@@ -382,12 +383,13 @@ def pair_tiling_phase(torch, rate, stats):
 
 
 def pair_scratch_phase(torch, stats):
-    """pair_max_scan's kept scratch across calls of other sizes: a wide
-    call sizes it, a narrow call then leaves tile values whose words read
-    as the next call's flags (``4 * epoch + 1`` and ``+ 2``: an aggregate
-    and a prefix), and the wide call after it must still match the plain
-    version bit for bit. The kernel keeps its flags where no value is
-    written, so a stale value never reads as a flag."""
+    """pair_max_scan's kept scratch across calls of other sizes and
+    paths: a look-back call sizes it, a three-pass call then leaves tile
+    carries whose words read as the next call's flags (``4 * epoch + 1``
+    and ``+ 2``: an aggregate and a prefix), and the look-back call after
+    it must still match the plain version bit for bit. The kernel keeps
+    its flags where no carry or value is written, so a stale word never
+    reads as a flag."""
     from cylon_tpu_torch.kernels import pair_max_scan
     from cylon_tpu_torch.kernels import scan as tscan
     from cylon_tpu_torch.kernels.build import stream_of
@@ -398,7 +400,7 @@ def pair_scratch_phase(torch, stats):
     hi, lo = pair_inputs(torch, n, g)["path"]
     pair_max_scan(hi, lo)
     key = (hi.device, stream_of(hi))
-    nxt = tscan._pair_state[key][1] + 2   # the wide call's epoch
+    nxt = tscan._pair_state[key][1] + 2   # the last call's epoch
     fill = torch.full((tscan.PAIR_SPLIT,), 4 * nxt + 1, dtype=torch.int32,
                       device="cuda")
     pair_max_scan(fill, fill + 1)

@@ -33,10 +33,11 @@
 // undefined in C++). float32 max propagates NaN, as jnp.maximum does;
 // fmaxf would drop it.
 //
-// pair_max_scan has a kernel of its own (below, where its design is set
-// out): a pair is packed into one unsigned 64-bit value, hi in the top
-// half, so the unsigned max is the lexicographic max, and that max is
-// commutative and idempotent, which its look-back uses.
+// A pair is packed into one unsigned 64-bit value, hi in the top half, so
+// the unsigned max is the lexicographic max; the identity is 0, so
+// positions before any nonzero pair read (0, 0). pair_max_scan takes these
+// three passes up to kPairSplit pairs and a kernel of its own above
+// (below, where its design is set out).
 
 #include <climits>
 #include <cmath>
@@ -89,6 +90,12 @@ struct MaxF32 {
   }
 };
 
+struct MaxU64 {
+  using T = unsigned long long;
+  __device__ static T id() { return 0ull; }
+  __device__ static T op(T a, T b) { return b >= a ? b : a; }
+};
+
 template <class Op>
 struct FlatIO {
   using T = typename Op::T;
@@ -96,6 +103,21 @@ struct FlatIO {
   T* out;
   __device__ T load(long long i) const { return in[i]; }
   __device__ void store(long long i, T v) const { out[i] = v; }
+};
+
+struct PairIO {
+  using T = unsigned long long;
+  const uint32_t* hi;
+  const uint32_t* lo;
+  uint32_t* out_hi;
+  uint32_t* out_lo;
+  __device__ T load(long long i) const {
+    return (static_cast<T>(hi[i]) << 32) | lo[i];
+  }
+  __device__ void store(long long i, T v) const {
+    out_hi[i] = static_cast<uint32_t>(v >> 32);
+    out_lo[i] = static_cast<uint32_t>(v);
+  }
 };
 
 __device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
@@ -256,11 +278,15 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 
 // ------------------------------------------------------- pair_max_scan
 // The scan of (hi, lo) u32 pairs, the u64 cummax of (hi << 32) | lo with
-// identity 0. It moves 16 bytes a pair at the bound. One pass with a
-// decoupled look-back (Merrill and Garland, 2016), one launch, no carry
-// kernel: the three passes this scan ran before read the input twice,
-// from HBM once the 4M-pair input and output (64 MB) overflow the 50 MB
-// L2 (raced on an H100; PERF.md).
+// identity 0. It moves 16 bytes a pair at the bound. Up to kPairSplit
+// pairs (3M: the input and output, 48 MB, fit in the 50 MB L2) it takes
+// the three passes above, whose second read then hits L2. Above, where
+// that read comes from HBM, it takes one pass with a decoupled look-back
+// (Merrill and Garland, 2016), one launch, no carry kernel. Raced on
+// H100s (PERF.md), the look-back beat the three passes at 4M and 32M
+// pairs on every machine, but at 1M and 3M only on some: its waits
+// between SMs cost more on some machines than on others, and the three
+// passes' time did not move.
 //
 // A block takes its tile from an atomic counter, so every lower tile
 // belongs to a block that is already running; it publishes its tile's
@@ -277,11 +303,8 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 // an earlier call reads as not yet published. The block that draws the
 // last tile resets the counter.
 //
-// Tiles are wide (16384 pairs, one 1024-thread block an SM), which keeps
-// the chains of look-backs short, above kPairSplit pairs; at and below it
-// they are 4096 pairs (256 threads), so that a small input still spreads
-// over the SMs (at 256K pairs the wide tiles fill 16 of 132). The
-// launcher picks the width from n alone; the code is the same.
+// Tiles are large (16384 pairs, one 1024-thread block an SM), which
+// keeps the chains of look-backs short.
 //
 // A block holds its tile in registers, 16 pairs a thread: warp w scans
 // the contiguous span base + w * kPairWarpSpan in chunks of 128 pairs,
@@ -293,14 +316,15 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 // stored. No shared-memory transpose. Loads and stores carry no cache
 // hint: marked evict-first, the scan's own lines were the first to leave
 // an L2 that also held other data, and an input and output that fit in L2
-// (up to about 3M pairs) then came from HBM (PERF.md).
+// then came from HBM on the next call (PERF.md).
 constexpr int kPairChunks = 4;
 constexpr int kPairItems = 4 * kPairChunks;       // pairs a thread
 constexpr int kPairWarpSpan = 128 * kPairChunks;  // pairs a warp
-constexpr int kNarrowWarps = 8;
-constexpr int kWideWarps = 32;
-// The largest n that takes the narrow tiles.
-constexpr long long kPairSplit = 1LL << 20;
+constexpr int kLookBackWarps = 32;
+constexpr int kLookBackThreads = 32 * kLookBackWarps;
+constexpr int kLookBackTile = kLookBackWarps * kPairWarpSpan;  // 16384
+// The largest n that takes the three passes.
+constexpr long long kPairSplit = 3LL << 20;
 constexpr unsigned kPairAggregate = 1u;
 constexpr unsigned kPairPrefix = 2u;
 constexpr unsigned kPairEpochs = 1u << 30;
@@ -472,8 +496,8 @@ __device__ u64 pair_look_back(const u64* values, const unsigned* flags,
   }
 }
 
-template <bool kVec, int kWarps>
-__global__ void __launch_bounds__(32 * kWarps)
+template <bool kVec>
+__global__ void __launch_bounds__(kLookBackThreads)
 pair_lookback_scan(const uint32_t* __restrict__ hi,
                    const uint32_t* __restrict__ lo,
                    uint32_t* __restrict__ out_hi,
@@ -481,7 +505,7 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
                    unsigned* counter, unsigned* flags, u64* values,
                    unsigned epoch) {
   __shared__ unsigned tile_s;
-  __shared__ u64 wmax[kWarps];
+  __shared__ u64 wmax[kLookBackWarps];
   __shared__ u64 prefix_s;
   if (threadIdx.x == 0) {
     const unsigned t = atomicAdd(counter, 1u);
@@ -490,8 +514,7 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
   }
   __syncthreads();
   const unsigned tile = tile_s;
-  const long long base = static_cast<long long>(tile) * kWarps *
-                         kPairWarpSpan;
+  const long long base = static_cast<long long>(tile) * kLookBackTile;
   u64 v[kPairItems];
   pair_load<kVec>(hi, lo, base, n, v);
   const u64 m = warp_max(thread_max(v));
@@ -499,7 +522,7 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
   __syncthreads();
   if (threadIdx.x < 32) {
     u64 total = 0;
-    for (int w = 0; w < kWarps; ++w) total = umax(total, wmax[w]);
+    for (int w = 0; w < kLookBackWarps; ++w) total = umax(total, wmax[w]);
     if (tile == 0) {
       if (threadIdx.x == 0) {
         publish(values, flags, tile, total, epoch, kPairPrefix);
@@ -525,7 +548,7 @@ pair_lookback_scan(const uint32_t* __restrict__ hi,
 }
 
 long long pair_tile(long long n) {
-  return (n <= kPairSplit ? kNarrowWarps : kWideWarps) * kPairWarpSpan;
+  return n <= kPairSplit ? kTile : kLookBackTile;
 }
 
 long long pair_tiles(long long n) {
@@ -536,7 +559,8 @@ long long pair_tiles(long long n) {
 // u64 value a tile, both regions sized from the scratch's own capacity
 // (an even number of tiles), never from n. A flag slot is therefore only
 // ever written with flags, by any call on that scratch, so a stale word
-// is a flag of an earlier epoch and never a value.
+// is a flag of an earlier epoch and never a value. The three passes keep
+// their carries in the values.
 long long pair_scratch(long long n) {
   const long long t = pair_tiles(n);
   return 8 + 12 * (t + (t & 1));
@@ -547,20 +571,13 @@ long long pair_capacity(long long scratch_bytes) {
 }
 
 template <bool kVec>
-int run_pair(const uint32_t* hi, const uint32_t* lo, uint32_t* out_hi,
-             uint32_t* out_lo, long long n, char* scratch,
-             long long capacity, unsigned epoch, cudaStream_t s) {
-  auto* counter = reinterpret_cast<unsigned*>(scratch);
-  auto* flags = reinterpret_cast<unsigned*>(scratch + 8);
-  auto* values = reinterpret_cast<u64*>(scratch + 8 + 4 * capacity);
-  const unsigned grid = static_cast<unsigned>(pair_tiles(n));
-  if (n <= kPairSplit) {
-    pair_lookback_scan<kVec, kNarrowWarps><<<grid, 32 * kNarrowWarps, 0, s>>>(
-        hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
-  } else {
-    pair_lookback_scan<kVec, kWideWarps><<<grid, 32 * kWideWarps, 0, s>>>(
-        hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
-  }
+int run_look_back(const uint32_t* hi, const uint32_t* lo, uint32_t* out_hi,
+                  uint32_t* out_lo, long long n, unsigned* counter,
+                  unsigned* flags, u64* values, unsigned epoch,
+                  cudaStream_t s) {
+  pair_lookback_scan<kVec><<<static_cast<unsigned>(pair_tiles(n)),
+                             kLookBackThreads, 0, s>>>(
+      hi, lo, out_hi, out_lo, n, counter, flags, values, epoch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,7 +599,7 @@ extern "C" int cylon_scan32(const void* x, void* y, long long n, int kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The pairs a tile holds at n, the largest n that takes the narrow tiles,
+// The pairs a tile holds at n, the largest n that takes the three passes,
 // and the scratch bytes for n pairs.
 extern "C" long long cylon_pair_scan_tile(long long n) { return pair_tile(n); }
 extern "C" long long cylon_pair_scan_split() { return kPairSplit; }
@@ -608,12 +625,19 @@ extern "C" int cylon_pair_max_scan(const void* hi, const void* lo,
   auto* oh = static_cast<uint32_t*>(out_hi);
   auto* ol = static_cast<uint32_t*>(out_lo);
   auto* sc = static_cast<char*>(scratch);
+  auto* values = reinterpret_cast<u64*>(
+      sc + 8 + 4 * pair_capacity(scratch_bytes));
+  if (n <= kPairSplit) return run_scan<MaxU64>(PairIO{h, l, oh, ol}, n,
+                                               values, stream);
+  auto* counter = reinterpret_cast<unsigned*>(sc);
+  auto* flags = reinterpret_cast<unsigned*>(sc + 8);
   const auto s = static_cast<cudaStream_t>(stream);
   const bool vec = ((reinterpret_cast<uintptr_t>(hi) |
                      reinterpret_cast<uintptr_t>(lo) |
                      reinterpret_cast<uintptr_t>(out_hi) |
                      reinterpret_cast<uintptr_t>(out_lo)) % 16) == 0;
-  const long long cap = pair_capacity(scratch_bytes);
-  return vec ? run_pair<true>(h, l, oh, ol, n, sc, cap, epoch, s)
-             : run_pair<false>(h, l, oh, ol, n, sc, cap, epoch, s);
+  return vec ? run_look_back<true>(h, l, oh, ol, n, counter, flags, values,
+                                   epoch, s)
+             : run_look_back<false>(h, l, oh, ol, n, counter, flags, values,
+                                    epoch, s);
 }

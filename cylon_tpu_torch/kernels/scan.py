@@ -102,12 +102,13 @@ def pair_max_scan_plain(hi: torch.Tensor, lo: torch.Tensor):
     return ohi.to(hi.dtype), olo.to(lo.dtype)
 
 
-#: pair_max_scan's tiles: one look-back pass over tiles of PAIR_TILE
-#: pairs up to PAIR_SPLIT pairs, of PAIR_WIDE_TILE above (scan.cu; the
-#: wrapper checks the library against these before its first launch)
-PAIR_TILE = 4096
-PAIR_WIDE_TILE = 16384
-PAIR_SPLIT = 1 << 20
+#: pair_max_scan's paths: the three passes over tiles of PAIR_TILE pairs
+#: up to PAIR_SPLIT pairs, one look-back pass over tiles of
+#: PAIR_LOOKBACK_TILE above (scan.cu; the wrapper checks the library
+#: against these before its first launch)
+PAIR_TILE = 2048
+PAIR_LOOKBACK_TILE = 16384
+PAIR_SPLIT = 3 << 20
 #: the look-back's flags hold the call's epoch in 30 bits
 _PAIR_EPOCHS = 1 << 30
 
@@ -124,7 +125,8 @@ def _pair_scratch(lib, n: int, device, stream: int):
     call's epoch, unique on that scratch. Zeroed when it is made, grown
     or its epochs run out; calls on one stream run in order, so they may
     share it. The kernel lays its flags out from the scratch's size, not
-    from ``n``, so calls of any size leave only flags in the flag slots."""
+    from ``n``, so calls of any size or path leave only flags in the flag
+    slots."""
     need = -(-lib.cylon_pair_scan_scratch(n) // 8)
     key = (device, stream)
     with _pair_lock:
@@ -133,7 +135,7 @@ def _pair_scratch(lib, n: int, device, stream: int):
                 state[1] + 1 >= _PAIR_EPOCHS:
             if (lib.cylon_pair_scan_split(), lib.cylon_pair_scan_tile(
                     PAIR_SPLIT), lib.cylon_pair_scan_tile(PAIR_SPLIT + 1)) \
-                    != (PAIR_SPLIT, PAIR_TILE, PAIR_WIDE_TILE):
+                    != (PAIR_SPLIT, PAIR_TILE, PAIR_LOOKBACK_TILE):
                 raise RuntimeError("pair_max_scan: the library's tiles or "
                                    "split differ from kernels.scan's "
                                    "constants")

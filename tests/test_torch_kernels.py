@@ -137,17 +137,19 @@ def _scan_cu_constants() -> dict:
         return int(re.search(pattern, src).group(1))
 
     return {"chunks": get(r"kPairChunks = (\d+);"),
-            "narrow_warps": get(r"kNarrowWarps = (\d+);"),
-            "wide_warps": get(r"kWideWarps = (\d+);"),
-            "split": 1 << get(r"kPairSplit = 1LL << (\d+);")}
+            "look_back_warps": get(r"kLookBackWarps = (\d+);"),
+            "three_pass_tile": get(r"kThreads = (\d+);")
+            * get(r"kItems = (\d+);"),
+            "split": get(r"kPairSplit = (\d+)LL << 20;") << 20}
 
 
 def test_pair_scan_constants_match_scan_cu():
     """The wrapper's tiles and split are scan.cu's (the wrapper checks the
     built library against them on the card)."""
     k = _scan_cu_constants()
-    assert tscan.PAIR_TILE == k["narrow_warps"] * 128 * k["chunks"]
-    assert tscan.PAIR_WIDE_TILE == k["wide_warps"] * 128 * k["chunks"]
+    assert tscan.PAIR_TILE == k["three_pass_tile"]
+    assert tscan.PAIR_LOOKBACK_TILE == \
+        k["look_back_warps"] * 128 * k["chunks"]
     assert tscan.PAIR_SPLIT == k["split"]
 
 
@@ -162,7 +164,7 @@ class _PairLib:
     @staticmethod
     def cylon_pair_scan_tile(n):
         return tscan.PAIR_TILE if n <= tscan.PAIR_SPLIT \
-            else tscan.PAIR_WIDE_TILE
+            else tscan.PAIR_LOOKBACK_TILE
 
     @classmethod
     def cylon_pair_scan_scratch(cls, n):
@@ -178,7 +180,7 @@ def test_pair_scratch_epochs_unique_across_threads(monkeypatch):
 
     monkeypatch.setattr(tscan, "_pair_state", {})
     lib, dev = _PairLib(), torch.device("cpu")
-    small, big = tscan.PAIR_SPLIT, 40 * tscan.PAIR_SPLIT
+    small, big = tscan.PAIR_SPLIT, 32 * tscan.PAIR_SPLIT
 
     def take(_):
         return tscan._pair_scratch(lib, small, dev, 7)[1]
@@ -250,34 +252,46 @@ def _look_back(totals: np.ndarray, rng, eager: float,
 def _pair_scan_model(hi: np.ndarray, lo: np.ndarray, split: int, rng,
                      eager: float = 0.5):
     """A numpy replay of scan.cu's pair_max_scan with its own constants:
-    the tile width's dispatch (n <= split: narrow tiles, else wide), the
-    tile split, the look-back order of :func:`_look_back`, and the scan of
-    a tile in registers (warp w's span in chunks of 128, lane l's 4 pairs,
-    the lane scan, the warp scan of the lane totals, the chunk carry, the
-    earlier warps' maxima)."""
+    the dispatch (n <= split: the three passes, each tile's carry the max
+    of the totals before it; above: the look-back order of
+    :func:`_look_back`), each path's tile split, and the look-back's scan
+    of a tile in registers (warp w's span in chunks of 128, lane l's 4
+    pairs, the lane scan, the warp scan of the lane totals, the chunk
+    carry, the earlier warps' maxima). The three passes' scan inside a
+    tile is a sequential one (each thread's 8 pairs, then the threads'
+    totals in order), which for a max is the tile's running max."""
     k = _scan_cu_constants()
-    narrow = hi.shape[0] <= split
-    warps = k["narrow_warps" if narrow else "wide_warps"]
-    chunks = k["chunks"]
-    tile = warps * chunks * 128
     n = hi.shape[0]
-    ntiles = -(-n // tile)
-    x = np.zeros(ntiles * tile, np.uint64)
-    x[:n] = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    x = x.reshape(ntiles, warps, chunks, 32, 4)
-    inc = np.maximum.accumulate(x, axis=4)               # in each lane
-    lane_inc = np.maximum.accumulate(inc[..., 3], axis=3)
-    chunk_max = lane_inc[..., 31]                        # [tile, warp, chunk]
-    pre = np.maximum(_ex_max(chunk_max, 2)[..., None],
-                     _ex_max(lane_inc, 3))               # [t, w, c, lane]
-    warp_max = chunk_max.max(axis=2)                     # [tile, warp]
-    totals = warp_max.max(axis=1)
-    carry = _look_back(totals, rng, eager)
-    front = np.maximum(carry[:, None], _ex_max(warp_max, 1))
-    out = np.maximum(np.maximum(front[:, :, None, None], pre)[..., None],
-                     inc).reshape(-1)[:n]
+    three_pass = n <= split
+    x = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    if three_pass:
+        tile = k["three_pass_tile"]
+        ntiles = -(-n // tile)
+        t = np.zeros(ntiles * tile, np.uint64)
+        t[:n] = x
+        t = t.reshape(ntiles, tile)
+        carry = _ex_max(t.max(axis=1), 0)
+        out = np.maximum(carry[:, None],
+                         np.maximum.accumulate(t, axis=1)).reshape(-1)[:n]
+    else:
+        warps, chunks = k["look_back_warps"], k["chunks"]
+        tile = warps * chunks * 128
+        ntiles = -(-n // tile)
+        t = np.zeros(ntiles * tile, np.uint64)
+        t[:n] = x
+        t = t.reshape(ntiles, warps, chunks, 32, 4)
+        inc = np.maximum.accumulate(t, axis=4)               # in each lane
+        lane_inc = np.maximum.accumulate(inc[..., 3], axis=3)
+        chunk_max = lane_inc[..., 31]                    # [tile, warp, chunk]
+        pre = np.maximum(_ex_max(chunk_max, 2)[..., None],
+                         _ex_max(lane_inc, 3))           # [t, w, c, lane]
+        warp_max = chunk_max.max(axis=2)                 # [tile, warp]
+        carry = _look_back(warp_max.max(axis=1), rng, eager)
+        front = np.maximum(carry[:, None], _ex_max(warp_max, 1))
+        out = np.maximum(np.maximum(front[:, :, None, None], pre)[..., None],
+                         inc).reshape(-1)[:n]
     return ((out >> np.uint64(32)).astype(np.uint32),
-            (out & np.uint64(0xFFFFFFFF)).astype(np.uint32), narrow)
+            (out & np.uint64(0xFFFFFFFF)).astype(np.uint32), three_pass)
 
 
 def _model_inputs(n: int, seed: int) -> dict:
@@ -293,21 +307,23 @@ def _model_inputs(n: int, seed: int) -> dict:
 
 
 PAIR_TILE, PAIR_SPLIT = tscan.PAIR_TILE, tscan.PAIR_SPLIT
-WIDE_TILE = tscan.PAIR_WIDE_TILE
+LB_TILE = tscan.PAIR_LOOKBACK_TILE
 
 
-@pytest.mark.parametrize("n", [PAIR_TILE, PAIR_TILE + 1, WIDE_TILE + 1,
-                               40 * WIDE_TILE + 5, PAIR_SPLIT - 1,
-                               PAIR_SPLIT, PAIR_SPLIT + 1,
-                               3 * PAIR_SPLIT + 1])
+@pytest.mark.parametrize("n", [4096, 4097, LB_TILE + 1, 40 * LB_TILE + 5,
+                               PAIR_SPLIT - 1, PAIR_SPLIT, PAIR_SPLIT + 1,
+                               PAIR_SPLIT + LB_TILE + 1])
 def test_pair_scan_model_matches_plain_and_pallas(n, pallas_interpret):
-    """The model, bit for bit against the plain version, the u64
-    lax.cummax, and below two tiles the Pallas kernel in interpret mode:
-    one narrow tile and one pair more, a few and many narrow tiles, the
-    split and one pair on each side of it, and many wide tiles. Below the
-    split the look-back runs in three interleavings, the last starting
-    every tile before any looks back (so that windows step back past 32
-    tiles); from the split up, in one."""
+    """The model of both paths, bit for bit against the plain version, the
+    u64 lax.cummax, and below 8192 pairs the Pallas kernel in interpret
+    mode: two three-pass tiles and one pair more, one look-back tile and
+    one pair more, many tiles, the split and one pair on each side of it,
+    and a look-back tile past it. Below the
+    split both paths run (the look-back forced, its tiling at a size the
+    kernel gives the three passes), the look-back in three interleavings,
+    the last starting every tile before any looks back (so that windows
+    step back past 32 tiles); from the split up, the path the kernel's
+    dispatch picks."""
     rng = np.random.default_rng(n)
     inputs = _model_inputs(n, n + 7)
     if n >= PAIR_SPLIT - 1:   # the largest sizes: one input each
@@ -321,14 +337,16 @@ def test_pair_scan_model_matches_plain_and_pallas(n, pallas_interpret):
         np.testing.assert_array_equal((u64 >> 32).astype(np.uint32), want[0])
         np.testing.assert_array_equal((u64 & 0xFFFFFFFF).astype(np.uint32),
                                       want[1])
-        if n < 2 * PAIR_TILE and case == "sparse":
+        if n < 8192 and case == "sparse":
             kh, kl = pk.pair_max_scan(jnp.asarray(hi), jnp.asarray(lo))
             np.testing.assert_array_equal(np.asarray(kh), want[0])
             np.testing.assert_array_equal(np.asarray(kl), want[1])
-        eagers = (0.2, 0.7, 1.0) if n < PAIR_SPLIT - 1 else (0.5,)
-        for eager in eagers:
-            gh, gl, narrow = _pair_scan_model(hi, lo, PAIR_SPLIT, rng, eager)
-            assert narrow == (n <= PAIR_SPLIT), case
+        runs = [(PAIR_SPLIT, 0.5)]
+        if n < PAIR_SPLIT - 1:
+            runs = [(PAIR_SPLIT, 0.5), (0, 0.2), (0, 0.7), (0, 1.0)]
+        for split, eager in runs:
+            gh, gl, three_pass = _pair_scan_model(hi, lo, split, rng, eager)
+            assert three_pass == (n <= split), case
             np.testing.assert_array_equal(gh, want[0], err_msg=case)
             np.testing.assert_array_equal(gl, want[1], err_msg=case)
 
