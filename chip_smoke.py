@@ -2,7 +2,8 @@
 and check it.
 
     python3 chip_smoke.py             # every phase; exit 0 only if all pass
-    python3 chip_smoke.py --profile   # also trace a bench stage and a hash join
+    python3 chip_smoke.py --profile   # also trace a bench stage, a hash
+                                      # join and a high-cardinality group-by
 
 Phases, each printing one JSON line:
 
@@ -54,7 +55,27 @@ Phases, each printing one JSON line:
    (``row_hash`` on 6 and 21 word streams, ``bucket_probe`` word by
    word); see :func:`strings_phase`.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and as
+8. comm: ``ProcessGroupComm`` over NCCL at a world of one against
+   ``LocalComm``: ``all_reduce``, ``dist_join`` at 16M x 16M and one bench
+   stage, bit for bit, with walls and the stage's busy share; see
+   :func:`comm_phase`;
+9. groupby: the 10M-row low-cardinality and 16M-row high-cardinality
+   group-bys, TPC-H Q1's shape at 16M rows (dictionary and bytes keys),
+   the ops that do not decompose at 4M rows, ``dist_groupby`` at W = 4
+   through ``ThreadWorld`` on the card, and ``dist_aggregate`` at 16M
+   rows for every op, exact and sketch; each against numpy or pandas,
+   each run twice for the same bits; see :func:`groupby_phase`;
+10. path kernels: every kernel phase 9 launched, held against its plain
+    version at each shape phase 9 gave it, on the input phase 9 gave it
+    and on inputs of its kind; see :func:`path_kernel_phase`;
+11. dist_join_w4: ``dist_join`` at W = 4 through ``ThreadWorld`` on the
+    card, small enough that ``pair_max_scan`` takes its three passes,
+    repeated, each run equal to W = 1; then its kernels at its shapes as
+    in phase 10; see :func:`dist_join_w4_phase`.
+
+Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
+or hash-join path and, as ``groupby_launches``, on phase 9's group-by
+calls), the ``nvidia-smi`` line again, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run away from the repository, it exits non-zero and prints no result.
 """
@@ -62,6 +83,7 @@ run away from the repository, it exits non-zero and prints no result.
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -897,6 +919,22 @@ def hash_join_phase(torch, sort_wall_other, profile: bool):
 
 
 # ------------------------------------------------------------ phase 6
+def bench_stage(comm, lt, rt, shuf_cap: int, out_cap: int):
+    """One stage of bench.py's pipeline through ``comm``: partition_ids
+    -> shuffle_local -> checked_recv, both sides, then the join."""
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ops.hash import partition_ids
+    from cylon_tpu_torch.parallel.shuffle import checked_recv, shuffle_local
+
+    w = comm.world_size
+    lpid = partition_ids([lt.column("k").data], w, [None])
+    rpid = partition_ids([rt.column("k").data], w, [None])
+    lsh, _ = checked_recv(shuffle_local(comm, lt, lpid, shuf_cap), shuf_cap)
+    rsh, _ = checked_recv(shuffle_local(comm, rt, rpid, shuf_cap), shuf_cap)
+    return ct.join(lsh, rsh, on="k", how="inner", suffixes=("_l", "_r"),
+                   out_capacity=out_cap, ordered=False)
+
+
 def bench_phase(torch, profile: bool):
     """Port of bench.py's _bench_exchange_pipeline at its own size."""
     import numpy as np
@@ -905,13 +943,10 @@ def bench_phase(torch, profile: bool):
     from cylon_tpu_torch import dtypes
     from cylon_tpu_torch.column import Column
     from cylon_tpu_torch.kernels import launch_counts, reset_launches
-    from cylon_tpu_torch.ops.hash import partition_ids
-    from cylon_tpu_torch.parallel.shuffle import checked_recv, shuffle_local
 
     n, depth = BENCH_ROWS, BENCH_DEPTH
     out_cap = shuf_cap = 2 * n
     comm = ct.LocalComm()
-    w = comm.world_size
     g = torch.Generator(device="cuda")
     g.manual_seed(5)
     kl = torch.randint(0, n, (depth, n), dtype=torch.int64, device="cuda",
@@ -928,16 +963,8 @@ def bench_phase(torch, profile: bool):
                          "v": Column(v, None, dtypes.float64)}, n)
 
     def stage(i):
-        lt, rt = side(kl[i], av[i]), side(kr[i], bv[i])
-        lpid = partition_ids([lt.column("k").data], w, [None])
-        rpid = partition_ids([rt.column("k").data], w, [None])
-        lsh, _ = checked_recv(shuffle_local(comm, lt, lpid, shuf_cap),
-                              shuf_cap)
-        rsh, _ = checked_recv(shuffle_local(comm, rt, rpid, shuf_cap),
-                              shuf_cap)
-        res = ct.join(lsh, rsh, on="k", how="inner", suffixes=("_l", "_r"),
-                      out_capacity=out_cap, ordered=False)
-        return res.nrows
+        return bench_stage(comm, side(kl[i], av[i]), side(kr[i], bv[i]),
+                           shuf_cap, out_cap).nrows
 
     def pipeline():
         total = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -980,7 +1007,7 @@ def profile_call(torch, phase: str, fn):
     torch.profiler: device time by kernel and the device's busy share of
     the call's wall time (the union of the kernels' intervals; the
     operators that launched them are left out, so no time counts
-    twice)."""
+    twice). Emits the row and returns it."""
     spans, wall = trace(torch, fn)
     spans.sort()
     busy_us, end = 0.0, None
@@ -995,12 +1022,14 @@ def profile_call(torch, phase: str, fn):
         us, calls = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (us + e - s, calls + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    emit({"phase": phase, "stage_wall_ms": wall * 1e3,
-          "device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / 1e6 / wall,
-          "kernel_launches": len(spans),
-          "top": [{"name": name[:90], "ms": us / 1e3, "calls": c}
-                  for name, (us, c) in top[:20]]})
+    row = {"phase": phase, "stage_wall_ms": wall * 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "kernel_launches": len(spans),
+           "top": [{"name": name[:90], "ms": us / 1e3, "calls": c}
+                   for name, (us, c) in top[:20]]}
+    emit(row)
+    return row
 
 
 # ------------------------------------------------------------ phase 7
@@ -1414,6 +1443,850 @@ def strings_phase(torch, rate, stats, profile: bool):
         raise SystemExit("strings: the exchange changed the words")
 
 
+# ------------------------------------------------------------ phase 8
+def event_wall(torch, fn):
+    """``(result, wall ms)`` of one call of ``fn`` between two CUDA events
+    on the current stream, the host's gaps (the regrow ladder's and the
+    exchange's syncs) included."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bits_of(torch, t):
+    """A tensor as integers of its width, so that equality is bit
+    equality (a NaN equals the same NaN, -0.0 differs from 0.0)."""
+    if t.is_floating_point():
+        return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                    8: torch.int64}[t.element_size()])
+    return t
+
+
+def same_bits(torch, a, b) -> bool:
+    """Do two tables hold the same rows, column by column, bit for
+    bit?"""
+    n = a.num_rows
+    if b.num_rows != n or a.column_names != b.column_names:
+        return False
+    for name in a.column_names:
+        x, y = a.column(name), b.column(name)
+        if repr(x.dtype) != repr(y.dtype) or \
+                (x.validity is None) != (y.validity is None):
+            return False
+        if not torch.equal(bits_of(torch, x.data[:n]),
+                           bits_of(torch, y.data[:n])):
+            return False
+        if x.validity is not None and \
+                not torch.equal(x.validity[:n], y.validity[:n]):
+            return False
+    return True
+
+
+def comm_phase(torch):
+    """``ProcessGroupComm`` over NCCL at a world of one (``DistConfig``,
+    a ``tcp://127.0.0.1`` rendezvous on a free port; the group destroyed
+    at the end), against ``LocalComm`` on the same inputs:
+
+    1. ``all_reduce`` of 1M float64 and int64 values, each op, bit for
+       bit (at W = 1 the fold returns the input);
+    2. ``dist_join`` on the dist_join phase's 16M x 16M tables: the same
+       rows, bit for bit, both walls (CUDA events) and peaks;
+    3. one bench stage (partition_ids -> exchange -> join at 1M rows a
+       side) through each: the same rows, its launches, and the device's
+       busy share under torch.profiler, where the exchange's count sync
+       (the count matrix brought to the host so that NCCL gets its split
+       sizes) shows."""
+    import socket
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = ct.CylonEnv(config=ct.DistConfig(
+        backend="nccl", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=1, rank=0))
+    local = ct.CylonEnv()
+    row = {"phase": "comm", "backend": "nccl", "world": env.world_size,
+           "comm": type(env.comm).__name__}
+    try:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12)
+        m = 1 << 20
+        vectors = {
+            "float64": torch.randn(m, dtype=torch.float64, device="cuda",
+                                   generator=g),
+            "int64": torch.randint(-2 ** 62, 2 ** 62, (m,),
+                                   dtype=torch.int64, device="cuda",
+                                   generator=g)}
+        # the first collective sets up the NCCL communicator: not timed
+        env.comm.all_gather(torch.zeros(1, device="cuda"))
+        reduces = []
+        for dt, x in vectors.items():
+            for op in ("sum", "min", "max"):
+                got, ms = event_wall(torch,
+                                     lambda: env.comm.all_reduce(x, op))
+                same = torch.equal(bits_of(torch, got), bits_of(
+                    torch, local.comm.all_reduce(x, op))) and \
+                    torch.equal(bits_of(torch, got), bits_of(torch, x))
+                reduces.append({"dtype": dt, "op": op, "n": m,
+                                "identical_bits": same, "wall_ms": ms})
+        row["all_reduce"] = reduces
+
+        n = DIST_ROWS
+        g.manual_seed(4)
+
+        def table():
+            k = torch.randint(0, n, (n,), dtype=torch.int64, device="cuda",
+                              generator=g)
+            v = torch.rand(n, dtype=torch.float64, device="cuda",
+                           generator=g)
+            return ct.Table({"k": Column(k, None, dtypes.int64),
+                             "v": Column(v, None, dtypes.float64)}, n)
+
+        left, right = table(), table()
+        joins = {}
+        for name, e in (("local", local), ("nccl", env)):
+            ct.dist_join(e, left, right, on="k")   # warm-up
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res, ms = event_wall(
+                torch, lambda e=e: ct.dist_join(e, left, right, on="k"))
+            # the peak above what was held before (the first run's result
+            # is still held during the second)
+            joins[name] = (res, ms, torch.cuda.max_memory_allocated() - held)
+        same = same_bits(torch, joins["local"][0], joins["nccl"][0])
+        row["dist_join"] = {
+            "rows_per_side": n, "result_rows": joins["nccl"][0].num_rows,
+            "identical_rows": same,
+            **{f"{k}_wall_ms": v[1] for k, v in joins.items()},
+            **{f"{k}_peak_bytes_above_start": v[2]
+               for k, v in joins.items()}}
+        del joins, left, right
+
+        b = BENCH_ROWS
+
+        def side():
+            return ct.Table({
+                "k": Column(torch.randint(0, b, (b,), dtype=torch.int64,
+                                          device="cuda", generator=g),
+                            None, dtypes.int64),
+                "v": Column(torch.randn(b, dtype=torch.float64,
+                                        device="cuda", generator=g),
+                            None, dtypes.float64)}, b)
+
+        lt, rt = side(), side()
+        stages = {}
+        for name, comm in (("local", local.comm), ("nccl", env.comm)):
+            def stage(comm=comm):
+                return bench_stage(comm, lt, rt, 2 * b, 2 * b)
+
+            stage()
+            reset_launches()
+            res, ms = event_wall(torch, stage)
+            launches = launch_counts()
+            prof = profile_call(torch, f"comm_profile_{name}",
+                                lambda: stage().num_rows)
+            stages[name] = (res, {"wall_ms": ms, "launches": launches,
+                                  "busy_share": prof["device_busy_share"],
+                                  "profiled_wall_ms": prof["stage_wall_ms"],
+                                  "device_busy_ms": prof["device_busy_ms"]})
+        same_stage = same_bits(torch, stages["local"][0], stages["nccl"][0])
+        row["bench_stage"] = {"rows_per_side": b,
+                              "identical_rows": same_stage,
+                              **{k: v[1] for k, v in stages.items()}}
+    finally:
+        env.finalize()
+    emit(row)
+    if not all(r["identical_bits"] for r in row["all_reduce"]):
+        raise SystemExit("comm: all_reduce changed the bits")
+    if not same or not same_stage:
+        raise SystemExit("comm: NCCL and LocalComm gave other rows")
+    expect = {"row_hash": 2, "scan32": 5, "pair_max_scan": 5,
+              "bucket_build": 0, "bucket_probe": 0}
+    for name, (_, st) in stages.items():
+        if st["launches"] != expect:
+            raise SystemExit(f"comm: {name} stage launches "
+                             f"{st['launches']} != {expect}")
+
+
+# ------------------------------------------------------------ phase 9
+GROUPBY_LOW_ROWS = 10_000_000
+GROUPBY_LOW_KEYS = 10_000
+GROUPBY_ROWS = DIST_ROWS
+#: bench_suite.py's high-cardinality cell: 0.6 key values a row
+GROUPBY_HIGH_KEYS = GROUPBY_ROWS * 6 // 10
+GROUPBY_RAW_ROWS = 4 << 20
+GROUPBY_RAW_KEYS = 1 << 20
+GROUPBY_WORLD = 4
+GROUPBY_RANK_ROWS = 4 << 20
+GROUPBY_W4_REPEATS = 4
+#: scan32 launches one dispatch of each workload makes, from the code:
+#: one for group_sort's numbering, one a count channel (min, max, mean,
+#: std and count share a column's), one a nunique, two a quantile (its
+#: count and the exclusive scan of the counts)
+GROUPBY_SCANS = {"lowcard": 2, "highcard": 2, "q1_dict": 4, "q1_bytes": 4,
+                 "raw": 6}
+Q1_AGGS = [("l_quantity", "sum", "sum_qty"),
+           ("l_extendedprice", "sum", "sum_base_price"),
+           ("disc_price", "sum", "sum_disc_price"),
+           ("charge", "sum", "sum_charge"),
+           ("l_quantity", "mean", "avg_qty"),
+           ("l_extendedprice", "mean", "avg_price"),
+           ("l_discount", "mean", "avg_disc"),
+           ("l_quantity", "count", "count_order")]
+
+
+def run_groupby(torch, case: str, table, by, aggs, total: dict,
+                quantile: float = 0.5):
+    """Two calls of ``groupby_aggregate`` at one shape, the first from a
+    cold regrow memo: each call's wall (CUDA events) and its rungs (the
+    dispatches the ladder made), the first call's launches (added to
+    ``total``) against :data:`GROUPBY_SCANS`, its peak memory, and the
+    two results bit for bit. Returns ``(result, row)``."""
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops import groupby as gb
+
+    bounds = []
+    inner = gb._groupby_compiled
+
+    def counting(*args, **kw):
+        bounds.append(kw["out_cap"])
+        return inner(*args, **kw)
+
+    gb._groupby_compiled = counting
+    gb._EAGER_SCALE_MEMO.clear()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        first, ms1 = event_wall(torch, lambda: gb.groupby_aggregate(
+            table, by, aggs, quantile=quantile))
+        groups = first.num_rows
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        bounds1 = list(bounds)
+        bounds.clear()
+        second, ms2 = event_wall(torch, lambda: gb.groupby_aggregate(
+            table, by, aggs, quantile=quantile))
+    finally:
+        gb._groupby_compiled = inner
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    rows = table.num_rows
+    expect = {"row_hash": 0, "scan32": GROUPBY_SCANS[case] * len(bounds1),
+              "pair_max_scan": 0, "bucket_build": 0, "bucket_probe": 0}
+    same = same_bits(torch, first, second)
+    row = {"phase": "groupby", "case": case, "rows": rows, "groups": groups,
+           "aggregates": [list(a) for a in aggs],
+           "wall_ms_first": ms1, "wall_ms_second": ms2,
+           "rows_per_s": rows / (ms2 / 1e3), "rungs_first": len(bounds1),
+           "rungs_second": len(bounds), "bounds_first": bounds1,
+           "peak_bytes": peak, "identical_bits": same,
+           "launches": launches, "expected_launches": expect}
+    if not same:
+        raise SystemExit(f"groupby {case}: two calls gave other bits")
+    if launches != expect:
+        raise SystemExit(f"groupby {case}: launches {launches} != {expect}")
+    return first, row
+
+
+def check_close(np, case, name, got, want, rtol, atol=0.0):
+    """Raise unless ``got`` equals ``want`` (both tolerances 0) or is
+    within them, NaNs in the same places."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    same_nan = np.array_equal(np.isnan(got), np.isnan(want))
+    ok = same_nan and (np.array_equal(got, want, equal_nan=True)
+                       if not (rtol or atol)
+                       else np.allclose(got, want, rtol=rtol, atol=atol,
+                                        equal_nan=True))
+    if not ok:
+        bad = ~np.isclose(got, want, rtol=rtol, atol=atol, equal_nan=True)
+        raise SystemExit(f"groupby {case}: {name} off at "
+                         f"{int(bad.sum())} groups")
+
+
+def groupby_phase(torch, profile: bool) -> dict:
+    """Group-by and scalar aggregates through the public entry points;
+    each workload checked against numpy or pandas on the host and run
+    twice for the same bits (:func:`run_groupby`):
+
+    1. lowcard: BASELINE.json's 10M-row groupby-aggregate in the shape
+       of bench_suite.py's cell 3: int64 keys uniform in [0, 10000),
+       float64 values, sum / mean / count;
+    2. highcard: bench_suite.py's cell 3b at 16M rows, keys uniform in
+       [0, 0.6 x 16M) (about 8M groups), sum / mean / count / min / max /
+       std; the regrow ladder's rungs on the first and second call;
+    3. TPC-H Q1's shape at 16M rows: by l_returnflag (A/N/R) and
+       l_linestatus (F/O), as dictionary codes and as device bytes (the
+       same bits both ways), its eight aggregates (sum x4, mean x3,
+       count), the disc_price and charge columns computed on the card;
+    4. raw: nunique, median, quantile 0.9, first and last at 4M rows
+       (about 1M groups; 1 % NaN values) against pandas;
+    5. dist_groupby at W = 4 through ThreadWorld on CUDA tensors, 4M rows
+       a rank, both paths, against the W = 1 group-by of the same 16M
+       rows (row_hash launched by the exchange), in
+       :data:`GROUPBY_W4_REPEATS` runs, the first timed;
+    6. dist_aggregate at 16M rows for every op, exact and sketch (within
+       one bracket of the exact quantile), each twice for the same bits;
+       the int64 key column's nunique, min and max.
+
+    Returns the launches of the phase's group-by calls, summed."""
+    import numpy as np
+    import pandas as pd
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column, Dictionary
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops import bytescol
+    from cylon_tpu_torch.ops.aggregates import AGGS
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    total = {}
+
+    def f64(x):
+        return Column(x, None, dtypes.float64)
+
+    def i64(x):
+        return Column(x, None, dtypes.int64)
+
+    def host_groups(k, nkeys, v=None):
+        cnt = np.bincount(k, minlength=nkeys)
+        return cnt, (None if v is None
+                     else np.bincount(k, weights=v, minlength=nkeys))
+
+    # -- 1. lowcard
+    n, nk = GROUPBY_LOW_ROWS, GROUPBY_LOW_KEYS
+    k = torch.randint(0, nk, (n,), dtype=torch.int64, device="cuda",
+                      generator=g)
+    v = torch.randn(n, dtype=torch.float64, device="cuda", generator=g)
+    low = ct.Table({"k": i64(k), "v": f64(v)}, n)
+    res, row = run_groupby(torch, "lowcard", low, ["k"],
+                           [("v", "sum"), ("v", "mean"), ("v", "count")],
+                           total)
+    kh, vh = k.cpu().numpy(), v.cpu().numpy()
+    cnt, s = host_groups(kh, nk, vh)
+    have = cnt > 0
+    got = res.to_pandas()
+    if not np.array_equal(got["k"].to_numpy(), np.nonzero(have)[0]) or \
+            not np.array_equal(got["v_count"].to_numpy(), cnt[have]):
+        raise SystemExit("groupby lowcard: keys or counts off")
+    check_close(np, "lowcard", "sum", got["v_sum"], s[have], 1e-9)
+    check_close(np, "lowcard", "mean", got["v_mean"], s[have] / cnt[have],
+                1e-9)
+    emit(row)
+    del low, res, got
+
+    # -- 2. highcard
+    n, nk = GROUPBY_ROWS, GROUPBY_HIGH_KEYS
+    k = torch.randint(0, nk, (n,), dtype=torch.int64, device="cuda",
+                      generator=g)
+    v = torch.randn(n, dtype=torch.float64, device="cuda", generator=g)
+    high = ct.Table({"k": i64(k), "v": f64(v)}, n)
+    high_aggs = [("v", "sum"), ("v", "mean"), ("v", "count"), ("v", "min"),
+                 ("v", "max"), ("v", "std")]
+    res, row = run_groupby(torch, "highcard", high, ["k"], high_aggs, total)
+    kh, vh = k.cpu().numpy(), v.cpu().numpy()
+    cnt, s = host_groups(kh, nk, vh)
+    sq = np.bincount(kh, weights=vh * vh, minlength=nk)
+    lo = np.full(nk, np.inf)
+    hi = np.full(nk, -np.inf)
+    np.minimum.at(lo, kh, vh)
+    np.maximum.at(hi, kh, vh)
+    have = cnt > 0
+    c = cnt[have].astype(np.float64)
+    var = (sq[have] - s[have] * s[have] / c) / np.maximum(c - 1, 1)
+    std = np.where(c > 1, np.sqrt(np.maximum(var, 0)), np.nan)
+    got = res.to_pandas()
+    if not np.array_equal(got["k"].to_numpy(), np.nonzero(have)[0]) or \
+            not np.array_equal(got["v_count"].to_numpy(), cnt[have]):
+        raise SystemExit("groupby highcard: keys or counts off")
+    check_close(np, "highcard", "sum", got["v_sum"], s[have], 1e-9)
+    check_close(np, "highcard", "mean", got["v_mean"], s[have] / c, 1e-9)
+    check_close(np, "highcard", "min", got["v_min"], lo[have], 0)
+    check_close(np, "highcard", "max", got["v_max"], hi[have], 0)
+    check_close(np, "highcard", "std", got["v_std"], std, 1e-9)
+    emit(row)
+    del res, got
+    if profile:
+        profile_call(torch, "groupby_profile_highcard",
+                     lambda: ct.groupby_aggregate(high, ["k"],
+                                                  high_aggs).num_rows)
+
+    # -- 6. dist_aggregate on the highcard table's values, 1 % NaN
+    va = torch.where(torch.rand(n, device="cuda", generator=g) < 0.01,
+                     float("nan"), v)
+    agg_table = ct.Table({"k": i64(k), "v": f64(va)}, n)
+    env = ct.CylonEnv()
+    vah = va.cpu().numpy()
+    ok = vah[~np.isnan(vah)]
+    want = {"sum": ok.sum(), "count": len(ok), "min": ok.min(),
+            "max": ok.max(), "mean": ok.mean(), "var": ok.var(ddof=1),
+            "std": ok.std(ddof=1), "nunique": len(np.unique(ok)),
+            "median": np.median(ok), "quantile": np.quantile(ok, 0.9)}
+    bracket = (ok.max() - ok.min()) / 2048 ** 2
+    aggs_out = []
+    for op in AGGS:
+        for exact in ((True, False) if op in ("median", "quantile")
+                      else (True,)):
+            def call(op=op, exact=exact):
+                return ct.dist_aggregate(env, agg_table, "v", op,
+                                         quantile=0.9, exact=exact)
+
+            reset_launches()
+            first, ms = event_wall(torch, call)
+            first_launches = launch_counts()
+            second, ms2 = event_wall(torch, call)
+            got_v = first.item()
+            same = torch.equal(bits_of(torch, first), bits_of(torch, second))
+            if not exact:
+                good = abs(got_v - want[op]) <= bracket
+            elif op in ("count", "min", "max", "nunique"):
+                good = got_v == want[op]
+            else:
+                rtol = 1e-12 if op in ("median", "quantile") else 1e-9
+                good = abs(got_v - want[op]) <= rtol * abs(want[op])
+            good = bool(good)
+            aggs_out.append({"op": op, "exact": exact, "value": got_v,
+                             "expected": float(want[op]), "wall_ms": ms,
+                             "wall_ms_second": ms2,
+                             "identical_bits": same, "within": good,
+                             "launches": first_launches})
+            if not (same and good):
+                raise SystemExit(f"dist_aggregate {op} exact={exact}: "
+                                 f"{got_v} against {want[op]}")
+    knu, ms = event_wall(torch, lambda: ct.dist_aggregate(
+        env, agg_table, "k", "nunique"))
+    # the int64 key's extremes: an int64 reduction, no atomics
+    present = np.flatnonzero(cnt)
+    int_ext = {}
+    for op, want_k in (("min", present[0]), ("max", present[-1])):
+        def call_k(op=op):
+            return ct.dist_aggregate(env, agg_table, "k", op)
+
+        got_k, ms_k = event_wall(torch, call_k)
+        _, ms_k2 = event_wall(torch, call_k)
+        int_ext[op] = {"value": got_k.item(), "expected": int(want_k),
+                       "wall_ms": ms_k, "wall_ms_second": ms_k2}
+    emit({"phase": "groupby", "case": "dist_aggregate", "rows": n,
+          "world": 1, "nan_share": 0.01,
+          "sketch_bracket": float(bracket),
+          "ops": aggs_out, "nunique_k": knu.item(),
+          "nunique_k_expected": int((cnt > 0).sum()),
+          "nunique_k_wall_ms": ms, "int64_k": int_ext})
+    if knu.item() != int((cnt > 0).sum()):
+        raise SystemExit("dist_aggregate: nunique of the keys off")
+    if any(e["value"] != e["expected"] for e in int_ext.values()):
+        raise SystemExit(f"dist_aggregate: the keys' extremes off: "
+                         f"{int_ext}")
+    del high, agg_table, va
+
+    # -- 3. TPC-H Q1's shape
+    rf = torch.randint(0, 3, (n,), dtype=torch.int32, device="cuda",
+                       generator=g)
+    ls = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda",
+                       generator=g)
+    qty = torch.randint(1, 51, (n,), device="cuda",
+                        generator=g).to(torch.float64)
+    price = qty * (torch.rand(n, dtype=torch.float64, device="cuda",
+                              generator=g) * 2000 + 900)
+    disc = torch.randint(0, 11, (n,), device="cuda",
+                         generator=g).to(torch.float64) / 100
+    tax = torch.randint(0, 9, (n,), device="cuda",
+                        generator=g).to(torch.float64) / 100
+    disc_price = price * (1 - disc)
+    charge = disc_price * (1 + tax)
+    values = {"l_quantity": f64(qty), "l_extendedprice": f64(price),
+              "l_discount": f64(disc), "disc_price": f64(disc_price),
+              "charge": f64(charge)}
+
+    def words(codes, names):
+        w, _, width = bytescol.encode_host(np.array(names, object))
+        tab = torch.from_numpy(w.view(np.int32)).to("cuda")
+        return Column(tab[codes.to(torch.int64)], None,
+                      dtypes.string_bytes(width))
+
+    q1 = {}
+    for case, keys in (
+            ("q1_dict", {"l_returnflag": Column(rf, None, dtypes.string,
+                                                Dictionary(["A", "N", "R"])),
+                         "l_linestatus": Column(ls, None, dtypes.string,
+                                                Dictionary(["F", "O"]))}),
+            ("q1_bytes", {"l_returnflag": words(rf, ["A", "N", "R"]),
+                          "l_linestatus": words(ls, ["F", "O"])})):
+        t = ct.Table({**keys, **values}, n)
+        q1[case], row = run_groupby(torch, case, t,
+                                    ["l_returnflag", "l_linestatus"],
+                                    Q1_AGGS, total)
+        row["key_dtype"] = repr(t.column("l_returnflag").dtype)
+        emit(row)
+    gid = (rf * 2 + ls).cpu().numpy()
+    got = q1["q1_dict"].to_pandas()
+    if [f"{a}{b}" for a, b in zip(got["l_returnflag"],
+                                   got["l_linestatus"])] != \
+            ["AF", "AO", "NF", "NO", "RF", "RO"]:
+        raise SystemExit("groupby q1: groups off")
+    cnt = np.bincount(gid, minlength=6)
+    for src, op, name in Q1_AGGS:
+        col = values[src].data.cpu().numpy()
+        s = np.bincount(gid, weights=col, minlength=6)
+        want_q1 = cnt if op == "count" else s if op == "sum" else s / cnt
+        check_close(np, "q1", name, got[name], want_q1,
+                    0 if op == "count" else 1e-9)
+    if not same_bits(torch, q1["q1_dict"].select(
+            [name for _, _, name in Q1_AGGS]), q1["q1_bytes"].select(
+            [name for _, _, name in Q1_AGGS])):
+        raise SystemExit("groupby q1: codes and bytes disagree")
+    del q1, values, qty, price, disc, tax, disc_price, charge, rf, ls
+
+    # -- 4. the ops that do not decompose
+    n, nk = GROUPBY_RAW_ROWS, GROUPBY_RAW_KEYS
+    k = torch.randint(0, nk, (n,), dtype=torch.int64, device="cuda",
+                      generator=g)
+    v = torch.randn(n, dtype=torch.float64, device="cuda", generator=g)
+    v = torch.where(torch.rand(n, device="cuda", generator=g) < 0.01,
+                    float("nan"), v)
+    u = torch.randint(0, 8, (n,), dtype=torch.int64, device="cuda",
+                      generator=g)
+    raw = ct.Table({"k": i64(k), "v": f64(v), "u": i64(u)}, n)
+    raw_aggs = [("u", "nunique"), ("v", "median"), ("v", "quantile"),
+                ("v", "first"), ("v", "last")]
+    res, row = run_groupby(torch, "raw", raw, ["k"], raw_aggs, total,
+                           quantile=0.9)
+    df = pd.DataFrame({"k": k.cpu().numpy(), "v": v.cpu().numpy(),
+                       "u": u.cpu().numpy()})
+    grp = df.groupby("k")
+    want_raw = pd.DataFrame({
+        "u_nunique": grp["u"].nunique(), "v_median": grp["v"].median(),
+        "v_quantile": grp["v"].quantile(0.9), "v_first": grp["v"].first(),
+        "v_last": grp["v"].last()}).reset_index()
+    got = res.to_pandas()
+    if not np.array_equal(got["k"].to_numpy(), want_raw["k"].to_numpy()):
+        raise SystemExit("groupby raw: keys off")
+    for name in ("u_nunique", "v_first", "v_last"):
+        check_close(np, "raw", name, got[name], want_raw[name], 0)
+    # pandas interpolates as lo + (hi - lo) * t, the JAX package (and so
+    # the port) as lo * (1 - t) + hi * t: near zero the two differ by
+    # more than 1e-12 of the result, so the bound is 1e-12 of the
+    # values' magnitude
+    scale = float(np.nanmax(np.abs(df["v"].to_numpy())))
+    for name in ("v_median", "v_quantile"):
+        check_close(np, "raw", name, got[name], want_raw[name], 1e-12,
+                    1e-12 * scale)
+    emit(row)
+    del raw, res, got, df, grp
+
+    # -- 5. dist_groupby at W = 4 through ThreadWorld on the card
+    w, nr = GROUPBY_WORLD, GROUPBY_RANK_ROWS
+    n = w * nr
+    k = torch.randint(0, GROUPBY_RAW_KEYS, (n,), dtype=torch.int64,
+                      device="cuda", generator=g)
+    v = torch.randn(n, dtype=torch.float64, device="cuda", generator=g)
+    u = torch.randint(0, 8, (n,), dtype=torch.int64, device="cuda",
+                      generator=g)
+    paths = {"decomposable": [("v", "sum"), ("v", "mean"), ("v", "count"),
+                              ("v", "min"), ("v", "max"), ("v", "std")],
+             "raw_rows": [("v", "median"), ("u", "nunique"),
+                          ("v", "first"), ("v", "last")]}
+
+    def rank(comm):
+        e = ct.CylonEnv(comm)
+        sl = slice(e.rank * nr, (e.rank + 1) * nr)
+        mine = ct.Table({"k": i64(k[sl]), "v": f64(v[sl]),
+                         "u": i64(u[sl])}, nr)
+        return {p: ct.dist_groupby(e, mine, ["k"], a)
+                for p, a in paths.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    per_rank, ms = event_wall(torch, lambda: ct.ThreadWorld(w).run(rank))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for key, val in launches.items():
+        total[key] = total.get(key, 0) + val
+    whole = ct.Table({"k": i64(k), "v": f64(v), "u": i64(u)}, n)
+    refs = {p: ct.groupby_aggregate(whole, ["k"], a) for p, a in paths.items()}
+
+    def matches(per_rank, p) -> bool:
+        ref = refs[p]
+        parts = [r[p] for r in per_rank]
+        keys = torch.cat([t.column("k").data[:t.num_rows] for t in parts])
+        if keys.numel() != ref.num_rows:
+            return False
+        order = torch.sort(keys).indices
+        good = torch.equal(keys[order], ref.column("k").data[:ref.num_rows])
+        for name in ref.column_names[1:]:
+            got_c = torch.cat([t.column(name).data[:t.num_rows]
+                               for t in parts])[order]
+            want_c = ref.column(name).data[:ref.num_rows]
+            if p == "decomposable" and got_c.is_floating_point():
+                good &= bool(torch.allclose(got_c, want_c, rtol=1e-9,
+                                            atol=0, equal_nan=True))
+            else:
+                good &= torch.equal(bits_of(torch, got_c),
+                                    bits_of(torch, want_c))
+        return bool(good)
+
+    # the ranks are threads sharing one stream: repeat the run, since a
+    # race between them shows in some runs only
+    runs = [per_rank] + [ct.ThreadWorld(w).run(rank)
+                         for _ in range(GROUPBY_W4_REPEATS - 1)]
+    out = {"phase": "groupby", "case": "dist_groupby_w4", "world": w,
+           "rows_per_rank": nr, "wall_ms": ms, "peak_bytes": peak,
+           "launches": launches, "runs": len(runs),
+           "rank_groups": {p: [r[p].num_rows for r in per_rank]
+                           for p in paths},
+           "groups_w1": {p: refs[p].num_rows for p in paths}}
+    for p in paths:
+        ok = [matches(r, p) for r in runs]
+        out[f"{p}_runs_matching_w1"] = sum(ok)
+        if not all(ok):
+            emit(out)
+            raise SystemExit(f"dist_groupby W=4 {p}: {ok.count(False)} of "
+                             f"{len(ok)} runs differ from W=1")
+    emit(out)
+    if launches["row_hash"] < 1:
+        raise SystemExit("dist_groupby W=4: the exchange hashed nothing")
+    return total
+
+
+# ------------------------------------------------------------ phase 10
+class PathInputs:
+    """While active, ``scan32`` and ``pair_max_scan`` (as
+    ``ops.kernels`` reaches them, through its name ``scan``) and
+    ``row_hash`` (as ``ops.hash`` reaches it) run as before, each launch
+    counted by its wrapper, and the first input of each shape is kept, a
+    copy on the card, for :func:`path_kernel_phase`. The wrappers'
+    modules are left alone: each wrapper counts its launches through its
+    module's name for it. The copies cost a device copy a shape (64 MB
+    at 16M int32 values) inside the timed first calls."""
+
+    def __init__(self):
+        self.inputs = {}
+        self._lock = threading.Lock()
+
+    def _keep(self, key, make):
+        with self._lock:
+            if key not in self.inputs:
+                self.inputs[key] = make()
+
+    def __enter__(self):
+        from cylon_tpu_torch.kernels import scan as kscan
+        from cylon_tpu_torch.ops import hash as ohash
+        from cylon_tpu_torch.ops import kernels as okernels
+
+        self._saved = okernels.scan, ohash.row_hash
+        real_scan, real_pair, real_hash = \
+            kscan.scan32, kscan.pair_max_scan, ohash.row_hash
+
+        class Scan:
+            """``kernels.scan`` with its two wrappers recorded."""
+
+            def __getattr__(self, name):
+                return getattr(kscan, name)
+
+        def scan32(x, kind):
+            self._keep(("scan32", kind, str(x.dtype), x.shape[0]),
+                       lambda: x.clone())
+            return real_scan(x, kind)
+
+        def pair_max_scan(hi, lo):
+            self._keep(("pair_max_scan", hi.shape[0]),
+                       lambda: (hi.clone(), lo.clone()))
+            return real_pair(hi, lo)
+
+        def row_hash(words, nparts=0, **kw):
+            words = list(words)
+            self._keep(("row_hash", len(words), nparts, words[0].shape[0],
+                        tuple(sorted(kw.items()))),
+                       lambda: ([w.clone() for w in words], kw))
+            return real_hash(words, nparts, **kw)
+
+        proxy = Scan()
+        proxy.scan32, proxy.pair_max_scan = scan32, pair_max_scan
+        okernels.scan, ohash.row_hash = proxy, row_hash
+        return self
+
+    def __exit__(self, *exc):
+        from cylon_tpu_torch.ops import hash as ohash
+        from cylon_tpu_torch.ops import kernels as okernels
+
+        okernels.scan, ohash.row_hash = self._saved
+
+
+def path_kernel_phase(torch, rate, stats, path: str, inputs: dict) -> None:
+    """Each kernel against its plain version at every shape a path gave
+    it (:class:`PathInputs`), untimed: on the input the path gave it,
+    and for ``scan32``'s int32 add also on 0/1 flags and on counts in
+    [0, 64) (the group-by's numbering and count channels), for
+    ``row_hash`` on random words of the path's width, for
+    ``pair_max_scan`` on :func:`pair_inputs`' edge cases. Bit for bit
+    (float32 adds within ``F32_ADD_RTOL``). The rows join ``stats``, so
+    the ``kernels`` line's mismatches count them."""
+    from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+
+    g = None
+    for key in sorted(inputs, key=repr):
+        got = inputs[key]
+        dev = (got[0][0] if key[0] == "row_hash" else
+               got[0] if key[0] == "pair_max_scan" else got).device
+        if g is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(15)
+        cases, rtol = {}, 0
+        if key[0] == "scan32":
+            _, kind, dtype, n = key
+            cases["path"] = got
+            if kind == "add" and got.dtype == torch.int32:
+                cases["flags01"] = (torch.rand(n, device=dev, generator=g)
+                                    < 0.5).to(torch.int32)
+                cases["counts"] = torch.randint(0, 64, (n,), device=dev,
+                                                dtype=torch.int32,
+                                                generator=g)
+            if kind == "add" and got.dtype == torch.float32:
+                rtol = F32_ADD_RTOL
+            name = f"scan32/{path}_{kind}_{dtype.split('.')[-1]}"
+            run = {c: (lambda x=x: scan32(x, kind),
+                       lambda x=x: scan32.plain(x, kind))
+                   for c, x in cases.items()}
+            nbytes = 8 * n
+        elif key[0] == "row_hash":
+            _, k, nparts, n, _ = key
+            words, kw = got
+            rand = [torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device=dev,
+                                  dtype=torch.int32, generator=g)
+                    for _ in range(k)]
+            name = f"row_hash/{path}_{k}words_nparts{nparts}"
+            run = {c: (lambda ws=ws: row_hash(ws, nparts, **kw),
+                       lambda ws=ws: row_hash.plain(ws, nparts, **kw))
+                   for c, ws in (("path", words), ("random", rand))}
+            nbytes = (4 * k + 4) * n
+        else:
+            _, n = key
+            pairs = {"path": got, **{c: p for c, p in pair_inputs(
+                torch, n, g).items() if c != "path"}}
+            name = f"pair_max_scan/{path}"
+            run = {c: (lambda p=p: pair_max_scan(*p),
+                       lambda p=p: pair_max_scan.plain(*p))
+                   for c, p in pairs.items()}
+            nbytes = 16 * n
+        for case, (kern, plain) in run.items():
+            out = kern()
+            extra = {}
+            if rtol:
+                rel = max_rel_err(torch, out, plain())
+                bad, err = compare(torch, out, kern())
+                bad += int(not rel <= rtol)
+                extra["max_rel_err"] = rel
+            else:
+                bad, err = compare(torch, out, plain())
+            row = {"phase": "path_kernel", "path": path,
+                   "name": f"{name}/{case}", "n": n, "mismatches": bad,
+                   "max_abs_err": err, "tolerance": rtol,
+                   "bound_us": nbytes / rate * 1e6, **extra}
+            emit(row)
+            if bad:
+                raise SystemExit(f"{name}/{case} at n={n} on the {path} "
+                                 f"path: {bad} mismatches")
+            stats[(f"{name}/{case}", n)] = row
+
+
+# ------------------------------------------------------------ phase 11
+#: a rank's rows a side: each rank's two receive buffers (a power-of-two
+#: bucket of 2M / 4 rows and its margin, 1M) keep the local join's pair
+#: scans (2M pairs) on pair_max_scan's three passes
+DIST_W4_ROWS = 512 << 10
+DIST_W4_REPEATS = 4
+
+
+def row_set(torch, parts, names):
+    """The rows of several tables as columns of integers (floats by
+    their bits), sorted lexicographically: equal row sets give equal
+    columns."""
+    cols = [torch.cat([bits_of(torch, t.column(c).data[:t.num_rows])
+                       for t in parts]) for c in names]
+    idx = torch.arange(cols[0].shape[0], device=cols[0].device)
+    for c in reversed(cols):
+        idx = idx[torch.sort(c[idx], stable=True).indices]
+    return [c[idx] for c in cols]
+
+
+def dist_join_w4_phase(torch, rate, stats, dev="cuda") -> None:
+    """``dist_join`` at W = 4 through ``ThreadWorld`` on the card,
+    :data:`DIST_W4_ROWS` rows a rank a side, int64 keys uniform over the
+    world's rows: the ranks' threads share one stream, and each local
+    join's ``pair_max_scan`` runs its three passes, whose carries live in
+    the scratch kept per stream. :data:`DIST_W4_REPEATS` runs (a race
+    shows in some runs only), each equal as a row set, bit for bit, to
+    the W = 1 join of the same rows; then every kernel held against its
+    plain version at the shapes this path gave it
+    (:func:`path_kernel_phase`)."""
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.kernels.scan import PAIR_SPLIT
+
+    w, nr = GROUPBY_WORLD, DIST_W4_ROWS
+    n = w * nr
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    sides = [(torch.randint(0, n, (n,), dtype=torch.int64, device=dev,
+                            generator=g),
+              torch.rand(n, dtype=torch.float64, device=dev, generator=g))
+             for _ in range(2)]
+
+    def table(k, v, lo, hi):
+        return ct.Table({"k": Column(k[lo:hi], None, dtypes.int64),
+                         "v": Column(v[lo:hi], None, dtypes.float64)},
+                        hi - lo)
+
+    def rank(comm):
+        e = ct.CylonEnv(comm)
+        lo, hi = e.rank * nr, (e.rank + 1) * nr
+        return ct.dist_join(e, *[table(k, v, lo, hi) for k, v in sides],
+                            on="k")
+
+    with PathInputs() as rec:
+        reset_launches()
+        first, ms = event_wall(torch, lambda: ct.ThreadWorld(w).run(rank))
+        launches = launch_counts()
+        runs = [first] + [ct.ThreadWorld(w).run(rank)
+                          for _ in range(DIST_W4_REPEATS - 1)]
+    whole = ct.dist_join(ct.CylonEnv(device=dev),
+                         *[table(k, v, 0, n) for k, v in sides], on="k")
+    names = whole.column_names
+    want = row_set(torch, [whole], names)
+    ok = [all(torch.equal(a, b) for a, b in zip(row_set(torch, r, names),
+                                                want)) for r in runs]
+    pair_ns = sorted(key[1] for key in rec.inputs
+                     if key[0] == "pair_max_scan")
+    out = {"phase": "dist_join_w4", "world": w, "rows_per_rank_side": nr,
+           "result_rows": whole.num_rows, "wall_ms": ms,
+           "launches": launches, "pair_scan_n": pair_ns,
+           "runs": len(runs), "runs_matching_w1": sum(ok)}
+    emit(out)
+    if not all(ok):
+        raise SystemExit(f"dist_join W=4: {ok.count(False)} of {len(ok)} "
+                         "runs differ from W=1")
+    if not pair_ns or max(pair_ns) > PAIR_SPLIT or \
+            launches["pair_max_scan"] < 1 or launches["row_hash"] < 1:
+        raise SystemExit(f"dist_join W=4: pair scans {pair_ns}, launches "
+                         f"{launches}: not the three-pass path")
+    path_kernel_phase(torch, rate, stats, "dist_join_w4", rec.inputs)
+
+
 # ------------------------------------------------------------ main
 def main(argv) -> int:
     import torch
@@ -1451,6 +2324,12 @@ def main(argv) -> int:
     hash_launches = hash_join_phase(torch, sort_wall, "--profile" in argv)
     launches = bench_phase(torch, "--profile" in argv)
     strings_phase(torch, rate, stats, "--profile" in argv)
+    comm_phase(torch)
+    with PathInputs() as groupby_inputs:
+        groupby_launches = groupby_phase(torch, "--profile" in argv)
+    path_kernel_phase(torch, rate, stats, "groupby", groupby_inputs.inputs)
+    del groupby_inputs
+    dist_join_w4_phase(torch, rate, stats)
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -1472,6 +2351,7 @@ def main(argv) -> int:
                               stats.items() if name.split("/")[0]
                               == wrapper.__name__),
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+            "groupby_launches": groupby_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

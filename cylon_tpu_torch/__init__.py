@@ -6,31 +6,53 @@ same relational engine on NVIDIA GPUs with hand-written CUDA kernels
 numpy, never JAX. Tables are built on CUDA by default; pass
 ``device="cpu"`` to run on the CPU.
 
-The port carries the distributed equi-join: hash partition
-(``ops.hash``), exchange (``parallel.shuffle``), sort join (``ops.join``)
-and bucketed hash join (``ops.hash_join``), output gather
-(``ops.selection``) and ``dist_join``, on numeric keys and on string keys
-in both storages: dictionary codes (``ops.dictenc``) and device bytes
-(``ops.bytescol``; ``string_storage=`` at ingest).
+The port carries:
+
+- the distributed equi-join: hash partition (``ops.hash``), exchange
+  (``parallel.shuffle``), sort join (``ops.join``) and bucketed hash join
+  (``ops.hash_join``), output gather (``ops.selection``) and
+  ``dist_join``;
+- the generic ``shuffle`` (hash or modulo partitioning) and the
+  round-robin ``repartition``;
+- group-by and scalar aggregates: ``groupby_aggregate`` (``ops.groupby``),
+  ``table_aggregate`` (``ops.aggregates``), ``dist_groupby`` and
+  ``dist_aggregate``;
+- numeric keys and string keys in both storages: dictionary codes
+  (``ops.dictenc``) and device bytes (``ops.bytescol``;
+  ``string_storage=`` at ingest);
+- three communicators (``parallel.comm``): ``LocalComm`` (one rank),
+  ``ThreadWorld`` (W ranks as threads, for tests) and
+  ``ProcessGroupComm`` over ``torch.distributed`` (NCCL on the cards,
+  gloo on the CPU), which ``CylonEnv(config=DistConfig())`` sets up:
+  ``torchrun --nproc-per-node W prog.py`` runs W ranks.
 """
 
 from cylon_tpu_torch import dtypes
 from cylon_tpu_torch.column import Column, Dictionary
-from cylon_tpu_torch.context import CylonEnv
+from cylon_tpu_torch.context import CommConfig, CylonEnv, DistConfig, \
+    LocalConfig
 from cylon_tpu_torch.errors import (CylonError, DeviceUnavailable,
                                     InvalidArgument, KeyError_,
                                     NotImplemented_, OutOfCapacity,
                                     TypeError_)
+from cylon_tpu_torch.ops.aggregates import table_aggregate
+from cylon_tpu_torch.ops.groupby import groupby_aggregate
 from cylon_tpu_torch.ops.join import join
-from cylon_tpu_torch.parallel.comm import LocalComm, ThreadWorld
-from cylon_tpu_torch.parallel.dist_ops import dist_join
+from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm, \
+    ThreadWorld
+from cylon_tpu_torch.parallel.dist_ops import (dist_aggregate, dist_groupby,
+                                               dist_join, repartition,
+                                               shuffle)
 from cylon_tpu_torch.parallel.dtable import (dist_num_rows, gather_table,
                                              scatter_table)
 from cylon_tpu_torch.row import Row
 from cylon_tpu_torch.table import Table
 
-__all__ = ["Column", "CylonEnv", "CylonError", "DeviceUnavailable",
-           "Dictionary", "InvalidArgument", "KeyError_", "LocalComm",
-           "NotImplemented_", "OutOfCapacity", "Row", "Table", "ThreadWorld",
-           "TypeError_", "dist_join", "dist_num_rows", "dtypes",
-           "gather_table", "join", "scatter_table"]
+__all__ = ["Column", "CommConfig", "CylonEnv", "CylonError",
+           "DeviceUnavailable", "Dictionary", "DistConfig",
+           "InvalidArgument", "KeyError_", "LocalComm", "LocalConfig",
+           "NotImplemented_", "OutOfCapacity", "ProcessGroupComm", "Row",
+           "Table", "ThreadWorld", "TypeError_", "dist_aggregate",
+           "dist_groupby", "dist_join", "dist_num_rows", "dtypes",
+           "gather_table", "groupby_aggregate", "join", "repartition",
+           "scatter_table", "shuffle", "table_aggregate"]

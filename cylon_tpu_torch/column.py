@@ -25,13 +25,30 @@ class Dictionary:
     """Host-side values of a STRING/BINARY column, sorted ascending so that
     code order is value order. Hash and equality are by content."""
 
-    __slots__ = ("values", "_key")
+    __slots__ = ("values", "_key", "_vhash")
 
     def __init__(self, values):
         arr = np.array(values, dtype=object)
         arr.flags.writeable = False
         self.values = arr
         self._key = None
+        self._vhash = {}
+
+    def value_hashes(self, device) -> torch.Tensor:
+        """[len] uint32 tensor on ``device`` of each value's stable hash,
+        the crc32 of its string form (port of
+        ``cylon_tpu/column.py:53``), computed on the host once and cached
+        per device. The generic shuffle maps codes through it, so that
+        relations ingested apart send equal strings to the same rank
+        whatever their codes."""
+        device = torch.device(device)
+        if device not in self._vhash:
+            import zlib
+
+            hv = np.array([zlib.crc32(str(v).encode())
+                           for v in self.values], np.uint32)
+            self._vhash[device] = from_host(hv, device)
+        return self._vhash[device]
 
     def _content_key(self) -> tuple:
         if self._key is None:

@@ -194,3 +194,22 @@ def from_name(name: str) -> DType:
     if base not in BY_NAME:
         raise TypeError(f"unknown logical type {name!r}")
     return BY_NAME[base]
+
+
+def sentinel_high(phys: torch.dtype):
+    """Largest value of a physical dtype: the fill that a min reduction
+    never picks over a real value."""
+    if phys == torch.bool:
+        return True
+    if phys.is_floating_point:
+        return float("inf")
+    return torch.iinfo(phys).max
+
+
+def sentinel_low(phys: torch.dtype):
+    """Smallest value of a physical dtype (the max reduction's fill)."""
+    if phys == torch.bool:
+        return False
+    if phys.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(phys).min

@@ -82,9 +82,13 @@ def scan32(x: torch.Tensor, kind: str) -> torch.Tensor:
     if n == 0:
         return out
     lib = build.library()
+    # held until the launches are enqueued: ctypes lets go of the GIL
+    # during the call, and a scratch freed before it could be handed to
+    # another thread's tensor (ThreadWorld ranks share a stream) and
+    # written between this scan's passes
+    scratch = _scratch(lib, n, x.device)
     err = lib.cylon_scan32(x.data_ptr(), out.data_ptr(), n, _KINDS[kind],
-                           _DTYPES[x.dtype],
-                           _scratch(lib, n, x.device).data_ptr(),
+                           _DTYPES[x.dtype], scratch.data_ptr(),
                            build.stream_of(x))
     build.check(err, "scan32")
     scan32.launches += 1
@@ -115,18 +119,21 @@ _PAIR_EPOCHS = 1 << 30
 #: (device, stream) -> [zeroed scratch, last epoch]: the look-back's tile
 #: state, kept across calls so that no call needs a memset (scan.cu)
 _pair_state: dict = {}
-#: threads that share a stream (ThreadWorld ranks) take epochs in turn:
-#: two calls with one epoch on one scratch would read each other's flags
-_pair_lock = threading.Lock()
+#: threads that share a stream (ThreadWorld ranks) take epochs and
+#: enqueue their launches in turn: two calls with one epoch would read
+#: each other's flags, and the three passes of two calls interleaved on
+#: the stream would read each other's carries
+_pair_lock = threading.RLock()
 
 
 def _pair_scratch(lib, n: int, device, stream: int):
     """The pair scan's scratch for ``n`` pairs on ``stream`` and the
     call's epoch, unique on that scratch. Zeroed when it is made, grown
-    or its epochs run out; calls on one stream run in order, so they may
-    share it. The kernel lays its flags out from the scratch's size, not
-    from ``n``, so calls of any size or path leave only flags in the flag
-    slots."""
+    or its epochs run out. Calls on one stream run in the order they were
+    enqueued, so they may share it: :func:`pair_max_scan` holds
+    :data:`_pair_lock` from here until its launches are enqueued. The
+    kernel lays its flags out from the scratch's size, not from ``n``,
+    so calls of any size or path leave only flags in the flag slots."""
     need = -(-lib.cylon_pair_scan_scratch(n) // 8)
     key = (device, stream)
     with _pair_lock:
@@ -165,11 +172,15 @@ def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
         return out_hi, out_lo
     lib = build.library()
     stream = build.stream_of(hi)
-    scratch, epoch = _pair_scratch(lib, n, hi.device, stream)
-    err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
-                                  out_hi.data_ptr(), out_lo.data_ptr(), n,
-                                  scratch.data_ptr(), 8 * scratch.numel(),
-                                  epoch, stream)
+    # held until the launches are enqueued (ctypes lets go of the GIL
+    # during the call): another thread's passes on this stream then run
+    # wholly before or after this call's
+    with _pair_lock:
+        scratch, epoch = _pair_scratch(lib, n, hi.device, stream)
+        err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
+                                      out_hi.data_ptr(), out_lo.data_ptr(),
+                                      n, scratch.data_ptr(),
+                                      8 * scratch.numel(), epoch, stream)
     build.check(err, "pair_max_scan")
     pair_max_scan.launches += 1
     return out_hi, out_lo

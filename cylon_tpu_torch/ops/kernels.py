@@ -1,7 +1,8 @@
-"""Shared primitives of the join path: order keys, lexicographic sorts,
-group numbering, compaction, scans and fills.
+"""Shared primitives of the join and group-by paths: order keys,
+lexicographic sorts, group numbering, segment reductions, compaction,
+scans and fills.
 
-Port of ``cylon_tpu/ops/kernels.py:89-387, 538-599``. Rows are grouped by
+Port of ``cylon_tpu/ops/kernels.py:89-609``. Rows are grouped by
 lexicographic dense rank (sort-based, collision-free). Tables are padded
 to ``capacity`` and carry ``nrows``; padding rows sort last through an
 explicit padding key.
@@ -21,6 +22,7 @@ from cylon_tpu_torch.kernels import scan
 from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns, u32
 
 _MIN64 = -(1 << 63)
+_MAX64 = (1 << 63) - 1
 _BITS = {torch.bool: 8, torch.uint8: 8, torch.int8: 8, torch.uint16: 16,
          torch.int16: 16, torch.float16: 16, torch.uint32: 32,
          torch.int32: 32, torch.float32: 32, torch.uint64: 64,
@@ -294,3 +296,158 @@ def carry_overflow(out, *inputs):
         b = t.nrows > t.capacity
         bad = b if bad is None else bad | b
     return out.with_nrows(torch.where(bad, out.capacity + 1, out.nrows))
+
+
+def dense_group_ids(keys: Sequence[torch.Tensor], nrows,
+                    validities: "Sequence[torch.Tensor | None] | None" = None,
+                    hash_first: bool = False):
+    """Each valid row's dense group id in ``[0, num_groups)``, in row
+    order (port of ``cylon_tpu/ops/kernels.py:258``): two rows share an
+    id iff their key tuples are equal (a null equals a null), ids in key
+    order (hash order with ``hash_first``), padding rows id
+    ``capacity``. :func:`group_sort` seen in row order: one more scatter,
+    of unique indices.
+
+    Returns ``(gid [cap] int32, num_groups, perm)``, ``perm`` the
+    grouping permutation (valid rows first)."""
+    cap = keys[0].shape[0]
+    iota = torch.arange(cap, dtype=torch.int32, device=keys[0].device)
+    gid_sorted, num_groups, (perm,) = group_sort(
+        keys, nrows, validities, payloads=[iota], hash_first=hash_first)
+    gid = torch.empty_like(gid_sorted).scatter_(0, perm.to(torch.int64),
+                                                gid_sorted)
+    return gid, num_groups, perm
+
+
+def _segment_offsets(gid_s: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """[out_cap + 1] int64 bounds of the groups of a group-sorted layout:
+    group g's rows are ``[off[g], off[g + 1])``, empty for an id that no
+    row holds. ``gid_s`` is nondecreasing, with ids >= its length on
+    padding rows, which no group takes."""
+    cap = gid_s.shape[0]
+    q = torch.arange(out_cap + 1, dtype=gid_s.dtype, device=gid_s.device)
+    return torch.minimum(torch.searchsorted(gid_s, q),
+                         torch.searchsorted(gid_s, cap))
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """A sum's dtype: floats keep theirs (at least float32), unsigned
+    integers sum in uint64, other integers and bools in int64."""
+    if dt.is_floating_point:
+        return dt if dt.itemsize >= 4 else torch.float32
+    if dt in (torch.uint8, torch.uint16, torch.uint32, torch.uint64):
+        return torch.uint64
+    return torch.int64
+
+
+def _segment_sum(val: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Per-segment sums of ``val`` over the bounds ``off``. Floats take
+    ``torch.segment_reduce`` (each segment summed in row order on the
+    CPU; on the card one block a segment, in a fixed order: the same
+    bits on every call). Integers take a prefix sum differenced at the
+    bounds, exact because integer wrap-around is modular: an int32 count
+    through :func:`fast_cumsum` (the ``scan32`` kernel on the card),
+    wider values through an int64 cumsum (uint64 by its bit pattern)."""
+    if val.is_floating_point():
+        return torch.segment_reduce(val, "sum", offsets=off, unsafe=True)
+    dt = val.dtype
+    if dt == torch.int32:
+        pre = fast_cumsum(val)
+    else:
+        v = val.view(torch.int64) if dt == torch.uint64 \
+            else val.to(torch.int64)
+        pre = torch.cumsum(v, 0)
+    pre = torch.cat([torch.zeros(1, dtype=pre.dtype, device=pre.device),
+                     pre])
+    out = pre[off[1:]] - pre[off[:-1]]
+    return out.view(torch.uint64) if dt == torch.uint64 else out
+
+
+def _scatter_extreme(val: torch.Tensor, slot: torch.Tensor, out_cap: int,
+                     kind: str) -> torch.Tensor:
+    """Per-group min or max of integer (or bool) values: a
+    ``scatter_reduce`` into ``out_cap`` slots plus one that takes the
+    rows of no group. Integer atomics give the same result in any
+    order."""
+    dt = val.dtype
+    v = (val.view(torch.int64) ^ _MIN64) if dt == torch.uint64 \
+        else val.to(torch.int64)
+    fill = _MAX64 if kind == "min" else _MIN64
+    buf = torch.full((out_cap + 1,), fill, dtype=torch.int64,
+                     device=val.device)
+    buf.scatter_reduce_(0, slot, v, "amin" if kind == "min" else "amax")
+    buf = buf[:out_cap]
+    if dt == torch.uint64:
+        return (buf ^ _MIN64).view(torch.uint64)
+    return buf.to(dt)
+
+
+def segmented_totals(gid_s: torch.Tensor, out_cap: int, channels,
+                     extras=()):
+    """Per-group reductions over a group-sorted layout (port of
+    ``cylon_tpu/ops/kernels.py:390``).
+
+    gid_s: [cap] nondecreasing group ids, padding rows ``cap``.
+    channels: ``(kind, value)`` pairs, kind ``"sum"``, ``"min"`` or
+        ``"max"`` over a [cap] value, or ``"first"`` / ``"last"`` over a
+        ``(data, has)`` pair: the first / last row of the group whose
+        ``has`` is set.
+    extras: [cap] arrays read at each group's first row.
+
+    Returns ``(outputs, extra_outputs)``: per channel a tuple of
+    [out_cap] tensors aligned to the group id (``(total,)``, or
+    ``(data, found)`` for first / last), and the extras. Slots of no
+    group hold unspecified values: mask them with a group-validity test.
+
+    The JAX package fuses every channel into one segmented
+    ``lax.associative_scan`` and a compaction sort, because segment ops
+    are the TPU's slowest primitive. Here the ids are monotone, so the
+    group bounds come from one ``searchsorted`` (:func:`_segment_offsets`)
+    and each channel is reduced over them (:func:`_segment_sum`; float
+    min / max by ``torch.segment_reduce``, integer ones and first / last
+    by an integer ``scatter_reduce``). No float atomic is used: two calls
+    give the same bits. Float sums run in row order on the CPU, as the
+    JAX package's CPU segment sums do."""
+    cap = gid_s.shape[0]
+    dev = gid_s.device
+    off = _segment_offsets(gid_s, out_cap)
+    slot = None
+    outputs = []
+    for kind, val in channels:
+        if kind == "sum":
+            outputs.append((_segment_sum(val, off),))
+            continue
+        if kind in ("min", "max") and val.is_floating_point():
+            outputs.append((torch.segment_reduce(val, kind, offsets=off,
+                                                 unsafe=True),))
+            continue
+        if slot is None:
+            slot = torch.where(gid_s < out_cap, gid_s,
+                               out_cap).to(torch.int64)
+        if kind in ("min", "max"):
+            outputs.append((_scatter_extreme(val, slot, out_cap, kind),))
+        elif kind in ("first", "last"):
+            data, has = val
+            iota = torch.arange(cap, dtype=torch.int64, device=dev)
+            if kind == "first":
+                pos = _scatter_extreme(torch.where(has, iota, cap), slot,
+                                       out_cap, "min")
+            else:
+                pos = _scatter_extreme(torch.where(has, iota, -1), slot,
+                                       out_cap, "max")
+            found = (pos >= 0) & (pos < cap)
+            outputs.append((_rows_at(data, pos, out_cap), found))
+        else:
+            raise ValueError(f"segmented_totals: unknown channel {kind!r}")
+    extra = [_rows_at(e, off[:-1], out_cap) for e in extras]
+    return outputs, extra
+
+
+def _rows_at(data: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+    """``data[pos]`` with ``pos`` clamped into range; zeros from a
+    ``data`` of no rows."""
+    cap = data.shape[0]
+    if cap == 0:
+        return torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                           device=data.device)
+    return data[torch.clamp(pos, 0, cap - 1)]

@@ -1,10 +1,11 @@
-"""Row gathers: ``take_columns`` with its u32 word packing.
+"""Row gathers: ``take_columns`` with its u32 word packing, and the
+missing-value flags the reductions skip (``_null_flags``).
 
-Port of ``cylon_tpu/ops/selection.py:23-123``. Every fixed-width column
-(and validity flag) is bit-packed into ONE [cap, words] u32 matrix (int32
-bit patterns) and row-gathered in a single pass, so one wide gather
-replaces ncols narrow ones (the reference's ``build_final_table``,
-``join/join_utils.hpp:34``).
+Port of ``cylon_tpu/ops/selection.py:23-123, 311-322``. Every
+fixed-width column (and validity flag) is bit-packed into ONE [cap,
+words] u32 matrix (int32 bit patterns) and row-gathered in a single
+pass, so one wide gather replaces ncols narrow ones (the reference's
+``build_final_table``, ``join/join_utils.hpp:34``).
 """
 
 from typing import Sequence
@@ -111,3 +112,16 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
                                                device=data.device), data)
         cols[name] = Column(data, validity, c.dtype, c.dictionary)
     return Table(cols, nrows_out)
+
+
+def _null_flags(c: Column) -> "torch.Tensor | None":
+    """[capacity] uint8, 1 where the row's value is missing: a null by
+    validity, or a float NaN (pandas' skipna). None when no row can be
+    missing. A device-bytes column is missing only by validity."""
+    flags = None
+    if c.validity is not None:
+        flags = (~c.validity).to(torch.uint8)
+    if c.data.is_floating_point() and c.data.dim() == 1:
+        nan = torch.isnan(c.data).to(torch.uint8)
+        flags = nan if flags is None else flags | nan
+    return flags

@@ -1,8 +1,8 @@
-"""Communicators: the two collectives the distributed join needs.
+"""Communicators: the collectives of the distributed operators.
 
 The port's counterpart of the reference's ``net/communicator.hpp`` (the
 JAX package has none: its collectives are mesh primitives inside
-``shard_map``). A communicator has a ``world_size``, a ``rank`` and two
+``shard_map``). A communicator has a ``world_size``, a ``rank`` and three
 collectives:
 
 - :meth:`all_gather` of a 1-D vector (counts, a layout summary, a
@@ -11,19 +11,43 @@ collectives:
 - :meth:`exchange` of a ``[rows, words]`` int32 word matrix whose rows are
   grouped by destination, with the per-destination send counts and the
   per-sender receive counts -> the received rows grouped by sender in rank
-  order, each sender's order kept.
+  order, each sender's order kept;
+- :meth:`all_reduce` of a tensor by ``"sum"``, ``"min"`` or ``"max"``
+  (the JAX package's ``psum`` / ``pmin`` / ``pmax``): an all-gather, then
+  a fold in rank order, so that every rank holds the same bits, as a
+  replicated JAX result does. A backend's own all-reduce is not used: its
+  order of summation is its own choice.
 
 :class:`LocalComm` is the world of one rank: on the card the exchange is
 a device copy. :class:`ThreadWorld` runs W ranks as threads of one
 process with collectives built on a barrier; it plays, for the CPU tests,
-the role the 8-device virtual CPU mesh plays for the JAX package. An NCCL
-communicator over ``torch.distributed`` is a later slice.
+the role the 8-device virtual CPU mesh plays for the JAX package.
+:class:`ProcessGroupComm` runs the collectives over ``torch.distributed``:
+NCCL between processes on the cards, gloo between processes on the CPU
+(see :class:`cylon_tpu_torch.context.DistConfig`).
 """
 
 import threading
 from typing import Callable, Sequence
 
 import torch
+
+from cylon_tpu_torch.errors import InvalidArgument
+
+_FOLDS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def _reduce_gathered(gathered: torch.Tensor, op: str, shape) -> torch.Tensor:
+    """Fold the rows of an all-gather ``[W, n]`` in rank order into one
+    tensor of ``shape``: the same operations in the same order on every
+    rank, hence the same bits."""
+    if op not in _FOLDS:
+        raise InvalidArgument(f"all_reduce: unknown op {op!r}")
+    fold = _FOLDS[op]
+    acc = gathered[0]
+    for row in gathered[1:]:
+        acc = fold(acc, row)
+    return acc.reshape(shape)
 
 
 class LocalComm:
@@ -34,6 +58,9 @@ class LocalComm:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(1, -1).clone()
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        return _reduce_gathered(self.all_gather(t), op, t.shape)
 
     def exchange(self, send: torch.Tensor, send_counts: Sequence[int],
                  recv_counts: Sequence[int]) -> torch.Tensor:
@@ -59,6 +86,9 @@ class _RankComm:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return torch.stack([s.reshape(-1) for s in self._share(t)])
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        return _reduce_gathered(self.all_gather(t), op, t.shape)
 
     def exchange(self, send: torch.Tensor, send_counts: Sequence[int],
                  recv_counts: Sequence[int]) -> torch.Tensor:
@@ -109,3 +139,67 @@ class ThreadWorld:
                          errors[0])
             raise first
         return results
+
+
+class ProcessGroupComm:
+    """The collectives over a ``torch.distributed`` process group (the
+    default group unless ``group`` names another): one process a rank,
+    NCCL on the cards, gloo on the CPU. Tensors must lie where the
+    backend reads them (NCCL: the rank's CUDA device; gloo: the CPU).
+
+    - :meth:`all_gather`: ``all_gather_into_tensor`` into one flat
+      buffer, or a list ``all_gather`` for a backend without it; bool
+      travels as uint8;
+    - :meth:`exchange`: ``all_to_all_single`` over the ``[rows, words]``
+      matrix with the split sizes in rows. NCCL takes the split sizes on
+      the host, so the count matrix reaches the host before the payload
+      moves (``parallel.shuffle.exchange_arrays``);
+    - :meth:`all_reduce`: an all-gather and a fold in rank order."""
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise InvalidArgument(
+                "ProcessGroupComm: no process group; call "
+                "torch.distributed.init_process_group or pass "
+                "CylonEnv(config=DistConfig(...))")
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world_size = dist.get_world_size(group)
+        self.backend = dist.get_backend(group)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        flat = t.reshape(-1).contiguous()
+        wire = flat.view(torch.uint8) if flat.dtype == torch.bool else flat
+        w = self.world_size
+        out = torch.empty(w * wire.numel(), dtype=wire.dtype,
+                          device=wire.device)
+        # every rank holds the same length, so every rank skips alike
+        if wire.numel():
+            if self.backend in ("gloo", "nccl"):
+                dist.all_gather_into_tensor(out, wire, group=self.group)
+            else:
+                dist.all_gather(list(out.view(w, wire.numel()).unbind(0)),
+                                wire, group=self.group)
+        out = out.view(w, wire.numel())
+        return out.view(torch.bool) if flat.dtype == torch.bool else out
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        return _reduce_gathered(self.all_gather(t), op, t.shape)
+
+    def exchange(self, send: torch.Tensor, send_counts: Sequence[int],
+                 recv_counts: Sequence[int]) -> torch.Tensor:
+        import torch.distributed as dist
+
+        send_counts = [int(c) for c in send_counts]
+        recv_counts = [int(c) for c in recv_counts]
+        send = send[:sum(send_counts)].contiguous()
+        recv = torch.empty((sum(recv_counts),) + tuple(send.shape[1:]),
+                           dtype=send.dtype, device=send.device)
+        dist.all_to_all_single(recv, send, output_split_sizes=recv_counts,
+                               input_split_sizes=send_counts,
+                               group=self.group)
+        return recv

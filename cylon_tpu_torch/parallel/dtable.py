@@ -51,14 +51,20 @@ def shard_sizes(env, table) -> tuple:
     return [c for c, _ in got], [k for _, k in got]
 
 
-def _checked_sizes(env, table) -> tuple:
-    """:func:`shard_sizes`, raising OutOfCapacity if any rank's shard
-    overflowed its capacity."""
-    counts, caps = shard_sizes(env, table)
+def _check_fit(counts, caps) -> None:
+    """Raise OutOfCapacity if any rank's row count passes its capacity
+    (an upstream op overflowed)."""
     if any(c > k for c, k in zip(counts, caps)):
         raise OutOfCapacity(
             f"shard row counts {counts} exceed local capacities {caps}; "
             "re-run with a larger out_capacity")
+
+
+def _checked_sizes(env, table) -> tuple:
+    """:func:`shard_sizes`, raising OutOfCapacity if any rank's shard
+    overflowed its capacity."""
+    counts, caps = shard_sizes(env, table)
+    _check_fit(counts, caps)
     return counts, caps
 
 
@@ -141,27 +147,30 @@ def _type_name(dtype) -> str:
 
 
 def _in_rank0_order(env, table) -> tuple:
-    """``table`` with its columns in rank 0's order, and every rank's
-    capacity in rank order. A fixed-size header goes first (the column
-    count, a digest of the set of names and one of their order, the
-    capacity), so that tables of different widths never mis-shape a
-    gather; the names themselves are gathered only where the headers
-    differ. A different set of names raises on every rank."""
+    """``table`` with its columns in rank 0's order, and every rank's row
+    count and capacity in rank order. A fixed-size header goes first (the
+    column count, a digest of the set of names and one of their order,
+    the capacity, the row count), so that tables of different widths
+    never mis-shape a gather; the names themselves are gathered only
+    where the headers differ. A different set of names raises on every
+    rank."""
     names = table.column_names
-    header = torch.tensor([len(names), _values_digest(sorted(names)),
-                           _values_digest(names), table.capacity],
-                          dtype=torch.int64, device=table.device)
+    header = torch.cat([
+        torch.tensor([len(names), _values_digest(sorted(names)),
+                      _values_digest(names), table.capacity],
+                     dtype=torch.int64, device=table.device),
+        table.nrows.reshape(1).to(torch.int64)])
     heads = env.comm.all_gather(header).tolist()
-    caps = [h[3] for h in heads]
+    counts, caps = [h[4] for h in heads], [h[3] for h in heads]
     if all(h[:3] == heads[0][:3] for h in heads):
-        return table, caps
+        return table, counts, caps
     every = _gather_values(env, table.device, names)
     if any(h[:2] != heads[0][:2] for h in heads):
         raise InvalidArgument(
             "the ranks' tables hold different columns (by rank: "
             f"{[list(e) for e in every]}): every shard of a distributed "
             "table needs the same column names")
-    return table.select(list(every[0])), caps
+    return table.select(list(every[0])), counts, caps
 
 
 def _check_types(env, table, digests) -> None:
@@ -222,7 +231,7 @@ _FIXED, _BYTES, _DICT = 0, 1, 2
 
 
 def world_layout(env, table):
-    """:func:`world_layout_sized` without the capacities."""
+    """:func:`world_layout_sized` without the sizes."""
     return world_layout_sized(env, table)[0]
 
 
@@ -253,14 +262,16 @@ def world_layout_sized(env, table) -> tuple:
     more for columns of mixed storage, three more for each dictionary
     that differs.
 
-    Returns the table and every rank's capacity in rank order (from the
-    header)."""
+    Returns the table, every rank's row count and every rank's capacity,
+    in rank order (from the header: the operators read their sizes here
+    and gather none of their own). A world of one reads its count on the
+    host."""
     from cylon_tpu_torch.column import Column, Dictionary
     from cylon_tpu_torch.ops.dictenc import merge_dictionaries, remap_codes
 
     if env.world_size == 1:
-        return table, [table.capacity]
-    table, caps = _in_rank0_order(env, table)
+        return table, [int(table.nrows)], [table.capacity]
+    table, counts, caps = _in_rank0_order(env, table)
     names = table.column_names
     summary = []
     for n in names:
@@ -299,7 +310,7 @@ def world_layout_sized(env, table) -> tuple:
             c = remap_codes(c, remaps[env.rank], shared)
         if c is not table.column(n):
             table = table.add_column(n, c)
-    return table, caps
+    return table, counts, caps
 
 
 def gather_table(env, table):
@@ -310,8 +321,8 @@ def gather_table(env, table):
     from cylon_tpu_torch.table import Table
 
     w = env.world_size
-    table = world_layout(env, table)
-    counts, caps = _checked_sizes(env, table)
+    table, counts, caps = world_layout_sized(env, table)
+    _check_fit(counts, caps)
     n = counts[env.rank]
     arrays = []
     for c in table.columns.values():

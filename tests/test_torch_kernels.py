@@ -197,6 +197,39 @@ def test_pair_scratch_epochs_unique_across_threads(monkeypatch):
     assert tscan._pair_scratch(lib, small, dev, 8)[1] == 1   # another stream
 
 
+def test_pair_scan_launches_enqueued_in_turn(monkeypatch):
+    """Threads on one stream enqueue a pair scan's passes one call at a
+    time: the three passes keep their carries in the shared scratch, so
+    two calls interleaved on the stream would read each other's. A fake
+    library holds each launch open and records any overlap."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    inside, overlaps, guard = [0], [0], threading.Lock()
+
+    class Lib(_PairLib):
+        @staticmethod
+        def cylon_pair_max_scan(*args):
+            with guard:
+                inside[0] += 1
+                overlaps[0] += inside[0] > 1
+            time.sleep(0.002)   # the GIL is free, as in a ctypes call
+            with guard:
+                inside[0] -= 1
+            return 0
+
+    monkeypatch.setattr(tscan, "_pair_state", {})
+    monkeypatch.setattr(tscan, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(tscan.build, "library", Lib)
+    monkeypatch.setattr(tscan.build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(tscan.pair_max_scan, "launches", 0)
+    x = torch.empty(tscan.PAIR_SPLIT - 1, dtype=torch.int32, device="meta")
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda _: tscan.pair_max_scan(x, x), range(40)))
+    assert overlaps[0] == 0 and tscan.pair_max_scan.launches == 40
+
+
 def _ex_max(a: np.ndarray, axis: int) -> np.ndarray:
     """Exclusive running max along ``axis``, identity 0."""
     inc = np.maximum.accumulate(a, axis=axis)

@@ -26,6 +26,13 @@ t = ct.Table.from_pydict({"k": np.arange(10) % 3, "a": np.arange(10.0)},
                          device="cpu")
 r = ct.join(t, t, on="k", out_capacity=100)
 assert r.num_rows == 34, r.num_rows
+env = ct.CylonEnv()
+g = ct.dist_groupby(env, t, ["k"], [("a", "sum"), ("a", "median")])
+assert g.num_rows == 3, g.num_rows
+assert float(ct.dist_aggregate(env, t, "a", "sum")) == 45.0
+assert ct.shuffle(env, t, ["k"]).num_rows == 10
+assert ct.repartition(env, t).num_rows == 10
+assert ct.groupby_aggregate(t, ["k"], [("a", "max")]).num_rows == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
 print("BAD", bad)
@@ -104,3 +111,66 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+#: the public functions of the port's group-by and exchange slice, each
+#: the counterpart of a cylon_tpu function its docstring names
+_COUNTERPARTS = (
+    "cylon_tpu_torch.parallel.dist_ops:shuffle",
+    "cylon_tpu_torch.parallel.dist_ops:repartition",
+    "cylon_tpu_torch.parallel.dist_ops:dist_groupby",
+    "cylon_tpu_torch.parallel.dist_ops:dist_aggregate",
+    "cylon_tpu_torch.parallel.dist_ops:_tight_rows_local",
+    "cylon_tpu_torch.parallel.dist_ops:_combine_plan",
+    "cylon_tpu_torch.parallel.dist_ops:_sketch_quantile",
+    "cylon_tpu_torch.parallel.dist_ops:_value_hash_tables",
+    "cylon_tpu_torch.parallel.dist_ops:_value_partition_keys",
+    "cylon_tpu_torch.ops.groupby:groupby_aggregate",
+    "cylon_tpu_torch.ops.groupby:_groupby_compiled",
+    "cylon_tpu_torch.ops.groupby:_aggregate_column",
+    "cylon_tpu_torch.ops.groupby:_nunique",
+    "cylon_tpu_torch.ops.groupby:_quantile",
+    "cylon_tpu_torch.ops.aggregates:table_aggregate",
+    "cylon_tpu_torch.ops.aggregates:_masked_quantile",
+    "cylon_tpu_torch.ops.kernels:dense_group_ids",
+    "cylon_tpu_torch.ops.kernels:segmented_totals",
+    "cylon_tpu_torch.ops.partition:modulo_partition_ids",
+    "cylon_tpu_torch.column:Dictionary.value_hashes",
+    "cylon_tpu_torch.context:DistConfig",
+)
+
+
+@pytest.mark.parametrize("name", _COUNTERPARTS)
+def test_new_function_names_its_cylon_tpu_counterpart(name):
+    import importlib
+
+    mod, _, attr = name.partition(":")
+    obj = importlib.import_module(mod)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    assert "cylon_tpu/" in (obj.__doc__ or ""), name
+
+
+def test_public_names_of_the_slice_are_exported():
+    for name in ("shuffle", "repartition", "dist_groupby", "dist_aggregate",
+                 "groupby_aggregate", "table_aggregate", "ProcessGroupComm",
+                 "DistConfig", "LocalConfig"):
+        assert name in cylon_tpu_torch.__all__, name
+        assert getattr(cylon_tpu_torch, name) is not None
+
+
+def test_no_kernel_takes_the_pointer_of_a_temporary_tensor():
+    """Every tensor whose pointer a wrapper hands its library outlives
+    the call. ctypes releases the GIL during a foreign call, so a tensor
+    made only to take its ``data_ptr()`` is freed before the launch, and
+    another thread sharing the stream (a ThreadWorld rank) can take and
+    write its memory between the kernel's passes: the scan32 scratch did
+    so, and a W = 4 group-by on the card lost groups."""
+    for path in sorted((PKG / "kernels").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr == "data_ptr" \
+                    and isinstance(node.value, ast.Call):
+                raise AssertionError(
+                    f"{path.relative_to(ROOT)}:{node.lineno} takes the "
+                    "pointer of a temporary tensor")
