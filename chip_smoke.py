@@ -3,7 +3,8 @@ and check it.
 
     python3 chip_smoke.py             # every phase; exit 0 only if all pass
     python3 chip_smoke.py --profile   # also trace a bench stage, a hash
-                                      # join and a high-cardinality group-by
+                                      # join, a high-cardinality group-by,
+                                      # the 100M sort and a 16M intersect
 
 Phases, each printing one JSON line:
 
@@ -71,10 +72,19 @@ Phases, each printing one JSON line:
 11. dist_join_w4: ``dist_join`` at W = 4 through ``ThreadWorld`` on the
     card, small enough that ``pair_max_scan`` takes its three passes,
     repeated, each run equal to W = 1; then its kernels at its shapes as
-    in phase 10; see :func:`dist_join_w4_phase`.
+    in phase 10; see :func:`dist_join_w4_phase`;
+12. sort_setops: BASELINE.json's configuration 4 (a 100M-row int64 sort,
+    a union of two 50M-row tables), a 16M-row stability table, unique /
+    intersect / subtract at 16M rows, and ``dist_sort`` (both
+    partitioners) and the distributed set ops at W = 4 through
+    ``ThreadWorld``, each checked (numpy, ``torch.sort``,
+    ``torch.unique``, W = 1); then ``scan32`` and ``row_hash`` at the
+    shapes this phase gave them, as in phase 10; see
+    :func:`sort_setops_phase`.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
-or hash-join path and, as ``groupby_launches``, on phase 9's group-by
+or hash-join path and, as ``groupby_launches`` and
+``sort_setops_launches``, on phase 9's group-by calls and phase 12's
 calls), the ``nvidia-smi`` line again, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run away from the repository, it exits non-zero and prints no result.
@@ -2287,6 +2297,269 @@ def dist_join_w4_phase(torch, rate, stats, dev="cuda") -> None:
     path_kernel_phase(torch, rate, stats, "dist_join_w4", rec.inputs)
 
 
+# ------------------------------------------------------------ phase 12
+#: BASELINE.json's fourth configuration, "Distributed sort / set-union
+#: (sample-sort on 100M-row int64 column)", in bench_suite.py:173-183's
+#: shape: keys uniform in [0, 2^40), and a union with keys in [0, n)
+SORT_ROWS = 100_000_000
+SORT_KEY_BITS = 40
+UNION_ROWS = 50_000_000
+#: the stability table: int64 keys in [0, 1M) and a float64 value
+STABLE_ROWS = 16 << 20
+STABLE_KEYS = 1 << 20
+#: unique / intersect / subtract a side, keys in [0, SETOP_ROWS)
+SETOP_ROWS = 16 << 20
+#: dist_sort and the distributed set ops at W = 4 on ThreadWorld
+SORT_W4_RANK_ROWS = 1 << 20
+SORT_W4_REPEATS = 4
+
+
+def timed_twice(torch, fn):
+    """``(second result, its wall ms, its peak bytes)``: one call to
+    warm up, then one between CUDA events with the peak memory counter
+    reset before it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = event_wall(torch, fn)
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def column_of(t, name):
+    return t.column(name).data[:t.num_rows]
+
+
+def sort_setops_phase(torch, profile: bool, dev="cuda") -> tuple:
+    """Sort, set ops and their distributed forms through the public
+    entry points, at the sizes of BASELINE.json's configuration 4; each
+    result checked, each wall the second call's (CUDA events), with its
+    peak memory:
+
+    1. ``sort_table`` on :data:`SORT_ROWS` int64 keys in [0, 2^40), and
+       ``dist_sort`` at W = 1 on the same column: the keys equal
+       ``torch.sort(keys).values`` element for element;
+    2. a :data:`STABLE_ROWS`-row table, int64 keys in [0, 1M) and a
+       float64 value, sorted ascending and descending: keys and values
+       against numpy's stable argsort element for element;
+    3. ``union`` of two :data:`UNION_ROWS`-row tables, 2^40 keys against
+       keys in [0, n): against ``torch.unique`` of the concatenation as
+       a set, the count exactly;
+    4. ``unique``, ``intersect`` and ``subtract`` at :data:`SETOP_ROWS`
+       rows a side, keys in [0, 16M): against numpy's ``unique``,
+       ``intersect1d`` and ``setdiff1d`` as sets, and ``unique`` in the
+       first-occurrence order of pandas' ``drop_duplicates``;
+    5. at W = 4 through ``ThreadWorld`` on the card,
+       :data:`SORT_W4_RANK_ROWS` rows a rank: ``dist_sort`` (sample and
+       histogram splitters), ``dist_union``, ``dist_intersect``,
+       ``dist_subtract`` and ``dist_unique``, each
+       :data:`SORT_W4_REPEATS` times: sorts equal to W = 1 element for
+       element, set ops equal to W = 1 as row sets. Every run of the six
+       ops is timed; its wall is the second run's, the first carrying
+       the one-time warm-up.
+
+    The launch counters are zeroed before and read after; ``scan32``
+    (the set ops' group numbering) and ``row_hash`` (the distributed set
+    ops' partition) must both have run. Returns ``(launches, the
+    inputs the kernels met)`` for :func:`path_kernel_phase`."""
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+
+    def i64(x):
+        return Column(x, None, dtypes.int64)
+
+    def keys(n, hi):
+        return torch.randint(0, hi, (n,), dtype=torch.int64, device=dev,
+                             generator=g)
+
+    env1 = ct.CylonEnv(device=dev)
+    rows = []
+    t0 = time.perf_counter()
+
+    def record(case, n, ms, peak, **extra):
+        row = {"phase": "sort_setops", "case": case, "rows": n,
+               "wall_ms": ms, "rows_per_s": n / (ms / 1e3),
+               "peak_bytes": peak, **extra,
+               "phase_s": time.perf_counter() - t0}
+        emit(row)
+        rows.append(row)
+
+    rec = PathInputs()
+    with rec:
+        reset_launches()
+        # 1. the 100M sort, local and at W = 1
+        k = keys(SORT_ROWS, 1 << SORT_KEY_BITS)
+        t = ct.Table({"k": i64(k)}, SORT_ROWS)
+        want = torch.sort(k).values
+        for case, fn in (("sort_table", lambda: ct.sort_table(t, ["k"])),
+                         ("dist_sort_w1", lambda: ct.dist_sort(env1, t,
+                                                               "k"))):
+            out, ms, peak = timed_twice(torch, fn)
+            same = torch.equal(column_of(out, "k"), want)
+            record(case, SORT_ROWS, ms, peak, equal_to_torch_sort=same)
+            if not same:
+                raise SystemExit(f"sort_setops {case}: keys differ from "
+                                 "torch.sort")
+            del out
+        if profile:
+            profile_call(torch, "sort_setops_profile_sort",
+                         lambda: ct.sort_table(t, ["k"]))
+        del t, want
+
+        # 2. stability, both directions, against numpy's stable argsort
+        sk = keys(STABLE_ROWS, STABLE_KEYS)
+        sv = torch.rand(STABLE_ROWS, dtype=torch.float64, device=dev,
+                        generator=g)
+        st = ct.Table({"k": i64(sk), "v": Column(sv, None, dtypes.float64)},
+                      STABLE_ROWS)
+        hk, hv = sk.cpu().numpy(), sv.cpu().numpy()
+        for asc in (True, False):
+            out, ms, peak = timed_twice(
+                torch, lambda: ct.sort_table(st, ["k"], asc))
+            perm = np.argsort(hk if asc else -hk, kind="stable")
+            same = bool(np.array_equal(column_of(out, "k").cpu().numpy(),
+                                       hk[perm])
+                        and np.array_equal(column_of(out, "v").cpu().numpy(),
+                                           hv[perm]))
+            record(f"stable_{'asc' if asc else 'desc'}", STABLE_ROWS, ms,
+                   peak, equal_to_numpy_stable=same)
+            if not same:
+                raise SystemExit("sort_setops: the sort is not numpy's "
+                                 "stable order")
+        del st, out
+
+        # 3. the union of bench_suite.py's cell 4 at 2 x 50M rows
+        ua, ub = keys(UNION_ROWS, 1 << SORT_KEY_BITS), keys(UNION_ROWS,
+                                                            UNION_ROWS)
+        ta = ct.Table({"k": i64(ua)}, UNION_ROWS)
+        tb = ct.Table({"k": i64(ub)}, UNION_ROWS)
+        out, ms, peak = timed_twice(
+            torch, lambda: ct.union(ta, tb, 2 * UNION_ROWS))
+        want = torch.unique(torch.cat([ua, ub]))
+        got = torch.sort(column_of(out, "k")).values
+        same = got.shape == want.shape and torch.equal(got, want)
+        record("union", 2 * UNION_ROWS, ms, peak, distinct=out.num_rows,
+               distinct_torch_unique=int(want.numel()), equal_as_set=same)
+        if not same:
+            raise SystemExit("sort_setops union: not torch.unique's set")
+        del ta, tb, ua, ub, out, got, want
+
+        # 4. unique, intersect, subtract at 16M a side against numpy
+        a_k, b_k = keys(SETOP_ROWS, SETOP_ROWS), keys(SETOP_ROWS, SETOP_ROWS)
+        ta = ct.Table({"k": i64(a_k)}, SETOP_ROWS)
+        tb = ct.Table({"k": i64(b_k)}, SETOP_ROWS)
+        ha, hb = a_k.cpu().numpy(), b_k.cpu().numpy()
+        uniq, first = np.unique(ha, return_index=True)
+        # on the distinct values: numpy's set ops on the raw 16M rows
+        # take most of the phase's time on the host
+        uniq_b = np.unique(hb)
+        wants = {"unique": uniq,
+                 "intersect": np.intersect1d(uniq, uniq_b,
+                                             assume_unique=True),
+                 "subtract": np.setdiff1d(uniq, uniq_b, assume_unique=True)}
+        for case, fn in (("unique", lambda: ct.unique(ta)),
+                         ("intersect", lambda: ct.intersect(ta, tb)),
+                         ("subtract", lambda: ct.subtract(ta, tb))):
+            out, ms, peak = timed_twice(torch, fn)
+            got = column_of(out, "k").cpu().numpy()
+            same = bool(np.array_equal(np.sort(got), wants[case]))
+            extra = {"distinct": len(got), "equal_as_set": same}
+            if case == "unique":
+                # pandas' drop_duplicates: first occurrences, in order
+                extra["first_occurrence_order"] = bool(np.array_equal(
+                    got, ha[np.sort(first)]))
+                same &= extra["first_occurrence_order"]
+            record(case, SETOP_ROWS, ms, peak, **extra)
+            if not same:
+                raise SystemExit(f"sort_setops {case}: not numpy's set")
+        if profile:
+            profile_call(torch, "sort_setops_profile_intersect",
+                         lambda: ct.intersect(ta, tb))
+        del ta, tb, out
+
+        # 5. W = 4 on ThreadWorld against W = 1
+        w, nr = GROUPBY_WORLD, SORT_W4_RANK_ROWS
+        n = w * nr
+        dk = keys(n, 1 << 20)
+        dv = torch.rand(n, dtype=torch.float64, device=dev, generator=g)
+        xa, xb = keys(n, 2 * n), keys(n, 2 * n) + n // 2
+
+        def table(sl, **cols):
+            return ct.Table({c: Column(x[sl], None, dtypes.float64
+                                       if x.is_floating_point()
+                                       else dtypes.int64)
+                             for c, x in cols.items()}, sl.stop - sl.start)
+
+        whole = slice(0, n)
+        sort_ref = ct.sort_table(table(whole, k=dk, v=dv), ["k"])
+        ops = {"dist_union": ct.union, "dist_intersect": ct.intersect,
+               "dist_subtract": ct.subtract}
+        refs = {op: row_set(torch, [fn(table(whole, k=xa),
+                                       table(whole, k=xb))], ["k"])
+                for op, fn in ops.items()}
+        refs["dist_unique"] = row_set(torch, [ct.unique(
+            table(whole, k=dk, v=dv), ["k"])], ["k", "v"])
+
+        def rank(comm):
+            e = ct.CylonEnv(comm)
+            sl = slice(e.rank * nr, (e.rank + 1) * nr)
+            mine = table(sl, k=dk, v=dv)
+            a, b = table(sl, k=xa), table(sl, k=xb)
+            out = {"dist_sort_sample": ct.dist_sort(e, mine, "k"),
+                   "dist_sort_histogram": ct.dist_sort(
+                       e, mine, "k", options=ct.SortOptions(num_bins=256)),
+                   "dist_unique": ct.dist_unique(e, mine, ["k"])}
+            for op in ops:
+                out[op] = getattr(ct, op)(e, a, b)
+            return out
+
+        timed = [event_wall(torch, lambda: ct.ThreadWorld(w).run(rank))
+                 for _ in range(SORT_W4_REPEATS)]
+        runs = [r for r, _ in timed]
+        walls = [ms for _, ms in timed]
+        per_rank = runs[0]
+        launches = launch_counts()
+
+    def matches(run, op) -> bool:
+        parts = [r[op] for r in run]
+        if op.startswith("dist_sort"):
+            return all(torch.equal(torch.cat([column_of(p, c)
+                                              for p in parts]),
+                                   column_of(sort_ref, c))
+                       for c in ("k", "v"))
+        names = ["k", "v"] if op == "dist_unique" else ["k"]
+        return all(torch.equal(x, y) for x, y in
+                   zip(row_set(torch, parts, names), refs[op]))
+
+    out = {"phase": "sort_setops", "case": "w4", "world": w,
+           "rows_per_rank": nr, "wall_ms": walls[1],
+           "first_run_wall_ms": walls[0], "run_walls_ms": walls,
+           "runs": len(runs),
+           "rank_rows": {op: [r[op].num_rows for r in per_rank]
+                         for op in per_rank[0]}}
+    bad = []
+    for op in per_rank[0]:
+        ok = [matches(r, op) for r in runs]
+        out[f"{op}_runs_matching_w1"] = sum(ok)
+        if not all(ok):
+            bad.append(op)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    if bad:
+        raise SystemExit(f"sort_setops W=4: {bad} differ from W=1")
+    if launches["scan32"] < 1 or launches["row_hash"] < 1:
+        raise SystemExit(f"sort_setops: launches {launches}: the set ops "
+                         "did not reach scan32 and row_hash")
+    return launches, rec.inputs
+
+
 # ------------------------------------------------------------ main
 def main(argv) -> int:
     import torch
@@ -2330,6 +2603,13 @@ def main(argv) -> int:
     path_kernel_phase(torch, rate, stats, "groupby", groupby_inputs.inputs)
     del groupby_inputs
     dist_join_w4_phase(torch, rate, stats)
+    t12 = time.perf_counter()
+    sort_setops_launches, sort_inputs = sort_setops_phase(
+        torch, "--profile" in argv)
+    path_kernel_phase(torch, rate, stats, "sort_setops", sort_inputs)
+    del sort_inputs
+    emit({"phase": "sort_setops_seconds",
+          "seconds": time.perf_counter() - t12})
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -2352,6 +2632,7 @@ def main(argv) -> int:
                               == wrapper.__name__),
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
             "groupby_launches": groupby_launches[wrapper.__name__],
+            "sort_setops_launches": sort_setops_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

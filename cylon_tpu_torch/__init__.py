@@ -17,6 +17,14 @@ The port carries:
 - group-by and scalar aggregates: ``groupby_aggregate`` (``ops.groupby``),
   ``table_aggregate`` (``ops.aggregates``), ``dist_groupby`` and
   ``dist_aggregate``;
+- sort, filter, concat, head, sample and take (``ops.selection``), the
+  set ops and ``unique`` (``ops.setops``), partitioning
+  (``ops.partition``), calendar fields (``ops.datetime_ops``); their
+  distributed forms ``dist_sort`` (sample or histogram splitters,
+  ``SortOptions``), ``dist_union``, ``dist_intersect``,
+  ``dist_subtract``, ``dist_unique``, ``dist_filter``, ``dist_head``,
+  ``dist_concat``, the ``colocated_*`` ops, and the collectives
+  (``parallel.collectives``);
 - numeric keys and string keys in both storages: dictionary codes
   (``ops.dictenc``) and device bytes (``ops.bytescol``;
   ``string_storage=`` at ingest);
@@ -35,24 +43,37 @@ from cylon_tpu_torch.errors import (CylonError, DeviceUnavailable,
                                     InvalidArgument, KeyError_,
                                     NotImplemented_, OutOfCapacity,
                                     TypeError_)
-from cylon_tpu_torch.ops.aggregates import table_aggregate
-from cylon_tpu_torch.ops.groupby import groupby_aggregate
+from cylon_tpu_torch.ops import (concat_tables, equal_tables, filter_table,
+                                 groupby_aggregate, head, intersect, sample,
+                                 sort_table, subtract, table_aggregate, take,
+                                 union, unique)
 from cylon_tpu_torch.ops.join import join
+from cylon_tpu_torch.parallel import (ReduceOp, SortOptions, all_reduce,
+                                      colocated_groupby, colocated_join,
+                                      colocated_unique, dist_aggregate,
+                                      dist_concat, dist_filter, dist_groupby,
+                                      dist_head, dist_intersect, dist_join,
+                                      dist_num_rows, dist_sort,
+                                      dist_subtract, dist_to_pandas,
+                                      dist_union, dist_unique, gather_table,
+                                      repartition, scatter_table, shuffle)
 from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm, \
     ThreadWorld
-from cylon_tpu_torch.parallel.dist_ops import (dist_aggregate, dist_groupby,
-                                               dist_join, repartition,
-                                               shuffle)
-from cylon_tpu_torch.parallel.dtable import (dist_num_rows, gather_table,
-                                             scatter_table)
 from cylon_tpu_torch.row import Row
 from cylon_tpu_torch.table import Table
 
 __all__ = ["Column", "CommConfig", "CylonEnv", "CylonError",
            "DeviceUnavailable", "Dictionary", "DistConfig",
            "InvalidArgument", "KeyError_", "LocalComm", "LocalConfig",
-           "NotImplemented_", "OutOfCapacity", "ProcessGroupComm", "Row",
-           "Table", "ThreadWorld", "TypeError_", "dist_aggregate",
-           "dist_groupby", "dist_join", "dist_num_rows", "dtypes",
-           "gather_table", "groupby_aggregate", "join", "repartition",
-           "scatter_table", "shuffle", "table_aggregate"]
+           "NotImplemented_", "OutOfCapacity", "ProcessGroupComm",
+           "ReduceOp", "Row", "SortOptions", "Table", "ThreadWorld",
+           "TypeError_", "all_reduce", "colocated_groupby",
+           "colocated_join", "colocated_unique", "concat_tables",
+           "dist_aggregate", "dist_concat", "dist_filter", "dist_groupby",
+           "dist_head", "dist_intersect", "dist_join", "dist_num_rows",
+           "dist_sort", "dist_subtract", "dist_to_pandas", "dist_union",
+           "dist_unique", "dtypes", "equal_tables", "filter_table",
+           "gather_table", "groupby_aggregate", "head", "intersect", "join",
+           "repartition", "sample", "scatter_table", "shuffle",
+           "sort_table", "subtract", "table_aggregate", "take", "union",
+           "unique"]

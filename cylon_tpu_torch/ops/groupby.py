@@ -240,13 +240,8 @@ def _value_sort(c: Column, ok, gid_s):
     operands)``. A device-bytes value orders by its words, unsigned."""
     cap = c.data.shape[0]
     gid_v = torch.where(ok, gid_s, cap).to(torch.int64)
-    if c.data.dim() == 2:
-        vkeys = [kernels.OrderKey(kernels.u32(w), 32)
-                 for w in kernels.split_words([c.data])]
-    else:
-        vkeys = [kernels.order_key(c.data)]
     ops = [kernels.sortable(k) for k in kernels.pack_order_keys(
-        [kernels.OrderKey(gid_v, 32)] + vkeys)]
+        [kernels.OrderKey(gid_v, 32), kernels.order_key(c.data)])]
     perm = kernels.lexsort_perm(ops)
     return perm, gid_v[perm], [k[perm] for k in ops]
 

@@ -4,8 +4,9 @@ scans and fills.
 
 Port of ``cylon_tpu/ops/kernels.py:89-609``. Rows are grouped by
 lexicographic dense rank (sort-based, collision-free). Tables are padded
-to ``capacity`` and carry ``nrows``; padding rows sort last through an
-explicit padding key.
+to ``capacity`` and carry ``nrows``; padding rows sort last, in
+:func:`sort_perm` by taking each key's maximum, in :func:`group_sort`
+through an explicit padding key.
 
 ``lax.sort(operands, num_keys=k)`` has no torch counterpart. It becomes a
 least-significant-first chain of stable ``torch.sort`` passes over the
@@ -19,7 +20,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from cylon_tpu_torch.kernels import scan
-from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns, u32
+from cylon_tpu_torch.ops.hash import M32, canonical_float, hash_columns
 
 _MIN64 = -(1 << 63)
 _MAX64 = (1 << 63) - 1
@@ -47,8 +48,23 @@ def order_key(data: torch.Tensor, ascending: bool = True) -> OrderKey:
     """Map values to an unsigned key whose order is the value order:
     signed ints get the sign bit flipped, floats the IEEE total-order
     transform after canonicalisation (NaN sorts above +inf), bools widen
-    to 8 bits. ``ascending=False`` inverts every bit."""
+    to 8 bits. ``ascending=False`` inverts every bit.
+
+    A device-bytes column (``[cap, nwords]`` int32 words) keys each word
+    as UNSIGNED 32 bits, as the JAX package's uint32 words are: the
+    signed order of the int32 bit patterns would put a byte >= 0x80
+    ("é") before ASCII. The key is then 2-D, one 32-bit key a word;
+    :func:`pack_order_keys` splits it into its words, earlier first.
+    Any other 2-D input raises ``TypeError``."""
     dt = data.dtype
+    if data.dim() == 2:
+        if dt != torch.int32:
+            raise TypeError(f"order_key: a 2-D key must be int32 bytes "
+                            f"words, got {dt}")
+        key = data.to(torch.int64) & M32
+        return OrderKey(key if ascending else ~key & M32, 32)
+    if data.dim() != 1:
+        raise TypeError(f"order_key: unsortable {data.dim()}-D input")
     if dt not in _BITS:
         raise TypeError(f"unsortable dtype {dt}")
     bits = _BITS[dt]
@@ -88,13 +104,14 @@ def valid_mask(cap: int, nrows, device=None) -> torch.Tensor:
     return torch.arange(cap, dtype=torch.int32, device=device) < nrows
 
 
-def split_words(okeys: Sequence[torch.Tensor]) -> list:
-    """Expand 2-D [cap, w] operands (device-bytes strings) into their
-    word columns, earlier words first."""
+def split_order_keys(okeys: Sequence[OrderKey]) -> list:
+    """Expand 2-D order keys ([cap, w], device-bytes words) into one key a
+    word, earlier words first."""
     out = []
     for k in okeys:
-        if k.dim() == 2:
-            out.extend(k[:, i] for i in range(k.shape[1]))
+        if k.value.dim() == 2:
+            out.extend(OrderKey(k.value[:, i], k.bits)
+                       for i in range(k.value.shape[1]))
         else:
             out.append(k)
     return out
@@ -103,9 +120,10 @@ def split_words(okeys: Sequence[torch.Tensor]) -> list:
 def pack_order_keys(okeys: Sequence[OrderKey]) -> list:
     """Greedily merge adjacent keys into shared words of at most 64 bits
     (earlier fields take the higher bits, so word order is field order --
-    lossless). Fewer words mean fewer sort passes."""
+    lossless). Fewer words mean fewer sort passes. A 2-D key (a
+    device-bytes column's words) splits into its words first."""
     groups: list = []
-    for k in okeys:
+    for k in split_order_keys(okeys):
         if groups and groups[-1][1] + k.bits <= 64:
             groups[-1][0].append(k)
             groups[-1][1] += k.bits
@@ -135,18 +153,28 @@ def lexsort_perm(operands: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
-def sort_perm(keys: Sequence[torch.Tensor], nrows, *,
-              ascending=True) -> torch.Tensor:
-    """Permutation lexsorting rows by ``keys`` (priority = list order),
-    valid rows first, padding last; stable. Parity:
-    ``SortIndicesMultiColumns`` (``arrow_kernels.hpp:134-140``)."""
-    cap = keys[0].shape[0]
-    padding = ~valid_mask(cap, nrows, keys[0].device)
-    if isinstance(ascending, bool):
-        ascending = [ascending] * len(keys)
-    ops = pack_order_keys([OrderKey(padding.to(torch.int64), 8)]
-                          + [order_key(k, a) for k, a in zip(keys, ascending)])
-    return lexsort_perm([sortable(k) for k in ops])
+def sort_perm(okeys: Sequence[OrderKey], nrows) -> torch.Tensor:
+    """int64 permutation sorting rows by the order keys ``okeys`` (most
+    significant first), valid rows first, padding last; stable. Parity:
+    ``SortIndicesMultiColumns`` (``arrow_kernels.hpp:134-140``).
+
+    Padding takes no key of its own: every packed operand takes its
+    maximum on the padding rows, so a padding row ties at most with a
+    valid row holding the maximum tuple. Where the padding trails
+    (``nrows`` a count), the stable sort keeps that valid row, whose
+    index is lower, first. A mask ``nrows`` with padding between valid
+    rows is exact only where no valid row holds the maximum tuple."""
+    cap = okeys[0].value.shape[0] if okeys else 0
+    packed = pack_order_keys(okeys)
+    if not packed:
+        return torch.arange(cap, dtype=torch.int64,
+                            device=nrows.device if torch.is_tensor(nrows)
+                            else None)
+    dev = packed[0].value.device
+    valid = valid_mask(cap, nrows, dev)
+    return lexsort_perm([torch.where(valid, sortable(k), _MAX64 if
+                                     k.bits == 64 else _ones(k.bits))
+                         for k in packed])
 
 
 def compact_mask(mask: torch.Tensor, nrows):
@@ -214,11 +242,9 @@ def group_sort(keys: Sequence[torch.Tensor], nrows,
     for i, k in enumerate(keys):
         v = validities[i] if validities is not None else None
         if k.dim() == 2:
-            words = [k[:, j] for j in range(k.shape[1])]
             if v is not None:
-                zero = torch.zeros((), dtype=k.dtype, device=dev)
-                words = [torch.where(v, w, zero) for w in words]
-            keys_u = [OrderKey(u32(w), 32) for w in words]
+                k = torch.where(v[:, None], k, 0)
+            keys_u = split_order_keys([order_key(k)])
             if v is not None:
                 keys_u[0] = OrderKey(torch.where(v, keys_u[0].value, M32),
                                      32)

@@ -1,11 +1,19 @@
-"""Row gathers: ``take_columns`` with its u32 word packing, and the
-missing-value flags the reductions skip (``_null_flags``).
+"""Row selection and movement: take, filter, sort, concat, head,
+sample, and the missing-value flags the reductions skip
+(``_null_flags``).
 
-Port of ``cylon_tpu/ops/selection.py:23-123, 311-322``. Every
-fixed-width column (and validity flag) is bit-packed into ONE [cap,
-words] u32 matrix (int32 bit patterns) and row-gathered in a single
-pass, so one wide gather replaces ncols narrow ones (the reference's
-``build_final_table``, ``join/join_utils.hpp:34``).
+Port of ``cylon_tpu/ops/selection.py``. Every fixed-width column (and
+validity flag) is bit-packed into ONE [cap, words] u32 matrix (int32 bit
+patterns) and row-gathered in a single pass, so one wide gather replaces
+ncols narrow ones (the reference's ``build_final_table``,
+``join/join_utils.hpp:34``).
+
+Every reordering is a sorted permutation and then that one gather
+(:func:`permute_by_sort`), at any width. The JAX package carries narrow
+tables through ``lax.sort`` as payload and switches to the gather past a
+crossover it measured on a TPU (``PAYLOAD_SORT_MAX_WORDS``,
+``PAYLOAD_GATHER_MIN_ROWS``); ``torch.sort`` returns its indices and
+carries no payload, so the port has no crossover to copy.
 """
 
 from typing import Sequence
@@ -13,6 +21,8 @@ from typing import Sequence
 import torch
 
 from cylon_tpu_torch.column import Column
+from cylon_tpu_torch.errors import InvalidArgument
+from cylon_tpu_torch.ops import kernels
 
 
 def _packable(data: torch.Tensor) -> bool:
@@ -42,13 +52,24 @@ def _to_words(data: torch.Tensor) -> torch.Tensor:
     return data.contiguous().view(torch.uint8).to(torch.int32)[:, None]
 
 
+def _dense(words: torch.Tensor) -> torch.Tensor:
+    """``words`` [rows, 2] with row stride 2 at an even offset, as a view
+    to 8-byte values needs. ``.contiguous()`` keeps a one-row slice of a
+    wider matrix as it is (its row stride does not matter to it), so
+    such a slice is copied."""
+    w = words.contiguous()
+    if w.stride(0) != 2 or w.storage_offset() % 2:
+        w = w.clone(memory_format=torch.contiguous_format)
+    return w
+
+
 def _from_words(words: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """Inverse of :func:`_to_words` for a [rows, w] int32 word slice."""
     if dt == torch.bool:
         return words[:, 0] != 0
     size = dt.itemsize
     if size == 8:
-        return words.contiguous().view(dt).view(-1)
+        return _dense(words).view(dt).view(-1)
     if size == 4:
         return words[:, 0].contiguous().view(dt)
     if size == 2:
@@ -125,3 +146,157 @@ def _null_flags(c: Column) -> "torch.Tensor | None":
         nan = torch.isnan(c.data).to(torch.uint8)
         flags = nan if flags is None else flags | nan
     return flags
+
+
+def permute_by_sort(table, operands, nrows_out):
+    """Reorder a table by a stable sort on ``operands`` (order keys, most
+    significant first; port of ``cylon_tpu/ops/selection.py:227``): one
+    sorted permutation (:func:`kernels.lexsort_perm`), then one packed
+    row gather (:func:`take_columns`)."""
+    ops = [kernels.sortable(k) for k in kernels.pack_order_keys(operands)]
+    return take_columns(table, kernels.lexsort_perm(ops), nrows_out)
+
+
+def filter_table(table, mask: torch.Tensor):
+    """Keep the valid rows where ``mask`` holds, in their order (port of
+    ``cylon_tpu/ops/selection.py:249``; parity: the filter path of
+    ``python/pycylon/data/compute.pyx:212``): a stable compaction, then
+    one gather."""
+    perm, count = kernels.compact_mask(mask.to(torch.bool), table.nrows)
+    return kernels.carry_overflow(take_columns(table, perm, count), table)
+
+
+def sort_table(table, by: Sequence[str], ascending=True,
+               na_position: str = "last"):
+    """Lexicographic multi-column sort (port of
+    ``cylon_tpu/ops/selection.py:262``; parity: ``Table::Sort``; pandas
+    ``sort_values(kind="stable")`` semantics: NaN and null keys go last
+    whatever the direction, or first with ``na_position="first"``)."""
+    by = [by] if isinstance(by, str) else list(by)
+    if isinstance(ascending, bool):
+        ascending = [ascending] * len(by)
+    if na_position not in ("first", "last"):
+        raise InvalidArgument(f"na_position={na_position!r}")
+    return _sort_compiled(table, by=tuple(by), ascending=tuple(ascending),
+                          na_position=na_position)
+
+
+def sort_key_operands(c: Column, asc: bool,
+                      na_position: str = "last") -> list:
+    """The order keys that sort one column with pandas semantics (port of
+    ``cylon_tpu/ops/selection.py:273``): a missing-value flag word
+    (nulls and NaNs last, or first, whatever the direction), then the
+    column's order key, zeroed under the flag (a null slot's bytes are
+    arbitrary, and pandas keeps null rows in their order). A
+    device-bytes column's key is its words, unsigned (2-D; the packing
+    splits it). Shared by the local sort and ``dist_sort``'s splitter
+    tuples: the partition order must be the local sort order."""
+    okeys = []
+    nulls = _null_flags(c)
+    key = kernels.order_key(c.data, asc)
+    if nulls is not None:
+        flag = nulls if na_position == "last" else 1 - nulls
+        okeys.append(kernels.OrderKey(flag.to(torch.int64), 8))
+        nz = nulls == 0
+        if key.value.dim() == 2:
+            nz = nz[:, None]
+        key = kernels.OrderKey(torch.where(nz, key.value, 0), key.bits)
+    okeys.append(key)
+    return okeys
+
+
+def _sort_compiled(table, *, by, ascending, na_position):
+    """The sort at static arguments (port of
+    ``cylon_tpu/ops/selection.py:300``; eager, the name kept). The
+    padding rows trail, so they take no key of their own
+    (:func:`kernels.sort_perm`)."""
+    okeys = []
+    for name, asc in zip(by, ascending):
+        okeys.extend(sort_key_operands(table.column(name), asc,
+                                       na_position))
+    if not okeys:
+        return table
+    perm = kernels.sort_perm(okeys, table.nrows)
+    return take_columns(table, perm, table.nrows)
+
+
+def concat_tables(tables: Sequence, capacity: "int | None" = None):
+    """Row-wise concatenation (port of
+    ``cylon_tpu/ops/selection.py:325``; parity: ``Table::Merge`` /
+    pycylon ``concat``, ``table.pyx:2368``). Schemas must match by name
+    and dtype; dictionary columns take one merged dictionary and string
+    columns of mixed storage one storage first. Each input's valid rows
+    land at its offset, the counts read on the host (an overflowed input
+    raises here, as the JAX package's eager call does); rows past
+    ``capacity`` are dropped and the count keeps them, so that
+    ``num_rows`` raises."""
+    from cylon_tpu_torch.ops.bytescol import align_table_strings
+    from cylon_tpu_torch.ops.dictenc import unify_table_dictionaries
+    from cylon_tpu_torch.table import Table
+
+    if not tables:
+        raise InvalidArgument("concat of no tables")
+    counts = [t.num_rows for t in tables]
+    names = tables[0].column_names
+    for t in tables[1:]:
+        if t.column_names != names:
+            raise InvalidArgument(
+                f"schema mismatch: {t.column_names} vs {names}")
+    tables = align_table_strings(unify_table_dictionaries(list(tables)))
+    cap_out = capacity if capacity is not None \
+        else sum(t.capacity for t in tables)
+    dev = tables[0].device
+    cols = {}
+    for name in names:
+        c0 = tables[0].column(name)
+        for t in tables[1:]:
+            if t.column(name).data.dtype != c0.data.dtype:
+                raise InvalidArgument(
+                    f"dtype mismatch in column {name}: "
+                    f"{t.column(name).data.dtype} vs {c0.data.dtype}")
+        any_validity = any(t.column(name).validity is not None
+                           for t in tables)
+        data = torch.zeros((cap_out,) + tuple(c0.data.shape[1:]),
+                           dtype=c0.data.dtype, device=dev)
+        validity = torch.zeros(cap_out, dtype=torch.bool, device=dev) \
+            if any_validity else None
+        off = 0
+        for t, n in zip(tables, counts):
+            k = max(min(n, cap_out - off), 0)
+            c = t.column(name)
+            data[off:off + k] = c.data[:k]
+            if validity is not None:
+                validity[off:off + k] = True if c.validity is None \
+                    else c.validity[:k]
+            off += n
+        cols[name] = Column(data, validity, c0.dtype, c0.dictionary)
+    return Table(cols, sum(counts))
+
+
+def head(table, n: int):
+    """The first ``n`` valid rows (port of
+    ``cylon_tpu/ops/selection.py:381``): valid rows lead, so only the
+    count changes."""
+    return table.with_nrows(torch.clamp(table.nrows, max=n))
+
+
+def sample(table, n: int):
+    """Deterministic systematic sample of up to ``n`` rows (port of
+    ``cylon_tpu/ops/selection.py:386``; parity ``util::SampleArray``):
+    row ``floor(i * nrows / min(nrows, n))`` for i < n, computed in
+    float32 as the JAX package does, so that both take the same rows."""
+    nr = table.nrows
+    take_n = torch.clamp(nr, max=n)
+    f = torch.float32
+    pos = torch.arange(n, dtype=f, device=table.device)
+    idx = torch.where(take_n > 0, pos * nr.to(f)
+                      / torch.clamp(take_n, min=1).to(f), 0.0)
+    idx = torch.minimum(idx.to(torch.int32).clamp(min=0),
+                        torch.clamp(nr - 1, min=0))
+    return take_columns(table, idx, take_n)
+
+
+def take(table, idx: torch.Tensor):
+    """Public gather by indices (port of
+    ``cylon_tpu/ops/selection.py:403``; parity: arrow Take)."""
+    return take_columns(table, idx, idx.shape[0])

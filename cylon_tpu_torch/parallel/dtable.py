@@ -344,3 +344,9 @@ def gather_table(env, table):
         validity = next(outs) if c.validity is not None else None
         cols[name] = Column(data, validity, c.dtype, c.dictionary)
     return Table(cols, total)
+
+
+def dist_to_pandas(env, table):
+    """Every rank's valid rows, in rank order, as one pandas DataFrame on
+    every rank (port of ``cylon_tpu/parallel/dtable.py:150``)."""
+    return gather_table(env, table).to_pandas()
