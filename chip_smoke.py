@@ -81,11 +81,24 @@ Phases, each printing one JSON line:
     ``torch.unique``, W = 1); then ``scan32`` and ``row_hash`` at the
     shapes this phase gave them, as in phase 10; see
     :func:`sort_setops_phase`.
+13. frame: the user-facing layer on the card: ``DataFrame.merge`` of
+    two 16M-row frames built from numpy (phase 4's count and checksum,
+    and bit for bit the direct ``join``), ``groupby(...).agg`` on phase
+    9's low- and high-cardinality shapes (bit for bit
+    ``groupby_aggregate``), ``sort_values``, ``drop_duplicates``, a mask
+    filter, a derived column, ``len`` and ``head``, each wall beside the
+    direct op's; the README's quick start at W = 4 on ``ThreadWorld``
+    against W = 1 in 4 runs; ``DisJoinOp`` over 16 chunks a side against
+    one ``dist_join``; ``task_shuffle`` of 8 tasks over W = 4; then
+    ``row_hash``, ``scan32`` and ``pair_max_scan`` at the shapes this
+    phase gave them, as in phase 10. Every line of the phase carries the
+    card's name and power limit; see :func:`frame_phase`.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
-or hash-join path and, as ``groupby_launches`` and
-``sort_setops_launches``, on phase 9's group-by calls and phase 12's
-calls), the ``nvidia-smi`` line again, and as
+or hash-join path and, as ``groupby_launches``,
+``sort_setops_launches`` and ``frame_launches``, on phase 9's group-by
+calls, phase 12's calls and phase 13's), the ``nvidia-smi`` line again,
+and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run away from the repository, it exits non-zero and prints no result.
 """
@@ -2560,6 +2573,286 @@ def sort_setops_phase(torch, profile: bool, dev="cuda") -> tuple:
     return launches, rec.inputs
 
 
+# ------------------------------------------------------------ phase 13
+#: the quick start's rows a rank at W = 4, and its runs
+FRAME_W4_RANK_ROWS = 1 << 20
+FRAME_W4_REPEATS = 4
+#: the operator graph's chunk rows (16 chunks of a 16M-row side)
+FRAME_CHUNK_ROWS = 1 << 20
+FRAME_TASKS = 8
+
+
+def frame_phase(torch, card: str, dev="cuda") -> tuple:
+    """The user-facing layer (``DataFrame``, ``Series``, the operator
+    graph, the task plan) through the entry points a user calls, each
+    result checked; every JSON line carries the card's name and power
+    limit (``card``):
+
+    1. local (``env=None``): two frames of :data:`DIST_ROWS` rows built
+       from numpy dicts (int64 ``k`` in [0, 16M), float64 ``v``, phase
+       4's shape): ``merge(on="k")`` gives phase 4's row count and
+       checksum (numpy, rtol 1e-9) and, bit for bit, ``join`` followed
+       by ``shrink_to_fit``; ``groupby("k").agg({"v": ["sum",
+       "mean"]})`` on phase 9's low-cardinality (10M rows, keys in [0,
+       10000)) and high-cardinality (16M rows, 0.6 keys a row) shapes
+       equals ``groupby_aggregate`` bit for bit; ``sort_values``,
+       ``drop_duplicates``, a mask filter, a derived column, ``len`` and
+       ``head(5).to_pandas()`` against the direct op or numpy. For
+       ``merge``, ``groupby`` and ``sort_values`` the second call's wall
+       (CUDA events) and peak memory beside the direct op's;
+    2. the README's quick start at W = 4 on ``ThreadWorld``,
+       :data:`FRAME_W4_RANK_ROWS` rows a rank: ``DataFrame(data,
+       env=env)``, ``merge``, ``sort_values``, ``groupby(...).agg`` and
+       ``drop_duplicates`` with ``env``, and ``to_pandas()``, in
+       :data:`FRAME_W4_REPEATS` runs, each equal to W = 1 (row sets;
+       the sort in order; the group-by's float aggregates, summed in
+       another order, within rtol 1e-9);
+    3. the operator graph: ``DisJoinOp("k")`` fed 16 chunks a side
+       through ``chunk_stream`` gives the row set of one ``dist_join`` of
+       the whole tables; ``task_shuffle`` of :data:`FRAME_TASKS` tasks
+       dealt round robin over W = 4 routes every row to its task's rank.
+
+    The launch counters are zeroed before and read after; ``row_hash``,
+    ``scan32`` and ``pair_max_scan`` must each have run. Returns
+    ``(launches, the inputs the kernels met)``."""
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops_graph import DisJoinOp, chunk_stream
+    from cylon_tpu_torch.parallel import (LogicalTaskPlan, TASK_COL,
+                                          task_shuffle, task_tables)
+
+    rng = np.random.default_rng(17)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    t0 = time.perf_counter()
+
+    def record(case, **fields):
+        row = {"phase": "frame", "case": case, "card": card, **fields,
+               "phase_s": time.perf_counter() - t0}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"frame: {msg}")
+
+    def layer(case, frame_fn, direct_fn, n):
+        """Both calls twice, the second timed; their results bit for
+        bit."""
+        got, ms, peak = timed_twice(torch, frame_fn)
+        want, dms, dpeak = timed_twice(torch, direct_fn)
+        got_t = got.table if hasattr(got, "table") else got
+        same = same_bits(torch, got_t, want)
+        record(case, rows=n, result_rows=want.num_rows, wall_ms=ms,
+               direct_wall_ms=dms, layer_ms=ms - dms, peak_bytes=peak,
+               direct_peak_bytes=dpeak, identical_bits=same)
+        if not same:
+            fail(f"{case} differs from the direct op")
+        return got
+
+    rec = PathInputs()
+    with rec:
+        reset_launches()
+        # -- 1. local frames of 16M rows from numpy dicts
+        n = DIST_ROWS
+        sides = [{"k": rng.integers(0, n, n, dtype=np.int64),
+                  "v": rng.random(n)} for _ in range(2)]
+        left, right = (ct.DataFrame(d, device=dev) for d in sides)
+        lt, rt = left.table, right.table
+        merged = layer("merge", lambda: left.merge(right, on="k"),
+                       lambda: ct.join(lt, rt, on="k").shrink_to_fit(), n)
+        rows = len(merged)
+        check = float((column_of(merged.table, "v_x")
+                       * column_of(merged.table, "v_y")).sum())
+        (lk, lv), (rk, rv) = [(d["k"], d["v"]) for d in sides]
+        want_rows = int((np.bincount(lk, minlength=n).astype(np.int64)
+                         * np.bincount(rk, minlength=n)).sum())
+        want_check = float((np.bincount(lk, weights=lv, minlength=n)
+                            * np.bincount(rk, weights=rv, minlength=n))
+                           .sum())
+        record("merge_check", result_rows=rows, expected_rows=want_rows,
+               checksum=check, expected_checksum=want_check)
+        if rows != want_rows or \
+                abs(check - want_check) > 1e-9 * abs(want_check):
+            fail("merge: rows or checksum differ from numpy")
+        del merged
+
+        aggs = [("v", "sum", "v_sum"), ("v", "mean", "v_mean")]
+        for case, rows_, nkeys in (
+                ("groupby_lowcard", GROUPBY_LOW_ROWS, GROUPBY_LOW_KEYS),
+                ("groupby_highcard", GROUPBY_ROWS, GROUPBY_HIGH_KEYS)):
+            t = ct.Table({
+                "k": Column(torch.randint(0, nkeys, (rows_,),
+                                          dtype=torch.int64, device=dev,
+                                          generator=g), None, dtypes.int64),
+                "v": Column(torch.randn(rows_, dtype=torch.float64,
+                                        device=dev, generator=g), None,
+                            dtypes.float64)}, rows_)
+            df = ct.DataFrame(t)
+            layer(case, lambda: df.groupby("k").agg({"v": ["sum", "mean"]}),
+                  lambda: ct.groupby_aggregate(t, ["k"], aggs)
+                  .shrink_to_fit(), rows_)
+            del t, df
+
+        layer("sort_values", lambda: left.sort_values("k"),
+              lambda: ct.sort_table(lt, ["k"]), n)
+        same = {
+            "drop_duplicates": same_bits(
+                torch, left.drop_duplicates(subset="k").table,
+                ct.unique(lt, ["k"]).shrink_to_fit()),
+            "mask_filter": same_bits(
+                torch, left[left["v"] > 0.5].table,
+                ct.filter_table(lt, lt.column("v").data > 0.5)
+                .shrink_to_fit())}
+        df = ct.DataFrame(left)
+        df["w"] = df["v"] * 2 + 1
+        same["derived_column"] = torch.equal(
+            df.table.column("w").data, lt.column("v").data * 2 + 1) \
+            and df.dtypes["w"] == dtypes.float64
+        same["len"] = len(df) == n
+        head = df.head(5).to_pandas()
+        same["head"] = bool(
+            np.array_equal(head["k"].to_numpy(), lk[:5])
+            and np.array_equal(head["v"].to_numpy(), lv[:5])
+            and np.array_equal(head["w"].to_numpy(), lv[:5] * 2 + 1))
+        record("local_ops", rows=n, **same)
+        if not all(same.values()):
+            fail(f"local ops differ: {same}")
+        del df
+
+        # -- 2. the README's quick start at W = 4 against W = 1
+        w, nr = GROUPBY_WORLD, FRAME_W4_RANK_ROWS
+        nw = w * nr
+        ldata = {"k": rng.integers(0, nw, nw, dtype=np.int64),
+                 "g": rng.integers(0, 1000, nw, dtype=np.int64),
+                 "v": rng.random(nw)}
+        rdata = {"k": rng.integers(0, nw, nw, dtype=np.int64),
+                 "w": rng.random(nw)}
+
+        def quick_start(env):
+            big = ct.DataFrame(ldata, env=env, device=dev)
+            other = ct.DataFrame(rdata, env=env, device=dev)
+            res = big.merge(other, on="k", env=env)
+            srt = res.sort_values("k", env=env)
+            agg = big.groupby("g", env=env).agg({"v": ["sum", "mean"]})
+            uniq = big.drop_duplicates(subset="k", env=env)
+            pdf = srt.to_pandas()   # a collective: every rank gathers
+            return {"merge": res.table, "sort": srt.table,
+                    "groupby": agg.table, "drop_duplicates": uniq.table,
+                    "pandas": pdf if env.rank == 0 else None}
+
+        ref = quick_start(ct.CylonEnv(device=dev))
+        timed = [event_wall(torch, lambda: ct.ThreadWorld(w).run(
+            lambda comm: quick_start(ct.CylonEnv(comm))))
+            for _ in range(FRAME_W4_REPEATS)]
+        names = {"merge": ["k", "v", "g", "w"],
+                 "drop_duplicates": ["k", "g", "v"]}
+
+        def matches(run) -> bool:
+            for op, cols in names.items():
+                if not all(torch.equal(a, b) for a, b in zip(
+                        row_set(torch, [r[op] for r in run], cols),
+                        row_set(torch, [ref[op]], cols))):
+                    return False
+            # the group keys exactly; the float aggregates, summed in
+            # another order over four ranks, within rtol 1e-9 (phase 9's)
+            parts = [r["groupby"] for r in run]
+            keys = torch.cat([column_of(t, "g") for t in parts])
+            order = torch.sort(keys).indices
+            if not torch.equal(keys[order], column_of(ref["groupby"], "g")):
+                return False
+            for c in ("v_sum", "v_mean"):
+                got = torch.cat([column_of(t, c) for t in parts])[order]
+                if not torch.allclose(got, column_of(ref["groupby"], c),
+                                      rtol=1e-9, atol=0):
+                    return False
+            sort_cols = ref["sort"].column_names
+            in_order = all(torch.equal(
+                torch.cat([bits_of(torch, column_of(r["sort"], c))
+                           for r in run]),
+                bits_of(torch, column_of(ref["sort"], c)))
+                for c in sort_cols)
+            pdf = run[0]["pandas"]
+            return in_order and all(np.array_equal(
+                pdf[c].to_numpy(), ref["pandas"][c].to_numpy())
+                for c in sort_cols)
+
+        ok = [matches(r) for r, _ in timed]
+        walls = [ms for _, ms in timed]
+        record("quick_start_w4", world=w, rows_per_rank=nr,
+               merge_rows=ref["merge"].num_rows, wall_ms=walls[1],
+               first_run_wall_ms=walls[0], run_walls_ms=walls,
+               runs=len(ok), runs_matching_w1=sum(ok))
+        if not all(ok):
+            fail(f"quick start W=4: {ok.count(False)} runs differ from W=1")
+        del ref, timed
+
+        # -- 3. the operator graph and the task plan
+        def graph_join():
+            graph = DisJoinOp("k")
+            for chunk in chunk_stream(lt, FRAME_CHUNK_ROWS):
+                graph.insert_left(chunk)
+            for chunk in chunk_stream(rt, FRAME_CHUNK_ROWS):
+                graph.insert_right(chunk)
+            return graph.result()
+
+        got, ms = event_wall(torch, graph_join)
+        whole = ct.dist_join(ct.CylonEnv(device=dev), lt, rt, on="k")
+        cols = whole.column_names
+        same = all(torch.equal(a, b) for a, b in zip(
+            row_set(torch, [got], cols), row_set(torch, [whole], cols)))
+        record("dis_join_op", chunks_a_side=n // FRAME_CHUNK_ROWS,
+               result_rows=got.num_rows, expected_rows=whole.num_rows,
+               wall_ms=ms, equal_to_dist_join=same)
+        if not same:
+            fail("DisJoinOp over chunks differs from one dist_join")
+        del got, whole
+
+        plan = LogicalTaskPlan.round_robin(FRAME_TASKS, w)
+        tk = torch.randint(0, nw, (nw,), dtype=torch.int64, device=dev,
+                           generator=g)
+        tt = torch.randint(0, FRAME_TASKS, (nw,), dtype=torch.int64,
+                           device=dev, generator=g)
+
+        def route(comm):
+            env = ct.CylonEnv(comm)
+            sl = slice(env.rank * nr, (env.rank + 1) * nr)
+            mine = ct.Table({"k": Column(tk[sl], None, dtypes.int64),
+                             TASK_COL: Column(tt[sl], None, dtypes.int64)},
+                            nr)
+            sh = task_shuffle(env, mine, TASK_COL, plan)
+            tasks = task_tables(env, sh, plan)
+            owner = torch.tensor(plan.worker_of(), device=dev)[
+                column_of(sh, TASK_COL)]
+            return sh, bool((owner == env.rank).all()), \
+                sum(t.num_rows for t in tasks.values())
+
+        routed, ms = event_wall(torch, lambda: ct.ThreadWorld(w).run(route))
+        whole = ct.Table({"k": Column(tk, None, dtypes.int64),
+                          TASK_COL: Column(tt, None, dtypes.int64)}, nw)
+        same = all(torch.equal(a, b) for a, b in zip(
+            row_set(torch, [r[0] for r in routed], ["k", TASK_COL]),
+            row_set(torch, [whole], ["k", TASK_COL])))
+        owned = all(r[1] for r in routed)
+        split = [r[2] for r in routed] == [r[0].num_rows for r in routed]
+        record("task_plan", world=w, tasks=FRAME_TASKS, rows=nw,
+               rank_rows=[r[0].num_rows for r in routed], wall_ms=ms,
+               same_rows=same, every_row_on_its_task_rank=owned,
+               task_tables_cover=split)
+        if not (same and owned and split):
+            fail("task_shuffle misrouted rows")
+        launches = launch_counts()
+    record("launches", launches=launches, seconds=time.perf_counter() - t0)
+    missing = [k for k in ("row_hash", "scan32", "pair_max_scan")
+               if launches[k] < 1]
+    if missing:
+        fail(f"launches {launches}: {missing} never ran")
+    return launches, rec.inputs
+
+
 # ------------------------------------------------------------ main
 def main(argv) -> int:
     import torch
@@ -2610,6 +2903,9 @@ def main(argv) -> int:
     del sort_inputs
     emit({"phase": "sort_setops_seconds",
           "seconds": time.perf_counter() - t12})
+    frame_launches, frame_inputs = frame_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "frame", frame_inputs)
+    del frame_inputs
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -2633,6 +2929,7 @@ def main(argv) -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
             "groupby_launches": groupby_launches[wrapper.__name__],
             "sort_setops_launches": sort_setops_launches[wrapper.__name__],
+            "frame_launches": frame_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -32,17 +32,33 @@ The port carries:
   ``ThreadWorld`` (W ranks as threads, for tests) and
   ``ProcessGroupComm`` over ``torch.distributed`` (NCCL on the cards,
   gloo on the CPU), which ``CylonEnv(config=DistConfig())`` sets up:
-  ``torchrun --nproc-per-node W prog.py`` runs W ranks.
+  ``torchrun --nproc-per-node W prog.py`` runs W ranks;
+- the user-facing layer: ``DataFrame`` / ``Series`` (``frame``,
+  ``series``; ``env=`` dispatches the distributed ops, and a
+  distributed frame is this rank's shard), ``loc`` / ``iloc`` over
+  value indexes (``indexing``), CSV / Parquet / JSON io (``io``), the
+  streaming operator graph (``ops_graph``), the task overlay
+  (``parallel.task_plan``), the option structs (``config``) and the
+  eager regrow ladder (``plan``).
 """
 
-from cylon_tpu_torch import dtypes
+from cylon_tpu_torch import dtypes, plan
 from cylon_tpu_torch.column import Column, Dictionary
+from cylon_tpu_torch.config import (CSVReadOptions, CSVWriteOptions,
+                                    JoinAlgorithm, JoinConfig, JoinType,
+                                    ParquetOptions)
 from cylon_tpu_torch.context import CommConfig, CylonEnv, DistConfig, \
     LocalConfig
 from cylon_tpu_torch.errors import (CylonError, DeviceUnavailable,
-                                    InvalidArgument, KeyError_,
-                                    NotImplemented_, OutOfCapacity,
-                                    TypeError_)
+                                    IndexError_, InvalidArgument, IOError_,
+                                    KeyError_, NotImplemented_,
+                                    OutOfCapacity, TypeError_)
+from cylon_tpu_torch.frame import (DataFrame, GroupByDataFrame, concat,
+                                   merge)
+from cylon_tpu_torch.indexing import IndexingType
+from cylon_tpu_torch.io import (read_csv, read_csv_chunks, read_csv_sharded,
+                                read_json, read_parquet, read_parquet_chunks,
+                                write_csv, write_csv_sharded, write_parquet)
 from cylon_tpu_torch.ops import (concat_tables, equal_tables, filter_table,
                                  groupby_aggregate, head, intersect, sample,
                                  sort_table, subtract, table_aggregate, take,
@@ -59,21 +75,29 @@ from cylon_tpu_torch.parallel import (ReduceOp, SortOptions, all_reduce,
                                       repartition, scatter_table, shuffle)
 from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm, \
     ThreadWorld
+from cylon_tpu_torch.parallel.task_plan import (LogicalTaskPlan,
+                                                task_shuffle, task_tables)
 from cylon_tpu_torch.row import Row
+from cylon_tpu_torch.series import Series
 from cylon_tpu_torch.table import Table
 
-__all__ = ["Column", "CommConfig", "CylonEnv", "CylonError",
-           "DeviceUnavailable", "Dictionary", "DistConfig",
-           "InvalidArgument", "KeyError_", "LocalComm", "LocalConfig",
-           "NotImplemented_", "OutOfCapacity", "ProcessGroupComm",
-           "ReduceOp", "Row", "SortOptions", "Table", "ThreadWorld",
-           "TypeError_", "all_reduce", "colocated_groupby",
-           "colocated_join", "colocated_unique", "concat_tables",
-           "dist_aggregate", "dist_concat", "dist_filter", "dist_groupby",
-           "dist_head", "dist_intersect", "dist_join", "dist_num_rows",
-           "dist_sort", "dist_subtract", "dist_to_pandas", "dist_union",
-           "dist_unique", "dtypes", "equal_tables", "filter_table",
-           "gather_table", "groupby_aggregate", "head", "intersect", "join",
-           "repartition", "sample", "scatter_table", "shuffle",
-           "sort_table", "subtract", "table_aggregate", "take", "union",
-           "unique"]
+__all__ = ["CSVReadOptions", "CSVWriteOptions", "Column", "CommConfig",
+           "CylonEnv", "CylonError", "DataFrame", "DeviceUnavailable",
+           "Dictionary", "DistConfig", "GroupByDataFrame", "IOError_",
+           "IndexError_", "IndexingType", "InvalidArgument", "JoinAlgorithm",
+           "JoinConfig", "JoinType", "KeyError_", "LocalComm", "LocalConfig",
+           "LogicalTaskPlan", "NotImplemented_", "OutOfCapacity",
+           "ParquetOptions", "ProcessGroupComm", "ReduceOp", "Row", "Series",
+           "SortOptions", "Table", "ThreadWorld", "TypeError_", "all_reduce",
+           "colocated_groupby", "colocated_join", "colocated_unique", "concat",
+           "concat_tables", "dist_aggregate", "dist_concat", "dist_filter",
+           "dist_groupby", "dist_head", "dist_intersect", "dist_join",
+           "dist_num_rows", "dist_sort", "dist_subtract", "dist_to_pandas",
+           "dist_union", "dist_unique", "dtypes", "equal_tables",
+           "filter_table", "gather_table", "groupby_aggregate", "head",
+           "intersect", "join", "merge", "plan", "read_csv", "read_csv_chunks",
+           "read_csv_sharded", "read_json", "read_parquet",
+           "read_parquet_chunks", "repartition", "sample", "scatter_table",
+           "shuffle", "sort_table", "subtract", "table_aggregate", "take",
+           "task_shuffle", "task_tables", "union", "unique", "write_csv",
+           "write_csv_sharded", "write_parquet"]

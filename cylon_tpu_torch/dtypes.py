@@ -102,6 +102,13 @@ class DType:
         return self.bytes_width is not None
 
     @property
+    def is_numeric(self) -> bool:
+        return self.kind in (
+            Kind.UINT8, Kind.INT8, Kind.UINT16, Kind.INT16, Kind.UINT32,
+            Kind.INT32, Kind.UINT64, Kind.INT64, Kind.HALF_FLOAT, Kind.FLOAT,
+            Kind.DOUBLE)
+
+    @property
     def is_floating(self) -> bool:
         return self.kind in (Kind.HALF_FLOAT, Kind.FLOAT, Kind.DOUBLE)
 
@@ -180,6 +187,11 @@ def from_numpy_dtype(dt) -> DType:
     if kind is None:
         raise TypeError(f"unsupported numpy dtype {dt}")
     return DType(kind)
+
+
+def from_torch_dtype(dt: torch.dtype) -> DType:
+    """Physical torch dtype -> logical DType (numeric and bool)."""
+    return from_numpy_dtype(torch.empty(0, dtype=dt).numpy().dtype)
 
 
 def from_name(name: str) -> DType:

@@ -1,6 +1,6 @@
 """Error model: the reference's ``cylon::Status`` codes as exceptions.
 
-Port of the part of ``cylon_tpu/errors.py`` that the join path raises.
+Port of the part of ``cylon_tpu/errors.py`` that the port raises.
 The :class:`Code` numbers are the reference's
 (``cpp/src/cylon/code.hpp:20-40``), so callers can switch on ``exc.code``.
 """
@@ -44,6 +44,14 @@ class KeyError_(CylonError):
 
 class TypeError_(CylonError):
     code = Code.TypeError
+
+
+class IndexError_(CylonError):
+    code = Code.IndexError
+
+
+class IOError_(CylonError):
+    code = Code.IOError
 
 
 class NotImplemented_(CylonError, NotImplementedError):

@@ -26,6 +26,7 @@ from typing import Sequence
 
 import torch
 
+from cylon_tpu_torch import plan
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
@@ -88,7 +89,8 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
     """Equi-join two tables (pandas ``merge`` semantics).
 
     ``out_capacity`` bounds the static result size (default
-    ``left.capacity + right.capacity``, enough for any 1:N join); an
+    ``left.capacity + right.capacity``, enough for any 1:N join, times
+    :func:`cylon_tpu_torch.plan.current_scale`); an
     overflow shows as ``nrows == out_capacity + 1`` and makes
     ``num_rows`` raise. ``ordered=False`` skips restoring pandas' output
     order (one stable sort of the index pairs); the row set is the same,
@@ -117,8 +119,10 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
     if left.device != right.device:
         raise InvalidArgument(f"join inputs lie on {left.device} and "
                               f"{right.device}")
-    out_cap = (left.capacity + right.capacity if out_capacity is None
-               else int(out_capacity))
+    # the default fits any 1:N join; the ambient scale (cylon_tpu_torch.plan)
+    # grows it when a caller's regrow ladder reruns the join
+    out_cap = ((left.capacity + right.capacity) * plan.current_scale()
+               if out_capacity is None else int(out_capacity))
     left, right = _aligned_keys(left, right, left_on, right_on)
     return _join(left, right, left_on, right_on, how, tuple(suffixes),
                  out_cap, ordered, _route_algorithm(algorithm, how))

@@ -41,15 +41,13 @@ from cylon_tpu_torch.parallel.dtable import shard_sizes, world_layout, \
     world_layout_sized
 from cylon_tpu_torch.parallel.shuffle import checked_recv, \
     exchange_arrays, poison, shuffle_local
+from cylon_tpu_torch.plan import MAX_SCALE
 from cylon_tpu_torch.utils import pow2_bucket
 
 #: default headroom factor for post-shuffle local buffers (hash
 #: partitioning of uniform keys is balanced; skew beyond 2x should pass
 #: an explicit out_capacity)
 DEFAULT_SKEW = 2
-#: the regrow ladder's top: capacities double up to this multiple of the
-#: default before the overflow is raised
-MAX_SCALE = 1024
 
 
 def _tight_rows_local(env, sizes, enabled: bool = True):

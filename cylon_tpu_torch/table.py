@@ -23,6 +23,7 @@ import torch
 from cylon_tpu_torch import device as _device
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument, KeyError_, OutOfCapacity
+from cylon_tpu_torch.utils import pow2_bucket
 
 
 class Table:
@@ -78,9 +79,62 @@ class Table:
             raise KeyError_(f"no column {name!r}; have {self.column_names}")
         return self._columns[name]
 
-    # -- schema ops ------------------------------------------------------
+    @property
+    def num_columns(self) -> int:
+        return len(self._columns)
+
+    @property
+    def column_count(self) -> int:
+        return self.num_columns
+
+    @property
+    def row_count(self) -> int:
+        """Alias of :attr:`num_rows` (table.pyx ``row_count``)."""
+        return self.num_rows
+
+    @property
+    def schema(self) -> dict:
+        """name -> logical dtype (parity: table.pyx ``schema``)."""
+        return {n: c.dtype for n, c in self._columns.items()}
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return self.column(key)
+        if isinstance(key, (list, tuple)):
+            return self.select(key)
+        raise KeyError_(f"bad key {key!r}")
+
+    def __contains__(self, name):
+        return name in self._columns
+
+    def row_mask(self) -> torch.Tensor:
+        """[capacity] bool: True for real rows."""
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.nrows
+
+    # -- schema ops (parity: table.pyx project/rename/drop) --------------
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self.column(n) for n in names}, self.nrows)
+
+    def project(self, cols: Sequence) -> "Table":
+        """Select columns by index or name (parity: ``Project``)."""
+        return self.select([self.column_names[c] if isinstance(c, int)
+                            else c for c in cols])
+
+    def rename(self, mapping: Mapping[str, str]) -> "Table":
+        return Table({mapping.get(n, n): c for n, c in self._columns.items()},
+                     self.nrows)
+
+    def drop(self, names: Sequence[str]) -> "Table":
+        names = set(names)
+        return Table({n: c for n, c in self._columns.items()
+                      if n not in names}, self.nrows)
+
+    def add_prefix(self, prefix: str) -> "Table":
+        return self.rename({n: prefix + n for n in self.column_names})
+
+    def add_suffix(self, suffix: str) -> "Table":
+        return self.rename({n: n + suffix for n in self.column_names})
 
     def add_column(self, name: str, col: Column) -> "Table":
         out = collections.OrderedDict(self._columns)
@@ -112,6 +166,26 @@ class Table:
                     else c.validity[:capacity]
             cols[n] = Column(data, validity, c.dtype, c.dictionary)
         return Table(cols, torch.clamp(self.nrows, max=capacity))
+
+    def shrink_to_fit(self, min_capacity: int = 1024,
+                      only_above: int = 1 << 16) -> "Table":
+        """Trim the capacity to the power-of-two bucket of the row count
+        (``cylon_tpu/table.py:141``): a selective filter or join leaves
+        the buffer mostly padding, and the sorts downstream cost
+        O(capacity log capacity) whatever the real rows. One host sync
+        and a copy of the kept prefix; tables of capacity at most
+        ``only_above`` are left alone, and so is an overflowed table
+        (its mark must reach the host check that reports it)."""
+        if self.capacity <= only_above:
+            return self
+        try:
+            n = self.num_rows
+        except OutOfCapacity:
+            return self
+        bucket = pow2_bucket(n, min_capacity)
+        if bucket < self.capacity:
+            return self.with_capacity(bucket)
+        return self
 
     # -- host bridges ----------------------------------------------------
     @staticmethod
@@ -179,6 +253,117 @@ class Table:
         return Table(cols, torch.tensor(len(df), dtype=torch.int32,
                                         device=dev))
 
+    @staticmethod
+    def from_arrow(atable, capacity: "int | None" = None, device=None,
+                   string_storage="dict") -> "Table":
+        """pyarrow Table -> Table (``cylon_tpu/table.py:217``; parity
+        ``table.pyx`` from_arrow). Nullable integer and bool columns keep
+        their type and carry Arrow's null mask as validity."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        dev = _device.resolve(device)
+        cols = {}
+        for name in atable.column_names:
+            arr = atable.column(name).combine_chunks()
+            if pa.types.is_string(arr.type) \
+                    or pa.types.is_large_string(arr.type):
+                cols[str(name)] = Column.from_numpy(
+                    arr.to_numpy(zero_copy_only=False), capacity,
+                    device=dev,
+                    string_storage=Table._storage_of(string_storage,
+                                                     str(name)))
+                continue
+            if arr.null_count and (pa.types.is_integer(arr.type)
+                                   or pa.types.is_boolean(arr.type)):
+                isnull = arr.is_null().to_numpy(zero_copy_only=False)
+                fill = False if pa.types.is_boolean(arr.type) else 0
+                col = Column.from_numpy(
+                    pc.fill_null(arr, fill).to_numpy(zero_copy_only=False),
+                    capacity, device=dev)
+                v = np.zeros(col.capacity, dtype=bool)
+                v[:len(isnull)] = ~isnull
+                col = Column(col.data, _device.from_host(v, dev), col.dtype,
+                             col.dictionary)
+            else:
+                col = Column.from_numpy(arr.to_numpy(zero_copy_only=False),
+                                        capacity, device=dev)
+            cols[str(name)] = col
+        return Table(cols, torch.tensor(atable.num_rows, dtype=torch.int32,
+                                        device=dev))
+
+    @staticmethod
+    def from_list(col_names: Sequence[str], cols: Sequence,
+                  device=None) -> "Table":
+        """Build from a column-major list of lists (parity: table.pyx
+        ``from_list``)."""
+        return Table.from_numpy(col_names, cols, device=device)
+
+    # -- thin op surface (parity: table.pyx methods) ---------------------
+    def filter(self, mask) -> "Table":
+        """Keep rows where ``mask`` holds (compacted)."""
+        from cylon_tpu_torch.ops.selection import filter_table
+
+        return filter_table(self, mask)
+
+    def sort(self, by, ascending=True) -> "Table":
+        from cylon_tpu_torch.ops.selection import sort_table
+
+        by = [by] if isinstance(by, str) else list(by)
+        return sort_table(self, by, ascending=ascending)
+
+    def join(self, right: "Table", **kw) -> "Table":
+        from cylon_tpu_torch.ops.join import join
+
+        return join(self, right, **kw)
+
+    def union(self, other: "Table", out_capacity=None) -> "Table":
+        from cylon_tpu_torch.ops import setops
+
+        if out_capacity is None:
+            out_capacity = self.capacity + other.capacity
+        return setops.union(self, other, out_capacity)
+
+    def intersect(self, other: "Table", out_capacity=None) -> "Table":
+        from cylon_tpu_torch.ops import setops
+
+        return setops.intersect(self, other, out_capacity or self.capacity)
+
+    def subtract(self, other: "Table", out_capacity=None) -> "Table":
+        from cylon_tpu_torch.ops import setops
+
+        return setops.subtract(self, other, out_capacity or self.capacity)
+
+    def unique(self, cols=None, keep: str = "first") -> "Table":
+        from cylon_tpu_torch.ops import setops
+
+        return setops.unique(self, cols, keep=keep)
+
+    def show(self, n: int = 10) -> None:
+        """Print the first ``n`` rows (parity: table.pyx ``show``)."""
+        print(self.to_string(n))
+
+    def to_string(self, n: "int | None" = None) -> str:
+        from cylon_tpu_torch.ops.selection import head
+
+        t = self if n is None else head(self, n)
+        return t.to_pandas().to_string()
+
+    def to_csv(self, path, **kw) -> None:
+        from cylon_tpu_torch.io import write_csv
+
+        write_csv(self, path, **kw)
+
+    def iterrows(self):
+        """Host Rows, one fetch of every column first."""
+        from cylon_tpu_torch.row import Row
+
+        names = list(self._columns)
+        mats = list(self._host_columns().values())
+        for i in range(len(mats[0]) if mats else 0):
+            yield Row(names, [m[i].item() if hasattr(m[i], "item")
+                              else m[i] for m in mats])
+
     def _host_columns(self) -> "collections.OrderedDict[str, np.ndarray]":
         """Every column's valid prefix decoded on the host. Raises
         OutOfCapacity like :attr:`num_rows`."""
@@ -197,6 +382,18 @@ class Table:
         import pandas as pd
 
         return pd.DataFrame(self._host_columns())
+
+    def to_pydict(self) -> dict:
+        return {name: a.tolist() for name, a in self._host_columns().items()}
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.table(dict(self._host_columns()))
+
+    def to_numpy(self) -> np.ndarray:
+        """[nrows, ncols] host matrix (parity: table.pyx to_numpy)."""
+        return np.stack(list(self._host_columns().values()), axis=1)
 
     def row(self, i: int):
         """Typed host view of row ``i`` (parity: ``cylon::Row``,

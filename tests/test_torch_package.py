@@ -137,6 +137,15 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.ops.partition:modulo_partition_ids",
     "cylon_tpu_torch.column:Dictionary.value_hashes",
     "cylon_tpu_torch.context:DistConfig",
+    "cylon_tpu_torch.plan:regrow_eager",
+    "cylon_tpu_torch.plan:capacity_scale",
+    "cylon_tpu_torch.table:Table.shrink_to_fit",
+    "cylon_tpu_torch.table:Table.from_arrow",
+    "cylon_tpu_torch.config:JoinConfig",
+    "cylon_tpu_torch.config:CSVReadOptions",
+    "cylon_tpu_torch.config:ParquetOptions",
+    "cylon_tpu_torch.io:_exchange_meta",
+    "cylon_tpu_torch.series:_StrAccessor",
 )
 
 
@@ -154,9 +163,42 @@ def test_new_function_names_its_cylon_tpu_counterpart(name):
 def test_public_names_of_the_slice_are_exported():
     for name in ("shuffle", "repartition", "dist_groupby", "dist_aggregate",
                  "groupby_aggregate", "table_aggregate", "ProcessGroupComm",
-                 "DistConfig", "LocalConfig"):
+                 "DistConfig", "LocalConfig",
+                 # the user-facing layer (ROADMAP A5)
+                 "DataFrame", "GroupByDataFrame", "Series", "merge",
+                 "concat", "read_csv", "read_csv_sharded", "read_csv_chunks",
+                 "read_parquet", "read_parquet_chunks", "read_json",
+                 "write_csv", "write_csv_sharded", "write_parquet",
+                 "CSVReadOptions", "CSVWriteOptions", "ParquetOptions",
+                 "JoinConfig", "JoinType", "JoinAlgorithm", "IndexingType",
+                 "LogicalTaskPlan", "task_shuffle", "task_tables",
+                 "IndexError_", "IOError_"):
         assert name in cylon_tpu_torch.__all__, name
         assert getattr(cylon_tpu_torch, name) is not None
+    import cylon_tpu
+
+    # every one of them that the JAX package exports, it exports too
+    for name in ("DataFrame", "Series", "merge", "concat", "read_csv",
+                 "read_csv_sharded", "read_csv_chunks", "read_parquet_chunks",
+                 "write_csv_sharded", "CSVReadOptions", "ParquetOptions",
+                 "JoinConfig", "IndexingType"):
+        assert name in cylon_tpu.__all__, name
+
+
+def test_chip_smoke_drives_the_frame_phase():
+    """``chip_smoke.py`` names phase 13 in its docstring, runs it after
+    phase 12, holds its kernels against their plain versions, and puts
+    its launches in the kernels line."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    doc = ast.get_docstring(tree)
+    assert "13. frame" in doc
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "frame_phase" in funcs
+    main = src[src.index("def main("):]
+    assert main.index("sort_setops_phase(") < main.index("frame_phase(") \
+        < main.index('path_kernel_phase(torch, rate, stats, "frame"')
+    assert '"frame_launches"' in main
 
 
 def test_no_kernel_takes_the_pointer_of_a_temporary_tensor():
