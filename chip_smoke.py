@@ -93,11 +93,20 @@ Phases, each printing one JSON line:
     ``row_hash``, ``scan32`` and ``pair_max_scan`` at the shapes this
     phase gave them, as in phase 10. Every line of the phase carries the
     card's name and power limit; see :func:`frame_phase`.
+14. tpch: whole TPC-H queries through ``cylon_tpu_torch.tpch``: all 22
+    at SF 1 (each equal to the port's run on the CPU), BASELINE.json's
+    configuration 5 cut to one card (Q3 and Q5 at SF 10, eager and
+    ``tpch.compiled``, bit for bit each other and equal to a pandas
+    oracle), six queries at W = 4 on ``ThreadWorld`` against W = 1 in 4
+    runs; then ``row_hash``, ``scan32`` and ``pair_max_scan`` at the
+    shapes this phase gave them, as in phase 10. Every line of the phase
+    carries the card's name and power limit; see :func:`tpch_phase`.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
-``sort_setops_launches`` and ``frame_launches``, on phase 9's group-by
-calls, phase 12's calls and phase 13's), the ``nvidia-smi`` line again,
+``sort_setops_launches``, ``frame_launches`` and ``tpch_launches``, on
+phase 9's group-by calls, phase 12's calls, phase 13's and phase 14's),
+the ``nvidia-smi`` line again,
 and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 run away from the repository, it exits non-zero and prints no result.
@@ -1025,7 +1034,7 @@ def bench_phase(torch, profile: bool):
     return launches
 
 
-def profile_call(torch, phase: str, fn):
+def profile_call(torch, phase: str, fn, card: "str | None" = None):
     """One call of ``fn`` (a bench stage, a hash join) under
     torch.profiler: device time by kernel and the device's busy share of
     the call's wall time (the union of the kernels' intervals; the
@@ -1051,6 +1060,8 @@ def profile_call(torch, phase: str, fn):
            "kernel_launches": len(spans),
            "top": [{"name": name[:90], "ms": us / 1e3, "calls": c}
                    for name, (us, c) in top[:20]]}
+    if card is not None:
+        row["card"] = card
     emit(row)
     return row
 
@@ -2148,7 +2159,8 @@ class PathInputs:
         okernels.scan, ohash.row_hash = self._saved
 
 
-def path_kernel_phase(torch, rate, stats, path: str, inputs: dict) -> None:
+def path_kernel_phase(torch, rate, stats, path: str, inputs: dict,
+                      card: "str | None" = None) -> None:
     """Each kernel against its plain version at every shape a path gave
     it (:class:`PathInputs`), untimed: on the input the path gave it,
     and for ``scan32``'s int32 add also on 0/1 flags and on counts in
@@ -2156,7 +2168,8 @@ def path_kernel_phase(torch, rate, stats, path: str, inputs: dict) -> None:
     ``row_hash`` on random words of the path's width, for
     ``pair_max_scan`` on :func:`pair_inputs`' edge cases. Bit for bit
     (float32 adds within ``F32_ADD_RTOL``). The rows join ``stats``, so
-    the ``kernels`` line's mismatches count them."""
+    the ``kernels`` line's mismatches count them. With ``card``
+    (the card's name and power limit) each row carries it."""
     from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
 
     g = None
@@ -2218,6 +2231,8 @@ def path_kernel_phase(torch, rate, stats, path: str, inputs: dict) -> None:
                    "name": f"{name}/{case}", "n": n, "mismatches": bad,
                    "max_abs_err": err, "tolerance": rtol,
                    "bound_us": nbytes / rate * 1e6, **extra}
+            if card is not None:
+                row["card"] = card
             emit(row)
             if bad:
                 raise SystemExit(f"{name}/{case} at n={n} on the {path} "
@@ -2853,6 +2868,347 @@ def frame_phase(torch, card: str, dev="cuda") -> tuple:
     return launches, rec.inputs
 
 
+# ------------------------------------------------------------ phase 14
+#: part (a): all 22 queries at this scale factor (lineitem about 6M rows)
+TPCH_SF = 1.0
+#: part (b): BASELINE.json's configuration 5, TPC-H SF 100 Q3/Q5 over ten
+#: cards, at one card's share
+TPCH_BASELINE_SF = 10.0
+TPCH_BASELINE_QUERIES = ("q3", "q5")
+#: part (c): the SPMD runs at W = 4 on ThreadWorld
+TPCH_W4_SF = 0.1
+TPCH_W4_QUERIES = ("q1", "q3", "q5", "q6", "q16", "q22")
+TPCH_W4_REPEATS = 4
+TPCH_SEED = 0
+TPCH_RTOL = 1e-9
+#: traced under ``--profile``: the slowest SF 1 queries on an H100 (q22's
+#: time is host time, q21's and q1's device time)
+TPCH_PROFILED = ("q1", "q21", "q22")
+
+
+def manifest_keep(manifest, queries) -> dict:
+    """The generator's ``keep`` for ``queries``: the union of their
+    manifest column sets, by table."""
+    keep = {}
+    for qn in queries:
+        for t, cols in manifest[qn].items():
+            keep.setdefault(t, set()).update(cols)
+    return keep
+
+
+def host_result(out):
+    """A query's result on the host: a pandas frame (a collective on a
+    distributed frame) or a float."""
+    return out.to_pandas() if hasattr(out, "to_pandas") else float(out)
+
+
+def results_match(np, got, want, rtol: float = TPCH_RTOL) -> bool:
+    """Two query results agree: scalars within ``rtol``; frames with the
+    same columns and rows, integer, date and string columns exactly,
+    floats within ``rtol``, in order, or, where ties in the final sort
+    permuted rows, as sorted rows (``tests/test_tpch.py:_frame_close``)."""
+    if not hasattr(want, "columns"):
+        return bool(np.isclose(got, want, rtol=rtol, atol=0.0,
+                               equal_nan=True))
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        return False
+
+    def close(g, w):
+        for c in w.columns:
+            a, b = g[c].to_numpy(), w[c].to_numpy()
+            if a.dtype.kind == "f" or b.dtype.kind == "f":
+                if not np.allclose(a.astype(np.float64),
+                                   b.astype(np.float64), rtol=rtol,
+                                   atol=0.0, equal_nan=True):
+                    return False
+            elif list(a) != list(b):
+                return False
+        return True
+
+    g, w = got.reset_index(drop=True), want.reset_index(drop=True)
+    if close(g, w):
+        return True
+    cols = list(w.columns)
+    return close(g.sort_values(cols).reset_index(drop=True),
+                 w.sort_values(cols).reset_index(drop=True))
+
+
+def tpch_q3_pandas(pdfs, date_int, segment="BUILDING", cutoff=None,
+                   limit=10):
+    """TPC-H Q3 in pandas (a copy of ``tests/test_tpch.py:q3_pandas``)."""
+    if cutoff is None:
+        cutoff = date_int(1995, 3, 15)
+    c = pdfs["customer"]
+    o = pdfs["orders"]
+    l = pdfs["lineitem"]
+    c = c[c.c_mktsegment == segment]
+    o = o[o.o_orderdate < cutoff]
+    l = l[l.l_shipdate > cutoff].copy()
+    l["revenue"] = l.l_extendedprice * (1 - l.l_discount)
+    j = l.merge(o.merge(c, left_on="o_custkey", right_on="c_custkey"),
+                left_on="l_orderkey", right_on="o_orderkey")
+    g = (j.groupby(["l_orderkey", "o_orderdate", "o_shippriority"],
+                   as_index=False)["revenue"].sum())
+    g = g.sort_values(["revenue", "o_orderdate"],
+                      ascending=[False, True]).head(limit)
+    return g[["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]]
+
+
+def tpch_q5_pandas(pdfs, date_int, region="ASIA", date_from=None,
+                   date_to=None):
+    """TPC-H Q5 in pandas (a copy of ``tests/test_tpch.py:q5_pandas``)."""
+    if date_from is None:
+        date_from = date_int(1994, 1, 1)
+    if date_to is None:
+        date_to = date_int(1995, 1, 1)
+    r = pdfs["region"]
+    n = pdfs["nation"]
+    s = pdfs["supplier"]
+    c = pdfs["customer"]
+    o = pdfs["orders"]
+    l = pdfs["lineitem"].copy()
+    l["revenue"] = l.l_extendedprice * (1 - l.l_discount)
+    r = r[r.r_name == region]
+    nat = n.merge(r, left_on="n_regionkey", right_on="r_regionkey")
+    sup = s.merge(nat, left_on="s_nationkey", right_on="n_nationkey")
+    o = o[(o.o_orderdate >= date_from) & (o.o_orderdate < date_to)]
+    j = (l.merge(o.merge(c, left_on="o_custkey", right_on="c_custkey"),
+                 left_on="l_orderkey", right_on="o_orderkey")
+          .merge(sup, left_on="l_suppkey", right_on="s_suppkey"))
+    j = j[j.c_nationkey == j.s_nationkey]
+    g = j.groupby("n_name", as_index=False)["revenue"].sum()
+    return g.sort_values("revenue", ascending=False)[["n_name", "revenue"]]
+
+
+def q3_matches(np, got, want) -> bool:
+    """``tests/test_tpch.py:_assert_q3_equal`` as a predicate: the
+    revenue order holds (ties may permute), and the rows by their group
+    keys are the oracle's."""
+    if len(got) != len(want):
+        return False
+    rev = got.revenue.to_numpy()
+    if not np.all(np.diff(rev) <= 1e-9 * np.abs(rev[:-1]) + 1e-9):
+        return False
+    keys = ["l_orderkey", "o_orderdate", "o_shippriority"]
+    g = got.sort_values(keys).reset_index(drop=True)
+    w = want.sort_values(keys).reset_index(drop=True)
+    return all(list(g[c]) == list(w[c]) for c in keys) and np.allclose(
+        g.revenue.to_numpy(), w.revenue.to_numpy(), rtol=TPCH_RTOL, atol=0)
+
+
+def timed_calls(torch, fn):
+    """``(second result, first wall ms, second wall ms, second call's peak
+    bytes, bytes allocated before it)``: two calls between CUDA events,
+    the peak counter reset before the second."""
+    _, first = event_wall(torch, fn)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, second = event_wall(torch, fn)
+    return out, first, second, torch.cuda.max_memory_allocated(), resident
+
+
+def tpch_phase(torch, card: str, profile: bool = False,
+               dev="cuda") -> tuple:
+    """Whole TPC-H queries through the port's entry points
+    (``cylon_tpu_torch.tpch``), each result checked; every JSON line
+    carries the card's name and power limit (``card``):
+
+    (a) all 22 queries at :data:`TPCH_SF`, eager, W = 1, default
+        parameters, on tables generated with ``keep`` the union of the
+        manifest's column sets and ingested once (``tpch.ingest``): each
+        query's second call timed by CUDA events with its peak memory,
+        and its result equal to the same query run by the port on the
+        CPU (the plain versions) on the same data
+        (:func:`results_match`);
+    (b) BASELINE.json's configuration 5 cut to one card: Q3 and Q5 at
+        :data:`TPCH_BASELINE_SF`, each eagerly and through
+        ``tpch.compiled``, the compiled result bit for bit the eager one
+        and both equal to a pandas oracle of the SQL; host seconds of
+        generation and ingest apart;
+    (c) q1, q3, q5, q6, q16 and q22 at :data:`TPCH_W4_SF` at W = 4 on
+        ``ThreadWorld``, every rank calling the query with the same
+        frames, :data:`TPCH_W4_REPEATS` runs each equal to W = 1 (q22's
+        orders cut to 5 %, so that idle customers exist);
+    (d) the launch counters zeroed before and read after: ``row_hash``
+        (in part (c)), ``scan32`` and ``pair_max_scan`` must each have
+        run, the bucket kernels never.
+
+    With ``profile``, :data:`TPCH_PROFILED` at SF 1 and Q3 and Q5 at
+    SF 10 are traced once more (:func:`profile_call`).
+
+    Returns ``(launches, the inputs the kernels met)`` for
+    :func:`path_kernel_phase`."""
+    import numpy as np
+    import pandas as pd
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    queries = [f"q{i}" for i in range(1, 23)]
+    t0 = time.perf_counter()
+
+    def record(part, case, **fields):
+        row = {"phase": "tpch", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t0}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"tpch: {msg}")
+
+    def rows_of(out):
+        return len(out) if hasattr(out, "to_pandas") else 1
+
+    def generate(sf, names):
+        """``(data, frames, {"generate": s, "ingest": s, table: s})``:
+        generation and each table's ingest in host seconds."""
+        t = time.perf_counter()
+        data = tpch.generate(sf, TPCH_SEED, keep=manifest_keep(MANIFEST,
+                                                              names))
+        secs = {"generate": time.perf_counter() - t}
+        frames = {}
+        for name, cols in data.items():
+            t = time.perf_counter()
+            frames.update(tpch.ingest({name: cols}, device=dev))
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+        secs["ingest"] = sum(v for k, v in secs.items() if k != "generate")
+        return data, frames, secs
+
+    rec = PathInputs()
+    reset_launches()
+
+    # -- (a) all 22 queries at SF 1 against the port on the CPU
+    data, frames, secs = generate(TPCH_SF, queries)
+    record("a", "data", sf=TPCH_SF, host_s=secs,
+           lineitem_rows=len(data["lineitem"]["l_orderkey"]),
+           resident_bytes=torch.cuda.memory_allocated())
+    card_out = {}
+    with rec:
+        for qn in queries:
+            q = getattr(tpch, qn)
+            out, first, ms, peak, resident = timed_calls(
+                torch, lambda: q(frames))
+            card_out[qn] = host_result(out)
+            record("a", qn, wall_ms=ms, first_wall_ms=first,
+                   peak_bytes=peak, resident_bytes=resident,
+                   result_rows=rows_of(out))
+            del out
+    if profile:
+        # where the slowest queries' time goes
+        for qn in TPCH_PROFILED:
+            q = getattr(tpch, qn)
+            profile_call(torch, f"tpch_profile_{qn}", lambda: q(frames),
+                         card=card)
+    del frames
+    cpu_frames = tpch.ingest(data, device="cpu")
+    del data
+    t = time.perf_counter()
+    bad = []
+    for qn in queries:
+        want = host_result(getattr(tpch, qn)(cpu_frames))
+        if not results_match(np, card_out[qn], want):
+            bad.append(qn)
+    record("a", "equal_to_cpu", queries=len(queries),
+           matching=len(queries) - len(bad), differing=bad,
+           cpu_host_s=time.perf_counter() - t)
+    if bad:
+        fail(f"SF {TPCH_SF}: {bad} differ from the port on the CPU")
+    del cpu_frames, card_out
+    torch.cuda.empty_cache()
+
+    # -- (b) BASELINE.json configuration 5 at one card's share
+    data, frames, secs = generate(TPCH_BASELINE_SF, TPCH_BASELINE_QUERIES)
+    li = data["lineitem"]
+    record("b", "data", sf=TPCH_BASELINE_SF, host_s=secs,
+           lineitem_rows=len(li["l_orderkey"]),
+           lineitem_columns=sorted(li),
+           resident_bytes=torch.cuda.memory_allocated())
+    pdfs = {k: pd.DataFrame(v) for k, v in data.items()}
+    del data, li
+    oracles = {"q3": tpch_q3_pandas, "q5": tpch_q5_pandas}
+    for qn in TPCH_BASELINE_QUERIES:
+        q, cq = getattr(tpch, qn), tpch.compiled(qn)
+        with rec:
+            eager, e_first, e_ms, e_peak, resident = timed_calls(
+                torch, lambda: q(frames))
+            comp, c_first, c_ms, c_peak, _ = timed_calls(
+                torch, lambda: cq(frames))
+        same = same_bits(torch, eager.table, comp.table)
+        got = eager.to_pandas()
+        t = time.perf_counter()
+        want = oracles[qn](pdfs, tpch.date_int)
+        oracle_s = time.perf_counter() - t
+        ok = q3_matches(np, got, want) if qn == "q3" \
+            else results_match(np, got.reset_index(drop=True),
+                               want.reset_index(drop=True))
+        record("b", qn, eager_wall_ms=e_ms, eager_first_wall_ms=e_first,
+               compiled_wall_ms=c_ms, compiled_first_wall_ms=c_first,
+               eager_peak_bytes=e_peak, compiled_peak_bytes=c_peak,
+               resident_bytes=resident, result_rows=len(got),
+               compiled_equal_bits=same, equal_to_pandas=ok,
+               pandas_host_s=oracle_s)
+        if not (same and ok):
+            fail(f"SF {TPCH_BASELINE_SF} {qn}: compiled equal {same}, "
+                 f"pandas equal {ok}")
+        del eager, comp
+        if profile:
+            profile_call(torch, f"tpch_profile_sf10_{qn}",
+                         lambda: q(frames), card=card)
+    del frames, pdfs
+    torch.cuda.empty_cache()
+
+    # -- (c) SPMD at W = 4 against W = 1
+    w = GROUPBY_WORLD
+    data, frames, _ = generate(TPCH_W4_SF, TPCH_W4_QUERIES)
+    n_keep = max(len(data["orders"]["o_custkey"]) // 20, 1)
+    idle = dict(data, orders={k: v[:n_keep]
+                              for k, v in data["orders"].items()})
+    inputs = {qn: frames for qn in TPCH_W4_QUERIES}
+    inputs["q22"] = tpch.ingest(idle, device=dev)
+    codes = tuple(sorted({p[:2] for p in data["customer"]["c_phone"]}))
+    kwargs = {qn: {} for qn in TPCH_W4_QUERIES}
+    kwargs["q22"] = {"codes": codes}
+    del data, idle
+    before_c = launch_counts()
+    with rec:
+        for qn in TPCH_W4_QUERIES:
+            q, fr, kw = getattr(tpch, qn), inputs[qn], kwargs[qn]
+            ref = host_result(q(fr, env=ct.CylonEnv(device=dev), **kw))
+            timed = [event_wall(torch, lambda: ct.ThreadWorld(w).run(
+                lambda comm: host_result(q(
+                    fr, env=ct.CylonEnv(comm, device=dev), **kw))))
+                for _ in range(TPCH_W4_REPEATS)]
+            ok = [all(results_match(np, r, ref) for r in res)
+                  for res, _ in timed]
+            walls = [ms for _, ms in timed]
+            record("c", qn, world=w, sf=TPCH_W4_SF,
+                   result_rows=len(ref) if hasattr(ref, "columns") else 1,
+                   wall_ms=walls[1], first_run_wall_ms=walls[0],
+                   run_walls_ms=walls, runs=len(ok),
+                   runs_matching_w1=sum(ok))
+            if not all(ok):
+                fail(f"{qn} W=4: {ok.count(False)} runs differ from W=1")
+    launches = launch_counts()
+    hashed_c = launches["row_hash"] - before_c["row_hash"]
+    del inputs, frames
+    torch.cuda.empty_cache()
+    record("d", "launches", launches=launches, row_hash_in_part_c=hashed_c,
+           seconds=time.perf_counter() - t0)
+    missing = [k for k in ("row_hash", "scan32", "pair_max_scan")
+               if launches[k] < 1]
+    if missing or hashed_c < 1:
+        fail(f"launches {launches}: {missing} never ran "
+             f"(row_hash in part (c): {hashed_c})")
+    if launches["bucket_build"] or launches["bucket_probe"]:
+        fail(f"launches {launches}: the bucket kernels ran on a path "
+             "whose joins are sort joins")
+    return launches, rec.inputs
+
+
 # ------------------------------------------------------------ main
 def main(argv) -> int:
     import torch
@@ -2906,6 +3262,13 @@ def main(argv) -> int:
     frame_launches, frame_inputs = frame_phase(torch, card)
     path_kernel_phase(torch, rate, stats, "frame", frame_inputs)
     del frame_inputs
+    t14 = time.perf_counter()
+    tpch_launches, tpch_inputs = tpch_phase(torch, card,
+                                            "--profile" in argv)
+    path_kernel_phase(torch, rate, stats, "tpch", tpch_inputs, card=card)
+    del tpch_inputs
+    emit({"phase": "tpch_seconds", "card": card,
+          "seconds": time.perf_counter() - t14})
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -2930,6 +3293,7 @@ def main(argv) -> int:
             "groupby_launches": groupby_launches[wrapper.__name__],
             "sort_setops_launches": sort_setops_launches[wrapper.__name__],
             "frame_launches": frame_launches[wrapper.__name__],
+            "tpch_launches": tpch_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -63,7 +63,10 @@ class CylonEnv:
     process group unless one exists and, on CUDA, makes the device
     ``LOCAL_RANK`` names the current one. ``device`` is the rank's device
     (``None``: CUDA), where the default backend comes from. NCCL without
-    a card raises :class:`DeviceUnavailable`: it never becomes gloo."""
+    a card raises :class:`DeviceUnavailable`: it never becomes gloo.
+    :attr:`device` is where an entry point that builds tables from host
+    data for this env (the TPC-H queries given a raw mapping) puts
+    them."""
 
     def __init__(self, comm=None, *, config: "CommConfig | None" = None,
                  device=None):
@@ -73,6 +76,7 @@ class CylonEnv:
             raise InvalidArgument("CylonEnv: pass a config or a comm, "
                                   "not both")
         self._owns_group = False
+        self._device = device
         if comm is None and isinstance(config, DistConfig):
             comm = self._join_group(config, device)
         elif comm is None and config is not None \
@@ -105,6 +109,12 @@ class CylonEnv:
                 rank=-1 if config.rank is None else config.rank)
             self._owns_group = True
         return ProcessGroupComm()
+
+    @property
+    def device(self) -> torch.device:
+        """The rank's device, resolved when read (``None``: CUDA, which
+        raises :class:`DeviceUnavailable` without a card)."""
+        return _device.resolve(self._device)
 
     @property
     def world_size(self) -> int:

@@ -8,7 +8,7 @@ all-reduce across ranks.
 
 import torch
 
-from cylon_tpu_torch import dtypes
+from cylon_tpu_torch import dtypes, plan
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.selection import _null_flags
@@ -80,11 +80,16 @@ def table_aggregate(table, col: str, op: str, quantile: float = 0.5):
     ``cylon_tpu/ops/aggregates.py:46``): a 0-d tensor on the table's
     device. An overflowed input (``nrows > capacity``) gives NaN for a
     float result and ``iinfo.min`` for an integer one (False for bool),
-    never a plausible number."""
+    never a plausible number, and registers its flag with the enclosing
+    :class:`~cylon_tpu_torch.plan.CompiledQuery`
+    (:func:`~cylon_tpu_torch.plan.note_overflow`), which then regrows or
+    raises instead of returning the poison."""
     if op not in AGGS:
         raise InvalidArgument(f"unknown aggregate {op!r}")
     c = table.column(col)
     cap = table.capacity
+    bad = table.nrows > cap
+    plan.note_overflow(bad)
     vmask = kernels.valid_mask(cap, table.nrows, c.data.device)
     nulls = _null_flags(c)
     ok = vmask if nulls is None else vmask & (nulls == 0)
@@ -107,7 +112,7 @@ def table_aggregate(table, col: str, op: str, quantile: float = 0.5):
         s = vals.sum()
         val = _moments(op, s, n,
                       None if op == "mean" else (vals * vals).sum())
-    return _poisoned(val, table.nrows > cap)
+    return _poisoned(val, bad)
 
 
 def _moments(op: str, s, n, sq=None):

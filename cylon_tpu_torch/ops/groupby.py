@@ -18,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from cylon_tpu_torch import dtypes
+from cylon_tpu_torch import dtypes, plan
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity, TypeError_
 from cylon_tpu_torch.ops import kernels
@@ -70,7 +70,14 @@ def groupby_aggregate(table: Table, by: Sequence[str], aggs,
         return min(cap, max(8192, cap // 16) * scale)
 
     key = (cap, by_t, aggs_t)
-    scale = _EAGER_SCALE_MEMO.get(key, 1)
+    # from the ambient scale too (``cylon_tpu/ops/groupby.py:140``). The
+    # settled scale is not reported to an enclosing CompiledQuery: its
+    # optimistic bound is another ladder than the joins' and exchanges',
+    # and one scale for all would grow every join buffer by the group
+    # bound's factor. The memo keeps only what this ladder climbed to,
+    # never an ambient floor: a compiled query that regrew its joins
+    # says nothing of this group count
+    start = scale = max(plan.current_scale(), _EAGER_SCALE_MEMO.get(key, 1))
     while True:
         t = dispatch(bound(scale))
         try:
@@ -82,7 +89,8 @@ def groupby_aggregate(table: Table, by: Sequence[str], aggs,
                 return t
             scale *= 2
             continue
-        _EAGER_SCALE_MEMO[key] = scale
+        if scale > start:
+            _EAGER_SCALE_MEMO[key] = scale
         return t
 
 

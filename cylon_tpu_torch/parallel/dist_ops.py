@@ -25,7 +25,7 @@ from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity, TypeError_
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.aggregates import (AGGS, _masked_quantile,
                                             _masked_extreme, _masked_sum,
-                                            _moments)
+                                            _moments, _poisoned)
 from cylon_tpu_torch.ops.groupby import groupby_aggregate
 from cylon_tpu_torch.ops.hash import paired_validities, partition_ids
 from cylon_tpu_torch.ops.join import _aligned_keys, join as _join_fn
@@ -41,6 +41,7 @@ from cylon_tpu_torch.parallel.dtable import shard_sizes, world_layout, \
     world_layout_sized
 from cylon_tpu_torch.parallel.shuffle import checked_recv, \
     exchange_arrays, poison, shuffle_local
+from cylon_tpu_torch import plan
 from cylon_tpu_torch.plan import MAX_SCALE
 from cylon_tpu_torch.utils import pow2_bucket
 
@@ -114,16 +115,20 @@ def _shard_fit(env, table) -> tuple:
 
 def _adaptive(env, build, args, adaptive: bool):
     """Run ``build(scale)(*args)``, doubling the default capacities while
-    any rank overflowed (every bound defaulted: ``adaptive``). Explicit
-    capacities keep the raise-on-overflow contract: their overflow shows
-    in ``nrows`` and ``num_rows`` raises."""
-    scale = 1
+    any rank overflowed (every bound defaulted: ``adaptive``), from the
+    ambient :func:`~cylon_tpu_torch.plan.current_scale`; the scale that
+    fitted is reported to an enclosing
+    :class:`~cylon_tpu_torch.plan.CompiledQuery`. Explicit capacities
+    keep the raise-on-overflow contract: their overflow shows in
+    ``nrows`` and ``num_rows`` raises."""
+    scale = plan.current_scale()
     while True:
         out = build(scale)(*args)
         if not adaptive:
             return out
         fits, counts = _shard_fit(env, out)
         if fits:
+            plan.note_scale(scale)
             return out
         for t in args:
             t_fits, tc = _shard_fit(env, t)
@@ -561,22 +566,37 @@ def dist_aggregate(env, table, col: str, op: str, quantile: float = 0.5,
     distinct values there; the move's buffer regrows on skew, its settled
     scale remembered on the table. A poisoned input (an upstream
     overflow on any rank) raises :class:`OutOfCapacity`, as the JAX
-    package's eager call does."""
+    package's eager call does; inside a
+    :class:`~cylon_tpu_torch.plan.CompiledQuery` it registers its flag
+    (:func:`~cylon_tpu_torch.plan.note_overflow`) and gives NaN or
+    ``iinfo.min``, as the JAX package's traced call, and the compiled
+    query regrows or raises."""
     if op not in AGGS:
         raise InvalidArgument(f"unknown aggregate {op!r}")
     memo = table.__dict__.setdefault("_agg_scale_memo", {})
     table, counts, caps = world_layout_sized(env, table)
-    comm = env.comm
-    w = env.world_size
     c = table.column(col)
-    data = c.data
-    if data.dim() == 2 and op not in ("count", "nunique"):
+    if c.data.dim() == 2 and op not in ("count", "nunique"):
         raise TypeError_(f"{op!r} of the string column {col!r}: a "
                          "device-bytes column takes count and nunique")
-    if any(n > k for n, k in zip(counts, caps)):
+    # every rank reads the same counts, so every rank takes one branch
+    poisoned = any(n > k for n, k in zip(counts, caps))
+    flag = torch.full((), poisoned, dtype=torch.bool, device=c.data.device)
+    plan.note_overflow(flag)
+    if poisoned and not plan.in_compiled():
         raise OutOfCapacity(
             f"dist_aggregate({op!r}): poisoned input (an upstream op "
             "overflowed its capacity)")
+    val = _world_aggregate(env, table, caps, c, col, op, quantile, exact,
+                           memo)
+    return _poisoned(val, flag) if poisoned else val
+
+
+def _world_aggregate(env, table, caps, c, col, op, quantile, exact, memo):
+    """:func:`dist_aggregate`'s value over the world's valid rows."""
+    comm = env.comm
+    w = env.world_size
+    data = c.data
     if op in ("median", "quantile") and exact:
         limit = int(os.environ.get("CYLON_TPU_EXACT_GATHER_LIMIT",
                                    str(2 << 30)))
@@ -630,7 +650,9 @@ def _dist_nunique(env, c, ok, world_capacity: int, memo: dict, col: str):
     comm = env.comm
     w = env.world_size
     pid = partition_ids([c.data], w, [c.validity])
-    scale = memo.get(("nunique", col), 1)
+    # the table's memo keeps only what this ladder climbed to, never the
+    # ambient floor (as the group-by's)
+    start = scale = max(plan.current_scale(), memo.get(("nunique", col), 1))
     while True:
         buf = _out_cap_local(env, world_capacity, scale=scale)
         (got,), n_recv = exchange_arrays(comm, [c.data], pid, ok, buf)
@@ -639,7 +661,9 @@ def _dist_nunique(env, c, ok, world_capacity: int, memo: dict, col: str):
             [got], torch.clamp(n_recv, max=buf), None)
         total = comm.all_reduce(ng.to(torch.int64), "sum")
         if not int(comm.all_reduce(of, "sum")[0]):
-            memo[("nunique", col)] = scale
+            if scale > start:
+                memo[("nunique", col)] = scale
+            plan.note_scale(scale)
             return total
         if scale >= MAX_SCALE:
             raise OutOfCapacity(

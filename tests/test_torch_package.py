@@ -66,11 +66,37 @@ def _imported_modules(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # the TPC-H subpackage keeps its own copies of the JAX package's
+    # numpy-only generator and manifest
+    for name in ("__init__", "dbgen", "manifest", "queries"):
+        assert PKG / "tpch" / f"{name}.py" in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "cylon_tpu"), \
                 f"{path.relative_to(ROOT)} imports {mod}"
+
+
+_TPCH_PROBE = """
+import sys
+import cylon_tpu_torch as ct
+from cylon_tpu_torch import tpch
+data = tpch.generate(0.001, 1)
+frames = tpch.ingest(data, device="cpu")
+assert len(tpch.q3(frames).to_pandas()) <= 10
+assert float(tpch.compiled("q6")(frames)) == tpch.q6(frames)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_tpch_and_compiled_queries_pull_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _TPCH_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -146,6 +172,22 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.config:ParquetOptions",
     "cylon_tpu_torch.io:_exchange_meta",
     "cylon_tpu_torch.series:_StrAccessor",
+    # whole queries and TPC-H (ROADMAP A6)
+    "cylon_tpu_torch.plan:CompiledQuery",
+    "cylon_tpu_torch.plan:compile_query",
+    "cylon_tpu_torch.plan:shared_compiled",
+    "cylon_tpu_torch.plan:note_overflow",
+    "cylon_tpu_torch.plan:_check_overflow",
+    "cylon_tpu_torch.plan:_shrink_results",
+    "cylon_tpu_torch.plan:_split_args",
+    "cylon_tpu_torch.tpch.queries:_tables",
+    "cylon_tpu_torch.tpch.queries:_prune",
+    "cylon_tpu_torch.tpch.queries:_scalar",
+    "cylon_tpu_torch.tpch.queries:manifest_keep",
+    "cylon_tpu_torch.tpch.queries:keep_columns",
+    "cylon_tpu_torch.tpch.queries:_query_strings",
+    "cylon_tpu_torch.tpch.dbgen",
+    "cylon_tpu_torch.tpch.manifest",
 )
 
 
@@ -155,7 +197,7 @@ def test_new_function_names_its_cylon_tpu_counterpart(name):
 
     mod, _, attr = name.partition(":")
     obj = importlib.import_module(mod)
-    for part in attr.split("."):
+    for part in attr.split(".") if attr else ():
         obj = getattr(obj, part)
     assert "cylon_tpu/" in (obj.__doc__ or ""), name
 
@@ -216,3 +258,18 @@ def test_no_kernel_takes_the_pointer_of_a_temporary_tensor():
                 raise AssertionError(
                     f"{path.relative_to(ROOT)}:{node.lineno} takes the "
                     "pointer of a temporary tensor")
+
+
+def test_chip_smoke_drives_the_tpch_phase():
+    """``chip_smoke.py`` names phase 14 in its docstring, runs it after
+    phase 13, holds its kernels against their plain versions, and puts
+    its launches in the kernels line."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "14. tpch" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "tpch_phase" in funcs
+    main = src[src.index("def main("):]
+    assert main.index("frame_phase(") < main.index("tpch_phase(") \
+        < main.index('path_kernel_phase(torch, rate, stats, "tpch"')
+    assert '"tpch_launches"' in main
