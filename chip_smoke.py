@@ -101,17 +101,34 @@ Phases, each printing one JSON line:
     runs; then ``row_hash``, ``scan32`` and ``pair_max_scan`` at the
     shapes this phase gave them, as in phase 10. Every line of the phase
     carries the card's name and power limit; see :func:`tpch_phase`.
+15. telemetry: the telemetry core's cost and its timelines. ``dist_join``
+    at 16M x 16M (W = 1) and one bench stage, each untraced and then
+    with ``CYLON_TPU_TRACE`` and ``CYLON_TPU_METRICS_DIR`` armed: the
+    same rows, kernel launches and synchronizing calls, both walls (at
+    W = 1 the exchange and its pricing are bypassed); ``dist_join`` at
+    W = 4 on ``ThreadWorld``, 4M rows a rank a side, untraced and armed
+    alike: the same comparison, no sync in telemetry's code, and of the
+    armed runs the merged timeline's critical path, each rank's stage
+    coverage (at least 0.8), the exchange's true bytes against the rows
+    the ranks sent, a strict-JSON Chrome trace; then the kernels at this
+    phase's shapes, as in phase 10; see :func:`telemetry_phase`.
+
+After every phase a ``memory`` line (:func:`memory_line`):
+``telemetry.memory``'s forced sample, the caching allocator's live,
+peak (then reset) and reserved bytes, and the live bytes after a
+``gc.collect()``, with the card's name and power limit.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
-``sort_setops_launches``, ``frame_launches`` and ``tpch_launches``, on
-phase 9's group-by calls, phase 12's calls, phase 13's and phase 14's),
-the ``nvidia-smi`` line again,
-and as
-the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-run away from the repository, it exits non-zero and prints no result.
+``sort_setops_launches``, ``frame_launches``, ``tpch_launches`` and
+``telemetry_launches``, on phase 9's group-by calls, phase 12's calls,
+phase 13's, phase 14's and phase 15's compared runs), the ``nvidia-smi``
+line again, and as the last line ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or run away from the repository, it exits
+non-zero and prints no result.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3210,6 +3227,338 @@ def tpch_phase(torch, card: str, profile: bool = False,
 
 
 # ------------------------------------------------------------ main
+# ------------------------------------------------------------ phase 15
+#: the telemetry phase's W = 4 share: the 16M-row flagship share split
+#: over the ranks, a side
+TELEMETRY_W4_RANK_ROWS = 4 << 20
+
+
+def memory_line(torch, card: str, after: str) -> None:
+    """One line at the end of a phase: ``telemetry.memory``'s forced
+    sample, the caching allocator's live and peak bytes (the peak then
+    reset) and its reserved bytes, then the live bytes again after a
+    ``gc.collect()``, so that memory held only by unreachable cycles
+    shows as the difference. A telemetry failure fails the run."""
+    import gc
+
+    from cylon_tpu_torch import telemetry
+
+    sampled = telemetry.memory.sample(force=True)
+    allocated = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    gc.collect()
+    after_gc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    emit({"phase": "memory", "after": after, "card": card,
+          "sampled_bytes": sampled, "allocated_bytes": allocated,
+          "max_allocated_bytes": peak, "reserved_bytes": reserved,
+          "allocated_after_gc_bytes": after_gc})
+    if sampled != allocated:
+        raise SystemExit(f"memory after {after}: telemetry sampled "
+                         f"{sampled} bytes, the allocator holds "
+                         f"{allocated}")
+
+
+def count_syncs(torch, fn):
+    """``(result, synchronizing calls by site)`` of one call of ``fn``
+    under ``torch.cuda.set_sync_debug_mode("warn")``: each call that
+    waits for the card warns once, and the warnings are counted by the
+    ``file:line`` of the Python call that made them (the file's path in
+    the repo, or its name outside it)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename).resolve()
+            name = path.relative_to(ROOT).as_posix() \
+                if path.is_relative_to(ROOT) else path.name
+            key = f"{name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return out, sites
+
+
+def telemetry_syncs(runs) -> list:
+    """The sync sites of ``runs`` (:func:`count_syncs`'s dicts) that lie
+    in telemetry's own code: its package, the span, and the exchange
+    pricing (``dist_ops._note_exchange``)."""
+    import inspect
+
+    from cylon_tpu_torch.parallel import dist_ops
+
+    lines, at = inspect.getsourcelines(dist_ops._note_exchange)
+    note = range(at, at + len(lines))
+    own = set()
+    for sites in runs:
+        for site in sites:
+            path, line = site.rsplit(":", 1)
+            if path.startswith("cylon_tpu_torch/telemetry/") \
+                    or path == "cylon_tpu_torch/utils/tracing.py" \
+                    or (path == "cylon_tpu_torch/parallel/dist_ops.py"
+                        and int(line) in note):
+                own.add(site)
+    return sorted(own)
+
+
+@contextlib.contextmanager
+def armed(tmp: str):
+    """Arm the flight recorder and the exporters (``CYLON_TPU_TRACE``,
+    ``CYLON_TPU_METRICS_DIR``) for the enclosed runs, on an empty
+    recorder; disarm after, so that nothing writes at exit."""
+    import os
+
+    from cylon_tpu_torch.telemetry import trace
+
+    os.environ["CYLON_TPU_TRACE"] = "1"
+    os.environ["CYLON_TPU_METRICS_DIR"] = tmp
+    trace.clear()
+    try:
+        yield
+    finally:
+        del os.environ["CYLON_TPU_TRACE"]
+        del os.environ["CYLON_TPU_METRICS_DIR"]
+
+
+def telemetry_phase(torch, rate, stats, card: str, dev="cuda") -> dict:
+    """The telemetry core on the card (phase 15).
+
+    (a) Its cost: ``dist_join`` at 16M x 16M, W = 1, and one bench stage
+    (1M a side), each run untraced and then with the flight recorder and
+    the exporters armed, on the same inputs: the rows bit for bit, the
+    kernel launches and the synchronizing calls
+    (:func:`count_syncs`) equal, none in telemetry's code
+    (:func:`telemetry_syncs`), both walls printed; the armed run's
+    spans recorded and its metrics snapshot written and parsed back.
+    The W = 1 ``dist_join`` short-circuits: no stage span, no exchange
+    pricing runs there.
+    (b) ``dist_join`` at W = 4 through ``ThreadWorld``,
+    :data:`TELEMETRY_W4_RANK_ROWS` rows a rank a side, where the stage
+    spans, the exchange pricing and its memory samples run: untraced and
+    armed in alternation, compared as in (a); every run's world
+    ``exchange.bytes_true`` equal to the rows the ranks sent times their
+    words times 4. Of the last armed run: the rank buffers merged
+    (``merge_timelines``), ``critical_path`` and each rank's
+    ``stage_coverage`` printed, every rank's coverage at least 0.8, the
+    ``exchange.dispatch`` instants' row counts (from the count matrices)
+    equal to the rows sent, the Chrome trace written and read back as
+    strict JSON. Then each kernel against its plain version at the
+    shapes this phase gave it, as in phase 10. Returns the kernels'
+    launches over the runs it compared (untraced and armed)."""
+    import tempfile
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes, telemetry
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.parallel.shuffle import transport_words
+    from cylon_tpu_torch.telemetry import trace
+
+    def no_const(_):
+        raise SystemExit("telemetry: a non-finite constant in the trace")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+
+    def table(n, lo=0, keys=None, vals=None):
+        k = torch.randint(0, n, (n,), dtype=torch.int64, device=dev,
+                          generator=g) if keys is None else keys
+        v = torch.rand(n, dtype=torch.float64, device=dev, generator=g) \
+            if vals is None else vals
+        return ct.Table({"k": Column(k, None, dtypes.int64),
+                         "v": Column(v, None, dtypes.float64)},
+                        k.shape[0])
+
+    total = {k: 0 for k in launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) telemetry's cost at W = 1
+        n = DIST_ROWS
+        left, right = table(n), table(n)
+        env = ct.CylonEnv(device=dev)
+        bl, br = table(BENCH_ROWS), table(BENCH_ROWS)
+        comm = ct.LocalComm()
+        cases = {
+            "dist_join": lambda: ct.dist_join(env, left, right, on="k"),
+            "bench_stage": lambda: bench_stage(comm, bl, br,
+                                               2 * BENCH_ROWS,
+                                               2 * BENCH_ROWS)}
+        cost = {}
+        for name, fn in cases.items():
+            fn()                                          # warm-up
+            # a second warm-up with the sync check on: a site that warns
+            # once a process (the first synchronize under the check) warns
+            # here, not in the runs compared
+            count_syncs(torch, lambda: event_wall(torch, fn))
+            runs = []
+            # untraced, armed, untraced, armed: the pairs are compared
+            for mode in ("untraced", "armed") * 2:
+                ctx = armed(tmp) if mode == "armed" else \
+                    contextlib.nullcontext()
+                with ctx:
+                    reset_launches()
+                    (res, ms), sites = count_syncs(
+                        torch, lambda: event_wall(torch, fn))
+                    res.num_rows
+                    launches = launch_counts()
+                    evts = trace.events()
+                runs.append({"mode": mode, "ms": ms, "syncs": sites,
+                             "launches": launches, "events": len(evts),
+                             "res": res})
+                add(launches)
+            same = [same_bits(torch, runs[0]["res"], r["res"])
+                    for r in runs[1:]]
+            cost[name] = {
+                "ms": [r["ms"] for r in runs],
+                "modes": [r["mode"] for r in runs],
+                "syncs": [sum(r["syncs"].values()) for r in runs],
+                "sync_sites": [r["syncs"] for r in runs],
+                "launches": [r["launches"] for r in runs],
+                "armed_events": [r["events"] for r in runs[1::2]],
+                "rows": runs[0]["res"].num_rows, "rows_equal": all(same)}
+            bad = [i for i in (0, 2) if runs[i]["launches"]
+                   != runs[i + 1]["launches"]
+                   or runs[i]["syncs"] != runs[i + 1]["syncs"]]
+            own = telemetry_syncs(r["syncs"] for r in runs)
+            if not all(same) or bad or own:
+                emit({"phase": "telemetry", "part": "a", "case": name,
+                      **cost[name]})
+                raise SystemExit(f"telemetry {name}: an armed run differs "
+                                 f"from the untraced one before it (pairs "
+                                 f"{bad}, rows equal {same}), or telemetry "
+                                 f"synchronized at {own}")
+            if not all(cost[name]["armed_events"]):
+                raise SystemExit(f"telemetry {name}: an armed run "
+                                 "recorded no event")
+            for r in runs:
+                del r["res"]
+        del left, right, bl, br, runs, res
+        path = telemetry.write_snapshot(directory=tmp)
+        with open(path) as f:
+            snap = json.loads(f.read().splitlines()[-1])["metrics"]
+        emit({"phase": "telemetry", "part": "a", "card": card,
+              "cost": cost, "snapshot_series": len(snap)})
+
+        # (b) W = 4 on ThreadWorld, untraced and armed
+        w, nr = GROUPBY_WORLD, TELEMETRY_W4_RANK_ROWS
+        nw = w * nr
+        sides = [(torch.randint(0, nw, (nw,), dtype=torch.int64, device=dev,
+                                generator=g),
+                  torch.rand(nw, dtype=torch.float64, device=dev,
+                             generator=g)) for _ in range(2)]
+
+        def rank(comm):
+            e = ct.CylonEnv(comm, device=dev)
+            lo, hi = e.rank * nr, (e.rank + 1) * nr
+            return ct.dist_join(e, *[table(nr, keys=k[lo:hi],
+                                           vals=v[lo:hi])
+                                     for k, v in sides], on="k")
+
+        def world():
+            return event_wall(torch, lambda: ct.ThreadWorld(w).run(rank))
+
+        # the warm-up, under the sync check (see part (a)), records the
+        # kernels' inputs: their copies stay out of the compared walls
+        with PathInputs() as rec:
+            count_syncs(torch, world)
+        runs = []
+        # untraced, armed, untraced, armed: each pair compared, as in (a)
+        for mode in ("untraced", "armed") * 2:
+            ctx = armed(tmp) if mode == "armed" else \
+                contextlib.nullcontext()
+            telemetry.reset("exchange.")
+            with ctx:
+                reset_launches()
+                (res, ms), sites = count_syncs(torch, world)
+                launches = launch_counts()
+                bufs = trace.rank_buffers() if mode == "armed" else None
+            add(launches)
+            runs.append({"mode": mode, "ms": ms, "syncs": sites,
+                         "launches": launches, "res": res, "bufs": bufs,
+                         "bytes": telemetry.total("exchange.bytes_true"),
+                         "rows": telemetry.total("exchange.rows")})
+        traced, bufs = runs[-1]["res"], runs[-1]["bufs"]
+        merged = trace.merge_timelines(bufs)
+        crit = trace.critical_path(merged)
+        coverage = {b["rank"]: trace.stage_coverage(b["events"],
+                                                    "dist_join")
+                    for b in bufs}
+        words = transport_words(table(1))
+        want_bytes = 2 * nw * words * 4
+        shard_rows = [e["args"]["rows_shards"] for e in merged
+                      if e["name"] == "exchange.dispatch"]
+        tpath = telemetry.write_chrome_trace(
+            f"{tmp}/dist_join_w4.trace.json", bufs, world=w)
+        with open(tpath) as f:
+            doc = json.loads(f.read(), parse_constant=no_const)
+        same = [all(same_bits(torch, a, b) for a, b in
+                    zip(runs[0]["res"], r["res"])) for r in runs[1:]]
+        own = telemetry_syncs(r["syncs"] for r in runs)
+        bad = [i for i in (0, 2) if runs[i]["launches"]
+               != runs[i + 1]["launches"]
+               or runs[i]["syncs"] != runs[i + 1]["syncs"]]
+        out = {"phase": "telemetry", "part": "b", "card": card,
+               "world": w, "rows_per_rank_side": nr,
+               "modes": [r["mode"] for r in runs],
+               "ms": [r["ms"] for r in runs],
+               "syncs": [sum(r["syncs"].values()) for r in runs],
+               "sync_sites": [r["syncs"] for r in runs],
+               "telemetry_sync_sites": own,
+               "launches": [r["launches"] for r in runs],
+               "wall_ms": runs[-1]["ms"],
+               "buffers": sorted(b["rank"] for b in bufs),
+               "events": len(merged), "coverage": coverage,
+               "critical_path": {
+                   "straggler_rank": crit["straggler_rank"],
+                   "dominant_stage": crit["dominant_stage"],
+                   "excess_seconds": crit["excess_seconds"],
+                   "rank_walls": crit["rank_walls"],
+                   "stage_seconds": crit["stage_seconds"]},
+               "exchange_rows": [r["rows"] for r in runs],
+               "exchange_bytes_true": [r["bytes"] for r in runs],
+               "expected_bytes_true": want_bytes,
+               "dispatch_instants": len(shard_rows),
+               "chrome_events": len(doc["traceEvents"]),
+               "runs_equal_first": same}
+        emit(out)
+        if bad or own:
+            raise SystemExit(f"telemetry W=4: an armed run differs from "
+                             f"the untraced one before it (pairs {bad}), "
+                             f"or telemetry synchronized at {own}")
+        if sorted(coverage) != list(range(w)) or any(
+                c is None or c < 0.8 for c in coverage.values()):
+            raise SystemExit(f"telemetry W=4: stage coverage {coverage}")
+        if any(r["bytes"] != want_bytes or r["rows"] != 2 * nw
+               for r in runs):
+            raise SystemExit(f"telemetry W=4: exchange.bytes_true "
+                             f"{out['exchange_bytes_true']}, rows "
+                             f"{out['exchange_rows']}; expected "
+                             f"{want_bytes}, {2 * nw}")
+        if len(shard_rows) != w or sum(sum(r) for r in shard_rows) \
+                != w * 2 * nw:
+            raise SystemExit(f"telemetry W=4: dispatch instants' rows "
+                             f"{shard_rows}")
+        if not all(same):
+            raise SystemExit(f"telemetry W=4: runs {same} differ from "
+                             "the first, untraced one")
+        del runs, traced, bufs, res, sides
+        trace.clear()
+    path_kernel_phase(torch, rate, stats, "telemetry", rec.inputs,
+                      card=card)
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -3233,25 +3582,37 @@ def main(argv) -> int:
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "bandwidth_bytes_per_s": rate,
           "allow_tf32": False})
+    torch.zeros(1, device="cuda")           # the context, for phase 1's line
+    memory_line(torch, card, "1 card")
 
     t0 = time.perf_counter()
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": Path(build.last_build.get("path", "")).name or None})
+    memory_line(torch, card, "2 build")
 
     stats = kernel_phase(torch, rate)
     bucket_kernel_phase(torch, rate, stats)
     join_parity_phase(torch)
+    memory_line(torch, card, "3 kernels")
     sort_wall = dist_join_phase(torch)
+    memory_line(torch, card, "4 dist_join")
     hash_launches = hash_join_phase(torch, sort_wall, "--profile" in argv)
+    memory_line(torch, card, "5 hash_join")
     launches = bench_phase(torch, "--profile" in argv)
+    memory_line(torch, card, "6 bench")
     strings_phase(torch, rate, stats, "--profile" in argv)
+    memory_line(torch, card, "7 strings")
     comm_phase(torch)
+    memory_line(torch, card, "8 comm")
     with PathInputs() as groupby_inputs:
         groupby_launches = groupby_phase(torch, "--profile" in argv)
+    memory_line(torch, card, "9 groupby")
     path_kernel_phase(torch, rate, stats, "groupby", groupby_inputs.inputs)
     del groupby_inputs
+    memory_line(torch, card, "10 path kernels")
     dist_join_w4_phase(torch, rate, stats)
+    memory_line(torch, card, "11 dist_join_w4")
     t12 = time.perf_counter()
     sort_setops_launches, sort_inputs = sort_setops_phase(
         torch, "--profile" in argv)
@@ -3259,9 +3620,11 @@ def main(argv) -> int:
     del sort_inputs
     emit({"phase": "sort_setops_seconds",
           "seconds": time.perf_counter() - t12})
+    memory_line(torch, card, "12 sort_setops")
     frame_launches, frame_inputs = frame_phase(torch, card)
     path_kernel_phase(torch, rate, stats, "frame", frame_inputs)
     del frame_inputs
+    memory_line(torch, card, "13 frame")
     t14 = time.perf_counter()
     tpch_launches, tpch_inputs = tpch_phase(torch, card,
                                             "--profile" in argv)
@@ -3269,6 +3632,12 @@ def main(argv) -> int:
     del tpch_inputs
     emit({"phase": "tpch_seconds", "card": card,
           "seconds": time.perf_counter() - t14})
+    memory_line(torch, card, "14 tpch")
+    t15 = time.perf_counter()
+    telemetry_launches = telemetry_phase(torch, rate, stats, card)
+    emit({"phase": "telemetry_seconds", "card": card,
+          "seconds": time.perf_counter() - t15})
+    memory_line(torch, card, "15 telemetry")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -3294,6 +3663,7 @@ def main(argv) -> int:
             "sort_setops_launches": sort_setops_launches[wrapper.__name__],
             "frame_launches": frame_launches[wrapper.__name__],
             "tpch_launches": tpch_launches[wrapper.__name__],
+            "telemetry_launches": telemetry_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

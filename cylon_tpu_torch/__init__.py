@@ -39,10 +39,21 @@ The port carries:
   value indexes (``indexing``), CSV / Parquet / JSON io (``io``), the
   streaming operator graph (``ops_graph``), the task overlay
   (``parallel.task_plan``), the option structs (``config``) and the
-  eager regrow ladder (``plan``).
+  eager regrow ladder (``plan``);
+- the telemetry core (``telemetry``): the metric registry and its JSONL /
+  Prometheus exporters (``CYLON_TPU_METRICS_DIR``), the flight recorder
+  (``CYLON_TPU_TRACE``) with Chrome-trace export and critical-path
+  attribution, device-memory sampling (``telemetry.memory``), and the
+  spans, stage spans and counters the dist ops, the exchange, the join
+  router, the operator graph and ``CompiledQuery`` feed them; logging
+  and spans in ``utils``. The package logger ``cylon_tpu_torch``
+  propagates to the application's logging until
+  ``utils.init_logging()`` is called, which attaches the JAX package's
+  glog-style stderr handler (rank prefix, ``CYLON_LOG_LEVEL``); the JAX
+  package attaches it at import.
 """
 
-from cylon_tpu_torch import dtypes, plan
+from cylon_tpu_torch import dtypes, plan, telemetry
 from cylon_tpu_torch.column import Column, Dictionary
 from cylon_tpu_torch.config import (CSVReadOptions, CSVWriteOptions,
                                     JoinAlgorithm, JoinConfig, JoinType,
@@ -99,5 +110,5 @@ __all__ = ["CSVReadOptions", "CSVWriteOptions", "Column", "CommConfig",
            "read_csv_sharded", "read_json", "read_parquet",
            "read_parquet_chunks", "repartition", "sample", "scatter_table",
            "shuffle", "sort_table", "subtract", "table_aggregate", "take",
-           "task_shuffle", "task_tables", "union", "unique", "write_csv",
-           "write_csv_sharded", "write_parquet"]
+           "task_shuffle", "task_tables", "telemetry", "union", "unique",
+           "write_csv", "write_csv_sharded", "write_parquet"]

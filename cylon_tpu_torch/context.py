@@ -16,13 +16,16 @@ calling ``CylonEnv(config=DistConfig())`` (NCCL on the cards), or
 """
 
 import dataclasses
+import itertools
 import os
+import threading
 from typing import Optional
 
 import torch
 
 from cylon_tpu_torch import device as _device
-from cylon_tpu_torch.errors import DeviceUnavailable, InvalidArgument
+from cylon_tpu_torch.errors import DeviceUnavailable, InvalidArgument, \
+    NotImplemented_
 from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm
 
 
@@ -83,6 +86,14 @@ class CylonEnv:
                 and not isinstance(config, LocalConfig):
             raise InvalidArgument(f"CylonEnv: unknown config {config!r}")
         self.comm = LocalComm() if comm is None else comm
+        self._kv: "dict[str, str]" = {}
+        self._finalized = False
+        self._clock_offset: "float | None" = None
+        from cylon_tpu_torch.utils.logging import set_world
+
+        # the log prefix names this rank ("[r/w] "); the ThreadWorld ranks
+        # of one process share the logger, so there the last one set wins
+        set_world(self.rank, self.world_size)
 
     def _join_group(self, config: DistConfig, device) -> ProcessGroupComm:
         import torch.distributed as dist
@@ -124,14 +135,115 @@ class CylonEnv:
     def rank(self) -> int:
         return self.comm.rank
 
+    @property
+    def is_distributed(self) -> bool:
+        return self.world_size > 1
+
+    # -- string KV config store (parity: ctx/cylon_context.hpp:32,69-77
+    #    AddConfig/GetConfig/GetConfigs) ---------------------------------
+    def add_config(self, key: str, value: str) -> None:
+        self._kv[str(key)] = str(value)
+
+    def get_config(self, key: str, default: "str | None" = None) \
+            -> "str | None":
+        return self._kv.get(str(key), default)
+
+    def get_configs(self) -> "dict[str, str]":
+        return dict(self._kv)
+
+    @property
+    def context(self) -> "CylonEnv":
+        """pycylon exposes ``env.context`` (the CylonContext); here env
+        and context are one object."""
+        return self
+
+    def get_neighbours(self, rank: "int | None" = None,
+                       include_self: bool = False) -> list:
+        """The ranks of the world (parity: ``ctx GetNeighbours``),
+        without ``rank`` unless ``include_self``. ``rank`` defaults to
+        this rank: the port is SPMD, so it has the ambient self the
+        reference has (the JAX package's single controller has none, and
+        there ``rank=None`` returns every index)."""
+        me = self.rank if rank is None else int(rank)
+        return [r for r in range(self.world_size)
+                if include_self or r != me]
+
+    # -- lifecycle (parity: Barrier/Finalize) -----------------------------
+    def barrier(self, timeout: "float | None" = None) -> None:
+        """Wait until every rank reaches the barrier and this rank's
+        device work is done (parity: ``ctx Barrier``): one all-reduce
+        through the communicator, then a synchronize of the current
+        stream of the env's device (no other device). Timed by the
+        ``barrier.wait_seconds`` timer.
+
+        ``timeout`` bounds the wait through the watchdog
+        (``watchdog.bounded``), which the port does not have yet
+        (ROADMAP A7.1): any ``timeout`` but None raises
+        :class:`~cylon_tpu_torch.errors.NotImplemented_`."""
+        if timeout is not None:
+            raise NotImplemented_(
+                "CylonEnv.barrier(timeout=...): the bounded wait needs "
+                "watchdog.bounded (ROADMAP A7.1), not ported yet")
+        from cylon_tpu_torch import telemetry
+
+        dev = self.device
+        with telemetry.timer("barrier.wait_seconds").time():
+            self.comm.all_reduce(torch.ones(1, dtype=torch.int32,
+                                            device=dev), "sum")
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+
+    def clock_offset(self) -> float:
+        """Barrier-anchored estimate of this rank's wall-clock offset
+        from rank 0, in seconds — the term the trace merge subtracts so
+        per-rank timelines line up across hosts
+        (:func:`cylon_tpu_torch.telemetry.trace.merge_timelines`).
+
+        Ranks that are processes (``ProcessGroupComm``) pass one
+        :meth:`barrier`, read ``time.time()`` on its exit and all-gather
+        the readings: the offset is ``own - rank0``, within the
+        collective's completion jitter. Cached on the env; exactly 0 in
+        one process (``LocalComm``, and the ``ThreadWorld`` ranks,
+        which share one clock). Offsets drift: construct a fresh env
+        (or clear ``_clock_offset``) for multi-hour traces."""
+        if self._clock_offset is None:
+            import time as _time
+
+            from cylon_tpu_torch.telemetry.aggregate import _gathers
+
+            if not _gathers(self):
+                self._clock_offset = 0.0
+            else:
+                self.barrier()
+                t = _time.time()
+                ts = self.comm.all_gather(torch.tensor(
+                    [t], dtype=torch.float64, device=self.device))
+                self._clock_offset = float(t - float(ts.reshape(-1)[0]))
+        return self._clock_offset
+
     def finalize(self) -> None:
         """Destroy the process group this env initialised, if it did
         (parity: ``CylonContext::Finalize``)."""
+        self._finalized = True
         if self._owns_group:
             import torch.distributed as dist
 
             dist.destroy_process_group()
             self._owns_group = False
+
+    @property
+    def is_finalized(self) -> bool:
+        return self._finalized
+
+    _seq = itertools.count()
+    _seq_lock = threading.Lock()
+
+    @classmethod
+    def get_next_sequence(cls) -> int:
+        """A process-wide increasing sequence number (parity:
+        ``ctx GetNextSequence``)."""
+        with cls._seq_lock:
+            return next(cls._seq)
 
     def __repr__(self):
         return f"CylonEnv(rank={self.rank}, world_size={self.world_size})"

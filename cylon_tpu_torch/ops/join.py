@@ -20,17 +20,18 @@ host first. An over-budget chain, or ``how="fullouter"``, takes the sort
 join. Every route gives the same rows.
 """
 
-import logging
 import os
 from typing import Sequence
 
 import torch
 
-from cylon_tpu_torch import plan
+from cylon_tpu_torch import plan, telemetry
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
+from cylon_tpu_torch.utils.logging import get_logger
+from cylon_tpu_torch.utils.tracing import span
 
 #: sort key of the invalid output slots: above every u32 row or group id
 M32_MAX = 0xFFFFFFFF
@@ -49,7 +50,7 @@ def _env_algorithm() -> "str | None":
 def _warn_once(key: str, msg: str) -> None:
     if key not in _warned:
         _warned.add(key)
-        logging.getLogger("cylon_tpu_torch").warning(msg)
+        get_logger().warning(msg)
 
 
 def _route_algorithm(requested: str, how: str) -> str:
@@ -59,21 +60,30 @@ def _route_algorithm(requested: str, how: str) -> str:
     "hash" is a hint, never an error: a ``how`` the bucketed join does not
     support takes the sort join, with one warning.
 
-    The JAX package also counts each decision in its telemetry
-    (``join.algorithm``, ``join.overflow_fallbacks``); the port has no
-    telemetry yet, so the kernels' launch counters show the route.
+    Each decision counts once in ``join.algorithm{kind=requested->chosen}``
+    (``cylon_tpu/ops/join.py:107``): here, unless the route is
+    "hash_bucketed", whose count waits for :func:`_join`'s chain check
+    ("hash->hash_bucketed", or "hash->sort_overflow" with
+    ``join.overflow_fallbacks``). The JAX package's traced route
+    "hash_guarded" has no counterpart in the eager port.
     """
-    if requested != "hash":
-        return requested
-    if not hash_join.supported(how):
-        _warn_once(f"hash-{how}",
-                   f'join(algorithm="hash", how="{how}"): bucketed hash '
-                   "join does not support this variant; taking the sort "
-                   "path (the hint is honored where supported, never an "
-                   "error)")
-        return "sort"
-    return "hash_sort" if hash_join.hash_impl() == "sort" \
-        else "hash_bucketed"
+    chosen = requested
+    if requested == "hash":
+        if not hash_join.supported(how):
+            _warn_once(f"hash-{how}",
+                       f'join(algorithm="hash", how="{how}"): bucketed hash '
+                       "join does not support this variant; taking the "
+                       "sort path (the hint is honored where supported, "
+                       "never an error)")
+            chosen = "sort"
+        elif hash_join.hash_impl() == "sort":
+            chosen = "hash_sort"
+        else:
+            chosen = "hash_bucketed"
+    if chosen != "hash_bucketed":
+        telemetry.counter("join.algorithm",
+                          kind=f"{requested}->{chosen}").inc()
+    return chosen
 
 
 def _key_list(keys) -> list:
@@ -139,8 +149,14 @@ def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
         # (the JAX package's eager route; its traced route checks in-graph)
         build, _, _ = hash_join.sides(lkeys, lvals, left.nrows, rkeys, rvals,
                                       right.nrows, how)
-        if hash_join.chain_overflow(*build):
-            routine = "sort"
+        with span("join.route"):
+            if hash_join.chain_overflow(*build):
+                telemetry.counter("join.overflow_fallbacks").inc()
+                routine = "sort"
+        telemetry.counter(
+            "join.algorithm",
+            kind=("hash->sort_overflow" if routine == "sort"
+                  else "hash->hash_bucketed")).inc()
     if routine == "hash_bucketed":
         left_idx, right_idx, total = hash_join.bucketed_join_indices(
             lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,

@@ -11,8 +11,9 @@ graph partitions chunks by key hash into logical partitions; with
 ``env`` every rank streams its own chunks and :class:`ShuffleOp` moves
 each chunk over the world as it arrives, so every rank must insert the
 same number of chunks (:func:`chunk_stream` with ``env`` cuts them so).
-The JAX package's ``ops_graph.chunks`` counter waits for the port's
-telemetry (ROADMAP A8); ``Op.processed`` counts each op's chunks.
+``Op.processed`` counts each op's chunks, and the telemetry counter
+``ops_graph.chunks{op=}`` counts them for the process, as in the JAX
+package.
 """
 
 from cylon_tpu_torch.ops_graph.execution import (Execution, JoinExecution,

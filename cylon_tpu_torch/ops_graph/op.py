@@ -11,6 +11,7 @@ parent has finished. ``RootOp``, the sink, collects the final chunks
 import collections
 from typing import Callable, Iterable, Optional
 
+from cylon_tpu_torch import telemetry
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.table import Table
 
@@ -41,7 +42,11 @@ class Op:
         self.id = op_id
         self.name = name or type(self).__name__
         self._children: list = []
-        self._parents: list = []
+        #: the parents' count, which the finalize protocol needs; a child
+        #: keeps no reference to its parents, so a graph holds no
+        #: reference cycle and its chunks are freed when the graph is
+        #: dropped, not at the next cyclic collection
+        self._n_parents = 0
         self._queue: collections.deque = collections.deque()
         self._finalized_parents = 0
         self._did_finalize = False
@@ -53,7 +58,7 @@ class Op:
     def add_child(self, child: "Op") -> "Op":
         """Parity: ``Op::AddChild`` (parallel_op.hpp:101)."""
         self._children.append(child)
-        child._parents.append(self)
+        child._n_parents += 1
         return child
 
     @property
@@ -86,13 +91,19 @@ class Op:
     # -- progress loop ---------------------------------------------------
     def progress(self) -> bool:
         """Process at most one queued chunk (parity: ``Op::Progress``,
-        parallel_op.hpp:128-144); True if it did."""
+        parallel_op.hpp:128-144); True if it did. Each processed chunk
+        counts into ``ops_graph.chunks{op=}`` (tenant-labeled under an
+        ambient :func:`cylon_tpu_torch.telemetry.tenant_scope`), so a
+        mixed workload's streaming progress is attributable per
+        tenant."""
         if not self._queue:
             return False
         chunk = self._queue.popleft()
         for out in self.execute(chunk.tag, chunk.table):
             self._emit(out)
         self.processed += 1
+        telemetry.counter("ops_graph.chunks", op=self.name,
+                          **telemetry.tenant_labels()).inc()
         return True
 
     def _emit(self, chunk: TableChunk) -> None:
@@ -112,7 +123,7 @@ class Op:
         """End of stream from one parent (or the caller, for a source);
         the reference's finalize propagation (parallel_op.hpp:146-162)."""
         self._finalized_parents += 1
-        needed = max(len(self._parents), 1)
+        needed = max(self._n_parents, 1)
         if self._finalized_parents >= needed and not self._did_finalize:
             while self.progress():
                 pass

@@ -1,5 +1,15 @@
 """Distributed execution of the port: communicators, shuffle, dist ops
-(mirrors ``cylon_tpu/parallel``)."""
+(mirrors ``cylon_tpu/parallel``), with the pycylon-style
+``distributed_*`` aliases.
+
+``dtable.is_distributed``, ``local_capacity`` and ``dist_row_mask`` of
+the JAX package are absent: they read a mesh-sharded table (one
+``[W]`` row-count vector over W blocks) that the SPMD port does not
+have. Here every table is one rank's shard: its ``capacity`` is the
+local capacity and its valid rows are ``kernels.valid_mask(capacity,
+nrows)``; :func:`dist_num_rows` and ``dtable.shard_sizes`` give the
+world's counts.
+"""
 
 from cylon_tpu_torch.parallel.collectives import ReduceOp, all_reduce
 from cylon_tpu_torch.parallel.dist_ops import (
@@ -20,4 +30,17 @@ __all__ = ["all_reduce", "colocated_groupby", "colocated_join",
            "dist_union", "dist_unique", "gather_table", "LogicalTaskPlan",
            "ReduceOp", "repartition", "scatter_table", "shuffle",
            "SortOptions", "TASK_COL", "task_shuffle", "task_tables",
-           "task_view"]
+           "task_view", "distributed_join", "distributed_sort",
+           "distributed_union", "distributed_intersect",
+           "distributed_subtract", "distributed_unique",
+           "distributed_concat"]
+
+# pycylon-style names (table.pyx distributed_join/...): aliases so
+# reference scripts port mechanically (``cylon_tpu/parallel/__init__.py:86``)
+distributed_join = dist_join
+distributed_sort = dist_sort
+distributed_union = dist_union
+distributed_intersect = dist_intersect
+distributed_subtract = dist_subtract
+distributed_unique = dist_unique
+distributed_concat = dist_concat

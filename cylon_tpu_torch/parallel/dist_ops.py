@@ -9,13 +9,25 @@ Port of ``cylon_tpu/parallel/dist_ops.py``: ``shuffle`` (:683),
 (:1440-1570) and ``dist_aggregate`` (:1573-1833), with the capacity
 defaults and tight receive sizing (:187-269) and the regrow-on-overflow
 loop (:313-400). Each rank calls them on its own shard (see
-:func:`cylon_tpu_torch.parallel.dtable.scatter_table`). The JAX
-package's flight recorder, stage spans, fault injection and watchdog
-come with their modules (ROADMAP A7, A8).
+:func:`cylon_tpu_torch.parallel.dtable.scatter_table`).
+
+Telemetry as in the JAX package (:313-426, :551-664): each op runs under
+a span of its name (:func:`_op`) and its host steps under stage spans
+``<op>.<stage>`` (:func:`_stage`: ``prepare``, ``count_probe``,
+``dispatch``, ``sync``, ``price``) that the flight recorder's
+``critical_path`` reads; the regrow ladder counts its overflows and
+regrows; each exchange is priced from the count matrices the exchange
+already holds on the host (:func:`_note_exchange`). The port is SPMD:
+each rank counts its own calls and rows, so a ``ThreadWorld`` of W
+ranks counts W ``exchange.calls`` where the JAX package's single
+controller counts one; the world sums of ``exchange.rows`` and
+``exchange.bytes_true`` are the JAX package's. Fault injection and the
+watchdog come with their modules (ROADMAP A7.1).
 """
 
+import contextlib
 import dataclasses
-import logging
+import functools
 import os
 from typing import Sequence
 
@@ -41,14 +53,45 @@ from cylon_tpu_torch.parallel.dtable import shard_sizes, world_layout, \
     world_layout_sized
 from cylon_tpu_torch.parallel.shuffle import checked_recv, \
     exchange_arrays, poison, shuffle_local
-from cylon_tpu_torch import plan
+from cylon_tpu_torch import plan, telemetry
 from cylon_tpu_torch.plan import MAX_SCALE
+from cylon_tpu_torch.telemetry import memory as _memory
+from cylon_tpu_torch.telemetry import trace as _trace
 from cylon_tpu_torch.utils import pow2_bucket
+from cylon_tpu_torch.utils.logging import get_logger
+from cylon_tpu_torch.utils.tracing import span as _span
 
 #: default headroom factor for post-shuffle local buffers (hash
 #: partitioning of uniform keys is balanced; skew beyond 2x should pass
 #: an explicit out_capacity)
 DEFAULT_SKEW = 2
+
+
+def _op(name: str):
+    """Decorator of a dist op ``fn(env, ...)``: run it under the span
+    ``name`` (the JAX package's ``@traced``) with this rank stamped on
+    every flight-recorder event inside (:func:`~cylon_tpu_torch.telemetry.trace.rank_scope`;
+    the ``ThreadWorld`` ranks share one recorder)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(env, *args, **kwargs):
+            with _trace.rank_scope(env.rank), _span(name):
+                return fn(env, *args, **kwargs)
+        return wrapper
+    return deco
+
+
+def _stage(op: "str | None", stage: str, **targs):
+    """Span for one host-side stage of a named eager dispatch —
+    ``<op>.<stage>`` with ``cat="stage"`` so the flight recorder's
+    :func:`~cylon_tpu_torch.telemetry.trace.critical_path` attributes
+    wall time to it (``cylon_tpu/parallel/dist_ops.py:54``). Unnamed
+    dispatches (the co-located ops, the world-of-one short-circuits)
+    stay span-free."""
+    if op is None:
+        return contextlib.nullcontext()
+    return _span(f"{op}.{stage}", cat="stage", **targs)
 
 
 def _tight_rows_local(env, sizes, enabled: bool = True):
@@ -113,20 +156,35 @@ def _shard_fit(env, table) -> tuple:
     return all(c <= k for c, k in zip(counts, caps)), counts
 
 
-def _adaptive(env, build, args, adaptive: bool):
+def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
+              tight: bool = False):
     """Run ``build(scale)(*args)``, doubling the default capacities while
     any rank overflowed (every bound defaulted: ``adaptive``), from the
     ambient :func:`~cylon_tpu_torch.plan.current_scale`; the scale that
     fitted is reported to an enclosing
     :class:`~cylon_tpu_torch.plan.CompiledQuery`. Explicit capacities
     keep the raise-on-overflow contract: their overflow shows in
-    ``nrows`` and ``num_rows`` raises."""
+    ``nrows`` and ``num_rows`` raises.
+
+    Telemetry (``cylon_tpu/parallel/dist_ops.py:361-426``): a named
+    ``op`` spans each run as ``<op>.dispatch`` and the world's count
+    check as ``<op>.sync``; ``exchange.tight_dispatches`` counts calls
+    whose receive buffers came from the tight estimate (``tight``) and
+    ``exchange.fallback_regrows`` those whose skew outran it; every
+    overflow counts ``plan.overflow_events{site=dist}`` with a
+    ``capacity.overflow`` instant, every doubling
+    ``plan.capacity_rescales{site=dist}`` with a ``capacity.regrow``
+    instant."""
+    if tight and op is not None:
+        telemetry.counter("exchange.tight_dispatches", op=op).inc()
     scale = plan.current_scale()
     while True:
-        out = build(scale)(*args)
+        with _stage(op, "dispatch", scale=scale):
+            out = build(scale)(*args)
         if not adaptive:
             return out
-        fits, counts = _shard_fit(env, out)
+        with _stage(op, "sync"):
+            fits, counts = _shard_fit(env, out)
         if fits:
             plan.note_scale(scale)
             return out
@@ -137,12 +195,75 @@ def _adaptive(env, build, args, adaptive: bool):
                     f"input shard row counts {tc} exceed their "
                     "capacities: an upstream op overflowed an explicit "
                     "out_capacity")
+        telemetry.counter("plan.overflow_events", site="dist").inc()
+        _trace.instant("capacity.overflow", cat="capacity", op=op or "?",
+                       scale=scale, max_count=max(counts),
+                       cap_local=out.capacity)
+        if tight and op is not None:
+            telemetry.counter("exchange.fallback_regrows", op=op).inc()
         if scale >= MAX_SCALE:
             raise OutOfCapacity(
                 f"shard row counts {counts} still exceed their local "
                 f"capacities at {scale}x the default budget; pass an "
                 "explicit out_capacity")
         scale *= 2
+        telemetry.counter("plan.capacity_rescales", site="dist").inc()
+        _trace.instant("capacity.regrow", cat="capacity", op=op or "?",
+                       scale=scale)
+
+
+def _note_exchange(env, op: str, ledger: list) -> None:
+    """Telemetry for one eager exchange dispatch (port of
+    ``cylon_tpu/parallel/dist_ops.py:551``), priced from the ``(count
+    matrix, words)`` pairs the dispatch's exchanges left in ``ledger``
+    (:func:`~cylon_tpu_torch.parallel.shuffle.exchange_arrays`): host
+    data already, so pricing adds no device→host transfer. A regrown
+    dispatch leaves only its last run's pairs.
+
+    This rank's ``exchange.rows`` are the rows it sent, its
+    ``exchange.bytes_true`` those rows times their u32 words times 4,
+    summed over the op's exchanges (both sides of a join); summed over
+    the ranks they are the JAX package's counts of a row-preserving
+    exchange. The port's exchange moves exactly those rows (the JAX
+    package's "ragged" path), so ``exchange.bytes_padded`` equals
+    ``exchange.bytes_true`` and ``exchange.pad_ratio`` is 1. The
+    decomposable ``dist_groupby`` exchanges its pre-combined partials:
+    the matrices count those, where the JAX package prices the input
+    rows. Then one ``memory.sample(op=op)`` at the stage boundary, and,
+    when the recorder is armed, an ``exchange.dispatch`` instant whose
+    ``rows_shards`` are every rank's sent rows."""
+    if not ledger:
+        return
+    me = env.rank
+    with _stage(op, "price"):
+        rows = true_b = 0
+        shard_rows = [0] * env.world_size
+        for cmat, words in ledger:
+            sent = cmat.sum(dim=1).tolist()
+            shard_rows = [a + int(b) for a, b in zip(shard_rows, sent)]
+            rows += int(sent[me])
+            true_b += int(sent[me]) * words * 4
+        pad_b = true_b
+        telemetry.counter("exchange.calls", op=op, path="ragged").inc()
+        telemetry.counter("exchange.rows", op=op).inc(rows)
+        telemetry.counter("exchange.bytes_true", op=op).inc(true_b)
+        telemetry.counter("exchange.bytes_padded", op=op).inc(pad_b)
+        # device-memory accounting at the stage boundary: one (throttled)
+        # live-bytes sample feeds memory.live_bytes{device} and this op's
+        # memory.peak_bytes{op} watermark (telemetry.memory)
+        _memory.sample(op=op)
+        if true_b:
+            telemetry.gauge("exchange.pad_ratio", op=op).set(pad_b / true_b)
+        if _trace.enabled():
+            _trace.instant(
+                "exchange.dispatch", cat="exchange", op=op, path="ragged",
+                rows=rows, bytes_true=true_b, bytes_padded=pad_b,
+                rows_shards=shard_rows if sum(shard_rows) else None,
+                counter="exchange.rows")
+            _trace.counter("exchange.bytes_true",
+                           telemetry.total("exchange.bytes_true"), op=op)
+            _trace.counter("exchange.bytes_padded",
+                           telemetry.total("exchange.bytes_padded"), op=op)
 
 
 def _key_data(t, cols):
@@ -180,6 +301,7 @@ def _value_partition_keys(t, cols, vh: dict):
     return keys, vals
 
 
+@_op("shuffle")
 def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
             bucket_cap: "int | None" = None, partitioning: str = "hash"):
     """Move this rank's rows so that equal keys land on one rank (port of
@@ -200,32 +322,40 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
     if partitioning not in ("hash", "modulo"):
         raise InvalidArgument(f"unknown partitioning {partitioning!r}")
     key_cols = list(key_cols)
-    table, counts, caps = world_layout_sized(env, table)
+    with _stage("shuffle", "prepare"):
+        table, counts, caps = world_layout_sized(env, table)
+        vh = _value_hash_tables(table, key_cols) \
+            if partitioning == "hash" else {}
     w = env.world_size
-    vh = _value_hash_tables(table, key_cols) if partitioning == "hash" \
-        else {}
-    tight = _tight_rows_local(env, [(counts, caps)],
-                              enabled=out_capacity is None)
+    with _stage("shuffle", "count_probe"):
+        tight = _tight_rows_local(env, [(counts, caps)],
+                                  enabled=out_capacity is None)
+    sent: list = []
 
     def build(scale):
         out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
                                tight_rows=tight)
 
         def run(t):
+            sent.clear()
             lt, inof = checked_recv(t, t.capacity)
             if partitioning == "hash":
                 keys, vals = _value_partition_keys(lt, key_cols, vh)
                 pid = partition_ids(keys, w, vals)
             else:
                 pid = modulo_partition_ids(_key_data(lt, key_cols)[0], w)
-            res, of = checked_recv(shuffle_local(env.comm, lt, pid, out_l),
-                                   out_l)
+            res, of = checked_recv(
+                shuffle_local(env.comm, lt, pid, out_l, sent), out_l)
             return poison(res, inof, of)
         return run
 
-    return _adaptive(env, build, (table,), out_capacity is None)
+    out = _adaptive(env, build, (table,), out_capacity is None,
+                    op="shuffle", tight=tight is not None)
+    _note_exchange(env, "shuffle", sent)
+    return out
 
 
+@_op("repartition")
 def repartition(env, table, out_capacity: "int | None" = None):
     """Round-robin rebalancing (port of
     ``cylon_tpu/parallel/dist_ops.py:806``; parity: Java
@@ -233,27 +363,34 @@ def repartition(env, table, out_capacity: "int | None" = None):
     row i of the world to rank ``i % W``, so the ranks' counts differ by
     at most one. Each rank numbers its rows from its global offset, the
     counts of the ranks before it."""
-    table, counts, caps = world_layout_sized(env, table)
+    with _stage("repartition", "prepare"):
+        table, counts, caps = world_layout_sized(env, table)
     w = env.world_size
     offset = sum(min(c, k) for c, k in zip(counts[:env.rank],
                                            caps[:env.rank]))
     pid = ((offset + torch.arange(table.capacity, dtype=torch.int64,
                                   device=table.device)) % w).to(torch.int32)
-    tight = _tight_rows_local(env, [(counts, caps)],
-                              enabled=out_capacity is None)
+    with _stage("repartition", "count_probe"):
+        tight = _tight_rows_local(env, [(counts, caps)],
+                                  enabled=out_capacity is None)
+    sent: list = []
 
     def build(scale):
         out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
                                tight_rows=tight)
 
         def run(t):
+            sent.clear()
             lt, inof = checked_recv(t, t.capacity)
-            res, of = checked_recv(shuffle_local(env.comm, lt, pid, out_l),
-                                   out_l)
+            res, of = checked_recv(
+                shuffle_local(env.comm, lt, pid, out_l, sent), out_l)
             return poison(res, inof, of)
         return run
 
-    return _adaptive(env, build, (table,), out_capacity is None)
+    out = _adaptive(env, build, (table,), out_capacity is None,
+                    op="repartition", tight=tight is not None)
+    _note_exchange(env, "repartition", sent)
+    return out
 
 
 def _join_keys(on, left_on, right_on) -> tuple:
@@ -266,6 +403,7 @@ def _join_keys(on, left_on, right_on) -> tuple:
             [right_on] if isinstance(right_on, str) else list(right_on))
 
 
+@_op("dist_join")
 def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
               how: str = "inner", suffixes=("_x", "_y"),
               out_capacity: "int | None" = None,
@@ -311,15 +449,20 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
     # key columns of both sides in one layout (bytes at one width,
     # dictionaries unified), so the codes co-locate equal keys and the
     # local joins' alignment is a no-op
-    left, lcounts, lcaps = world_layout_sized(env, left)
-    right, rcounts, rcaps = world_layout_sized(env, right)
-    left, right = _aligned_keys(left, right, left_on, right_on)
+    with _stage("dist_join", "prepare"):
+        left, lcounts, lcaps = world_layout_sized(env, left)
+        right, rcounts, rcaps = world_layout_sized(env, right)
+        left, right = _aligned_keys(left, right, left_on, right_on)
     w = env.world_size
     comm = env.comm
     caps = [sum(lcaps), sum(rcaps)]
     adaptive = out_capacity is None and shuffle_capacity is None
-    tight_l = _tight_rows_local(env, [(lcounts, lcaps)], enabled=adaptive)
-    tight_r = _tight_rows_local(env, [(rcounts, rcaps)], enabled=adaptive)
+    with _stage("dist_join", "count_probe"):
+        tight_l = _tight_rows_local(env, [(lcounts, lcaps)],
+                                    enabled=adaptive)
+        tight_r = _tight_rows_local(env, [(rcounts, rcaps)],
+                                    enabled=adaptive)
+    sent: list = []
 
     def build(scale):
         shuf_l = _out_cap_local(env, caps[0], shuffle_capacity,
@@ -330,6 +473,7 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
             else -(-out_capacity // w)
 
         def run(lt, rt):
+            sent.clear()
             # clamped shards + the overflow flags an upstream bounded op
             # carried in (nrows == capacity + 1)
             ltab, liof = checked_recv(lt, lt.capacity)
@@ -338,17 +482,20 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
                                                          right_on)
             lpid = partition_ids(lkeys, w, lvals)
             rpid = partition_ids(rkeys, w, rvals)
-            lsh, lof = checked_recv(shuffle_local(comm, ltab, lpid, shuf_l),
-                                    shuf_l)
-            rsh, rof = checked_recv(shuffle_local(comm, rtab, rpid, shuf_r),
-                                    shuf_r)
+            lsh, lof = checked_recv(
+                shuffle_local(comm, ltab, lpid, shuf_l, sent), shuf_l)
+            rsh, rof = checked_recv(
+                shuffle_local(comm, rtab, rpid, shuf_r, sent), shuf_r)
             res = _join_fn(lsh, rsh, left_on=left_on, right_on=right_on,
                            how=how, suffixes=suffixes, out_capacity=join_l,
                            algorithm=algorithm, ordered=False)
             return poison(res, liof, riof, lof, rof)
         return run
 
-    return _adaptive(env, build, (left, right), adaptive)
+    out = _adaptive(env, build, (left, right), adaptive, op="dist_join",
+                    tight=tight_l is not None or tight_r is not None)
+    _note_exchange(env, "dist_join", sent)
+    return out
 
 
 
@@ -358,6 +505,7 @@ _MERGEABLE = {"sum": "sum", "count": "sum", "size": "sum",
 _COMPOSITE = {"mean", "var", "std"}
 
 
+@_op("dist_groupby")
 def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
                  shuffle_capacity: "int | None" = None,
                  quantile: float = 0.5):
@@ -377,7 +525,8 @@ def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
     if env.world_size == 1:
         return groupby_aggregate(table, by, aggs, out_capacity=out_capacity,
                                  quantile=quantile)
-    table, counts, caps = world_layout_sized(env, table)
+    with _stage("dist_groupby", "prepare"):
+        table, counts, caps = world_layout_sized(env, table)
     w = env.world_size
     comm = env.comm
     decomposable = all(op in _MERGEABLE or op in _COMPOSITE
@@ -388,20 +537,24 @@ def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
     adaptive = shuffle_capacity is None and out_capacity is None
     # an upper bound for both paths: the partials never outnumber the
     # raw rows priced here
-    tight = _tight_rows_local(env, [(counts, caps)], enabled=adaptive)
+    with _stage("dist_groupby", "count_probe"):
+        tight = _tight_rows_local(env, [(counts, caps)], enabled=adaptive)
     pre, final, post = _combine_plan(aggs) if decomposable \
         else (None, None, None)
+    sent: list = []
 
     def build(scale):
         shuf_l = _out_cap_local(env, sum(caps), shuffle_capacity,
                                 scale=scale, tight_rows=tight)
 
         def run(t):
+            sent.clear()
             lt, inof = checked_recv(t, t.capacity)
             if not decomposable:
                 keys, vals = _key_data(lt, by)
                 sh, of = checked_recv(shuffle_local(
-                    comm, lt, partition_ids(keys, w, vals), shuf_l), shuf_l)
+                    comm, lt, partition_ids(keys, w, vals), shuf_l, sent),
+                    shuf_l)
                 res = groupby_aggregate(sh, by, aggs, out_capacity=out_l,
                                         quantile=quantile)
                 return poison(res, inof, of)
@@ -414,12 +567,16 @@ def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
                                                max=part.capacity))
             keys, vals = _key_data(part, by)
             sh, of = checked_recv(shuffle_local(
-                comm, part, partition_ids(keys, w, vals), shuf_l), shuf_l)
+                comm, part, partition_ids(keys, w, vals), shuf_l, sent),
+                shuf_l)
             res = post(groupby_aggregate(sh, by, final, out_capacity=out_l))
             return poison(res, inof, of, pof)
         return run
 
-    return _adaptive(env, build, (table,), adaptive)
+    out = _adaptive(env, build, (table,), adaptive, op="dist_groupby",
+                    tight=tight is not None)
+    _note_exchange(env, "dist_groupby", sent)
+    return out
 
 
 def _combine_plan(aggs):
@@ -549,6 +706,7 @@ def _sketch_quantile(comm, data, ok, q: float) -> torch.Tensor:
                                               device=dev))
 
 
+@_op("dist_aggregate")
 def dist_aggregate(env, table, col: str, op: str, quantile: float = 0.5,
                    exact: bool = True) -> torch.Tensor:
     """Scalar aggregate of a column over every rank's shard (port of
@@ -602,7 +760,7 @@ def _world_aggregate(env, table, caps, c, col, op, quantile, exact, memo):
                                    str(2 << 30)))
         rep = max(caps) * w * data.element_size()
         if rep > limit:
-            logging.getLogger(__name__).warning(
+            get_logger().warning(
                 "dist_aggregate(%r): the exact route would gather %d MiB "
                 "to every rank (over the %d MiB limit, "
                 "CYLON_TPU_EXACT_GATHER_LIMIT); using the mergeable "
@@ -673,6 +831,7 @@ def _dist_nunique(env, c, ok, world_capacity: int, memo: dict, col: str):
 
 
 # ------------------------------------------------------- filter and head
+@_op("dist_filter")
 def dist_filter(env, table, mask):
     """Rank-local filter (port of ``cylon_tpu/parallel/dist_ops.py:758``):
     each rank keeps its own valid rows where ``mask`` (``[capacity]``
@@ -683,6 +842,7 @@ def dist_filter(env, table, mask):
     return poison(filter_table(lt, mask), inof)
 
 
+@_op("dist_head")
 def dist_head(env, table, n: int):
     """The world's first ``n`` rows in rank order, the order
     ``gather_table`` gives (port of
@@ -717,6 +877,7 @@ class SortOptions:
     num_samples: int = 0
 
 
+@_op("dist_sort")
 def dist_sort(env, table, by, ascending=True,
               options: "SortOptions | None" = None,
               out_capacity: "int | None" = None):
@@ -743,24 +904,32 @@ def dist_sort(env, table, by, ascending=True,
         out = sort_table(table, by, asc)
         return out if out_capacity is None \
             else _trim_capacity(out, out_capacity, out.nrows)
-    table, counts, caps = world_layout_sized(env, table)
+    with _stage("dist_sort", "prepare"):
+        table, counts, caps = world_layout_sized(env, table)
     lt, inof = checked_recv(table, table.capacity)
-    pid = _sort_body(env, lt, by, asc, options.num_samples or 1024,
-                     options.num_bins or 0, max(caps))
-    tight = _tight_rows_local(env, [(counts, caps)],
-                              enabled=out_capacity is None)
+    with _stage("dist_sort", "splitters"):
+        pid = _sort_body(env, lt, by, asc, options.num_samples or 1024,
+                         options.num_bins or 0, max(caps))
+    with _stage("dist_sort", "count_probe"):
+        tight = _tight_rows_local(env, [(counts, caps)],
+                                  enabled=out_capacity is None)
+    sent: list = []
 
     def build(scale):
         out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
                                tight_rows=tight)
 
         def run(t):
-            sh, of = checked_recv(shuffle_local(env.comm, lt, pid, out_l),
-                                  out_l)
+            sent.clear()
+            sh, of = checked_recv(
+                shuffle_local(env.comm, lt, pid, out_l, sent), out_l)
             return poison(sort_table(sh, by, asc), inof, of)
         return run
 
-    return _adaptive(env, build, (table,), out_capacity is None)
+    out = _adaptive(env, build, (table,), out_capacity is None,
+                    op="dist_sort", tight=tight is not None)
+    _note_exchange(env, "dist_sort", sent)
+    return out
 
 
 def _splitter_searchsorted(splitters, rows) -> torch.Tensor:
@@ -908,15 +1077,21 @@ def _dist_setop(env, a, b, local_op, out_capacity):
 
     if env.world_size == 1:
         return local_op(a, b, out_capacity)
-    a, counts_a, caps_a = world_layout_sized(env, a)
-    b, counts_b, caps_b = world_layout_sized(env, b)
-    a, b = align_table_strings(unify_table_dictionaries([a, b]))
+    opname = f"dist_{local_op.__name__}"
+    with _stage(opname, "prepare"):
+        a, counts_a, caps_a = world_layout_sized(env, a)
+        b, counts_b, caps_b = world_layout_sized(env, b)
+        a, b = align_table_strings(unify_table_dictionaries([a, b]))
     w = env.world_size
     cols = a.column_names
     out_l = None if out_capacity is None else -(-out_capacity // w)
     adaptive = out_capacity is None
-    tight_a = _tight_rows_local(env, [(counts_a, caps_a)], enabled=adaptive)
-    tight_b = _tight_rows_local(env, [(counts_b, caps_b)], enabled=adaptive)
+    with _stage(opname, "count_probe"):
+        tight_a = _tight_rows_local(env, [(counts_a, caps_a)],
+                                    enabled=adaptive)
+        tight_b = _tight_rows_local(env, [(counts_b, caps_b)],
+                                    enabled=adaptive)
+    sent: list = []
     la, ina = checked_recv(a, a.capacity)
     lb, inb = checked_recv(b, b.capacity)
     ka, va = _key_data(la, cols)
@@ -931,16 +1106,21 @@ def _dist_setop(env, a, b, local_op, out_capacity):
                                 tight_rows=tight_b)
 
         def run(ta, tb):
-            sa, ofa = checked_recv(shuffle_local(env.comm, la, pa, shuf_a),
-                                   shuf_a)
-            sb, ofb = checked_recv(shuffle_local(env.comm, lb, pb, shuf_b),
-                                   shuf_b)
+            sent.clear()
+            sa, ofa = checked_recv(
+                shuffle_local(env.comm, la, pa, shuf_a, sent), shuf_a)
+            sb, ofb = checked_recv(
+                shuffle_local(env.comm, lb, pb, shuf_b, sent), shuf_b)
             return poison(local_op(sa, sb, out_l), ina, inb, ofa, ofb)
         return run
 
-    return _adaptive(env, build, (a, b), adaptive)
+    out = _adaptive(env, build, (a, b), adaptive, op=opname,
+                    tight=tight_a is not None or tight_b is not None)
+    _note_exchange(env, opname, sent)
+    return out
 
 
+@_op("dist_union")
 def dist_union(env, a, b, out_capacity: "int | None" = None):
     """Distinct rows of either table over the world (port of
     ``cylon_tpu/parallel/dist_ops.py:1373``; parity
@@ -948,6 +1128,7 @@ def dist_union(env, a, b, out_capacity: "int | None" = None):
     return _dist_setop(env, a, b, union, out_capacity)
 
 
+@_op("dist_intersect")
 def dist_intersect(env, a, b, out_capacity: "int | None" = None):
     """Distinct rows of both tables over the world (port of
     ``cylon_tpu/parallel/dist_ops.py:1382``; parity
@@ -955,6 +1136,7 @@ def dist_intersect(env, a, b, out_capacity: "int | None" = None):
     return _dist_setop(env, a, b, intersect, out_capacity)
 
 
+@_op("dist_subtract")
 def dist_subtract(env, a, b, out_capacity: "int | None" = None):
     """Distinct rows of ``a`` not in ``b`` over the world (port of
     ``cylon_tpu/parallel/dist_ops.py:1391``; parity
@@ -962,6 +1144,7 @@ def dist_subtract(env, a, b, out_capacity: "int | None" = None):
     return _dist_setop(env, a, b, subtract, out_capacity)
 
 
+@_op("dist_unique")
 def dist_unique(env, table, cols: "Sequence[str] | None" = None,
                 out_capacity: "int | None" = None, keep: str = "first"):
     """Distinct rows by ``cols`` over the world (port of
@@ -969,29 +1152,37 @@ def dist_unique(env, table, cols: "Sequence[str] | None" = None,
     ``DistributedUnique``, ``table.cpp:977-989``): hash-partition on the
     key columns, exchange, local :func:`unique`. ``out_capacity`` bounds
     the exchange, as in the JAX package."""
-    table, counts, caps = world_layout_sized(env, table)
+    with _stage("dist_unique", "prepare"):
+        table, counts, caps = world_layout_sized(env, table)
     names = list(cols) if cols is not None else table.column_names
     w = env.world_size
     lt, inof = checked_recv(table, table.capacity)
     keys, vals = _key_data(lt, names)
     pid = partition_ids(keys, w, vals)
-    tight = _tight_rows_local(env, [(counts, caps)],
-                              enabled=out_capacity is None)
+    with _stage("dist_unique", "count_probe"):
+        tight = _tight_rows_local(env, [(counts, caps)],
+                                  enabled=out_capacity is None)
+    sent: list = []
 
     def build(scale):
         shuf_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
                                 tight_rows=tight)
 
         def run(t):
-            sh, of = checked_recv(shuffle_local(env.comm, lt, pid, shuf_l),
-                                  shuf_l)
+            sent.clear()
+            sh, of = checked_recv(
+                shuffle_local(env.comm, lt, pid, shuf_l, sent), shuf_l)
             return poison(unique(sh, cols, keep=keep), inof, of)
         return run
 
-    return _adaptive(env, build, (table,), out_capacity is None)
+    out = _adaptive(env, build, (table,), out_capacity is None,
+                    op="dist_unique", tight=tight is not None)
+    _note_exchange(env, "dist_unique", sent)
+    return out
 
 
 # ------------------------------------------------- co-located (no exchange)
+@_op("colocated_join")
 def colocated_join(env, left, right, *, on=None, left_on=None,
                    right_on=None, how: str = "inner", suffixes=("_x", "_y"),
                    out_capacity: "int | None" = None,
@@ -1019,6 +1210,7 @@ def colocated_join(env, left, right, *, on=None, left_on=None,
     return _adaptive(env, build, (left, right), out_capacity is None)
 
 
+@_op("colocated_groupby")
 def colocated_groupby(env, table, by, aggs,
                       out_capacity: "int | None" = None,
                       quantile: float = 0.5):
@@ -1033,6 +1225,7 @@ def colocated_groupby(env, table, by, aggs,
                                     quantile=quantile), inof)
 
 
+@_op("colocated_unique")
 def colocated_unique(env, table, cols: "Sequence[str] | None" = None,
                      keep: str = "first", out_capacity: "int | None" = None):
     """Each rank's distinct rows of a table whose keys are already
@@ -1046,6 +1239,7 @@ def colocated_unique(env, table, cols: "Sequence[str] | None" = None,
 
 
 # ------------------------------------------------------------------ concat
+@_op("dist_concat")
 def dist_concat(env, tables):
     """Distributed concatenation (port of
     ``cylon_tpu/parallel/dist_ops.py:1540``; parity pycylon

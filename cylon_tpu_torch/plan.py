@@ -25,14 +25,27 @@ promises its callers:
 - scalar aggregates inside it stay 0-d tensors, and local result tables
   come back shrunk to the power-of-two bucket of their rows.
 
+Its telemetry is the JAX package's (``cylon_tpu/plan.py:495-571``):
+``plan.cache_hits`` / ``plan.cache_misses`` / ``plan.cache_evictions``
+read off the scale memo (a hit is a run at the scale the memo holds for
+its static key and input shapes; a miss, the eager "compile", counts in
+``plan.compile_count`` with a ``plan.compile`` instant),
+``plan.dispatch`` and ``plan.fetch`` stage spans each under
+:func:`~cylon_tpu_torch.telemetry.memory.forensics`, and the
+whole-query regrow's ``plan.overflow_events`` /
+``plan.capacity_rescales`` with their ``capacity.*`` instants. The memo
+keeps the ``_MEMO_ENTRIES`` most recently used entries (the JAX
+package's ``CYLON_TPU_PLAN_CACHE_ENTRIES`` bounds its compiled
+programs, which the eager port has none of).
+
 Left out, with the reasons in ``ROADMAP.md``: the row hint (the port's
 exchanges size from real counts), the result-size memo and its slicer
 (eager results are already shrunk), the ``CYLON_TPU_ADAPTIVE`` and
 ``CYLON_TPU_TIGHT`` switches (the port's ladders and tight sizing are
-always on), and the telemetry counters, spans, watchdog and fault hooks
-(with their modules).
+always on), and the watchdog and fault hooks (with their modules).
 """
 
+import collections
 import contextlib
 import contextvars
 import functools
@@ -41,14 +54,24 @@ import threading
 import numpy as np
 import torch
 
+from cylon_tpu_torch import telemetry
 from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity
+from cylon_tpu_torch.telemetry import memory as _memory
+from cylon_tpu_torch.telemetry import trace as _trace
+from cylon_tpu_torch.utils.tracing import span as _span
 
 __all__ = ["CompiledQuery", "MAX_SCALE", "capacity_scale", "compile_query",
            "current_scale", "in_compiled", "note_overflow", "note_scale",
-           "regrow_eager", "shared_compiled"]
+           "plan_cache_stats", "query_fingerprint", "regrow_eager",
+           "shared_compiled"]
 
 #: regrow ceiling: 1024x the default budget (``cylon_tpu/plan.py:58``)
 MAX_SCALE = 1024
+
+#: entries a query's scale memo keeps, least recently used evicted
+#: first: far above any sane shape churn, so that a pathological
+#: workload cannot grow the memo without bound
+_MEMO_ENTRIES = 4096
 
 _SCALE: contextvars.ContextVar = contextvars.ContextVar(
     "cylon_torch_capacity_scale", default=1)
@@ -398,8 +421,10 @@ class CompiledQuery:
         #: each read-modify-write of the memo holds it; the query itself
         #: runs outside it
         self._mu = threading.Lock()
-        #: (static key, input shapes) -> the highest scale a run settled at
-        self._scale_memo: dict = {}
+        #: (static key, input shapes) -> the highest scale a run settled
+        #: at; least recently used first, at most ``_MEMO_ENTRIES``
+        self._scale_memo: "collections.OrderedDict" = \
+            collections.OrderedDict()
 
     def invalidate(self) -> None:
         """Drop the memo (``cylon_tpu/plan.py:449``)."""
@@ -410,17 +435,44 @@ class CompiledQuery:
         dyn_pos, static_pos, static_kw, dyn_kw = _split_args(args, kwargs)
         key = (static_pos, static_kw, _shape_signature(dyn_pos, dyn_kw))
         with self._mu:
+            hit = key in self._scale_memo
             scale = self._scale_memo.get(key, 1)
+            if hit:
+                self._scale_memo.move_to_end(key)
         while True:
+            telemetry.counter("plan.cache_hits" if hit
+                              else "plan.cache_misses").inc()
+            if not hit:
+                telemetry.counter("plan.compile_count").inc()
+                _trace.instant("plan.compile", cat="plan", scale=scale,
+                               fn=getattr(self._fn, "__name__", "?"))
             flags, reached = [], [scale]
-            with capacity_scale(scale), _collect_flags(flags, reached):
+            # the dispatch span covers the eager query (its device work
+            # queued, its ops' own syncs included); the fetch span is
+            # the one transfer of the overflow check. An allocation
+            # failure in either gets the resident-consumer forensics
+            # dump (telemetry.memory) before it propagates.
+            with _span("plan.dispatch", cat="stage", cache_hit=hit), \
+                    _memory.forensics("plan.dispatch"), \
+                    capacity_scale(scale), _collect_flags(flags, reached):
                 out = self._fn(*args, **kwargs)
             try:
-                counts = _check_overflow(out, flags)
+                with _span("plan.fetch", cat="stage"), \
+                        _memory.forensics("plan.fetch"):
+                    counts = _check_overflow(out, flags)
             except OutOfCapacity:
+                telemetry.counter("plan.overflow_events",
+                                  site="compiled").inc()
+                _trace.instant("capacity.overflow", cat="capacity",
+                               site="compiled", scale=scale)
                 if scale >= MAX_SCALE:
                     raise
                 scale *= 2
+                hit = False
+                telemetry.counter("plan.capacity_rescales",
+                                  site="compiled").inc()
+                _trace.instant("capacity.regrow", cat="capacity",
+                               site="compiled", scale=scale)
                 continue
             with self._mu:
                 # widen-only: a concurrent call that settled higher is
@@ -428,6 +480,13 @@ class CompiledQuery:
                 top = max(reached)
                 if top > self._scale_memo.get(key, 0):
                     self._scale_memo[key] = top
+                self._scale_memo.move_to_end(key)
+                evicted = 0
+                while len(self._scale_memo) > _MEMO_ENTRIES:
+                    self._scale_memo.popitem(last=False)
+                    evicted += 1
+            if evicted:
+                telemetry.counter("plan.cache_evictions").inc(evicted)
             return _shrink_results(out, counts)
 
 
@@ -445,6 +504,42 @@ def shared_compiled(fn) -> CompiledQuery:
         if cq is None:
             cq = _SHARED[fn] = functools.wraps(fn)(CompiledQuery(fn))
     return cq
+
+
+def plan_cache_stats() -> dict:
+    """Hit/miss/eviction totals of the compiled-query memos plus the
+    derived hit rate (``cylon_tpu/plan.py:645``)."""
+    hits = telemetry.total("plan.cache_hits")
+    misses = telemetry.total("plan.cache_misses")
+    looked = hits + misses
+    return {
+        "hits": hits,
+        "misses": misses,
+        "evictions": telemetry.total("plan.cache_evictions"),
+        "hit_rate": (hits / looked) if looked else 0.0,
+        "shared_queries": len(_SHARED),
+    }
+
+
+def query_fingerprint(name: str, args=(), kwargs=None) -> "str | None":
+    """Stable fingerprint of a registered query invocation
+    (``cylon_tpu/plan.py:660``): sha256 of the query NAME plus the
+    canonical JSON of its arguments, so two processes derive the SAME
+    fingerprint for the same logical request without sharing any
+    in-memory state. None when the arguments are not JSON-canonical
+    (closures, tensors, ...): such an invocation has no stable identity
+    and must never be coalesced or cached."""
+    import hashlib
+    import json
+
+    try:
+        blob = json.dumps(
+            {"name": str(name), "args": list(args),
+             "kwargs": dict(kwargs or {})},
+            sort_keys=True, separators=(",", ":"), allow_nan=False)
+    except (TypeError, ValueError):
+        return None
+    return hashlib.sha256(blob.encode("utf-8")).hexdigest()
 
 
 def compile_query(fn):

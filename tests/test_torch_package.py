@@ -70,6 +70,13 @@ def test_no_file_imports_jax_or_the_jax_package():
     # numpy-only generator and manifest
     for name in ("__init__", "dbgen", "manifest", "queries"):
         assert PKG / "tpch" / f"{name}.py" in files, name
+    # and the telemetry package and utils keep their own copies of the
+    # JAX package's backend-neutral modules
+    for name in ("__init__", "registry", "events", "timeseries", "export",
+                 "trace", "aggregate", "memory"):
+        assert PKG / "telemetry" / f"{name}.py" in files, name
+    for name in ("__init__", "logging", "tracing"):
+        assert PKG / "utils" / f"{name}.py" in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -97,6 +104,51 @@ def test_tpch_and_compiled_queries_pull_in_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+_TELEMETRY_PROBE = """
+import os
+import sys
+os.environ["CYLON_TPU_TRACE"] = "1"
+import cylon_tpu_torch.telemetry as tel
+from cylon_tpu_torch.utils import span, pow2_bucket
+with span("probe", cat="stage"):
+    tel.counter("probe.count").inc()
+    tel.memory.sample(force=True)
+assert [e["name"] for e in tel.trace.events()] == ["probe", "probe"]
+assert pow2_bucket(5) == 8
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_telemetry_import_pulls_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _TELEMETRY_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_telemetry_exports_the_jax_names():
+    """The port's telemetry exports every name of the JAX package's but
+    ``profile`` (EXPLAIN / ANALYZE, which waits for the catalog) and the
+    TPU link rate, whose place the H100's NVLink data-sheet rate takes;
+    its registry is its own."""
+    import cylon_tpu.telemetry as jtel
+
+    from cylon_tpu_torch import telemetry as tel
+
+    assert "telemetry" in cylon_tpu_torch.__all__
+    want = set(jtel.__all__) - {"profile", "ICI_LINK_BYTES_PER_SEC"}
+    assert want | {"NVLINK_BYTES_PER_SEC"} == set(tel.__all__)
+    for name in tel.__all__:
+        assert getattr(tel, name) is not None, name
+    assert tel.registry is not jtel.registry
+    tel.counter("own.registry").inc()
+    assert jtel.metric("own.registry") is None
+    tel.reset("own.")
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -188,6 +240,16 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.tpch.queries:_query_strings",
     "cylon_tpu_torch.tpch.dbgen",
     "cylon_tpu_torch.tpch.manifest",
+    # the telemetry core (ROADMAP A8.1)
+    "cylon_tpu_torch.telemetry",
+    "cylon_tpu_torch.telemetry.aggregate",
+    "cylon_tpu_torch.telemetry.memory",
+    "cylon_tpu_torch.utils.tracing",
+    "cylon_tpu_torch.parallel.dist_ops:_stage",
+    "cylon_tpu_torch.parallel.dist_ops:_note_exchange",
+    "cylon_tpu_torch.plan:plan_cache_stats",
+    "cylon_tpu_torch.plan:query_fingerprint",
+    "cylon_tpu_torch.plan:CompiledQuery.invalidate",
 )
 
 
@@ -273,3 +335,23 @@ def test_chip_smoke_drives_the_tpch_phase():
     assert main.index("frame_phase(") < main.index("tpch_phase(") \
         < main.index('path_kernel_phase(torch, rate, stats, "tpch"')
     assert '"tpch_launches"' in main
+
+
+def test_chip_smoke_drives_the_telemetry_phase():
+    """``chip_smoke.py`` names phase 15 in its docstring, runs it after
+    phase 14, holds its kernels against their plain versions, puts its
+    launches in the kernels line, and ends every phase in a memory
+    line."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    doc = ast.get_docstring(tree)
+    assert "15. telemetry" in doc and "memory" in doc
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"telemetry_phase", "memory_line", "count_syncs"} <= funcs
+    main = src[src.index("def main("):]
+    assert main.index("tpch_phase(") < main.index("telemetry_phase(")
+    assert '"telemetry_launches"' in main
+    body = src[src.index("def telemetry_phase("):src.index("def main(")]
+    assert 'path_kernel_phase(torch, rate, stats, "telemetry"' in body
+    for phase in range(1, 16):
+        assert f'memory_line(torch, card, "{phase} ' in main, phase
