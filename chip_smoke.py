@@ -112,6 +112,18 @@ Phases, each printing one JSON line:
     coverage (at least 0.8), the exchange's true bytes against the rows
     the ranks sent, a strict-JSON Chrome trace; then the kernels at this
     phase's shapes, as in phase 10; see :func:`telemetry_phase`.
+16. spill: resilience, deadlines and the spill path. The 100M x 100M
+    out-of-core join (``ooc_join``, 8 partitions spilled to host
+    memory) against numpy, prefetched and sequential, beside the in-core
+    join; ``fallback.join`` by the pre-flight route and after a real
+    CUDA OOM (a ballast tensor), the live bytes back where they were;
+    a child process killed mid-join and resumed here, byte for byte;
+    TPC-H through the fallback (q5 spilled, the streaming q1 and q5 at
+    SF 10, the six two-phase queries at SF 1) against the in-core
+    result and pandas; a transient exchange fault retried at W = 4, a
+    barrier against a hung peer, and the hooks' sync sites; then the
+    kernels at this phase's shapes, as in phase 10; see
+    :func:`spill_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -120,9 +132,10 @@ peak (then reset) and reserved bytes, and the live bytes after a
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
-``sort_setops_launches``, ``frame_launches``, ``tpch_launches`` and
-``telemetry_launches``, on phase 9's group-by calls, phase 12's calls,
-phase 13's, phase 14's and phase 15's compared runs), the ``nvidia-smi``
+``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
+``telemetry_launches`` and ``spill_launches``, on phase 9's group-by
+calls, phase 12's calls, phase 13's, phase 14's, phase 15's compared runs
+and phase 16's parts (a)-(f)), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -3288,22 +3301,29 @@ def count_syncs(torch, fn):
 
 def telemetry_syncs(runs) -> list:
     """The sync sites of ``runs`` (:func:`count_syncs`'s dicts) that lie
-    in telemetry's own code: its package, the span, and the exchange
-    pricing (``dist_ops._note_exchange``)."""
+    in telemetry's own code (its package, the span, the exchange pricing
+    ``dist_ops._note_exchange``) or in the resilience layer's (the fault
+    plans and the spill store, the watchdog, and the exchanges' row
+    accounting ``dist_ops._account_exchange_rows``)."""
     import inspect
 
     from cylon_tpu_torch.parallel import dist_ops
 
-    lines, at = inspect.getsourcelines(dist_ops._note_exchange)
-    note = range(at, at + len(lines))
+    own_lines = set()
+    for fn in (dist_ops._note_exchange, dist_ops._account_exchange_rows):
+        lines, at = inspect.getsourcelines(fn)
+        own_lines.update(range(at, at + len(lines)))
+    own_files = ("cylon_tpu_torch/utils/tracing.py",
+                 "cylon_tpu_torch/resilience.py",
+                 "cylon_tpu_torch/watchdog.py")
     own = set()
     for sites in runs:
         for site in sites:
             path, line = site.rsplit(":", 1)
             if path.startswith("cylon_tpu_torch/telemetry/") \
-                    or path == "cylon_tpu_torch/utils/tracing.py" \
+                    or path in own_files \
                     or (path == "cylon_tpu_torch/parallel/dist_ops.py"
-                        and int(line) in note):
+                        and int(line) in own_lines):
                 own.add(site)
     return sorted(own)
 
@@ -3559,9 +3579,819 @@ def telemetry_phase(torch, rate, stats, card: str, dev="cuda") -> dict:
     return total
 
 
+# ------------------------------------------------------------ phase 16
+#: the out-of-core join's configuration (``cylon_tpu/outofcore.py:188``
+#: names the 100M x 100M join): rows a side, keys uniform in [0, rows)
+SPILL_ROWS = 100_000_000
+SPILL_PARTS = 8
+SPILL_CHUNK = 1 << 22
+SPILL_SEED = 0
+#: the pre-flight route's budget, ``CYLON_TPU_HBM_BUDGET_BYTES``
+SPILL_BUDGET = 8 << 30
+#: the kill-and-resume run dies at this partition's durable write, so
+#: this many partitions were complete before it
+SPILL_KILL_AT = 4
+#: the card the ballast of part (c) leaves beyond two partitions' peak
+SPILL_HEADROOM = 1 << 30
+#: TPC-H through the fallback: phase 14's scales and seed
+SPILL_TPCH_SF = TPCH_BASELINE_SF
+SPILL_TPCH_SMALL_SF = TPCH_SF
+#: every query with a two-phase plan (``tpch.twophase``)
+SPILL_TWO_PHASE = ("q8", "q11", "q14", "q15", "q16", "q22")
+#: the free-memory budget ``run_query("q5")`` is given, below q5's
+#: predicted working set at SF 10, so that it takes the spill path
+SPILL_TPCH_BUDGET = 1 << 30
+#: part (f): the 16M share at W = 4, and the barrier's hang and timeout
+SPILL_W4_RANK_ROWS = 4 << 20
+BARRIER_TIMEOUT_S = 0.5
+BARRIER_SLACK_S = 1.0
+
+
+def spill_tables(np, n: int):
+    """Part (a)'s two sides from :data:`SPILL_SEED`: an int64 key uniform
+    in [0, n) and a float64 value each (the same arrays in the parent
+    and in the killed child of part (d))."""
+    rng = np.random.default_rng(SPILL_SEED)
+    return [{"k": rng.integers(0, n, n, dtype=np.int64),
+             "v": rng.random(n)} for _ in range(2)]
+
+
+class SpillSink:
+    """An ``ooc_join`` sink: per partition (in call order) its rows, the
+    sum of ``v_x * v_y`` and, with ``digest``, a blake2b digest of its
+    columns' bytes."""
+
+    def __init__(self, digest: bool):
+        self.rows, self.sums, self.digests = [], [], []
+        self.digest = digest
+
+    def __call__(self, df):
+        import hashlib
+
+        import numpy as np
+
+        vx, vy = df["v_x"].to_numpy(), df["v_y"].to_numpy()
+        self.rows.append(len(df))
+        self.sums.append(float(np.dot(vx, vy)))
+        if self.digest:
+            h = hashlib.blake2b(digest_size=16)
+            for c in df.columns:
+                h.update(np.ascontiguousarray(df[c].to_numpy()).tobytes())
+            self.digests.append(h.hexdigest())
+
+
+def spill_child(rdir: str, dev: str, rows: str, chunk: str,
+                parts: str) -> int:
+    """Part (d)'s child: part (a)'s ``ooc_join`` (``rows`` a side,
+    ``chunk`` rows a chunk, ``parts`` partitions, on ``dev``) with
+    ``resume_dir`` under ``FaultRule.kill`` at the
+    :data:`SPILL_KILL_AT`-th partition's durable write; it dies there
+    with ``KILL_EXIT_CODE``."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    from cylon_tpu_torch import resilience
+    from cylon_tpu_torch.outofcore import ooc_join
+
+    left, right = spill_tables(np, int(rows))
+    plan = resilience.FaultPlan([resilience.FaultRule.kill(
+        "spill_write", nth=SPILL_KILL_AT)])
+    with resilience.active(plan):
+        ooc_join(left, right, on="k", n_partitions=int(parts),
+                 chunk_rows=int(chunk), resume_dir=rdir,
+                 sink=SpillSink(False), device=dev)
+    return 1                       # the kill never fired
+
+
+def compute_idle_share(evts) -> "dict | None":
+    """From one ``ooc_join``'s flight-recorder events: the pass's wall
+    (first to last event), the host partition phase (to the first
+    ``ooc_join.partition`` span), the seconds inside ``ooc.compute``,
+    ``ooc.prefetch`` and ``spill.write_async`` spans, and the compute
+    stage's idle share (the wall outside every ``ooc.compute`` span)."""
+    from cylon_tpu_torch.telemetry import trace
+
+    spans = trace._matched_spans(evts)
+    if not evts or not spans:
+        return None
+    t0 = min(e["ts"] for e in evts)
+    t1 = max(e["ts"] + e.get("dur", 0.0) for e in evts)
+    def total(name):
+        return sum(d for b, d in spans if b["name"] == name)
+
+    starts = [b["ts"] for b, _ in spans if b["name"] == "ooc_join.partition"]
+    compute, wall = total("ooc.compute"), t1 - t0
+    return {"wall_s": wall,
+            "partition_phase_s": min(starts) - t0 if starts else None,
+            "compute_s": compute, "prefetch_s": total("ooc.prefetch"),
+            "commit_s": total("spill.write_async"),
+            "compute_idle_share": 1.0 - compute / wall if wall else None}
+
+
+def tpch_q1_pandas(pdfs, date_int, cutoff=None):
+    """TPC-H Q1 in pandas (a copy of
+    ``tests/test_torch_tpch.py:q1_pandas``)."""
+    if cutoff is None:
+        cutoff = date_int(1998, 9, 2)
+    li = pdfs["lineitem"]
+    li = li[li["l_shipdate"] <= cutoff].copy()
+    li["disc_price"] = li["l_extendedprice"] * (1 - li["l_discount"])
+    li["charge"] = li["disc_price"] * (1 + li["l_tax"])
+    return li.groupby(["l_returnflag", "l_linestatus"]).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"),
+        sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"),
+        avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"),
+        count_order=("l_quantity", "count"),
+    ).reset_index().sort_values(
+        ["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+
+
+def tpch_q8_pandas(pdfs, date_int, nation="BRAZIL", region="AMERICA",
+                   ptype="ECONOMY ANODIZED STEEL"):
+    """TPC-H Q8 in pandas (a copy of ``tests/test_tpch.py:q8_pandas``)."""
+    import datetime
+
+    import numpy as np
+
+    epoch = datetime.date(1970, 1, 1).toordinal()
+    p, s, li, o, c, n, r = (pdfs["part"], pdfs["supplier"],
+                            pdfs["lineitem"], pdfs["orders"],
+                            pdfs["customer"], pdfs["nation"],
+                            pdfs["region"])
+    p = p[p.p_type == ptype]
+    o = o[(o.o_orderdate >= date_int(1995, 1, 1))
+          & (o.o_orderdate <= date_int(1996, 12, 31))].copy()
+    o["o_year"] = [datetime.date.fromordinal(int(x) + epoch).year
+                   for x in o.o_orderdate]
+    r = r[r.r_name == region]
+    n1 = n.merge(r, left_on="n_regionkey", right_on="r_regionkey")
+    c = c[c.c_nationkey.isin(n1.n_nationkey)]
+    li = li.copy()
+    li["revenue"] = li.l_extendedprice * (1 - li.l_discount)
+    j = (li.merge(p, left_on="l_partkey", right_on="p_partkey")
+           .merge(o, left_on="l_orderkey", right_on="o_orderkey")
+           .merge(c, left_on="o_custkey", right_on="c_custkey")
+           .merge(s, left_on="l_suppkey", right_on="s_suppkey")
+           .merge(n.rename(columns={"n_name": "supp_nation",
+                                    "n_nationkey": "s_nk"}),
+                  left_on="s_nationkey", right_on="s_nk"))
+    j["nation_rev"] = np.where(j.supp_nation == nation, j.revenue, 0.0)
+    g = j.groupby("o_year", as_index=False)[["revenue", "nation_rev"]].sum()
+    g["mkt_share"] = g.nation_rev / g.revenue
+    return g.sort_values("o_year")[["o_year", "mkt_share"]].reset_index(
+        drop=True)
+
+
+def tpch_q11_pandas(pdfs, nation="GERMANY", fraction=0.0001):
+    """TPC-H Q11 in pandas (a copy of ``tests/test_tpch.py:q11_pandas``)."""
+    ps, s, n = pdfs["partsupp"], pdfs["supplier"], pdfs["nation"]
+    n = n[n.n_name == nation]
+    j = (ps.merge(s, left_on="ps_suppkey", right_on="s_suppkey")
+           .merge(n, left_on="s_nationkey", right_on="n_nationkey")).copy()
+    j["value"] = j.ps_supplycost * j.ps_availqty
+    g = j.groupby("ps_partkey", as_index=False)["value"].sum()
+    total = g.value.sum()
+    g = g[g.value > fraction * total]
+    return g.sort_values("value", ascending=False).reset_index(drop=True)
+
+
+def tpch_q14_pandas(pdfs, date_int):
+    """TPC-H Q14 in pandas (a copy of ``tests/test_tpch.py:q14_pandas``)."""
+    li, p = pdfs["lineitem"], pdfs["part"]
+    d0, d1 = date_int(1995, 9, 1), date_int(1995, 10, 1)
+    li = li[(li.l_shipdate >= d0) & (li.l_shipdate < d1)].copy()
+    li["revenue"] = li.l_extendedprice * (1 - li.l_discount)
+    j = li.merge(p, left_on="l_partkey", right_on="p_partkey")
+    promo = j[j.p_type.str.startswith("PROMO")].revenue.sum()
+    total = j.revenue.sum()
+    return 100.0 * promo / total if total else 0.0
+
+
+def tpch_q15_pandas(pdfs, date_int):
+    """TPC-H Q15 in pandas (a copy of ``tests/test_tpch.py:q15_pandas``)."""
+    s, li = pdfs["supplier"], pdfs["lineitem"]
+    d0, d1 = date_int(1996, 1, 1), date_int(1996, 4, 1)
+    li = li[(li.l_shipdate >= d0) & (li.l_shipdate < d1)].copy()
+    li["revenue"] = li.l_extendedprice * (1 - li.l_discount)
+    g = li.groupby("l_suppkey", as_index=False).agg(
+        total_revenue=("revenue", "sum"))
+    g = g[g.total_revenue >= g.total_revenue.max()]
+    out = g.merge(s, left_on="l_suppkey", right_on="s_suppkey")
+    return out.sort_values("s_suppkey")[
+        ["s_suppkey", "s_name", "total_revenue"]].reset_index(drop=True)
+
+
+def tpch_q16_pandas(pdfs, brand="Brand#45", type_prefix="MEDIUM POLISHED",
+                    sizes=(49, 14, 23, 45, 19, 3, 36, 9)):
+    """TPC-H Q16 in pandas (a copy of ``tests/test_tpch.py:q16_pandas``)."""
+    import re
+
+    p, ps, s = pdfs["part"], pdfs["partsupp"], pdfs["supplier"]
+    bad = s[s.s_comment.str.match(re.compile(".*Customer.*Complaints.*"))]
+    p = p[(p.p_brand != brand) & ~p.p_type.str.startswith(type_prefix)
+          & p.p_size.isin(sizes)]
+    j = ps.merge(p, left_on="ps_partkey", right_on="p_partkey")
+    j = j[~j.ps_suppkey.isin(bad.s_suppkey)]
+    g = j.groupby(["p_brand", "p_type", "p_size"], as_index=False).agg(
+        supplier_cnt=("ps_suppkey", "nunique"))
+    return g.sort_values(["supplier_cnt", "p_brand", "p_type", "p_size"],
+                         ascending=[False, True, True, True]).reset_index(
+        drop=True)
+
+
+def tpch_q22_pandas(pdfs, codes=("13", "31", "23", "29", "30", "18", "17")):
+    """TPC-H Q22 in pandas (a copy of ``tests/test_tpch.py:q22_pandas``)."""
+    c, o = pdfs["customer"].copy(), pdfs["orders"]
+    c["cntrycode"] = c.c_phone.str[:2]
+    c = c[c.cntrycode.isin(codes)]
+    avg = c[c.c_acctbal > 0.0].c_acctbal.mean()
+    cand = c[c.c_acctbal > avg]
+    cand = cand[~cand.c_custkey.isin(o.o_custkey.unique())]
+    g = cand.groupby("cntrycode", as_index=False).agg(
+        numcust=("c_custkey", "count"), totacctbal=("c_acctbal", "sum"))
+    return g.sort_values("cntrycode").reset_index(drop=True)
+
+
+def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
+    """Resilience, deadlines and the spill path on the card (phase 16).
+    Every line carries the card's name and power limit.
+
+    (a) The 100M x 100M out-of-core join (:data:`SPILL_ROWS` a side,
+        keys uniform in [0, SPILL_ROWS), seed :data:`SPILL_SEED`) through
+        ``ooc_join`` (:data:`SPILL_PARTS` partitions, :data:`SPILL_CHUNK`
+        rows a chunk, a sink that sums ``v_l * v_r`` and digests each
+        partition): the row total against numpy's
+        ``sum_k cnt_l[k] * cnt_r[k]``, the products' sum at rtol 1e-9,
+        each partition's rows against its keys' expected count (the
+        host hash's partition of every key). Walls, peak device bytes,
+        prefetch hits, and from the flight recorder's ``ooc.*`` spans the
+        compute stage's idle share; then the same join with prefetch
+        depth 0 (``CYLON_TPU_OOC_PREFETCH_DEPTH=0``), and the in-core
+        ``join`` of the same tables on the card.
+    (b) ``fallback.join`` of (a)'s tables with
+        ``CYLON_TPU_HBM_BUDGET_BYTES`` at :data:`SPILL_BUDGET`: one
+        pre-flight fallback, (a)'s rows and sum.
+    (c) A real OOM: a ballast tensor leaves two sequential partitions'
+        peak (from (a)) and :data:`SPILL_HEADROOM` free, less than the
+        in-core join's peak; ``fallback.join`` under ``run_with_fallback``
+        (its budget the card's whole memory, so that the pre-flight lets
+        the attempt run) must see ``torch.cuda.OutOfMemoryError`` in the
+        in-core attempt, count one OOM fallback, and give (a)'s result;
+        the bytes the allocator holds when the spill starts and, after
+        the ballast is freed, the live bytes back at their level before
+        the phase (less the pair scan's scratch, which its wrapper keeps
+        across calls and grows to the largest scan met).
+    (d) Kill and resume: a child process (``--spill-child``) runs (a)'s
+        join with ``resume_dir`` and dies by ``FaultRule.kill`` at the
+        :data:`SPILL_KILL_AT`-th partition's durable write; this process
+        resumes it: (a)'s total, the partitions' digests in order equal
+        to (a)'s, ``SPILL_KILL_AT - 1`` partitions resumed.
+    (e) TPC-H through the fallback on phase 14's generator, seed and
+        scales (the lineitem columns of Q1 added at SF 10):
+        ``fallback.run_query("q5")`` with a budget that forces the spill
+        path, ``streaming.q1_ooc`` and ``q5_ooc`` at :data:`SPILL_TPCH_SF`,
+        and the two-phase :data:`SPILL_TWO_PHASE` at
+        :data:`SPILL_TPCH_SMALL_SF` (q22's orders cut to 5 % as in phase
+        14), each equal to the eager in-core result of the same data on
+        the card and to its pandas oracle; each two-phase query's
+        phases launch the path's kernels (they join on the card).
+    (f) Faults and deadlines: ``dist_join`` at W = 4 on ``ThreadWorld``
+        (:data:`SPILL_W4_RANK_ROWS` a rank a side) under a fault plan
+        with one transient fault at each rank's ``exchange`` point,
+        inside ``retrying``: the clean run's rows, one retry a rank;
+        ``CylonEnv.barrier(timeout=BARRIER_TIMEOUT_S)`` against a hang
+        at the ``worker`` point raises ``DeadlineExceeded`` within the
+        timeout plus :data:`BARRIER_SLACK_S`; ``dist_join`` at W = 1
+        (phase 4's 16M) and W = 4 with the hooks armed (a fault plan
+        that never fires and a deadline scope) against the same runs
+        unarmed: equal sync sites and launches, none in the resilience
+        layer's code (:func:`telemetry_syncs`).
+    (g) Each kernel the spill path launched in (d)'s recomputed
+        partitions (the joins of (a)) and in (e), against its plain
+        version at the shapes it met, as in phase 10.
+
+    Returns ``(launches of (a)-(f), the kernels' inputs)``."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import fallback, outofcore, resilience, telemetry
+    from cylon_tpu_torch import tpch, watchdog
+    from cylon_tpu_torch.errors import DeadlineExceeded
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.telemetry import trace
+    from cylon_tpu_torch.tpch import streaming
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    from cylon_tpu_torch.kernels import scan as kscan
+
+    def kept_bytes():
+        """Live device bytes less the pair scan's scratch, which its
+        wrapper keeps (grown, never shrunk) across calls a stream (each
+        block as the allocator counts it, rounded up to 512 bytes)."""
+        if dev != "cuda":
+            return 0
+        return torch.cuda.memory_allocated() - sum(
+            -(-s[0].numel() * s[0].element_size() // 512) * 512
+            for s in kscan._pair_state.values())
+
+    t_phase = time.perf_counter()
+    base_bytes = kept_bytes()
+
+    def record(part, case, **fields):
+        row = {"phase": "spill", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"spill: {msg}")
+
+    def peak_of(fn):
+        """``(result, host wall s, peak device bytes)`` of ``fn``."""
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+        return out, wall, peak
+
+    def counter(name, **labels):
+        c = telemetry.metric(name, **labels)
+        return 0 if c is None else c.value
+
+    rec = PathInputs()
+    total_launches = {k: 0 for k in launch_counts()}
+
+    def bank_launches():
+        """Add the counts since the last reset to the phase's total."""
+        for k, v in launch_counts().items():
+            total_launches[k] += v
+        reset_launches()
+
+    reset_launches()
+
+    # -- (a) the 100M x 100M out-of-core join
+    n = SPILL_ROWS
+    t = time.perf_counter()
+    left, right = spill_tables(np, n)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cnt_l = np.bincount(left["k"], minlength=n)
+    cnt_r = np.bincount(right["k"], minlength=n)
+    pairs = cnt_l * cnt_r
+    want_rows = int(pairs.sum())
+    want_sum = float(np.dot(np.bincount(left["k"], weights=left["v"],
+                                        minlength=n),
+                            np.bincount(right["k"], weights=right["v"],
+                                        minlength=n)))
+    # each key that matches on both sides, in its host partition
+    both = np.flatnonzero(pairs)
+    pid = (outofcore._row_hash([both]) % np.uint64(SPILL_PARTS)) \
+        .astype(np.int64)
+    want_parts = np.bincount(pid, weights=pairs[both],
+                             minlength=SPILL_PARTS).astype(np.int64)
+    del cnt_l, cnt_r, pairs, pid, both
+    expect_s = time.perf_counter() - t
+    kw = dict(on="k", n_partitions=SPILL_PARTS, chunk_rows=SPILL_CHUNK,
+              device=dev)
+
+    def check_join(case, total, sink):
+        rows_ok = (total == want_rows and sum(sink.rows) == want_rows
+                   and sink.rows == want_parts.tolist())
+        sum_ok = bool(np.isclose(sum(sink.sums), want_sum, rtol=1e-9,
+                                 atol=0.0))
+        if not (rows_ok and sum_ok):
+            fail(f"{case}: rows {total} by partition {sink.rows}, sum "
+                 f"{sum(sink.sums)!r}; numpy {want_rows} by partition "
+                 f"{want_parts.tolist()}, sum {want_sum!r}")
+
+    runs = {}
+    for case, depth in (("prefetch", None), ("sequential", "0")):
+        if depth is not None:
+            os.environ["CYLON_TPU_OOC_PREFETCH_DEPTH"] = depth
+        hits = counter("ooc.prefetch_hits", op="join")
+        misses = counter("ooc.prefetch_misses", op="join")
+        sink = SpillSink(True)
+        os.environ["CYLON_TPU_TRACE"] = "1"
+        trace.clear()
+        try:
+            total, wall, peak = peak_of(lambda: outofcore.ooc_join(
+                left, right, sink=sink, **kw))
+            evts = trace.events()
+        finally:
+            del os.environ["CYLON_TPU_TRACE"]
+            if depth is not None:
+                del os.environ["CYLON_TPU_OOC_PREFETCH_DEPTH"]
+        trace.clear()
+        check_join(f"(a) {case}", total, sink)
+        runs[case] = {"wall_s": wall, "peak_bytes": peak, "sink": sink,
+                      "prefetch_hits": counter(
+                          "ooc.prefetch_hits", op="join") - hits,
+                      "prefetch_misses": counter(
+                          "ooc.prefetch_misses", op="join") - misses,
+                      "spans": compute_idle_share(evts)}
+        record("a", f"ooc_join_{case}", rows=total, sum=sum(sink.sums),
+               partition_rows=sink.rows, wall_s=wall, peak_bytes=peak,
+               prefetch_hits=runs[case]["prefetch_hits"],
+               prefetch_misses=runs[case]["prefetch_misses"],
+               spans=runs[case]["spans"])
+    if runs["prefetch"]["sink"].digests != runs["sequential"]["sink"].digests:
+        fail("(a) the sequential run's partitions differ from the "
+             "prefetched run's")
+    ref = runs["prefetch"]["sink"]
+
+    def in_core():
+        lt = ct.Table.from_pydict(left, capacity=n, device=dev)
+        rt = ct.Table.from_pydict(right, capacity=n, device=dev)
+        res = ct.join(lt, rt, on="k", ordered=False)
+        m = res.num_rows
+        # an elementwise product and a sum: torch.dot would take cuBLAS,
+        # whose workspace stays allocated after the call
+        return m, float((res.column("v_x").data[:m]
+                         * res.column("v_y").data[:m]).sum())
+
+    (incore_rows, incore_sum), incore_wall, incore_peak = peak_of(in_core)
+    if incore_rows != want_rows or not np.isclose(incore_sum, want_sum,
+                                                  rtol=1e-9, atol=0.0):
+        fail(f"(a) in-core join: {incore_rows} rows, sum {incore_sum!r}")
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    record("a", "summary", rows_per_side=n, partitions=SPILL_PARTS,
+           chunk_rows=SPILL_CHUNK, generate_s=gen_s, numpy_expect_s=expect_s,
+           want_rows=want_rows, want_sum=want_sum,
+           ooc_prefetch_wall_s=runs["prefetch"]["wall_s"],
+           ooc_sequential_wall_s=runs["sequential"]["wall_s"],
+           ooc_prefetch_peak_bytes=runs["prefetch"]["peak_bytes"],
+           ooc_sequential_peak_bytes=runs["sequential"]["peak_bytes"],
+           in_core_wall_s=incore_wall, in_core_peak_bytes=incore_peak,
+           in_core_rows=incore_rows, in_core_sum=incore_sum)
+
+    # -- (b) the pre-flight route
+    pre = counter("ooc.fallbacks", op="join", reason="preflight")
+    os.environ["CYLON_TPU_HBM_BUDGET_BYTES"] = str(SPILL_BUDGET)
+    try:
+        got, wall, peak = peak_of(lambda: fallback.join(
+            left, right, on="k", n_partitions=SPILL_PARTS,
+            chunk_rows=SPILL_CHUNK, device=dev))
+    finally:
+        del os.environ["CYLON_TPU_HBM_BUDGET_BYTES"]
+    pre = counter("ooc.fallbacks", op="join", reason="preflight") - pre
+    got_sum = float(np.dot(got["v_x"].to_numpy(), got["v_y"].to_numpy()))
+    record("b", "preflight", budget_bytes=SPILL_BUDGET,
+           predicted_bytes=int((16 * n * 2) * fallback.expansion_factor()),
+           fallbacks_preflight=pre, rows=len(got), sum=got_sum,
+           wall_s=wall, peak_bytes=peak)
+    if pre != 1 or len(got) != want_rows or not np.isclose(
+            got_sum, want_sum, rtol=1e-9, atol=0.0):
+        fail(f"(b) {pre} pre-flight fallbacks, {len(got)} rows, sum "
+             f"{got_sum!r}")
+    del got
+    gc.collect()
+
+    # -- (c) a real OOM, retried once through the spill path
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        keep = 2 * runs["sequential"]["peak_bytes"] + SPILL_HEADROOM
+        if keep >= incore_peak:
+            fail(f"(c) two partitions' peak and headroom ({keep} bytes) "
+                 f"reach the in-core peak ({incore_peak}): no OOM to make")
+        ballast = torch.empty(max(free - keep, 0), dtype=torch.uint8,
+                              device=dev)
+        before = torch.cuda.memory_allocated()
+        seen = {}
+        real_spill = outofcore.ooc_join
+
+        def spill_probe(*a, **k):
+            seen["allocated_at_spill"] = torch.cuda.memory_allocated()
+            return real_spill(*a, **k)
+
+        real_rwf = fallback.run_with_fallback
+
+        def rwf(attempt, spill, **k):
+            def probed():
+                try:
+                    return attempt()
+                except BaseException as e:
+                    seen["attempt_error"] = type(e).__name__
+                    raise
+            return real_rwf(probed, spill, **k)
+
+        oom = counter("ooc.fallbacks", op="join", reason="oom")
+        outofcore.ooc_join, fallback.run_with_fallback = spill_probe, rwf
+        try:
+            # the budget is the card's whole memory, so the pre-flight
+            # lets the in-core attempt run into the allocator's limit
+            got, wall, peak = peak_of(lambda: fallback.join(
+                left, right, on="k", n_partitions=SPILL_PARTS,
+                chunk_rows=SPILL_CHUNK, device=dev,
+                budget_bytes=torch.cuda.mem_get_info()[1]))
+        finally:
+            outofcore.ooc_join, fallback.run_with_fallback = real_spill, \
+                real_rwf
+        oom = counter("ooc.fallbacks", op="join", reason="oom") - oom
+        got_sum = float(np.dot(got["v_x"].to_numpy(),
+                               got["v_y"].to_numpy()))
+        got_rows = len(got)
+        ballast_bytes = ballast.numel()
+        del ballast, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = kept_bytes()
+        record("c", "oom", free_bytes=free, ballast_bytes=ballast_bytes,
+               left_free_bytes=keep, in_core_peak_bytes=incore_peak,
+               attempt_error=seen.get("attempt_error"),
+               fallbacks_oom=oom, rows=got_rows, sum=got_sum, wall_s=wall, peak_bytes=peak,
+               allocated_before_attempt=before,
+               allocated_at_spill=seen.get("allocated_at_spill"),
+               reclaimed_short_bytes=(seen.get("allocated_at_spill", 0)
+                                      - before),
+               kept_bytes_before_phase=base_bytes, kept_bytes_after=after,
+               pair_scratch_bytes=torch.cuda.memory_allocated() - after)
+        if seen.get("attempt_error") != "OutOfMemoryError" or oom != 1 \
+                or got_rows != want_rows \
+                or not np.isclose(got_sum, want_sum, rtol=1e-9, atol=0.0):
+            fail(f"(c) attempt raised {seen.get('attempt_error')}, {oom} "
+                 f"OOM fallbacks, sum {got_sum!r}")
+        if after != base_bytes:
+            fail(f"(c) {after} bytes live after the ballast went, "
+                 f"{base_bytes} before the phase")
+    else:
+        record("c", "oom", skipped="a real OOM needs the card")
+
+    # -- (d) kill and resume
+    with tempfile.TemporaryDirectory() as tmp:
+        rdir = os.path.join(tmp, "resume")
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--spill-child",
+             rdir, dev, str(n), str(SPILL_CHUNK), str(SPILL_PARTS)],
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        if child.returncode != resilience.KILL_EXIT_CODE:
+            fail(f"(d) the child exited {child.returncode}, not "
+                 f"{resilience.KILL_EXIT_CODE}: {child.stderr[-2000:]}")
+        resumed = counter("ooc.units_resumed", op="join")
+        sink = SpillSink(True)
+        # the kernels' inputs are kept here, on the partitions this run
+        # recomputes (the joins of (a)): a copy of each stays on the card
+        # until (g), so it is taken after (c)'s count of live bytes
+        with rec:
+            total, wall, peak = peak_of(lambda: outofcore.ooc_join(
+                left, right, sink=sink, resume_dir=rdir, **kw))
+        resumed = counter("ooc.units_resumed", op="join") - resumed
+        check_join("(d) resumed", total, sink)
+        record("d", "kill_resume", child_s=child_s,
+               child_exit=child.returncode, resumed_units=resumed,
+               rows=total, wall_s=wall, peak_bytes=peak,
+               digests_equal=sink.digests == ref.digests)
+        if resumed != SPILL_KILL_AT - 1 or sink.digests != ref.digests:
+            fail(f"(d) {resumed} partitions resumed (want "
+                 f"{SPILL_KILL_AT - 1}), digests equal "
+                 f"{sink.digests == ref.digests}")
+    del left, right, runs, ref
+    gc.collect()
+
+    # -- (e) TPC-H through the fallback
+    def gen(sf, names):
+        t = time.perf_counter()
+        data = tpch.generate(sf, TPCH_SEED, keep=manifest_keep(MANIFEST,
+                                                              names))
+        return data, time.perf_counter() - t
+
+    def pandas_of(data):
+        return {k: pd.DataFrame(v) for k, v in data.items()}
+
+    big, gen_big = gen(SPILL_TPCH_SF, ["q1", "q5"])
+    frames = {}
+    for name, cols in big.items():
+        frames.update(tpch.ingest({name: cols}, device=dev))
+    pdfs = pandas_of(big)
+    results = []
+    with rec:
+        q5_in = host_result(tpch.q5(frames))
+        q1_in = host_result(tpch.q1(frames))
+        del frames
+        gc.collect()
+        q5_pd = tpch_q5_pandas(pdfs, tpch.date_int)
+        q1_pd = tpch_q1_pandas(pdfs, tpch.date_int)
+        del pdfs
+        pre = counter("ooc.fallbacks", op="q5", reason="preflight")
+        got, wall, peak = peak_of(lambda: fallback.run_query(
+            "q5", big, budget_bytes=SPILL_TPCH_BUDGET))
+        pre = counter("ooc.fallbacks", op="q5", reason="preflight") - pre
+        results.append(("run_query_q5", got, q5_in, q5_pd, wall, peak,
+                        {"fallbacks_preflight": pre}))
+        for name, fn, incore, oracle in (
+                ("q1_ooc", streaming.q1_ooc, q1_in, q1_pd),
+                ("q5_ooc", streaming.q5_ooc, q5_in, q5_pd)):
+            got, wall, peak = peak_of(lambda: host_result(fn(
+                big, device=dev)))
+            results.append((name, got, incore, oracle, wall, peak, {}))
+        del big
+        small, gen_small = gen(SPILL_TPCH_SMALL_SF, list(SPILL_TWO_PHASE))
+        n_keep = max(len(small["orders"]["o_custkey"]) // 20, 1)
+        trimmed = dict(small, orders={k: v[:n_keep] for k, v in
+                                      small["orders"].items()})
+        oracles = {"q8": lambda p: tpch_q8_pandas(p, tpch.date_int),
+                   "q11": tpch_q11_pandas,
+                   "q14": lambda p: tpch_q14_pandas(p, tpch.date_int),
+                   "q15": lambda p: tpch_q15_pandas(p, tpch.date_int),
+                   "q16": tpch_q16_pandas, "q22": tpch_q22_pandas}
+        for qn in SPILL_TWO_PHASE:
+            data = trimmed if qn == "q22" else small
+            frames = tpch.ingest(data, device=dev)
+            incore = host_result(getattr(tpch, qn)(frames))
+            del frames
+            merges = counter("ooc.merge_phases", op=qn)
+            launched = sum(launch_counts().values())
+            got, wall, peak = peak_of(lambda: fallback.tpch_fallback(
+                qn, data, n_partitions=SPILL_PARTS))
+            # the phases join and group each partition on the card: the
+            # path's kernels launch in them
+            results.append((f"two_phase_{qn}", got, incore,
+                            oracles[qn](pandas_of(data)), wall, peak,
+                            {"merge_phases": counter(
+                                "ooc.merge_phases", op=qn) - merges,
+                             "kernel_launches": sum(
+                                 launch_counts().values()) - launched}))
+        del small, trimmed
+    bad = []
+    for case, got, incore, oracle, wall, peak, extra in results:
+        ok_in = results_match(np, got, incore)
+        ok_pd = results_match(np, got, oracle)
+        record("e", case, rows=len(got) if hasattr(got, "columns") else 1,
+               equal_in_core=ok_in, equal_pandas=ok_pd, wall_s=wall,
+               peak_bytes=peak, **extra)
+        if not (ok_in and ok_pd) or extra.get("fallbacks_preflight", 1) \
+                != 1 or extra.get("merge_phases", 1) != 1 \
+                or (dev == "cuda" and extra.get("kernel_launches", 1) == 0):
+            bad.append(case)
+    record("e", "data", sf=SPILL_TPCH_SF, small_sf=SPILL_TPCH_SMALL_SF,
+           seed=TPCH_SEED, generate_s=gen_big, small_generate_s=gen_small)
+    if bad:
+        fail(f"(e) {bad} differ from the in-core result or pandas")
+    del results
+    gc.collect()
+
+    # -- (f) faults and deadlines
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    w, nr = GROUPBY_WORLD, SPILL_W4_RANK_ROWS
+    nw = w * nr
+    sides = [{"k": torch.randint(0, nw, (nw,), dtype=torch.int64,
+                                 device=dev, generator=g),
+              "v": torch.rand(nw, dtype=torch.float64, device=dev,
+                              generator=g)} for _ in range(2)]
+
+    def shard(e, side):
+        lo, hi = e.rank * nr, (e.rank + 1) * nr
+        from cylon_tpu_torch import dtypes
+        from cylon_tpu_torch.column import Column
+
+        return ct.Table({"k": Column(side["k"][lo:hi], None, dtypes.int64),
+                         "v": Column(side["v"][lo:hi], None,
+                                     dtypes.float64)}, nr)
+
+    def w4(plan_of=None, scoped: bool = False):
+        """Each rank's rows and fault plan; ``scoped``: each rank runs
+        under a deadline scope (a rank thread does not inherit the
+        caller's context)."""
+        def rank(comm):
+            e = ct.CylonEnv(comm, device=dev)
+            if plan_of is not None:
+                e.set_fault_plan(plan_of())
+            with watchdog.deadline(600.0) if scoped else \
+                    contextlib.nullcontext():
+                out = resilience.retrying(
+                    lambda: ct.dist_join(e, shard(e, sides[0]),
+                                         shard(e, sides[1]), on="k"),
+                    ct.RetryPolicy(base_delay=0.0),
+                    sleep_fn=lambda s: None)
+            return out.num_rows, e.fault_plan
+        return ct.ThreadWorld(w).run(rank)
+
+    clean = w4()
+    retries = counter("resilience.retries", code="Unavailable")
+    faulted = w4(lambda: resilience.FaultPlan(
+        [resilience.FaultRule("exchange", nth=1)]))
+    retries = counter("resilience.retries", code="Unavailable") - retries
+    rows_clean = sum(r for r, _ in clean)
+    rows_faulted = sum(r for r, _ in faulted)
+    hits = [p.hits("exchange") for _, p in faulted]
+    record("f", "transient_exchange", world=w, rows_per_rank_side=nr,
+           rows_clean=rows_clean, rows_retried=rows_faulted,
+           retries=retries, exchange_hits=hits)
+    if rows_clean != rows_faulted or retries != w or hits != [2] * w:
+        fail(f"(f) retried dist_join: {rows_faulted} rows against "
+             f"{rows_clean}, {retries} retries, hits {hits}")
+
+    benv = ct.CylonEnv(device=dev)
+    benv.set_fault_plan(resilience.FaultPlan(
+        [resilience.FaultRule.hang("worker", seconds=2.0)]))
+    t = time.perf_counter()
+    try:
+        benv.barrier(timeout=BARRIER_TIMEOUT_S)
+        raised = None
+    except DeadlineExceeded as e:
+        raised = e
+    waited = time.perf_counter() - t
+    # the abandoned wait wakes from its hang and finishes its barrier:
+    # join it, so that its synchronize counts in no later run
+    for th in threading.enumerate():
+        if th.name == "cylon-bounded-barrier":
+            th.join(timeout=30.0)
+    record("f", "barrier_hang", timeout_s=BARRIER_TIMEOUT_S,
+           slack_s=BARRIER_SLACK_S, waited_s=waited,
+           raised=type(raised).__name__ if raised else None,
+           section=getattr(raised, "section", None),
+           retryable=resilience.is_retryable(raised) if raised else None)
+    if raised is None or raised.section != "barrier" \
+            or waited > BARRIER_TIMEOUT_S + BARRIER_SLACK_S:
+        fail(f"(f) barrier: raised {raised!r} after {waited} s")
+
+    n1 = DIST_ROWS
+    l1 = {"k": torch.randint(0, n1, (n1,), dtype=torch.int64, device=dev,
+                             generator=g),
+          "v": torch.rand(n1, dtype=torch.float64, device=dev, generator=g)}
+    r1 = {"k": torch.randint(0, n1, (n1,), dtype=torch.int64, device=dev,
+                             generator=g),
+          "v": torch.rand(n1, dtype=torch.float64, device=dev, generator=g)}
+    env1 = ct.CylonEnv(device=dev)
+
+    def one():
+        return ct.dist_join(env1, shard1(l1), shard1(r1), on="k")
+
+    def shard1(side):
+        from cylon_tpu_torch import dtypes
+        from cylon_tpu_torch.column import Column
+
+        return ct.Table({"k": Column(side["k"], None, dtypes.int64),
+                         "v": Column(side["v"], None, dtypes.float64)}, n1)
+
+    never = resilience.FaultPlan([resilience.FaultRule(
+        "exchange", nth=1 << 40)])
+    sync_cases = {"w1": (one, one), "w4": (w4, lambda: w4(scoped=True))}
+    sync_out = {}
+    for name, (plain, hooked) in sync_cases.items():
+        plain()
+        count_syncs(torch, plain)                 # warm-up under the check
+        runs_f = []
+        for mode in ("plain", "hooked") * 2:
+            ctx = contextlib.ExitStack()
+            if mode == "hooked":
+                ctx.enter_context(resilience.active(never))
+                ctx.enter_context(watchdog.deadline(600.0))
+            with ctx:
+                bank_launches()
+                _, sites = count_syncs(
+                    torch, plain if mode == "plain" else hooked)
+                runs_f.append({"mode": mode, "syncs": sites,
+                               "launches": launch_counts()})
+        badp = [i for i in (0, 2) if runs_f[i]["syncs"]
+                != runs_f[i + 1]["syncs"] or runs_f[i]["launches"]
+                != runs_f[i + 1]["launches"]]
+        own = telemetry_syncs(r["syncs"] for r in runs_f)
+        sync_out[name] = {"syncs": [sum(r["syncs"].values())
+                                    for r in runs_f],
+                          "sync_sites": runs_f[0]["syncs"],
+                          "launches": runs_f[0]["launches"],
+                          "modes": [r["mode"] for r in runs_f],
+                          "pairs_differ": badp, "own_sites": own}
+        if badp or own:
+            record("f", f"syncs_{name}", **sync_out[name])
+            fail(f"(f) {name}: hooked runs differ from plain ones "
+                 f"{badp}, or the resilience layer synchronized at {own}")
+    record("f", "syncs", **sync_out)
+    del sides, l1, r1, clean, faulted
+    bank_launches()
+    record("launches", "spill", launches=total_launches)
+    for k in ("scan32", "pair_max_scan", "row_hash"):
+        if not total_launches[k]:
+            fail(f"{k} never launched on the spill path")
+    gc.collect()
+    return total_launches, rec.inputs
+
+
 def main(argv) -> int:
     import torch
 
+    if argv[:1] == ["--spill-child"]:
+        return spill_child(*argv[1:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive",
               file=sys.stderr)
@@ -3638,6 +4468,13 @@ def main(argv) -> int:
     emit({"phase": "telemetry_seconds", "card": card,
           "seconds": time.perf_counter() - t15})
     memory_line(torch, card, "15 telemetry")
+    t16 = time.perf_counter()
+    spill_launches, spill_inputs = spill_phase(torch, rate, stats, card)
+    path_kernel_phase(torch, rate, stats, "spill", spill_inputs, card=card)
+    del spill_inputs
+    emit({"phase": "spill_seconds", "card": card,
+          "seconds": time.perf_counter() - t16})
+    memory_line(torch, card, "16 spill")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -3664,6 +4501,7 @@ def main(argv) -> int:
             "frame_launches": frame_launches[wrapper.__name__],
             "tpch_launches": tpch_launches[wrapper.__name__],
             "telemetry_launches": telemetry_launches[wrapper.__name__],
+            "spill_launches": spill_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -50,20 +50,32 @@ The port carries:
   propagates to the application's logging until
   ``utils.init_logging()`` is called, which attaches the JAX package's
   glog-style stderr handler (rank prefix, ``CYLON_LOG_LEVEL``); the JAX
-  package attaches it at import.
+  package attaches it at import;
+- resilience, deadlines and the spill path: fault plans, retry/backoff,
+  row accounting, the spill store and checkpoints (``resilience``:
+  ``FaultPlan``, ``FaultRule``, ``RetryPolicy``), deadline scopes and
+  bounded sections with stall dumps (``watchdog``: ``deadline``), the
+  prefetch and async-commit pipeline (``pipeline``), the out-of-core
+  join, group-by and sort that spill partitions to host memory
+  (``outofcore``), and the OOM→spill fallback with its TPC-H plans
+  (``fallback``, ``tpch.twophase``, ``tpch.streaming``).
 """
 
 from cylon_tpu_torch import dtypes, plan, telemetry
 from cylon_tpu_torch.column import Column, Dictionary
 from cylon_tpu_torch.config import (CSVReadOptions, CSVWriteOptions,
-                                    JoinAlgorithm, JoinConfig, JoinType,
-                                    ParquetOptions)
+                                    DeadlinePolicy, JoinAlgorithm,
+                                    JoinConfig, JoinType, ParquetOptions,
+                                    RetryPolicy)
 from cylon_tpu_torch.context import CommConfig, CylonEnv, DistConfig, \
     LocalConfig
-from cylon_tpu_torch.errors import (CylonError, DeviceUnavailable,
-                                    IndexError_, InvalidArgument, IOError_,
-                                    KeyError_, NotImplemented_,
-                                    OutOfCapacity, TypeError_)
+from cylon_tpu_torch.errors import (Code, CylonError, DataLossError,
+                                    DeadlineExceeded, DeviceUnavailable,
+                                    FailedPrecondition, IndexError_,
+                                    InvalidArgument, IOError_, KeyError_,
+                                    NotImplemented_, OutOfCapacity,
+                                    ResourceExhausted, TransientError,
+                                    TypeError_)
 from cylon_tpu_torch.frame import (DataFrame, GroupByDataFrame, concat,
                                    merge)
 from cylon_tpu_torch.indexing import IndexingType
@@ -88,25 +100,32 @@ from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm, \
     ThreadWorld
 from cylon_tpu_torch.parallel.task_plan import (LogicalTaskPlan,
                                                 task_shuffle, task_tables)
+from cylon_tpu_torch.resilience import FaultPlan, FaultRule
 from cylon_tpu_torch.row import Row
 from cylon_tpu_torch.series import Series
 from cylon_tpu_torch.table import Table
+from cylon_tpu_torch.watchdog import deadline
+from cylon_tpu_torch import fallback, pipeline
 
-__all__ = ["CSVReadOptions", "CSVWriteOptions", "Column", "CommConfig",
-           "CylonEnv", "CylonError", "DataFrame", "DeviceUnavailable",
-           "Dictionary", "DistConfig", "GroupByDataFrame", "IOError_",
-           "IndexError_", "IndexingType", "InvalidArgument", "JoinAlgorithm",
-           "JoinConfig", "JoinType", "KeyError_", "LocalComm", "LocalConfig",
-           "LogicalTaskPlan", "NotImplemented_", "OutOfCapacity",
-           "ParquetOptions", "ProcessGroupComm", "ReduceOp", "Row", "Series",
-           "SortOptions", "Table", "ThreadWorld", "TypeError_", "all_reduce",
+__all__ = ["CSVReadOptions", "CSVWriteOptions", "Code", "Column",
+           "CommConfig", "CylonEnv", "CylonError", "DataFrame",
+           "DataLossError", "DeadlineExceeded", "DeadlinePolicy",
+           "DeviceUnavailable", "Dictionary", "DistConfig",
+           "FailedPrecondition", "FaultPlan", "FaultRule",
+           "GroupByDataFrame", "IOError_", "IndexError_", "IndexingType",
+           "InvalidArgument", "JoinAlgorithm", "JoinConfig", "JoinType",
+           "KeyError_", "LocalComm", "LocalConfig", "LogicalTaskPlan",
+           "NotImplemented_", "OutOfCapacity", "ParquetOptions",
+           "ProcessGroupComm", "ReduceOp", "ResourceExhausted",
+           "RetryPolicy", "Row", "Series", "SortOptions", "Table",
+           "ThreadWorld", "TransientError", "TypeError_", "all_reduce",
            "colocated_groupby", "colocated_join", "colocated_unique", "concat",
            "concat_tables", "dist_aggregate", "dist_concat", "dist_filter",
            "dist_groupby", "dist_head", "dist_intersect", "dist_join",
            "dist_num_rows", "dist_sort", "dist_subtract", "dist_to_pandas",
-           "dist_union", "dist_unique", "dtypes", "equal_tables",
+           "dist_union", "dist_unique", "dtypes", "deadline", "equal_tables",
            "filter_table", "gather_table", "groupby_aggregate", "head",
-           "intersect", "join", "merge", "plan", "read_csv", "read_csv_chunks",
+           "intersect", "join", "merge", "pipeline", "plan", "read_csv", "read_csv_chunks",
            "read_csv_sharded", "read_json", "read_parquet",
            "read_parquet_chunks", "repartition", "sample", "scatter_table",
            "shuffle", "sort_table", "subtract", "table_aggregate", "take",

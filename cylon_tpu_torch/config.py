@@ -4,8 +4,11 @@ The port's copy of the structs of ``cylon_tpu/config.py`` that the
 frame and io layers honour (parity targets:
 ``cpp/src/cylon/join/join_config.hpp:25-197``,
 ``cpp/src/cylon/io/csv_read_config.hpp:28-152``, ``csv_write_config.hpp``
-and ``parquet_config.hpp``). ``SortOptions`` lives with ``dist_sort``
-(:mod:`cylon_tpu_torch.parallel.dist_ops`) and is re-exported here.
+and ``parquet_config.hpp``), and the knobs of the resilience and
+deadline layers (``cylon_tpu/config.py:77-150``: :class:`RetryPolicy`,
+:data:`DEADLINE_SECTIONS`, :class:`DeadlinePolicy`). ``SortOptions``
+lives with ``dist_sort`` (:mod:`cylon_tpu_torch.parallel.dist_ops`) and
+is re-exported here.
 """
 
 import dataclasses
@@ -14,8 +17,9 @@ from typing import Sequence
 
 from cylon_tpu_torch.parallel.dist_ops import SortOptions
 
-__all__ = ["CSVReadOptions", "CSVWriteOptions", "JoinAlgorithm",
-           "JoinConfig", "JoinType", "ParquetOptions", "SortOptions"]
+__all__ = ["CSVReadOptions", "CSVWriteOptions", "DEADLINE_SECTIONS",
+           "DeadlinePolicy", "JoinAlgorithm", "JoinConfig", "JoinType",
+           "ParquetOptions", "RetryPolicy", "SortOptions"]
 
 
 class JoinType(enum.Enum):
@@ -129,3 +133,52 @@ class ParquetOptions:
     write_cols: "Sequence[str] | None" = None
 
     __hash__ = _hash_fields
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Knobs of the retry engine (:func:`cylon_tpu_torch.resilience.retrying`).
+    Delays follow ``min(base_delay * multiplier**k, max_delay)`` with a
+    deterministic jitter drawn from ``seed``, so two processes with the
+    same policy back off identically and failure traces replay exactly.
+    The process default is this struct's defaults
+    (:func:`cylon_tpu_torch.resilience.default_policy`)."""
+
+    max_attempts: int = 3      # total attempts, including the first
+    base_delay: float = 0.05   # seconds before the first retry
+    max_delay: float = 2.0     # backoff ceiling (pre-jitter)
+    multiplier: float = 2.0    # exponential growth per retry
+    jitter: float = 0.1        # +- fraction, deterministic from seed
+    seed: int = 0
+
+
+#: Default deadline budget (seconds) of each named blocking section of
+#: the watchdog (:mod:`cylon_tpu_torch.watchdog`); ``None`` is unbounded.
+#: ``CYLON_TPU_DEADLINE_<SECTION>`` overrides one per call (``0`` or
+#: less clears it back to unbounded).
+DEADLINE_SECTIONS: "dict[str, float | None]" = {
+    "barrier": None,         # CylonEnv.barrier
+    "bootstrap": None,       # the process group's init
+    "overflow_fetch": None,  # CompiledQuery's one device->host transfer
+    "spill_io": None,        # SpillStore bucket write/read
+    "ooc_pass": None,        # out-of-core join/groupby/sort passes
+    "ooc_prefetch": None,    # one pipelined-ingest unit (pipeline)
+    "exchange": None,        # shuffle/repartition/dist_join
+    "fallback_merge": None,  # the two-phase fallback's global merge
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeadlinePolicy:
+    """Knobs of the watchdog (:mod:`cylon_tpu_torch.watchdog`): when a
+    section stalls past its budget, the monitor thread dumps all-thread
+    stacks to stderr (``dump_stacks``) and then either lets the section
+    raise :class:`~cylon_tpu_torch.errors.DeadlineExceeded`
+    (``action="raise"``) or ends the process (``"abort"``, exit 70).
+    ``poll_interval`` is the monitor's re-scan cadence while a dumped
+    section is still stalled. The process default is
+    :data:`cylon_tpu_torch.watchdog.DEADLINE_POLICY`."""
+
+    poll_interval: float = 0.05
+    action: str = "raise"        # "raise" | "abort" (os._exit(70))
+    dump_stacks: bool = True     # all-thread stacks to stderr on stall

@@ -24,8 +24,7 @@ from typing import Optional
 import torch
 
 from cylon_tpu_torch import device as _device
-from cylon_tpu_torch.errors import DeviceUnavailable, InvalidArgument, \
-    NotImplemented_
+from cylon_tpu_torch.errors import DeviceUnavailable, InvalidArgument
 from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm
 
 
@@ -80,6 +79,7 @@ class CylonEnv:
                                   "not both")
         self._owns_group = False
         self._device = device
+        self._fault_plan = None
         if comm is None and isinstance(config, DistConfig):
             comm = self._join_group(config, device)
         elif comm is None and config is not None \
@@ -113,13 +113,52 @@ class CylonEnv:
                     f"DistConfig: the process group runs "
                     f"{dist.get_backend()!r}, not {backend!r}")
         else:
+            self._bootstrap(dist, backend, config)
+            self._owns_group = True
+        return ProcessGroupComm()
+
+    def _bootstrap(self, dist, backend: str, config: DistConfig) -> None:
+        """``init_process_group`` with the JAX package's bootstrap
+        resilience (``cylon_tpu/context.py:110-180``): each attempt hits
+        the ``worker`` injection point and runs as the watchdog's
+        ``bootstrap`` section (retryable: a preempted peer may rejoin),
+        and :func:`~cylon_tpu_torch.resilience.retrying` re-attempts
+        transient failures (a refused or timed-out rendezvous included)
+        with backoff. An attempt abandoned at its deadline may still
+        finish; a later attempt that finds the group initialised claims
+        it instead of initialising twice."""
+        from cylon_tpu_torch import resilience, telemetry, watchdog
+        from cylon_tpu_torch.errors import DeadlineExceeded
+
+        abandoned = {"n": 0}
+
+        def _init():
+            resilience.inject("worker", "process group bootstrap",
+                              env=self)
+            if abandoned["n"] and dist.is_initialized():
+                return  # the late success of an abandoned attempt
             dist.init_process_group(
                 backend, init_method=config.init_method or "env://",
                 world_size=-1 if config.world_size is None
                 else config.world_size,
                 rank=-1 if config.rank is None else config.rank)
-            self._owns_group = True
-        return ProcessGroupComm()
+
+        def _attempt():
+            telemetry.counter("bootstrap.attempts").inc()
+            try:
+                return watchdog.bounded(
+                    _init, "bootstrap",
+                    detail="torch.distributed.init_process_group")
+            except DeadlineExceeded:
+                abandoned["n"] += 1
+                raise
+
+        def _retryable(e):
+            return resilience.is_retryable(e) or isinstance(
+                e, getattr(dist, "DistNetworkError", ()))
+
+        resilience.retrying(_attempt, label="process group bootstrap",
+                            retry_on=_retryable)
 
     @property
     def device(self) -> torch.device:
@@ -168,6 +207,20 @@ class CylonEnv:
         return [r for r in range(self.world_size)
                 if include_self or r != me]
 
+    # -- resilience (no parity: the reference has no recovery story) ----
+    def set_fault_plan(self, plan) -> "CylonEnv":
+        """Register a :class:`cylon_tpu_torch.resilience.FaultPlan` on
+        this env: the ops that take an env (``shuffle``, ``dist_join``,
+        ...) check it at their injection points before the context's and
+        the process-wide plan. ``None`` clears it."""
+        self._fault_plan = plan
+        return self
+
+    @property
+    def fault_plan(self):
+        """The plan :meth:`set_fault_plan` registered, or None."""
+        return self._fault_plan
+
     # -- lifecycle (parity: Barrier/Finalize) -----------------------------
     def barrier(self, timeout: "float | None" = None) -> None:
         """Wait until every rank reaches the barrier and this rank's
@@ -176,22 +229,32 @@ class CylonEnv:
         stream of the env's device (no other device). Timed by the
         ``barrier.wait_seconds`` timer.
 
-        ``timeout`` bounds the wait through the watchdog
-        (``watchdog.bounded``), which the port does not have yet
-        (ROADMAP A7.1): any ``timeout`` but None raises
-        :class:`~cylon_tpu_torch.errors.NotImplemented_`."""
-        if timeout is not None:
-            raise NotImplemented_(
-                "CylonEnv.barrier(timeout=...): the bounded wait needs "
-                "watchdog.bounded (ROADMAP A7.1), not ported yet")
-        from cylon_tpu_torch import telemetry
+        The wait is the watchdog's ``barrier`` section
+        (:func:`cylon_tpu_torch.watchdog.bounded`,
+        ``cylon_tpu/context.py:348-360``): ``timeout`` (seconds), an
+        ambient ``watchdog.deadline`` scope or
+        ``CYLON_TPU_DEADLINE_BARRIER`` bounds it, and on expiry the
+        watchdog dumps all-thread stacks and raises
+        :class:`~cylon_tpu_torch.errors.DeadlineExceeded` (section
+        ``"barrier"``, never retryable: a peer that missed the barrier
+        left the world unrecoverable). With no bound the wait runs inline
+        and blocks for as long as it takes. The wait hits the ``worker``
+        injection point first, where a hang rule stands for a peer that
+        never arrives."""
+        from cylon_tpu_torch import resilience, telemetry, watchdog
 
         dev = self.device
-        with telemetry.timer("barrier.wait_seconds").time():
+
+        def _drain():
+            resilience.inject("worker", "barrier", env=self)
             self.comm.all_reduce(torch.ones(1, dtype=torch.int32,
                                             device=dev), "sum")
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
+
+        with telemetry.timer("barrier.wait_seconds").time():
+            watchdog.bounded(_drain, "barrier", timeout=timeout,
+                             detail=f"world={self.world_size}")
 
     def clock_offset(self) -> float:
         """Barrier-anchored estimate of this rank's wall-clock offset

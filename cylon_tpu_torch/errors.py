@@ -2,7 +2,10 @@
 
 Port of the part of ``cylon_tpu/errors.py`` that the port raises.
 The :class:`Code` numbers are the reference's
-(``cpp/src/cylon/code.hpp:20-40``), so callers can switch on ``exc.code``.
+(``cpp/src/cylon/code.hpp:20-40``), so callers can switch on ``exc.code``;
+14-17 and 8 are the JAX package's extensions for the resilience, deadline
+and serving layers (gRPC's UNAVAILABLE / DATA_LOSS / RESOURCE_EXHAUSTED
+numbers where the reference leaves them free).
 """
 
 import enum
@@ -17,10 +20,14 @@ class Code(enum.IntEnum):
     IOError = 5
     CapacityError = 6
     IndexError = 7
+    ResourceExhausted = 8
     UnknownError = 9
     NotImplemented = 10
     GpuMemoryError = 12
     Unavailable = 14
+    DataLoss = 15
+    DeadlineExceeded = 16
+    FailedPrecondition = 17
 
 
 class CylonError(Exception):
@@ -73,3 +80,51 @@ class OutOfCapacity(CylonError):
     row-count check."""
 
     code = Code.CapacityError
+
+
+class TransientError(CylonError):
+    """A failure that retrying is expected to fix: worker preemption,
+    flaky IO, an injected fault. :func:`cylon_tpu_torch.resilience.is_retryable`
+    keys on this class (and on ``Code.Unavailable`` generally)."""
+
+    code = Code.Unavailable
+
+
+class DataLossError(CylonError):
+    """A row-accounting invariant failed: a multi-pass pipeline or an
+    exchange saw a different number of rows going in than coming out.
+    Never retryable: the data is already gone."""
+
+    code = Code.DataLoss
+
+
+class DeadlineExceeded(CylonError):
+    """A named blocking section (:mod:`cylon_tpu_torch.watchdog`) stalled
+    past its deadline. The watchdog dumps all-thread stacks to stderr
+    before this is raised. ``retryable`` is classified per section
+    (:data:`cylon_tpu_torch.watchdog.SECTIONS`): bootstrap and spill-IO
+    deadlines may heal on retry, a deadline mid-collective never does."""
+
+    code = Code.DeadlineExceeded
+
+    def __init__(self, msg: str = "", *, section: "str | None" = None,
+                 elapsed: "float | None" = None, retryable: bool = False):
+        super().__init__(msg)
+        self.section = section
+        self.elapsed = elapsed
+        self.retryable = bool(retryable)
+
+
+class FailedPrecondition(CylonError):
+    """The system is not in a state the operation needs (the serving
+    layer's draining engine, a closed session). Not retryable as is."""
+
+    code = Code.FailedPrecondition
+
+
+class ResourceExhausted(CylonError):
+    """A bounded resource (an admission queue, a memory budget) refused
+    the request. Not retried by the engine: the retry decision is the
+    client's."""
+
+    code = Code.ResourceExhausted

@@ -10,8 +10,11 @@ parses the whole file on every rank, which keeps its own block;
 :func:`read_csv_sharded` is the scale-out path, rank ``r`` parsing
 ``paths[r]`` only. The JAX package's C++ ``native`` engine waits for the
 port's host library (ROADMAP A9): ``engine="native"`` raises
-:class:`NotImplemented_` and ``"auto"`` takes ``arrow``. Its retry and
-fault-injection hooks wait for the port's resilience layer (ROADMAP A7).
+:class:`NotImplemented_` and ``"auto"`` takes ``arrow``. Every file read
+and chunk reader's open hits the ``io_read`` injection point and runs
+under :func:`cylon_tpu_torch.resilience.retrying` (a transient failure
+is retried with backoff), as in ``cylon_tpu/io/__init__.py:96-101``,
+``:432-438``, ``:483-487`` and ``:610-613``.
 """
 
 import pickle
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from cylon_tpu_torch import device as _device
+from cylon_tpu_torch import resilience
 from cylon_tpu_torch.config import (CSVReadOptions, CSVWriteOptions,
                                     ParquetOptions)
 from cylon_tpu_torch.errors import (InvalidArgument, IOError_,
@@ -95,8 +99,14 @@ def _arrow_csv_read(path, options: CSVReadOptions):
     import pyarrow.csv as pacsv
 
     read_opts, parse_opts, convert = _arrow_csv_opts(options)
-    return pacsv.read_csv(path, read_options=read_opts,
-                          parse_options=parse_opts, convert_options=convert)
+
+    def _read():
+        resilience.inject("io_read", str(path))
+        return pacsv.read_csv(path, read_options=read_opts,
+                              parse_options=parse_opts,
+                              convert_options=convert)
+
+    return resilience.retrying(_read, label=f"read_csv {path}")
 
 
 def _read_all(paths: list, read_one, concurrent: bool) -> list:
@@ -236,10 +246,15 @@ def read_csv_chunks(path, chunk_rows: int,
     dev = _device.resolve(device)
     options = options or CSVReadOptions()
     read_opts, parse_opts, convert = _arrow_csv_opts(options)
+
+    def _open():
+        resilience.inject("io_read", str(path))
+        return pacsv.open_csv(path, read_options=read_opts,
+                              parse_options=parse_opts,
+                              convert_options=convert)
+
     try:
-        reader = pacsv.open_csv(path, read_options=read_opts,
-                                parse_options=parse_opts,
-                                convert_options=convert)
+        reader = resilience.retrying(_open, label=f"read_csv_chunks {path}")
     except Exception as e:
         raise IOError_(f"csv chunk read failed: {e}") from e
     return _csv_chunk_iter(reader, chunk_rows, dev)
@@ -280,8 +295,14 @@ def read_parquet_chunks(path, chunk_rows: int,
     if chunk_rows <= 0:
         raise IOError_(f"chunk_rows must be positive, got {chunk_rows}")
     dev = _device.resolve(device)
+
+    def _open():
+        resilience.inject("io_read", str(path))
+        return pq.ParquetFile(path)  # eager: a missing file raises here
+
     try:
-        pf = pq.ParquetFile(path)
+        pf = resilience.retrying(_open,
+                                 label=f"read_parquet_chunks {path}")
     except Exception as e:
         raise IOError_(f"parquet chunk read failed: {e}") from e
     return _parquet_chunk_iter(pf, chunk_rows, columns, dev)
@@ -350,9 +371,15 @@ def read_parquet(paths, env=None, capacity: "int | None" = None,
     if columns is None:
         columns = options.use_cols
     path_list = [paths] if isinstance(paths, (str, bytes)) else list(paths)
+    def _read_one(p):
+        def _read():
+            resilience.inject("io_read", str(p))
+            return pq.read_table(p, columns=columns)
+
+        return resilience.retrying(_read, label=f"read_parquet {p}")
+
     try:
-        atables = _read_all(path_list,
-                            lambda p: pq.read_table(p, columns=columns),
+        atables = _read_all(path_list, _read_one,
                             options.concurrent_file_reads)
     except Exception as e:
         raise IOError_(f"parquet read failed: {e}") from e

@@ -44,7 +44,13 @@ def chunk_stream(table: Table, chunk_rows: int,
     With ``env`` the table is this rank's shard and every rank yields
     as many chunks as the largest shard needs (one all-gather of the
     counts; a rank that runs out yields empty chunks), so that the
-    per-chunk collectives of a distributed graph line up."""
+    per-chunk collectives of a distributed graph line up. Each chunk is a
+    cooperative deadline checkpoint (:func:`cylon_tpu_torch.watchdog.check`,
+    as ``cylon_tpu/ops_graph/graph.py:40-48``): a streamed ingest inside
+    an expired ``watchdog.deadline`` scope raises between chunks,
+    attributed to the enclosing watched section."""
+    from cylon_tpu_torch import watchdog
+
     n = table.num_rows
     total = n
     if env is not None:
@@ -52,6 +58,7 @@ def chunk_stream(table: Table, chunk_rows: int,
 
         total = max(shard_counts(env, table))
     for lo in range(0, max(total, 1), chunk_rows):
+        watchdog.check(detail="chunk_stream")
         idx = torch.arange(lo, lo + chunk_rows, dtype=torch.int32,
                            device=table.device)
         yield take_columns(table, torch.clamp(idx, 0, max(n - 1, 0)),

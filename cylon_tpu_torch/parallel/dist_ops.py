@@ -21,8 +21,18 @@ already holds on the host (:func:`_note_exchange`). The port is SPMD:
 each rank counts its own calls and rows, so a ``ThreadWorld`` of W
 ranks counts W ``exchange.calls`` where the JAX package's single
 controller counts one; the world sums of ``exchange.rows`` and
-``exchange.bytes_true`` are the JAX package's. Fault injection and the
-watchdog come with their modules (ROADMAP A7.1).
+``exchange.bytes_true`` are the JAX package's.
+
+Resilience as in the JAX package (:681-696, :804-810, :848-878, :290-310):
+``shuffle``, ``repartition`` and ``dist_join`` run as the watchdog's
+``exchange`` section (:func:`cylon_tpu_torch.watchdog.watched`: a
+``cat="stage"`` slice each, and a stall past a deadline dumps stacks and
+raises ``DeadlineExceeded``) and hit the ``exchange`` injection point
+(:func:`cylon_tpu_torch.resilience.inject`, the env's fault plan first);
+the row-preserving exchanges check that the rows out equal the rows in
+(:func:`_account_exchange_rows`, ``DataLossError``) from the counts the
+regrow ladder already holds on the host, so the check adds no
+device->host transfer.
 """
 
 import contextlib
@@ -33,7 +43,8 @@ from typing import Sequence
 
 import torch
 
-from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity, TypeError_
+from cylon_tpu_torch.errors import (DataLossError, InvalidArgument,
+                                    OutOfCapacity, TypeError_)
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.aggregates import (AGGS, _masked_quantile,
                                             _masked_extreme, _masked_sum,
@@ -53,7 +64,7 @@ from cylon_tpu_torch.parallel.dtable import shard_sizes, world_layout, \
     world_layout_sized
 from cylon_tpu_torch.parallel.shuffle import checked_recv, \
     exchange_arrays, poison, shuffle_local
-from cylon_tpu_torch import plan, telemetry
+from cylon_tpu_torch import plan, resilience, telemetry, watchdog
 from cylon_tpu_torch.plan import MAX_SCALE
 from cylon_tpu_torch.telemetry import memory as _memory
 from cylon_tpu_torch.telemetry import trace as _trace
@@ -156,8 +167,33 @@ def _shard_fit(env, table) -> tuple:
     return all(c <= k for c, k in zip(counts, caps)), counts
 
 
+def _account_exchange_rows(label: str, sizes, out_counts) -> None:
+    """Row conservation of a row-preserving exchange (port of
+    ``cylon_tpu/parallel/dist_ops.py:290``): the world's rows after the
+    exchange must equal its rows before, or rows were dropped or
+    duplicated across the collective, and
+    :class:`~cylon_tpu_torch.errors.DataLossError` is raised. ``sizes``:
+    each input's ``(counts, caps)`` as
+    :func:`~cylon_tpu_torch.parallel.dtable.world_layout_sized` gathered
+    them; ``out_counts``: every rank's result rows as the regrow ladder's
+    check gathered them. Host lists both, so the check reads no device.
+    Skipped when an input is poisoned (its overflow already marks the
+    truncation, and its true count is unknown)."""
+    rows_in = 0
+    for counts, caps in sizes:
+        if any(c > k for c, k in zip(counts, caps)):
+            return
+        rows_in += sum(counts)
+    rows_out = sum(out_counts)
+    if rows_in != rows_out:
+        raise DataLossError(
+            f"{label}: {rows_in} rows entered the exchange but "
+            f"{rows_out} came out — rows were silently dropped or "
+            "duplicated across the collective")
+
+
 def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
-              tight: bool = False):
+              tight: bool = False, conserve=None):
     """Run ``build(scale)(*args)``, doubling the default capacities while
     any rank overflowed (every bound defaulted: ``adaptive``), from the
     ambient :func:`~cylon_tpu_torch.plan.current_scale`; the scale that
@@ -174,7 +210,12 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
     overflow counts ``plan.overflow_events{site=dist}`` with a
     ``capacity.overflow`` instant, every doubling
     ``plan.capacity_rescales{site=dist}`` with a ``capacity.regrow``
-    instant."""
+    instant.
+
+    ``conserve``: ``(label, sizes)`` of a row-preserving exchange, whose
+    fitted result is held to its inputs' rows
+    (:func:`_account_exchange_rows`) with the counts this check
+    gathered."""
     if tight and op is not None:
         telemetry.counter("exchange.tight_dispatches", op=op).inc()
     scale = plan.current_scale()
@@ -186,6 +227,8 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
         with _stage(op, "sync"):
             fits, counts = _shard_fit(env, out)
         if fits:
+            if conserve is not None:
+                _account_exchange_rows(conserve[0], conserve[1], counts)
             plan.note_scale(scale)
             return out
         for t in args:
@@ -302,6 +345,7 @@ def _value_partition_keys(t, cols, vh: dict):
 
 
 @_op("shuffle")
+@watchdog.watched("exchange", "shuffle")
 def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
             bucket_cap: "int | None" = None, partitioning: str = "hash"):
     """Move this rank's rows so that equal keys land on one rank (port of
@@ -321,6 +365,7 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
     of, so every value it accepts is accepted."""
     if partitioning not in ("hash", "modulo"):
         raise InvalidArgument(f"unknown partitioning {partitioning!r}")
+    resilience.inject("exchange", "shuffle", env=env)
     key_cols = list(key_cols)
     with _stage("shuffle", "prepare"):
         table, counts, caps = world_layout_sized(env, table)
@@ -350,12 +395,14 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
         return run
 
     out = _adaptive(env, build, (table,), out_capacity is None,
-                    op="shuffle", tight=tight is not None)
+                    op="shuffle", tight=tight is not None,
+                    conserve=("shuffle", [(counts, caps)]))
     _note_exchange(env, "shuffle", sent)
     return out
 
 
 @_op("repartition")
+@watchdog.watched("exchange", "repartition")
 def repartition(env, table, out_capacity: "int | None" = None):
     """Round-robin rebalancing (port of
     ``cylon_tpu/parallel/dist_ops.py:806``; parity: Java
@@ -363,6 +410,7 @@ def repartition(env, table, out_capacity: "int | None" = None):
     row i of the world to rank ``i % W``, so the ranks' counts differ by
     at most one. Each rank numbers its rows from its global offset, the
     counts of the ranks before it."""
+    resilience.inject("exchange", "repartition", env=env)
     with _stage("repartition", "prepare"):
         table, counts, caps = world_layout_sized(env, table)
     w = env.world_size
@@ -388,7 +436,8 @@ def repartition(env, table, out_capacity: "int | None" = None):
         return run
 
     out = _adaptive(env, build, (table,), out_capacity is None,
-                    op="repartition", tight=tight is not None)
+                    op="repartition", tight=tight is not None,
+                    conserve=("repartition", [(counts, caps)]))
     _note_exchange(env, "repartition", sent)
     return out
 
@@ -404,6 +453,7 @@ def _join_keys(on, left_on, right_on) -> tuple:
 
 
 @_op("dist_join")
+@watchdog.watched("exchange", "dist_join")
 def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
               how: str = "inner", suffixes=("_x", "_y"),
               out_capacity: "int | None" = None,
@@ -442,6 +492,7 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
 
         return _adaptive(env, build1, (left, right), out_capacity is None)
 
+    resilience.inject("exchange", "dist_join", env=env)
     # prepare, before any rows move: each table in one layout on every
     # rank (world_layout: bytes widths, validity masks and dictionaries,
     # which differ where ranks ingested their own rows), so that the

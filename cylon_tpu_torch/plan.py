@@ -244,7 +244,14 @@ def _check_overflow(out, flags: list) -> list:
     all-gather, so every rank takes the same decision) and the small
     result scalars are stacked into one tensor, and ``.cpu()`` is called
     once. Its one sync also completes the scalars, so the caller's
-    ``float()`` of one is a copy, not a wait for the query."""
+    ``float()`` of one is a copy, not a wait for the query. A wedged card
+    hangs exactly there, so the transfer is the watchdog's
+    ``overflow_fetch`` section (:func:`cylon_tpu_torch.watchdog.bounded`,
+    ``cylon_tpu/plan.py:288``; never retryable)."""
+    # imported here: the resilience layer's config imports the dist ops,
+    # which import this module
+    from cylon_tpu_torch import watchdog
+
     tables = _result_tables(out)
     scalars = _result_scalars(out)
     envs = {id(env): env for _, env in tables if env is not None}
@@ -270,12 +277,16 @@ def _check_overflow(out, flags: list) -> list:
         # the flags and counts of every rank, so the decision is the
         # world's (the scalars ride along: a distributed scalar is the
         # same on every rank)
-        host = env.comm.all_gather(local).reshape(env.world_size, -1)
-        host = host.cpu().numpy()
+        gathered = env.comm.all_gather(local).reshape(env.world_size, -1)
+        host = watchdog.bounded(lambda: gathered.cpu().numpy(),
+                                "overflow_fetch",
+                                detail=f"{gathered.numel()} words")
         mine = host[env.rank]
         bad = bool(host[:, 0].any())
     else:
-        mine = local.cpu().numpy()
+        mine = watchdog.bounded(lambda: local.cpu().numpy(),
+                                "overflow_fetch",
+                                detail=f"{local.numel()} words")
         bad = bool(mine[0])
     if bad:
         raise OutOfCapacity("an op inside the compiled query overflowed "
@@ -455,6 +466,14 @@ class CompiledQuery:
             with _span("plan.dispatch", cat="stage", cache_hit=hit), \
                     _memory.forensics("plan.dispatch"), \
                     capacity_scale(scale), _collect_flags(flags, reached):
+                # seeded-fault hook (the "plan" injection point,
+                # cylon_tpu/plan.py:522-525): the OOM→spill fallback's
+                # tests inject allocation failures where a real one
+                # surfaces
+                from cylon_tpu_torch import resilience
+
+                resilience.inject("plan", getattr(self._fn, "__name__",
+                                                  "?"))
                 out = self._fn(*args, **kwargs)
             try:
                 with _span("plan.fetch", cat="stage"), \

@@ -77,6 +77,13 @@ def test_no_file_imports_jax_or_the_jax_package():
         assert PKG / "telemetry" / f"{name}.py" in files, name
     for name in ("__init__", "logging", "tracing"):
         assert PKG / "utils" / f"{name}.py" in files, name
+    # and the resilience, deadline and spill modules and their TPC-H
+    # plans (ROADMAP A7.1, A7.2)
+    for name in ("resilience", "watchdog", "pipeline", "outofcore",
+                 "fallback"):
+        assert PKG / f"{name}.py" in files, name
+    for name in ("twophase", "streaming"):
+        assert PKG / "tpch" / f"{name}.py" in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -250,6 +257,18 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.plan:plan_cache_stats",
     "cylon_tpu_torch.plan:query_fingerprint",
     "cylon_tpu_torch.plan:CompiledQuery.invalidate",
+    # resilience, deadlines and the spill path (ROADMAP A7.1, A7.2)
+    "cylon_tpu_torch.resilience",
+    "cylon_tpu_torch.watchdog",
+    "cylon_tpu_torch.pipeline",
+    "cylon_tpu_torch.outofcore",
+    "cylon_tpu_torch.fallback",
+    "cylon_tpu_torch.tpch.twophase",
+    "cylon_tpu_torch.tpch.streaming",
+    "cylon_tpu_torch.parallel.dist_ops:_account_exchange_rows",
+    "cylon_tpu_torch.context:CylonEnv._bootstrap",
+    "cylon_tpu_torch.context:CylonEnv.barrier",
+    "cylon_tpu_torch.ops_graph.graph:chunk_stream",
 )
 
 
@@ -276,7 +295,12 @@ def test_public_names_of_the_slice_are_exported():
                  "CSVReadOptions", "CSVWriteOptions", "ParquetOptions",
                  "JoinConfig", "JoinType", "JoinAlgorithm", "IndexingType",
                  "LogicalTaskPlan", "task_shuffle", "task_tables",
-                 "IndexError_", "IOError_"):
+                 "IndexError_", "IOError_",
+                 # resilience, deadlines and the spill path (A7.1, A7.2)
+                 "Code", "DataLossError", "DeadlineExceeded",
+                 "DeadlinePolicy", "FailedPrecondition", "FaultPlan",
+                 "FaultRule", "ResourceExhausted", "RetryPolicy",
+                 "TransientError", "deadline", "pipeline"):
         assert name in cylon_tpu_torch.__all__, name
         assert getattr(cylon_tpu_torch, name) is not None
     import cylon_tpu
@@ -285,7 +309,10 @@ def test_public_names_of_the_slice_are_exported():
     for name in ("DataFrame", "Series", "merge", "concat", "read_csv",
                  "read_csv_sharded", "read_csv_chunks", "read_parquet_chunks",
                  "write_csv_sharded", "CSVReadOptions", "ParquetOptions",
-                 "JoinConfig", "IndexingType"):
+                 "JoinConfig", "IndexingType", "FaultPlan", "FaultRule",
+                 "RetryPolicy", "DeadlinePolicy", "deadline", "pipeline",
+                 "TransientError", "DataLossError",
+                 "DeadlineExceeded"):
         assert name in cylon_tpu.__all__, name
 
 
@@ -355,3 +382,24 @@ def test_chip_smoke_drives_the_telemetry_phase():
     assert 'path_kernel_phase(torch, rate, stats, "telemetry"' in body
     for phase in range(1, 16):
         assert f'memory_line(torch, card, "{phase} ' in main, phase
+
+
+def test_chip_smoke_drives_the_spill_phase():
+    """``chip_smoke.py`` names phase 16 in its docstring, runs it after
+    phase 15, holds its kernels against their plain versions, puts its
+    launches in the kernels line, ends it in a memory line, and runs its
+    killed child through its own ``--spill-child`` entry."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "16. spill" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"spill_phase", "spill_child", "spill_tables"} <= funcs
+    main = src[src.index("def main("):]
+    assert main.index("telemetry_phase(") < main.index("spill_phase(")
+    assert '"spill_launches"' in main
+    assert 'path_kernel_phase(torch, rate, stats, "spill"' in main
+    assert 'memory_line(torch, card, "16 ' in main
+    assert main.index('"--spill-child"') < main.index("is_available()")
+    body = src[src.index("def spill_phase("):src.index("def main(")]
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)", "(g)"):
+        assert f"    {part} " in body, part

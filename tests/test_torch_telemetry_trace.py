@@ -7,9 +7,10 @@ the recorder allocates NOTHING while ``CYLON_TPU_TRACE`` is unset,
 spans nest with parent ids, the buffer is bounded, merged multi-rank
 timelines align by clock offset, the Chrome Trace exporter emits strict
 JSON with monotone timestamps and matched B/E pairs, and ``dist_join``'s
-stage spans cover at least 80 % of its wall on every rank. The cases of
-that file that need the watchdog, the fault plans or the spill store
-(ROADMAP A7.1, A7.2) are left out.
+stage spans cover at least 80 % of its wall on every rank; the watchdog's
+sections, the fault and retry instants and the spill store's slices
+reach the timeline, and an injected exchange delay on one rank names
+that rank and the ``exchange`` stage as the straggler.
 """
 
 import json
@@ -358,3 +359,97 @@ def test_torch_first_ring_drop_logs_one_warning(monkeypatch):
         logger.removeHandler(h2)
     assert "trace ring buffer full" in buf2.getvalue()
     trace.clear()
+
+
+# ------------------------------------------------- engine instrumentation
+def test_torch_watchdog_sections_emit_stage_completes(armed):
+    from cylon_tpu_torch import watchdog
+
+    with watchdog.watched_section("ooc_pass", detail="unit"):
+        pass
+    stages = [e for e in trace.events()
+              if e["kind"] == "complete" and e.get("cat") == "stage"]
+    assert stages and stages[-1]["name"] == "ooc_pass"
+    assert stages[-1]["args"]["detail"] == "unit"
+    assert stages[-1]["args"]["expired"] is False
+
+
+def test_torch_fault_and_retry_emit_instants(armed):
+    from cylon_tpu_torch import resilience
+    from cylon_tpu_torch.config import RetryPolicy
+    from cylon_tpu_torch.errors import TransientError
+
+    plan = resilience.FaultPlan([resilience.FaultRule("io_read")])
+    with resilience.active(plan):
+        with pytest.raises(TransientError):
+            resilience.inject("io_read")
+    calls = {"n": 0}
+
+    def flaky():
+        calls["n"] += 1
+        if calls["n"] < 2:
+            raise TransientError("flake")
+        return "ok"
+
+    resilience.retrying(flaky, RetryPolicy(max_attempts=3, base_delay=0.0),
+                        sleep_fn=lambda _: None)
+    names = [e["name"] for e in trace.events()]
+    assert "resilience.fault" in names
+    assert "resilience.retry" in names
+
+
+def test_torch_spill_store_emits_slices_and_instants(armed, tmp_path):
+    from cylon_tpu_torch import resilience
+
+    store = resilience.SpillStore(str(tmp_path), fingerprint="fp")
+    store.write_bucket(0, {"a": np.arange(16)}, 16)
+    store.read_bucket(0)
+    evts = trace.events()
+    names = [e["name"] for e in evts]
+    assert "spill.write" in names and "spill.read" in names
+    wr = [e for e in evts if e["name"] == "spill.write"
+          and e["kind"] == "instant"]
+    assert wr and wr[0]["args"]["bytes"] == 16 * 8
+
+
+def test_torch_fault_delay_names_straggler_rank_and_exchange_stage(armed):
+    """A delay fault on ONE rank's exchange point: the merged timeline's
+    straggler report names that rank and the ``exchange`` stage. As in
+    the JAX package's case, each simulated rank is its own recorder run
+    (a world of one here, whose exchange nobody waits on), the faulted
+    rank's the only one with the delay."""
+    from cylon_tpu_torch import resilience, watchdog
+
+    rng = np.random.default_rng(4)
+    n = 256
+    t = ct.Table.from_pydict({"k": rng.integers(0, 64, n),
+                              "v": rng.normal(size=n)}, device="cpu")
+    env = ct.CylonEnv(device="cpu")
+    ct.shuffle(env, t, ["k"])          # warm-up
+
+    def _wall(evts):
+        ts = [e["ts"] for e in evts]
+        return (max(e["ts"] + e.get("dur", 0.0) for e in evts)
+                - min(ts)) if ts else 0.0
+
+    bufs = []
+    for r in range(4):
+        env.set_fault_plan(resilience.FaultPlan(
+            [resilience.FaultRule("exchange", delay=0.2, times=0)])
+            if r == 1 else None)
+        reps = []
+        for _ in range(3):
+            trace.clear()
+            ct.shuffle(env, t, ["k"])
+            reps.append(trace.events())
+        bufs.append({"rank": r, "clock_offset": 0.0,
+                     "events": min(reps, key=_wall)})
+    env.set_fault_plan(None)
+    merged = trace.merge_timelines(bufs)
+    rep = trace.critical_path(merged)
+    assert rep["straggler_rank"] == 1
+    assert rep["dominant_stage"] == "exchange"
+    assert rep["excess_seconds"] >= 0.1
+    rep2 = watchdog.straggler_report(timeline=merged)
+    assert rep2["straggler_rank"] == 1
+    assert rep2["dominant_stage"] == "exchange"
