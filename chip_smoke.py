@@ -124,6 +124,20 @@ Phases, each printing one JSON line:
     barrier against a hung peer, and the hooks' sync sites; then the
     kernels at this phase's shapes, as in phase 10; see
     :func:`spill_phase`.
+17. views: the resident-table catalog, incremental materialized views
+    and the catalog's durable snapshot. By id at the flagship's share:
+    ``join_tables`` of phase 4's tables (its rows and checksum, bit for
+    bit the direct ``join``, both walls), the set ops, sort and unique at
+    1M rows, ``stats`` bytes, the lazy digest of a 16M-row table timed;
+    ``join_tables`` and a shard ``append`` at W = 4 on ``ThreadWorld``
+    against W = 1 and numpy; TPC-H RF1 refreshes of views of q1, q3, q5
+    and q6 at SF 1 (two rounds, delta SF 0.01, eight reader threads),
+    each refresh against the from-scratch run and the in-core query, and
+    every read audited at its generations; the snapshot saved and
+    restored with equal digests and generations, and a refresh killed in
+    a child (``--views-child``) and resumed byte for byte; then the
+    kernels at this phase's shapes, as in phase 10, and the live bytes
+    back at their level before the phase; see :func:`views_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -133,9 +147,10 @@ peak (then reset) and reserved bytes, and the live bytes after a
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
-``telemetry_launches`` and ``spill_launches``, on phase 9's group-by
-calls, phase 12's calls, phase 13's, phase 14's, phase 15's compared runs
-and phase 16's parts (a)-(f)), the ``nvidia-smi``
+``telemetry_launches``, ``spill_launches`` and ``views_launches``, on
+phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
+phase 15's compared runs, phase 16's parts (a)-(f) and phase 17's parts
+(a)-(d)), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -822,6 +837,11 @@ def join_parity_phase(torch):
 
 
 # ------------------------------------------------------------ phase 4
+#: phase 4's row count and checksum, which phase 17's by-id join of the
+#: same tables must give
+PHASE4_RESULT = {}
+
+
 def dist_join_phase(torch):
     import numpy as np
 
@@ -875,6 +895,7 @@ def dist_join_phase(torch):
         raise SystemExit("dist_join: wrong row count or values")
     if abs(check - want_check) > 1e-9 * abs(want_check):
         raise SystemExit("dist_join: checksum off")
+    PHASE4_RESULT.update(rows=rows, checksum=check)
     # a world of one never exchanges, so never hashes: one join's scans
     if launches != {"row_hash": 0, "scan32": 5, "pair_max_scan": 5,
                     "bucket_build": 0, "bucket_probe": 0}:
@@ -3891,20 +3912,8 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
     from cylon_tpu_torch.tpch import streaming
     from cylon_tpu_torch.tpch.manifest import MANIFEST
 
-    from cylon_tpu_torch.kernels import scan as kscan
-
-    def kept_bytes():
-        """Live device bytes less the pair scan's scratch, which its
-        wrapper keeps (grown, never shrunk) across calls a stream (each
-        block as the allocator counts it, rounded up to 512 bytes)."""
-        if dev != "cuda":
-            return 0
-        return torch.cuda.memory_allocated() - sum(
-            -(-s[0].numel() * s[0].element_size() // 512) * 512
-            for s in kscan._pair_state.values())
-
     t_phase = time.perf_counter()
-    base_bytes = kept_bytes()
+    base_bytes = kept_bytes(torch, dev)
 
     def record(part, case, **fields):
         row = {"phase": "spill", "part": part, "case": case, "card": card,
@@ -4111,7 +4120,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
         del ballast, got
         gc.collect()
         torch.cuda.empty_cache()
-        after = kept_bytes()
+        after = kept_bytes(torch, dev)
         record("c", "oom", free_bytes=free, ballast_bytes=ballast_bytes,
                left_free_bytes=keep, in_core_peak_bytes=incore_peak,
                attempt_error=seen.get("attempt_error"),
@@ -4387,11 +4396,707 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
     return total_launches, rec.inputs
 
 
+# ------------------------------------------------------------ phase 17
+#: (a): the set ops, sort and unique by id, on tables of this many rows
+VIEWS_SETOP_ROWS = 1 << 20
+#: (b): a rank's rows a side at W = 4, as phase 11, and the shard
+#: append's delta rows
+VIEWS_W4_RANK_ROWS = DIST_W4_ROWS
+VIEWS_W4_DELTA_ROWS = 64 << 10
+#: (c): the JAX package's documented ``--refresh`` setting: SF 1, seed
+#: 0, two RF1 rounds of delta SF 0.01, eight reader threads
+VIEWS_SF = 1.0
+VIEWS_SEED = 0
+VIEWS_ROUNDS = 2
+VIEWS_DELTA_SF = 0.01
+VIEWS_READERS = 8
+VIEWS_QUERIES = ("q1", "q3", "q5", "q6")
+#: the views whose refresh groups or joins on the card, so each of their
+#: refreshes must launch a kernel (q6's query is a filtered sum)
+VIEWS_KERNEL_QUERIES = ("q1", "q3", "q5")
+#: (d): the killed refresh's base and delta (q1's view, one RF1 round)
+VIEWS_KILL_SF = 0.1
+VIEWS_KILL_DELTA_SF = 0.001
+#: a view query's input below this many lineitem rows runs as one
+#: partition (``cylon_tpu/serve/bench.py:786-803``)
+VIEWS_ONE_PARTITION_ROWS = 100_000
+
+
+def kept_bytes(torch, dev="cuda") -> int:
+    """Live device bytes less the pair scan's scratch, which its wrapper
+    keeps (grown, never shrunk) across calls a stream (each block as the
+    allocator counts it, rounded up to 512 bytes). 0 off the card."""
+    from cylon_tpu_torch.kernels import scan as kscan
+
+    if dev != "cuda":
+        return 0
+    return torch.cuda.memory_allocated() - sum(
+        -(-s[0].numel() * s[0].element_size() // 512) * 512
+        for s in kscan._pair_state.values())
+
+
+def views_keep(queries) -> dict:
+    """The generator's ``keep`` for the views of ``queries``: their
+    manifest columns plus the order keys the RF1 stream offsets
+    (``cylon_tpu/serve/bench.py:770-784``)."""
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    keep = manifest_keep(MANIFEST, queries)
+    keep.setdefault("orders", set()).add("o_orderkey")
+    keep.setdefault("lineitem", set()).add("l_orderkey")
+    return keep
+
+
+def rf1_delta(n_base_orders: int, r: int, sf: float, seed: int, keep):
+    """RF1 round ``r``: new orders arriving with their lineitems
+    (``dbgen.generate(sf, seed + 1 + r)``), their order keys offset past
+    the base's and every earlier round's (``cylon_tpu/serve/bench.py:
+    937-946``); the dimension keys stay inside the base's ranges."""
+    import pandas as pd
+
+    from cylon_tpu_torch import tpch
+
+    d = tpch.generate(sf, seed + 1 + r, keep=keep)
+    off = n_base_orders + r * len(d["orders"]["o_orderkey"])
+    d["orders"]["o_orderkey"] = d["orders"]["o_orderkey"] + off
+    d["lineitem"]["l_orderkey"] = d["lineitem"]["l_orderkey"] + off
+    return {t: pd.DataFrame(d[t]) for t in ("orders", "lineitem")}
+
+
+def views_query(q: str, env):
+    """A view's query: the port's ``fallback.tpch_fallback`` of ``q`` on
+    ``env``'s device over the frames it is handed (the delta run, the
+    initial state and the from-scratch oracle alike), one partition
+    below :data:`VIEWS_ONE_PARTITION_ROWS` lineitem rows."""
+    from cylon_tpu_torch import fallback
+
+    def qf(tables):
+        data = {name: {c: df[c].to_numpy() for c in df.columns}
+                for name, df in tables.items()}
+        rows = len(next(iter(data["lineitem"].values())))
+        return fallback.tpch_fallback(
+            q, data, env=env, compiled=False,
+            n_partitions=1 if rows < VIEWS_ONE_PARTITION_ROWS else None)
+    return qf
+
+
+def views_kill_run(dev: str, resume_dir: "str | None") -> str:
+    """Part (d)'s refresh: q1's view over lineitem at
+    :data:`VIEWS_KILL_SF` on ``dev``, one RF1 round appended, the view
+    refreshed with ``resume_dir``. Returns the presented result as CSV
+    (17 digits) followed by the state's digest. Clears the catalog and
+    the views first."""
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import catalog, tpch, views
+    from cylon_tpu_torch.tpch.manifest import FALLBACK
+
+    catalog.clear()
+    views.clear()
+    keep = views_keep(["q1"])
+    base = tpch.generate(VIEWS_KILL_SF, VIEWS_SEED, keep=keep)
+    catalog.put_table("tpch/lineitem", tpch.ingest(
+        {"lineitem": base["lineitem"]}, device=dev)["lineitem"].table)
+    env = ct.CylonEnv(device=dev)
+    views.register_view("view/q1", views_query("q1", env), FALLBACK["q1"],
+                        sources={"lineitem": "tpch/lineitem"},
+                        delta_source="lineitem")
+    d = rf1_delta(len(base["orders"]["o_orderkey"]), 0,
+                  VIEWS_KILL_DELTA_SF, VIEWS_SEED, keep)
+    catalog.append("tpch/lineitem", d["lineitem"][list(
+        catalog.get_table("tpch/lineitem").column_names)])
+    views.refresh("view/q1", resume_dir=resume_dir)
+    r = views.read("view/q1")
+    return r["result"].to_csv(index=False, float_format="%.17g") \
+        + r["digest"]
+
+
+def views_child(rdir: str, dev: str) -> int:
+    """Part (d)'s child: :func:`views_kill_run` with ``resume_dir`` under
+    ``FaultRule.kill`` at the first ``global_merge`` (the refresh's merge
+    of the delta partial into the state, after the partial's unit is
+    durable); it dies there with ``KILL_EXIT_CODE``."""
+    sys.path.insert(0, str(ROOT))
+    from cylon_tpu_torch import resilience
+
+    plan = resilience.FaultPlan([resilience.FaultRule.kill(
+        "global_merge", nth=1)])
+    with resilience.active(plan):
+        views_kill_run(dev, rdir)
+    return 1                       # the kill never fired
+
+
+def views_phase(torch, card: str, dev="cuda") -> tuple:
+    """The resident-table catalog, incremental materialized views and
+    the catalog's durable snapshot on the card (phase 17). Every line
+    carries the card's name and power limit.
+
+    (a) The catalog by id at the flagship's share: ``put_table`` of
+        phase 4's two 16M-row tables (the same generator and seed), then
+        ``join_tables`` gives phase 4's row count and checksum (numpy,
+        rtol 1e-9) and, bit for bit, the direct ``join``; both second
+        calls' walls (CUDA events). ``union_tables``,
+        ``intersect_tables``, ``subtract_tables``, ``sort_table`` and
+        ``unique_table`` at :data:`VIEWS_SETOP_ROWS` rows equal the
+        direct ops bit for bit. ``stats()["bytes"]`` equals the tensors'
+        bytes and ``bytes_by_device`` reads ``{"cuda:0": ...}``. The
+        lazy ``table_version`` digest of a 16M-row table, timed (a host
+        fetch and a sha256), then its cached second read.
+    (b) W = 4 on ``ThreadWorld``, :data:`VIEWS_W4_RANK_ROWS` rows a rank
+        a side: every rank's ``join_tables(env=)`` writes its shard under
+        one id, and a shard ``append(env=)`` of
+        :data:`VIEWS_W4_DELTA_ROWS` rows (the same delta on every rank);
+        the world's rows equal W = 1's (row sets, bit for bit) and
+        numpy's count and checksum.
+    (c) RF1 views at SF 1 (:data:`VIEWS_SF`, seed :data:`VIEWS_SEED`):
+        the base generated with the views' columns, ingested on the card
+        and registered as ``tpch/<table>``; views of q1, q3, q5 and q6
+        with ``manifest.FALLBACK[q]`` as the spec and
+        :func:`views_query` as the query. :data:`VIEWS_ROUNDS` rounds each
+        append an orders/lineitem delta (:func:`rf1_delta`, delta SF
+        :data:`VIEWS_DELTA_SF`) and refresh every view, while
+        :data:`VIEWS_READERS` reader threads call ``views.read``. After
+        each refresh: the same query from scratch over the base and the
+        deltas on the host (the full-recompute wall) and the port's
+        in-core eager query on the card over the resident tables (the
+        in-core wall, after the round's append), both equal to the view
+        (:func:`results_match`: floats at rtol 1e-9, keys, counts and
+        row order exact). Each read's ``(generations, result)`` is
+        audited against the in-core result at exactly those generations.
+        Per view and round: the incremental, in-core and full walls,
+        delta rows, whether it recomputed, and each kernel's launches in
+        the refresh, which must be some for
+        :data:`VIEWS_KERNEL_QUERIES`; per round the append's wall beside
+        the sums of the others; then the reads, mismatches (must be 0)
+        and the largest generation lag.
+    (d) Durability: a ``CatalogSnapshot`` saves every resident table
+        after the last round; after ``catalog.clear()``,
+        ``restore(device=)`` and ``restore_version`` give each table's
+        digest and generation as before, and every view finds nothing
+        to refresh. Then a child (``--views-child``) refreshes q1's view
+        (:func:`views_kill_run`) with ``resume_dir`` and dies by
+        ``FaultRule.kill`` at the merge; this process resumes it:
+        ``ooc.units_resumed`` at least 1, and the result and digest byte
+        for byte those of the run that was not killed.
+    (e) ``catalog.clear()`` and ``views.clear()``; the inputs the
+        kernels met in (a), (b) and the refreshes of (c) go to
+        :func:`path_kernel_phase` (in ``main``), after which the live
+        bytes must be back at their level before the phase.
+
+    The launches returned are the path's own: the by-id ops, the W = 4
+    run, ``register_view``, the appends, the refreshes, the restore and
+    the resumed refresh. The oracles' and comparisons' (the direct ops,
+    W = 1, the from-scratch and in-core queries, the run not killed) are
+    thrown away.
+
+    Returns ``(launches of (a)-(d), the kernels' inputs, the live bytes
+    before the phase)``."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import catalog, dtypes, resilience, telemetry
+    from cylon_tpu_torch import tpch, views
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.fallback import _resolve_limit
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops import setops
+    from cylon_tpu_torch.ops.selection import sort_table
+    from cylon_tpu_torch.serve import CatalogSnapshot
+    from cylon_tpu_torch.tpch.manifest import FALLBACK, MANIFEST
+
+    t_phase = time.perf_counter()
+    catalog.clear()
+    views.clear()
+    gc.collect()
+    base_bytes = kept_bytes(torch, dev)
+
+    def record(part, case, **fields):
+        row = {"phase": "views", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"views: {msg}")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    rec = PathInputs()
+    total_launches = {k: 0 for k in launch_counts()}
+
+    def bank_launches():
+        """Add the counts since the last reset to the phase's total."""
+        for k, v in launch_counts().items():
+            total_launches[k] += v
+        reset_launches()
+
+    @contextlib.contextmanager
+    def reference():
+        """Bank the path's launches so far, then throw away those made
+        inside: an oracle's or a comparison's, not the path's."""
+        bank_launches()
+        try:
+            yield
+        finally:
+            reset_launches()
+
+    reset_launches()
+
+    # -- (a) the catalog by id at the flagship's share
+    n = DIST_ROWS
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)                      # phase 4's tables, call for call
+
+    def table(gen, rows, hi, vdtype=torch.float64):
+        """Phase 4's recipe: int64 keys uniform in [0, hi), then float64
+        values in [0, 1) (or int64 values in [0, 4))."""
+        k = torch.randint(0, hi, (rows,), dtype=torch.int64, device=dev,
+                          generator=gen)
+        v = torch.rand(rows, dtype=torch.float64, device=dev,
+                       generator=gen) if vdtype == torch.float64 else \
+            torch.randint(0, 4, (rows,), dtype=torch.int64, device=dev,
+                          generator=gen)
+        return ct.Table({"k": Column(k, None, dtypes.int64),
+                         "v": Column(v, None,
+                                     dtypes.from_torch_dtype(vdtype))}, rows)
+
+    left, right = table(g, n, n), table(g, n, n)
+    catalog.put_table("L", left)
+    catalog.put_table("R", right)
+    with rec:
+        def by_id():
+            catalog.join_tables("L", "R", "J", on="k")
+            return catalog.get_table("J")
+
+        joined, id_ms, id_peak = timed_twice(torch, by_id) \
+            if dev == "cuda" else (by_id(), None, None)
+    with reference():
+        direct, direct_ms, direct_peak = timed_twice(
+            torch, lambda: ct.join(left, right, on="k")) \
+            if dev == "cuda" else (ct.join(left, right, on="k"), None, None)
+    rows = joined.num_rows
+    check = float((column_of(joined, "v_x") * column_of(joined, "v_y"))
+                  .sum())
+    lk, rk = left.column("k").data.cpu().numpy(), \
+        right.column("k").data.cpu().numpy()
+    lv, rv = left.column("v").data.cpu().numpy(), \
+        right.column("v").data.cpu().numpy()
+    want_rows = int((np.bincount(lk, minlength=n).astype(np.int64)
+                     * np.bincount(rk, minlength=n)).sum())
+    want_check = float((np.bincount(lk, weights=lv, minlength=n)
+                        * np.bincount(rk, weights=rv, minlength=n)).sum())
+    del lk, rk, lv, rv
+    same = same_bits(torch, joined, direct)
+    p4 = PHASE4_RESULT
+    record("a", "join_tables", rows_per_side=n, result_rows=rows,
+           expected_rows=want_rows, checksum=check,
+           expected_checksum=want_check, phase4_rows=p4.get("rows"),
+           phase4_checksum=p4.get("checksum"), identical_bits=same,
+           by_id_wall_ms=id_ms, direct_wall_ms=direct_ms,
+           by_id_peak_bytes=id_peak, direct_peak_bytes=direct_peak)
+    if rows != want_rows or not np.isclose(check, want_check, rtol=1e-9,
+                                           atol=0.0) or not same:
+        fail(f"(a) join_tables: {rows} rows, checksum {check!r} (numpy "
+             f"{want_rows}, {want_check!r}), bits equal {same}")
+    if p4 and (p4["rows"] != rows
+               or not np.isclose(p4["checksum"], check, rtol=1e-9,
+                                 atol=0.0)):
+        fail(f"(a) join_tables differs from phase 4: {p4}")
+    del joined, direct
+    catalog.drop("J")
+
+    # the digest is lazy: the first read fetches the table to the host
+    # and hashes it, a second read between mutations is a dict read
+    t = time.perf_counter()
+    first = catalog.table_version("L")
+    digest_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = catalog.table_version("L")
+    cached_s = time.perf_counter() - t
+    record("a", "digest", rows=n, columns=2, digest_s=digest_s,
+           cached_s=cached_s, digest=first["digest"])
+    if again != first:
+        fail("(a) the cached digest differs")
+    st = catalog.stats()["L"]
+    want_bytes = sum(c.data.numel() * c.data.element_size()
+                     for c in left.columns.values())
+    dev_key = "cuda:0" if dev == "cuda" else "cpu:0"
+    record("a", "stats", bytes=st["bytes"], tensor_bytes=want_bytes,
+           bytes_by_device=st["bytes_by_device"], rows=st["rows"],
+           capacity=st["capacity"], version=st["version"])
+    if st["bytes"] != want_bytes or st["bytes_by_device"] != {
+            dev_key: want_bytes} or st["rows"] != n \
+            or st["version"] != first:
+        fail(f"(a) stats {st} against {want_bytes} tensor bytes")
+    catalog.clear()
+    del left, right
+
+    m = VIEWS_SETOP_ROWS
+    g.manual_seed(17)
+    a, b = table(g, m, m // 2, torch.int64), table(g, m, m // 2, torch.int64)
+    catalog.put_table("A", a)
+    catalog.put_table("B", b)
+    with rec:
+        cases = {
+            "union": (lambda: catalog.union_tables("A", "B", "O"),
+                      lambda: setops.union(a, b)),
+            "intersect": (lambda: catalog.intersect_tables("A", "B", "O"),
+                          lambda: setops.intersect(a, b)),
+            "subtract": (lambda: catalog.subtract_tables("A", "B", "O"),
+                         lambda: setops.subtract(a, b)),
+            "sort": (lambda: catalog.sort_table("A", "O", "k"),
+                     lambda: sort_table(a, ["k"])),
+            "unique": (lambda: catalog.unique_table("A", "O", cols=["k"]),
+                       lambda: setops.unique(a, ["k"]))}
+        bad = []
+        for case, (by_id_op, direct_op) in cases.items():
+            by_id_op()
+            got = catalog.get_table("O")
+            with reference():
+                want = direct_op()
+            same = same_bits(torch, got, want)
+            record("a", case, rows=m, result_rows=want.num_rows,
+                   identical_bits=same)
+            if not same:
+                bad.append(case)
+    if bad:
+        fail(f"(a) {bad} by id differ from the direct ops")
+    catalog.clear()
+    del a, b, got, want
+    bank_launches()
+
+    # -- (b) W = 4 on ThreadWorld
+    w, nr = GROUPBY_WORLD, VIEWS_W4_RANK_ROWS
+    nw = w * nr
+    g.manual_seed(11)
+    sides = [table(g, nw, nw) for _ in range(2)]
+    rng = np.random.default_rng(17)
+    delta = pd.DataFrame({"k": rng.integers(0, nw, VIEWS_W4_DELTA_ROWS),
+                          "v": rng.random(VIEWS_W4_DELTA_ROWS)})
+
+    def shard(e, t):
+        lo, hi = e.rank * nr, (e.rank + 1) * nr
+        return ct.Table({c: Column(t.column(c).data[lo:hi], None,
+                                   t.column(c).dtype)
+                         for c in ("k", "v")}, nr)
+
+    def rank(comm):
+        e = ct.CylonEnv(comm, device=dev)
+        catalog.put_table("w4/L", shard(e, sides[0]), env=e)
+        catalog.put_table("w4/R", shard(e, sides[1]), env=e)
+        catalog.join_tables("w4/L", "w4/R", "w4/J", on="k", env=e)
+        res = catalog.append("w4/L", delta, env=e)
+        st = catalog.stats(env=e)
+        return (catalog.get_table("w4/J", env=e),
+                catalog.get_table("w4/L", env=e), res,
+                st["w4/J"]["distributed"], st["w4/J"]["rows"])
+
+    t = time.perf_counter()
+    with rec:
+        out = ct.ThreadWorld(w).run(rank)
+    w4_s = time.perf_counter() - t
+    bank_launches()
+    # W = 1 and the row sets are the comparison: their launches go below
+    catalog.put_table("w1/L", sides[0])
+    catalog.put_table("w1/R", sides[1])
+    catalog.join_tables("w1/L", "w1/R", "w1/J", on="k")
+    catalog.append("w1/L", delta)
+    w1_join, w1_left = catalog.get_table("w1/J"), catalog.get_table("w1/L")
+    cols = ["k", "v_x", "v_y"]
+    join_eq = all(torch.equal(x, y) for x, y in zip(
+        row_set(torch, [o[0] for o in out], cols),
+        row_set(torch, [w1_join], cols)))
+    append_eq = all(torch.equal(x, y) for x, y in zip(
+        row_set(torch, [o[1] for o in out], ["k", "v"]),
+        row_set(torch, [w1_left], ["k", "v"])))
+    sk = [s.column("k").data.cpu().numpy() for s in sides]
+    sv = [s.column("v").data.cpu().numpy() for s in sides]
+    w_rows = int((np.bincount(sk[0], minlength=nw).astype(np.int64)
+                  * np.bincount(sk[1], minlength=nw)).sum())
+    w_check = float((np.bincount(sk[0], weights=sv[0], minlength=nw)
+                     * np.bincount(sk[1], weights=sv[1], minlength=nw))
+                    .sum())
+    got_rows = sum(o[0].num_rows for o in out)
+    got_check = float(sum((column_of(o[0], "v_x") * column_of(o[0], "v_y"))
+                          .sum() for o in out))
+    keys_after = np.sort(np.concatenate(
+        [o[1].column("k").data[:o[1].num_rows].cpu().numpy()
+         for o in out]))
+    keys_want = np.sort(np.concatenate([sk[0], delta["k"].to_numpy()]))
+    shards_ok = all(o[3] and o[4] == o[0].num_rows for o in out)
+    gens = [o[2]["generation"] for o in out]
+    record("b", "w4", world=w, rows_per_rank_side=nr, delta_rows=len(delta),
+           join_rows=got_rows, expected_rows=w_rows, checksum=got_check,
+           expected_checksum=w_check, join_equal_w1=join_eq,
+           append_equal_w1=append_eq, shard_stats_ok=shards_ok,
+           append_generations=gens, wall_s=w4_s)
+    if not (join_eq and append_eq and shards_ok and got_rows == w_rows
+            and np.isclose(got_check, w_check, rtol=1e-9, atol=0.0)
+            and np.array_equal(keys_after, keys_want) and gens == [2] * w):
+        fail("(b) W = 4 by id differs from W = 1 or numpy")
+    del out, sides, w1_join, w1_left, sk, sv
+    catalog.clear()
+    reset_launches()
+
+    # -- (c) RF1 views at SF 1
+    keep = views_keep(VIEWS_QUERIES)
+    t = time.perf_counter()
+    base = tpch.generate(VIEWS_SF, VIEWS_SEED, keep=keep)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = tpch.ingest(base, device=dev)
+    sync()
+    ingest_s = time.perf_counter() - t
+    for name, f in frames.items():
+        if f.table.num_columns:
+            catalog.put_table(f"tpch/{name}", f.table)
+    del frames
+    env = ct.CylonEnv(device=dev)
+    qfs = {q: views_query(q, env) for q in VIEWS_QUERIES}
+    limits = {q: _resolve_limit(getattr(tpch, q), FALLBACK[q], {})
+              for q in VIEWS_QUERIES}
+    host = {t: pd.DataFrame(base[t]) for t in base if base[t]}
+    n_base_orders = len(base["orders"]["o_orderkey"])
+    del base
+    history = {"orders": [], "lineitem": []}
+
+    def content_at(tname, gen):
+        """A table's rows at generation ``gen`` on the host: the base and
+        the first ``gen - 1`` deltas (independent of the catalog)."""
+        parts = [host[tname]] + history.get(tname, [])[:gen - 1]
+        return parts[0] if len(parts) == 1 else \
+            pd.concat(parts, ignore_index=True)
+
+    eager_at = {}
+
+    def combo(q, gens):
+        return (q, tuple(sorted((a, int(gens[a])) for a in MANIFEST[q])))
+
+    def eager_now() -> dict:
+        """The in-core eager query on the card over the resident tables,
+        at their current generations; returns each query's wall (to its
+        result on the host). Its launches are thrown away."""
+        gens = {t: catalog.generation(f"tpch/{t}") for t in host}
+        walls = {}
+        with reference():
+            for q in VIEWS_QUERIES:
+                t = time.perf_counter()
+                frames_q = {t: ct.DataFrame(catalog.get_table(f"tpch/{t}"))
+                            for t in MANIFEST[q]}
+                eager_at[combo(q, gens)] = host_result(
+                    getattr(tpch, q)(frames_q))
+                walls[q] = time.perf_counter() - t
+        return walls
+
+    register_s = {}
+    for q in VIEWS_QUERIES:
+        t = time.perf_counter()
+        views.register_view(
+            f"view/{q}", qfs[q], FALLBACK[q],
+            sources={a: f"tpch/{a}" for a in MANIFEST[q]},
+            delta_source="lineitem", limit=limits[q])
+        register_s[q] = time.perf_counter() - t
+    in_core_s = eager_now()
+    record("c", "base", sf=VIEWS_SF, seed=VIEWS_SEED,
+           lineitem_rows=len(host["lineitem"]), generate_s=gen_s,
+           ingest_s=ingest_s, register_s=register_s, in_core_s=in_core_s)
+    for q in VIEWS_QUERIES:
+        got = views.read(f"view/{q}")
+        if not results_match(np, got["result"],
+                             eager_at[combo(q, got["generations"])]):
+            fail(f"(c) {q}'s initial view differs from the in-core query")
+
+    samples = []
+    samples_mu = threading.Lock()
+    stop = threading.Event()
+    read_errors = []
+
+    def reader():
+        while not stop.is_set():
+            for q in VIEWS_QUERIES:
+                try:
+                    r = views.read(f"view/{q}")
+                except Exception as e:      # noqa: BLE001 -- reported
+                    read_errors.append(f"{q}: {type(e).__name__}: {e}")
+                    continue
+                with samples_mu:
+                    samples.append((q, r["generations"], r["result"],
+                                    r["lag"]))
+            time.sleep(0.01)
+
+    readers = [threading.Thread(target=reader, name=f"views-reader-{i}")
+               for i in range(VIEWS_READERS)]
+    bad = []
+    t_rounds = time.perf_counter()
+    for th in readers:
+        th.start()
+    try:
+        for r in range(VIEWS_ROUNDS):
+            d = rf1_delta(n_base_orders, r, VIEWS_DELTA_SF, VIEWS_SEED, keep)
+            t = time.perf_counter()
+            for tname in ("orders", "lineitem"):
+                cols_t = catalog.get_table(f"tpch/{tname}").column_names
+                catalog.append(f"tpch/{tname}", d[tname][list(cols_t)])
+                history[tname].append(d[tname][list(cols_t)])
+            sync()
+            append_s = time.perf_counter() - t
+            in_core_s = eager_now()
+            walls = {"refresh": 0.0, "full": 0.0}
+            for q in VIEWS_QUERIES:
+                with rec:
+                    out = views.refresh(f"view/{q}")
+                launched = launch_counts()
+                bank_launches()
+                gens = out["generations"]
+                with reference():
+                    t = time.perf_counter()
+                    full = qfs[q]({a: content_at(a, gens[a])
+                                   for a in MANIFEST[q]})
+                    full_s = time.perf_counter() - t
+                walls["refresh"] += out["wall_s"]
+                walls["full"] += full_s
+                full = views.present(full, FALLBACK[q], limits[q])
+                got = views.read(f"view/{q}")
+                ok_full = results_match(np, got["result"], full)
+                ok_eager = results_match(np, got["result"],
+                                         eager_at[combo(q, gens)])
+                record("c", f"refresh_{q}", round=r + 1,
+                       generations=gens, delta_rows=out["delta_rows"],
+                       full_recompute=out["full_recompute"],
+                       incremental_s=out["wall_s"],
+                       in_core_s=in_core_s[q], full_recompute_s=full_s,
+                       append_s=append_s, launches=launched,
+                       equal_full=ok_full, equal_in_core=ok_eager)
+                if not (ok_full and ok_eager) or out["full_recompute"] \
+                        or got["generations"] != gens or (
+                            q in VIEWS_KERNEL_QUERIES
+                            and not sum(launched.values())):
+                    bad.append((q, r + 1))
+            # the round end to end: the append, then every view's refresh
+            record("c", "round", round=r + 1, append_s=append_s,
+                   refresh_s=walls["refresh"],
+                   append_and_refresh_s=append_s + walls["refresh"],
+                   in_core_s=sum(in_core_s.values()),
+                   full_recompute_s=walls["full"])
+    finally:
+        stop.set()
+        for th in readers:
+            th.join(timeout=60.0)
+    rounds_s = time.perf_counter() - t_rounds
+    if any(th.is_alive() for th in readers):
+        fail("(c) a reader thread did not stop")
+    if bad:
+        fail(f"(c) refreshes {bad} differ from their oracles or launched "
+             f"no kernel")
+    # the audit: every read against the in-core result at its
+    # generations; a memoized result object is checked once
+    checked, mismatches, lag_max = {}, 0, 0
+    for q, gens, result, lag in samples:
+        lag_max = max(lag_max, lag)
+        key = (combo(q, gens), id(result))
+        if key not in checked:
+            want = eager_at.get(combo(q, gens))
+            checked[key] = want is not None and results_match(
+                np, result, want)
+        mismatches += 0 if checked[key] else 1
+    record("c", "reads", readers=VIEWS_READERS, reads=len(samples),
+           distinct_results=len(checked), mismatches=mismatches,
+           generation_lag_max=lag_max, read_errors=read_errors[:8],
+           rounds_s=rounds_s)
+    if mismatches or read_errors or not samples:
+        fail(f"(c) {mismatches} of {len(samples)} reads differ, "
+             f"{len(read_errors)} failed")
+    del samples, checked
+
+    # -- (d) durability: the snapshot, then a killed refresh resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = CatalogSnapshot(os.path.join(tmp, "snap"))
+        before = {}
+        t = time.perf_counter()
+        for tid in catalog.list_tables():
+            snap.save(tid, catalog.get_table(tid),
+                      generation=catalog.generation(tid))
+            before[tid] = catalog.table_version(tid)
+        save_s = time.perf_counter() - t
+        catalog.clear()
+        gc.collect()
+        t = time.perf_counter()
+        restored = snap.restore(device=dev)
+        gens_saved = snap.generations()
+        for tid, tab in restored.items():
+            catalog.put_table(tid, tab)
+            catalog.restore_version(tid, gens_saved[tid])
+        sync()
+        restore_s = time.perf_counter() - t
+        del restored
+        after = {tid: catalog.table_version(tid)
+                 for tid in catalog.list_tables()}
+        stale = [q for q in VIEWS_QUERIES
+                 if views.refresh(f"view/{q}")["refreshed"]]
+        record("d", "snapshot", tables=sorted(before),
+               generations={k: v["generation"] for k, v in after.items()},
+               equal=after == before, save_s=save_s, restore_s=restore_s,
+               views_refreshed_after_restore=stale)
+        if after != before or stale:
+            fail(f"(d) restore: versions equal {after == before}, views "
+                 f"refreshed {stale}")
+        catalog.clear()
+        views.clear()
+        del history, host, eager_at
+        gc.collect()
+
+        bank_launches()
+        with reference():
+            t = time.perf_counter()
+            want = views_kill_run(dev, None)
+            clean_s = time.perf_counter() - t
+        rdir = os.path.join(tmp, "resume")
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--views-child",
+             rdir, dev], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        if child.returncode != resilience.KILL_EXIT_CODE:
+            fail(f"(d) the child exited {child.returncode}, not "
+                 f"{resilience.KILL_EXIT_CODE}: {child.stderr[-2000:]}")
+        resumed = telemetry.total("ooc.units_resumed")
+        t = time.perf_counter()
+        got = views_kill_run(dev, rdir)
+        resume_s = time.perf_counter() - t
+        resumed = telemetry.total("ooc.units_resumed") - resumed
+        record("d", "kill_resume", sf=VIEWS_KILL_SF,
+               delta_sf=VIEWS_KILL_DELTA_SF, child_exit=child.returncode,
+               child_s=child_s, clean_s=clean_s, resume_s=resume_s,
+               resumed_units=resumed, identical=got == want)
+        if resumed < 1 or got != want:
+            fail(f"(d) {resumed} units resumed, result identical "
+                 f"{got == want}")
+    catalog.clear()
+    views.clear()
+    gc.collect()
+    bank_launches()
+    record("launches", "views", launches=total_launches)
+    for k in ("scan32", "pair_max_scan", "row_hash"):
+        if not total_launches[k]:
+            fail(f"{k} never launched on the views path")
+    return total_launches, rec.inputs, base_bytes
+
+
 def main(argv) -> int:
+    import gc
+
     import torch
 
     if argv[:1] == ["--spill-child"]:
         return spill_child(*argv[1:6])
+    if argv[:1] == ["--views-child"]:
+        return views_child(*argv[1:3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive",
               file=sys.stderr)
@@ -4475,6 +5180,19 @@ def main(argv) -> int:
     emit({"phase": "spill_seconds", "card": card,
           "seconds": time.perf_counter() - t16})
     memory_line(torch, card, "16 spill")
+    t17 = time.perf_counter()
+    views_launches, views_inputs, views_base = views_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "views", views_inputs, card=card)
+    del views_inputs
+    gc.collect()
+    views_after = kept_bytes(torch)
+    emit({"phase": "views_seconds", "card": card,
+          "seconds": time.perf_counter() - t17,
+          "kept_bytes_before": views_base, "kept_bytes_after": views_after})
+    if views_after != views_base:
+        raise SystemExit(f"views: {views_after} bytes live after the "
+                         f"phase, {views_base} before it")
+    memory_line(torch, card, "17 views")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -4502,6 +5220,7 @@ def main(argv) -> int:
             "tpch_launches": tpch_launches[wrapper.__name__],
             "telemetry_launches": telemetry_launches[wrapper.__name__],
             "spill_launches": spill_launches[wrapper.__name__],
+            "views_launches": views_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

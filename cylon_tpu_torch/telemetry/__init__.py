@@ -22,9 +22,11 @@ no thread starts, no file opens. Exporters
 Prometheus text dump per process, armed lazily off the env knob.
 
 :mod:`cylon_tpu_torch.telemetry.memory` keeps the device-memory
-live-bytes gauges, per-op peak watermarks and OOM forensics. The
-EXPLAIN / ANALYZE profiles of the JAX package (``profile``) are not
-ported yet: they read the table catalog, which comes first.
+live-bytes gauges, per-op peak watermarks and OOM forensics; its OOM
+report names the largest resident tables of
+:mod:`cylon_tpu_torch.catalog`. The EXPLAIN / ANALYZE profiles of the
+JAX package (``profile``) are not ported yet: they come with the serve
+engine (ROADMAP A8.2).
 
 The event-level half is :mod:`cylon_tpu_torch.telemetry.trace` — the
 ``CYLON_TPU_TRACE`` flight recorder: per-rank span/instant/counter

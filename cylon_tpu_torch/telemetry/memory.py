@@ -270,9 +270,12 @@ def oom_report(limit: int = 8) -> dict:
     the allocator's "tried to allocate N bytes" line:
 
     - ``devices``: live bytes per device (:func:`device_bytes`),
-    - ``tables``: resident catalog tables. Empty: the port has no
-      catalog yet (it comes with ``catalog.py``), so no table can be
-      named; the key stays for the JAX report's shape,
+    - ``tables``: the ``limit`` largest catalog tables (id, bytes,
+      rows, pins, holders — a pinned table cannot be evicted, which is
+      exactly why its holders are named), from
+      :func:`cylon_tpu_torch.catalog.stats` with ``version=False``, so
+      no table is fetched to the host for a digest
+      (``cylon_tpu/telemetry/memory.py:264-293``),
     - ``plan_cache``: compiled-query memo occupancy
       (:func:`cylon_tpu_torch.plan.plan_cache_stats` + per-query entry
       counts),
@@ -282,7 +285,19 @@ def oom_report(limit: int = 8) -> dict:
       storage bytes (shape/dtype/device), each storage once,
     - ``peak_bytes``: the recorded high-water mark.
     """
-    rep: dict = {"devices": device_bytes(), "tables": []}
+    from cylon_tpu_torch import catalog
+
+    rep: dict = {"devices": device_bytes()}
+    tables = []
+    try:
+        for tid, st in catalog.stats(version=False).items():
+            tables.append({"id": tid, "bytes": st["bytes"],
+                           "rows": st["rows"], "pins": st["pins"],
+                           "holders": st["holders"]})
+    except Exception:  # catalog stats must never fail the report
+        pass
+    tables.sort(key=lambda t: -(t["bytes"] or 0))
+    rep["tables"] = tables[:limit]
     try:
         from cylon_tpu_torch import plan
 

@@ -84,6 +84,12 @@ def test_no_file_imports_jax_or_the_jax_package():
         assert PKG / f"{name}.py" in files, name
     for name in ("twophase", "streaming"):
         assert PKG / "tpch" / f"{name}.py" in files, name
+    # and the resident-table catalog, the views and the serve layer's
+    # durability and result cache (ROADMAP A7.3)
+    for name in ("catalog.py", "serve/__init__.py", "serve/durability.py",
+                 "serve/result_cache.py", "views/__init__.py",
+                 "views/combiners.py", "views/materialized.py"):
+        assert PKG / name in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -132,6 +138,34 @@ print("BAD", bad)
 
 def test_telemetry_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", _TELEMETRY_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+_CATALOG_PROBE = """
+import sys
+import numpy as np
+import pandas as pd
+from cylon_tpu_torch import Table, catalog, views
+from cylon_tpu_torch.serve import CatalogSnapshot, RequestJournal
+from cylon_tpu_torch.serve.result_cache import ResultCache, version_vector
+catalog.put_table("t", Table.from_pydict({"k": np.arange(4)}, device="cpu"))
+views.register_view("n", lambda t: float(len(t["t"])), {"merge": "sum"},
+                    sources={"t": "t"})
+catalog.append("t", pd.DataFrame({"k": [9]}))
+assert views.refresh("n")["delta_rows"] == 1
+assert views.read("n")["result"] == 5.0
+assert version_vector(["t"])[0][1] == 2
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_catalog_views_and_serve_pull_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _CATALOG_PROBE], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
@@ -269,6 +303,53 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.context:CylonEnv._bootstrap",
     "cylon_tpu_torch.context:CylonEnv.barrier",
     "cylon_tpu_torch.ops_graph.graph:chunk_stream",
+    # the resident-table catalog, views and the serve layer's durable
+    # spine and result cache (ROADMAP A7.3)
+    "cylon_tpu_torch.catalog",
+    "cylon_tpu_torch.catalog:put_table",
+    "cylon_tpu_torch.catalog:get_table",
+    "cylon_tpu_torch.catalog:pin",
+    "cylon_tpu_torch.catalog:drop",
+    "cylon_tpu_torch.catalog:stats",
+    "cylon_tpu_torch.catalog:table_version",
+    "cylon_tpu_torch.catalog:generation",
+    "cylon_tpu_torch.catalog:restore_version",
+    "cylon_tpu_torch.catalog:on_append",
+    "cylon_tpu_torch.catalog:append",
+    "cylon_tpu_torch.catalog:deltas_since",
+    "cylon_tpu_torch.catalog:join_tables",
+    "cylon_tpu_torch.catalog:union_tables",
+    "cylon_tpu_torch.catalog:sort_table",
+    "cylon_tpu_torch.catalog:unique_table",
+    "cylon_tpu_torch.catalog:table_nbytes",
+    "cylon_tpu_torch.catalog:table_device_nbytes",
+    "cylon_tpu_torch.catalog:_table_digest",
+    "cylon_tpu_torch.catalog:to_native",
+    "cylon_tpu_torch.serve",
+    "cylon_tpu_torch.serve.durability",
+    "cylon_tpu_torch.serve.durability:RequestJournal",
+    "cylon_tpu_torch.serve.durability:JournalLock",
+    "cylon_tpu_torch.serve.durability:fence_journal",
+    "cylon_tpu_torch.serve.durability:CatalogSnapshot",
+    "cylon_tpu_torch.serve.durability:CatalogSnapshot.save",
+    "cylon_tpu_torch.serve.durability:CatalogSnapshot.restore",
+    "cylon_tpu_torch.serve.result_cache",
+    "cylon_tpu_torch.serve.result_cache:ResultCache",
+    "cylon_tpu_torch.serve.result_cache:version_vector",
+    "cylon_tpu_torch.serve.result_cache:value_nbytes",
+    "cylon_tpu_torch.serve.result_cache:hook_on_append",
+    "cylon_tpu_torch.views",
+    "cylon_tpu_torch.views.combiners",
+    "cylon_tpu_torch.views.combiners:merge_delta",
+    "cylon_tpu_torch.views.combiners:combine_partials",
+    "cylon_tpu_torch.views.combiners:finalize_twophase",
+    "cylon_tpu_torch.views.materialized",
+    "cylon_tpu_torch.views.materialized:register_view",
+    "cylon_tpu_torch.views.materialized:refresh",
+    "cylon_tpu_torch.views.materialized:read",
+    "cylon_tpu_torch.views.materialized:view_version",
+    "cylon_tpu_torch.views.materialized:drop_view",
+    "cylon_tpu_torch.telemetry.memory:oom_report",
 )
 
 
@@ -402,4 +483,25 @@ def test_chip_smoke_drives_the_spill_phase():
     assert main.index('"--spill-child"') < main.index("is_available()")
     body = src[src.index("def spill_phase("):src.index("def main(")]
     for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)", "(g)"):
+        assert f"    {part} " in body, part
+
+
+def test_chip_smoke_drives_the_views_phase():
+    """``chip_smoke.py`` names phase 17 in its docstring, runs it after
+    phase 16, holds its kernels against their plain versions, puts its
+    launches in the kernels line, ends it in a memory line, and runs its
+    killed refresh through its own ``--views-child`` entry."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "17. views" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"views_phase", "views_child"} <= funcs
+    main = src[src.index("def main("):]
+    assert main.index("spill_phase(") < main.index("views_phase(")
+    assert '"views_launches"' in main
+    assert 'path_kernel_phase(torch, rate, stats, "views"' in main
+    assert 'memory_line(torch, card, "17 ' in main
+    assert main.index('"--views-child"') < main.index("is_available()")
+    body = src[src.index("def views_phase("):src.index("def main(")]
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)"):
         assert f"    {part} " in body, part

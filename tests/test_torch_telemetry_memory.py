@@ -4,8 +4,8 @@ live-bytes gauges, per-op peak watermarks, OOM forensics.
 The cases of ``tests/test_memory.py`` on ``cylon_tpu_torch``, on the CPU,
 where the live bytes come from a walk of the live CPU tensors (each
 storage counted once). The JAX file's pinned-catalog case holds the
-report's other sections here: the port has no catalog yet, so its
-``tables`` section stays empty (ROADMAP A7.3).
+report's other sections here with an empty catalog; the ``tables``
+section over resident tables is held in ``tests/test_torch_catalog.py``.
 """
 
 import io
@@ -113,7 +113,7 @@ def test_torch_oom_report_names_plan_cache_and_devices():
     q(ct.Table.from_pydict({"k": np.arange(64, dtype=np.int64)},
                            device="cpu"))
     rep = memory.oom_report()
-    assert rep["tables"] == []             # no catalog in the port yet
+    assert rep["tables"] == []             # the catalog holds no table
     assert set(rep["devices"]) == {"cpu:0"}
     assert "spill" in rep and isinstance(rep["top_arrays"], list)
     assert rep["top_arrays"] == []          # no CUDA tensor here
