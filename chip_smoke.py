@@ -138,6 +138,19 @@ Phases, each printing one JSON line:
     a child (``--views-child``) and resumed byte for byte; then the
     kernels at this phase's shapes, as in phase 10, and the live bytes
     back at their level before the phase; see :func:`views_phase`.
+18. serve: the serve engine (``cylon_tpu_torch.serve``). The JAX
+    package's serving acceptance (``serve.bench --clients 8``: eight
+    tenants, two staged requests each of the mix q1, q3, q5, q6, q14)
+    on resident TPC-H tables at SF 10, under the round-robin and the
+    priority schedule, every result equal to its alone run and every
+    alone run to pandas, with the ops endpoint read live over HTTP and
+    the profiler's synchronizing calls counted; a request whose step
+    runs ``dist_join`` at W = 4; the result cache and appends at SF 1; a
+    request degraded through its spill fallback after a real CUDA OOM;
+    a durable engine killed in a child (``--serve-child``) and
+    recovered here, every journaled request replayed once; then the
+    kernels at this phase's shapes, as in phase 10, and the live bytes
+    back at their level before the phase; see :func:`serve_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -147,10 +160,11 @@ peak (then reset) and reserved bytes, and the live bytes after a
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
-``telemetry_launches``, ``spill_launches`` and ``views_launches``, on
-phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
-phase 15's compared runs, phase 16's parts (a)-(f) and phase 17's parts
-(a)-(d)), the ``nvidia-smi``
+``telemetry_launches``, ``spill_launches``, ``views_launches`` and
+``serve_launches``, on phase 9's group-by calls, phase 12's calls, phase
+13's, phase 14's, phase 15's compared runs, phase 16's parts (a)-(f),
+phase 17's parts (a)-(d) and the engine's own requests in phase 18's
+parts (a)-(f)), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -3299,7 +3313,7 @@ def count_syncs(torch, fn):
     under ``torch.cuda.set_sync_debug_mode("warn")``: each call that
     waits for the card warns once, and the warnings are counted by the
     ``file:line`` of the Python call that made them (the file's path in
-    the repo, or its name outside it)."""
+    the repo, or its last three path parts outside it)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as seen:
@@ -3314,7 +3328,7 @@ def count_syncs(torch, fn):
         if "synchroniz" in str(w.message):
             path = Path(w.filename).resolve()
             name = path.relative_to(ROOT).as_posix() \
-                if path.is_relative_to(ROOT) else path.name
+                if path.is_relative_to(ROOT) else "/".join(path.parts[-3:])
             key = f"{name}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
     return out, sites
@@ -3790,6 +3804,19 @@ def tpch_q14_pandas(pdfs, date_int):
     promo = j[j.p_type.str.startswith("PROMO")].revenue.sum()
     total = j.revenue.sum()
     return 100.0 * promo / total if total else 0.0
+
+
+def tpch_q6_numpy(lineitem, date_int, discount=0.06, quantity=24) -> float:
+    """TPC-H Q6 as one numpy sum over the generator's lineitem columns,
+    with the port's discount band (``cylon_tpu_torch/tpch/queries.py``
+    ``q6``: ``discount +- 0.01001``)."""
+    import numpy as np
+
+    sd, dc = lineitem["l_shipdate"], lineitem["l_discount"]
+    m = ((sd >= date_int(1994, 1, 1)) & (sd < date_int(1995, 1, 1))
+         & (dc >= discount - 0.01001) & (dc <= discount + 0.01001)
+         & (lineitem["l_quantity"] < quantity))
+    return float(np.sum(lineitem["l_extendedprice"][m] * dc[m]))
 
 
 def tpch_q15_pandas(pdfs, date_int):
@@ -5088,6 +5115,743 @@ def views_phase(torch, card: str, dev="cuda") -> tuple:
     return total_launches, rec.inputs, base_bytes
 
 
+# ------------------------------------------------------------ phase 18
+#: (a): the JAX package's documented acceptance replay
+#: (``cylon_tpu/serve/bench.py:136, 196-210, 328-470``, ``docs/serving.md``
+#: "serve_bench": ``--clients 8``, two requests a client, the mix q1, q3,
+#: q5, q6, q14), on resident tables at SF 10: one card's share of
+#: BASELINE.json's configuration 5 (SF 100 over ten cards)
+SERVE_SF = TPCH_BASELINE_SF
+SERVE_SEED = TPCH_SEED
+SERVE_MIX = ("q1", "q3", "q5", "q6", "q14")
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 2
+SERVE_SCHEDULES = ("roundrobin", "priority")
+SERVE_ENDPOINTS = ("/healthz", "/health", "/metrics", "/queries",
+                   "/tenants")
+#: (b): a rank's rows a side of the W = 4 request, as phase 11's
+SERVE_W4_RANK_ROWS = DIST_W4_ROWS
+#: (c), (e): tables of their own at SF 1, one RF1 round of delta SF 0.01
+SERVE_CACHE_SF = TPCH_SF
+SERVE_DELTA_SF = VIEWS_DELTA_SF
+#: (f): the killed engine's tables (a snapshot at SF 10 would cost about
+#: a minute), its keyed requests, and how many retire before the kill
+SERVE_KILL_SF = 0.1
+SERVE_KILL_REQUESTS = 6
+SERVE_KILL_DONE = 2
+
+
+def serve_resident(queries) -> dict:
+    """The resident ``tpch/<name>`` tables ``queries`` read, as frames."""
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import catalog
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    names = sorted({t for q in queries for t in MANIFEST[q]})
+    return {t: ct.DataFrame(catalog.get_table(f"tpch/{t}")) for t in names}
+
+
+def serve_named_query(q: str):
+    """A registered query (replayable by name): ``tpch.compiled(q)`` over
+    the resident tables, its result on the host."""
+    def run():
+        from cylon_tpu_torch import tpch
+
+        return host_result(tpch.compiled(q)(serve_resident([q])))
+    run.__name__ = f"serve_{q}"
+    return run
+
+
+def serve_kill_keys() -> list:
+    return [f"req-{i}" for i in range(SERVE_KILL_REQUESTS)]
+
+
+def serve_child(rdir: str, dev: str) -> int:
+    """Part (f)'s child: a durable engine at :data:`SERVE_KILL_SF` on
+    ``dev`` registers the TPC-H tables of q3 and q5 and both queries,
+    retires :data:`SERVE_KILL_DONE` keyed requests, then admits the rest
+    in one hold of the engine's lock (each journaled before any runs),
+    the first of them with ``FaultRule.kill`` at the ``plan`` point: the
+    process dies with ``KILL_EXIT_CODE`` with those requests journaled
+    and none of them retired."""
+    sys.path.insert(0, str(ROOT))
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import resilience, tpch
+    from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    data = tpch.generate(SERVE_KILL_SF, SERVE_SEED,
+                         keep=manifest_keep(MANIFEST, ("q3", "q5")))
+    eng = ServeEngine(ct.CylonEnv(device=dev), ServePolicy(max_queue=16),
+                      durable_dir=rdir)
+    for name, f in tpch.ingest(data, device=dev).items():
+        if f.table.num_columns:
+            eng.register_table(f"tpch/{name}", f.table)
+    for q in ("q3", "q5"):
+        eng.register_query(q, serve_named_query(q))
+    keys = serve_kill_keys()
+    for i, key in enumerate(keys[:SERVE_KILL_DONE]):
+        eng.submit_named(("q3", "q5")[i % 2], idempotency_key=key,
+                         tenant=f"t{i}").result(600)
+    kill = resilience.FaultPlan([resilience.FaultRule.kill("plan")])
+    with eng._cond:
+        admitted = [eng.submit_named(
+            ("q3", "q5")[i % 2], idempotency_key=key, tenant=f"t{i}",
+            fault_plan=kill if i == SERVE_KILL_DONE else None)
+            for i, key in enumerate(keys[SERVE_KILL_DONE:],
+                                    SERVE_KILL_DONE)]
+    for tk in admitted:
+        tk.wait(300)
+    return 1                       # the kill never fired
+
+
+def serve_phase(torch, card: str, dev="cuda") -> tuple:
+    """The serve engine on the card (phase 18): the JAX package's
+    serving acceptance, its ops endpoint, result cache, degraded path
+    and recovery through ``cylon_tpu_torch.serve``. Every line carries
+    the card's name and power limit.
+
+    (a) The acceptance replay at :data:`SERVE_SF`: the tables of the mix
+        generated (``keep`` their manifest columns), ingested on the card
+        and registered as ``tpch/<name>``, the host seconds of both
+        apart. Each mix query run once alone through ``tpch.compiled``
+        (the oracles; their launches thrown away), each equal to pandas
+        (``tpch_q*_pandas``, q6 one numpy sum; floats rtol 1e-9). Then
+        for each schedule of :data:`SERVE_SCHEDULES` an engine
+        (``ServePolicy(max_queue=64)``, the ops endpoint armed by
+        ``CYLON_TPU_SERVE_HTTP_PORT=0`` on a free loopback port), and
+        :data:`SERVE_CLIENTS` client threads, ``tenant0``..., each in a
+        session pinning every ``tpch/*`` table, each submitting
+        :data:`SERVE_REQUESTS` two-step staged queries
+        ``mix[(i + r) % 5]`` (odd clients weight 2 under ``priority``).
+        Every result equals its alone run; 0 errors, rejected, expired.
+        The replay's wall, p50 and p99 (``serve.request_seconds``
+        merged), the exact p99 of the tickets, qps, the plan-cache hit
+        rate (above 0), the tenants' stats and the slowest request's
+        profile. Then a served q6 with profiling on and off: the same
+        synchronizing calls (:func:`count_syncs`).
+    (b) One request whose single step runs ``dist_join`` at W = 4 on
+        ``ThreadWorld`` (:data:`SERVE_W4_RANK_ROWS` rows a rank a side,
+        made as phase 11 makes them): its rows equal W = 1 (row sets,
+        bit for bit) and numpy's count and checksum; its profile holds
+        the ``dist_join`` operator and the exchange's bytes; it launches
+        ``row_hash``.
+    (c) The result cache and appends on SF 1 tables of their own, in an
+        engine of its own: ``register_query("q1", tables=...)``, then two
+        identical ``submit_named``: the second a cache hit at admission,
+        equal to the first, launching no kernel; then
+        ``append_table`` of an RF1 delta (:func:`rf1_delta`) to
+        ``tpch/orders`` and ``tpch/lineitem`` and the same call again: a
+        miss, equal to a fresh alone run at the new generation.
+    (d) The ops endpoint, live: during each replay of (a) a thread reads
+        :data:`SERVE_ENDPOINTS` over HTTP, every read 200 (JSON but
+        ``/metrics``); ``/health``'s memory component reads the card
+        (``hbm_limit_bytes`` the total of ``mem_get_info``); after the
+        replay ``/profiles/<rid>`` of the slowest request equals its
+        ``ticket.profile()``.
+    (e) Degrade on a real OOM on (c)'s tables: a request whose step
+        allocates more than the card holds, with ``fallback=`` q3
+        through ``fallback.tpch_fallback``: DONE, ``degraded``, the OOM
+        report in its profile, equal to q3's pandas oracle, the breaker
+        closed, the live bytes back where they were before it.
+    (f) Journal and recovery at :data:`SERVE_KILL_SF`: a child
+        (``--serve-child``, :func:`serve_child`) dies with
+        ``KILL_EXIT_CODE`` with requests journaled and not retired;
+        ``ServeEngine.recover`` here, on the card by default, replays
+        every one exactly once, each equal to its alone run on the
+        restored tables; the completed ones are not re-run; a
+        resubmitted key returns the replay's ticket; the report lists
+        the restored tables at their generations.
+    (g) Every engine closed and ``catalog.clear()``; the inputs the
+        kernels met in the engine's own requests go to
+        :func:`path_kernel_phase` (in ``main``), after which the live
+        bytes must be back at their level before the phase.
+
+    The launches returned are the engine's requests' own: each oracle
+    and comparison (the alone runs, W = 1, the fresh run after the
+    append) runs inside a ``reference()`` block whose launches are
+    thrown away. ``scan32`` and ``pair_max_scan`` must have run in (a),
+    ``row_hash`` in (b), the bucket kernels never.
+
+    Returns ``(launches of (a)-(f), the kernels' inputs, the live bytes
+    before the phase)``."""
+    import gc
+    import json as _json
+    import os
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import pandas as pd
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import (catalog, dtypes, fallback, telemetry, tpch,
+                                 views)
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.errors import ResourceExhausted
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.resilience import KILL_EXIT_CODE
+    from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+    from cylon_tpu_torch.telemetry import profile as tprofile
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    t_phase = time.perf_counter()
+    catalog.clear()
+    views.clear()
+    gc.collect()
+    base_bytes = kept_bytes(torch, dev)
+
+    def record(part, case, **fields):
+        row = {"phase": "serve", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"serve: {msg}")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    rec = PathInputs()
+    total_launches = {k: 0 for k in launch_counts()}
+    part_launches = {}
+
+    def bank_launches(part=None):
+        """Add the counts since the last reset to the phase's total (and
+        to ``part``'s)."""
+        got = launch_counts()
+        for k, v in got.items():
+            total_launches[k] += v
+            if part is not None:
+                mine = part_launches.setdefault(part, {})
+                mine[k] = mine.get(k, 0) + v
+        reset_launches()
+
+    @contextlib.contextmanager
+    def reference():
+        """Bank the path's launches so far, then throw away those made
+        inside: an oracle's or a comparison's, not the engine's."""
+        bank_launches()
+        try:
+            yield
+        finally:
+            reset_launches()
+
+    reset_launches()
+    env = ct.CylonEnv(device=dev)
+    engines = []
+
+    def armed_engine(policy, **kw):
+        """An engine with its ops endpoint on a free loopback port."""
+        os.environ["CYLON_TPU_SERVE_HTTP_PORT"] = "0"
+        try:
+            eng = ServeEngine(env, policy, **kw)
+        finally:
+            del os.environ["CYLON_TPU_SERVE_HTTP_PORT"]
+        engines.append(eng)
+        if eng.http_address is None:
+            fail("the ops endpoint is not serving")
+        return eng
+
+    # -- (a) the acceptance replay at SF 10
+    keep = manifest_keep(MANIFEST, SERVE_MIX)
+    t = time.perf_counter()
+    data = tpch.generate(SERVE_SF, SERVE_SEED, keep=keep)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = tpch.ingest(data, device=dev)
+    sync()
+    ingest_s = time.perf_counter() - t
+    table_ids = []
+    for name, f in frames.items():
+        if f.table.num_columns:
+            catalog.put_table(f"tpch/{name}", f.table)
+            table_ids.append(f"tpch/{name}")
+    pdfs = {k: pd.DataFrame(v) for k, v in data.items() if v}
+    t = time.perf_counter()
+    pandas_want = {"q1": tpch_q1_pandas(pdfs, tpch.date_int),
+                   "q3": tpch_q3_pandas(pdfs, tpch.date_int),
+                   "q5": tpch_q5_pandas(pdfs, tpch.date_int),
+                   "q6": tpch_q6_numpy(data["lineitem"], tpch.date_int),
+                   "q14": tpch_q14_pandas(pdfs, tpch.date_int)}
+    pandas_s = time.perf_counter() - t
+    del pdfs, data
+    compiled = {q: tpch.compiled(q) for q in SERVE_MIX}
+    oracles, alone_s = {}, {}
+    with reference():
+        for q in SERVE_MIX:
+            t = time.perf_counter()
+            oracles[q] = host_result(compiled[q](frames, env=env))
+            alone_s[q] = time.perf_counter() - t
+
+    def matches(q, got, want) -> bool:
+        if q == "q3":
+            return q3_matches(np, got, want)
+        if hasattr(want, "columns"):
+            return results_match(np, got.reset_index(drop=True),
+                                 want.reset_index(drop=True))
+        return results_match(np, got, want)
+
+    bad = [q for q in SERVE_MIX if not matches(q, oracles[q],
+                                                pandas_want[q])]
+    record("a", "data", sf=SERVE_SF, seed=SERVE_SEED, tables=table_ids,
+           generate_s=gen_s, ingest_s=ingest_s, pandas_s=pandas_s,
+           alone_s=alone_s, alone_equal_pandas=not bad,
+           resident_bytes=sum(catalog.stats(version=False)[tid]["bytes"]
+                              for tid in table_ids))
+    if bad:
+        fail(f"(a) alone runs {bad} differ from pandas")
+
+    def staged(cq):
+        """``cylon_tpu/serve/bench.py:196-210``: step 1 runs the
+        compiled query, step 2 brings its result to the host."""
+        def run():
+            out = cq(frames, env=env)
+            yield
+            return host_result(out)
+        return run
+
+    def get(eng, path):
+        host, port = eng.http_address
+        with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+
+    total_mem = torch.cuda.mem_get_info()[1] if dev == "cuda" else None
+    for schedule in SERVE_SCHEDULES:
+        telemetry.reset("serve.")
+        eng = armed_engine(ServePolicy(max_queue=64, schedule=schedule))
+        results, errors, tickets = [], [], []
+        rejected = [0]
+        lock = threading.Lock()
+
+        def client(i, eng=eng, schedule=schedule):
+            prio = 2 if schedule == "priority" and i % 2 else 1
+            with eng.session(f"tenant{i}", priority=prio,
+                             tables=table_ids) as s:
+                mine = []
+                for r in range(SERVE_REQUESTS):
+                    q = SERVE_MIX[(i + r) % len(SERVE_MIX)]
+                    try:
+                        tk = s.submit(staged(compiled[q]))
+                    except ResourceExhausted:
+                        with lock:
+                            rejected[0] += 1
+                        continue
+                    mine.append((q, tk))
+                    with lock:
+                        tickets.append((q, tk))
+                for q, tk in mine:
+                    try:
+                        got = tk.result(600)
+                    except Exception as e:   # noqa: BLE001 -- reported
+                        with lock:
+                            errors.append(f"tenant{i} {q}: "
+                                          f"{type(e).__name__}: {e}")
+                        continue
+                    with lock:
+                        results.append((q, matches(q, got, oracles[q])))
+
+        reads, read_bad, health_mem = [], [], []
+        stop = threading.Event()
+
+        def poller(eng=eng):
+            """(d): the ops endpoint read while the replay runs."""
+            while True:
+                for path in SERVE_ENDPOINTS:
+                    try:
+                        status, body = get(eng, path)
+                        if path != "/metrics":
+                            doc = _json.loads(body)
+                            if path == "/health":
+                                health_mem.append(
+                                    doc["components"]["memory"])
+                        elif b"# TYPE" not in body:
+                            status = -1
+                    except Exception as e:   # noqa: BLE001 -- reported
+                        status = f"{type(e).__name__}: {e}"
+                    reads.append(path)
+                    if status != 200:
+                        read_bad.append((path, status))
+                if stop.is_set():
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=poller, name="serve-poller")
+        clients = [threading.Thread(target=client, args=(i,),
+                                    name=f"serve-client-{i}")
+                   for i in range(SERVE_CLIENTS)]
+        watcher.start()
+        t0 = time.perf_counter()
+        with rec:
+            for th in clients:
+                th.start()
+            for th in clients:
+                th.join(600)
+        wall = time.perf_counter() - t0
+        stop.set()
+        watcher.join(60)
+        bank_launches(f"a_{schedule}")
+        if any(th.is_alive() for th in clients + [watcher]):
+            fail(f"(a) {schedule}: a client or the poller did not end")
+        hist = telemetry.merge_histograms(
+            [inst for _, _, inst in
+             telemetry.instruments("serve.request_seconds")])
+        walls = sorted(tk.finished - tk.submitted for _, tk in tickets
+                       if tk.finished is not None and tk.state == "done")
+        slow_q, slow = max(tickets,
+                           key=lambda x: x[1].finished - x[1].submitted)
+        prof = slow.profile()
+        status, body = get(eng, f"/profiles/{slow.rid}")
+        endpoint_prof = _json.loads(body) if status == 200 else None
+        prof_equal = endpoint_prof == _json.loads(_json.dumps(prof))
+        cache = eng.plan_cache_stats()
+        mism = sum(1 for _, ok in results if not ok)
+        counts = {k: telemetry.total(f"serve.{k}") for k in
+                  ("completed", "errors", "rejected", "expired")}
+        limits_ok = all(m["hbm_limit_bytes"] == total_mem
+                        and m["free_hbm_bytes"] is not None
+                        for m in health_mem) if dev == "cuda" else True
+        record("a", f"replay_{schedule}", clients=SERVE_CLIENTS,
+               requests=len(tickets), completed=counts["completed"],
+               results=len(results), mismatches=mism, errors=errors[:8],
+               rejected=counts["rejected"] + rejected[0],
+               expired=counts["expired"], wall_s=wall,
+               qps=len(walls) / wall, p50_s=hist.quantile(0.5),
+               p99_s=hist.quantile(0.99),
+               p50_exact_s=float(np.quantile(np.asarray(walls), 0.5)),
+               p99_exact_s=float(np.quantile(np.asarray(walls), 0.99)),
+               plan_cache=cache, tenants=eng.tenant_stats(),
+               launches=part_launches[f"a_{schedule}"],
+               slowest={"query": slow_q, "rid": slow.rid,
+                        "profile": prof},
+               profile_endpoint_equal=prof_equal)
+        record("d", f"endpoint_{schedule}", reads=len(reads),
+               bad=read_bad[:8], health_memory=health_mem[-1:],
+               hbm_limit_equal_card_total=limits_ok,
+               health=eng.health()["status"])
+        if mism or errors or counts["rejected"] or rejected[0] \
+                or counts["expired"] or len(results) != \
+                SERVE_CLIENTS * SERVE_REQUESTS:
+            fail(f"(a) {schedule}: {mism} mismatches, {len(errors)} "
+                 f"errors, {counts['rejected'] + rejected[0]} rejected, "
+                 f"{counts['expired']} expired, {len(results)} results")
+        if not cache["hit_rate"] > 0:
+            fail(f"(a) {schedule}: plan cache hit rate {cache}")
+        if read_bad or not reads or not health_mem or not limits_ok \
+                or not prof_equal:
+            fail(f"(d) {schedule}: bad reads {read_bad[:4]}, health "
+                 f"memory {health_mem[-1:]}, /profiles equal {prof_equal}")
+        eng.close()
+        del results, tickets, slow, prof
+
+    # a served request's synchronizing calls, profiled and not: a first
+    # request warms the engine's scheduler thread, then off and on
+    # alternate
+    eng = ServeEngine(env, ServePolicy(max_queue=4))
+    engines.append(eng)
+    syncs = {}
+    for on in (None, False, True, False, True):
+        tprofile.PROFILING = on is not False
+        try:
+            _, sites = count_syncs(torch, lambda: eng.submit(
+                staged(compiled["q6"]), tenant="syncs").result(600))
+        finally:
+            tprofile.PROFILING = True
+        syncs.setdefault({None: "warm", False: "off", True: "on"}[on],
+                         []).append(sites)
+    bank_launches("a_syncs")
+    record("a", "profile_syncs", query="q6", warm=syncs["warm"],
+           on=syncs["on"], off=syncs["off"])
+    if any(s != syncs["off"][0] for s in syncs["on"] + syncs["off"]):
+        fail(f"(a) profiling changes the synchronizing calls: {syncs}")
+    eng.close()
+    a_launches = {k: sum(part_launches.get(p, {}).get(k, 0)
+                         for p in part_launches) for k in total_launches}
+    for k in ("scan32", "pair_max_scan"):
+        if not a_launches[k]:
+            fail(f"(a) {k} never launched in the engine's requests")
+
+    # -- (b) a W = 4 dist_join inside one request
+    w, nr = GROUPBY_WORLD, SERVE_W4_RANK_ROWS
+    n = w * nr
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    sides = [(torch.randint(0, n, (n,), dtype=torch.int64, device=dev,
+                            generator=g),
+              torch.rand(n, dtype=torch.float64, device=dev, generator=g))
+             for _ in range(2)]
+
+    def table(k, v, lo, hi):
+        return ct.Table({"k": Column(k[lo:hi], None, dtypes.int64),
+                         "v": Column(v[lo:hi], None, dtypes.float64)},
+                        hi - lo)
+
+    def dist_request():
+        def rank(comm):
+            e = ct.CylonEnv(comm, device=dev)
+            lo, hi = e.rank * nr, (e.rank + 1) * nr
+            return ct.dist_join(e, *[table(k, v, lo, hi)
+                                     for k, v in sides], on="k")
+        return ct.ThreadWorld(w).run(rank)
+
+    telemetry.reset("serve.")
+    eng = ServeEngine(env, ServePolicy(max_queue=4))
+    engines.append(eng)
+    with rec:
+        tk = eng.submit(dist_request, tenant="dist")
+        parts = tk.result(600)
+    bank_launches("b")
+    prof = tk.profile()
+    with reference():
+        whole = ct.dist_join(env, *[table(k, v, 0, n) for k, v in sides],
+                             on="k")
+        names = whole.column_names
+        same = all(torch.equal(x, y) for x, y in zip(
+            row_set(torch, parts, names), row_set(torch, [whole], names)))
+    sk = [s[0].cpu().numpy() for s in sides]
+    sv = [s[1].cpu().numpy() for s in sides]
+    want_rows = int((np.bincount(sk[0], minlength=n).astype(np.int64)
+                     * np.bincount(sk[1], minlength=n)).sum())
+    want_check = float((np.bincount(sk[0], weights=sv[0], minlength=n)
+                        * np.bincount(sk[1], weights=sv[1], minlength=n))
+                       .sum())
+    got_rows = sum(p.num_rows for p in parts)
+    got_check = float(sum((column_of(p, "v_x") * column_of(p, "v_y")).sum()
+                          for p in parts))
+    dj = prof["operators"].get("dist_join", {})
+    record("b", "dist_join_w4", world=w, rows_per_rank_side=nr,
+           result_rows=got_rows, expected_rows=want_rows,
+           checksum=got_check, expected_checksum=want_check,
+           equal_w1=same, launches=part_launches["b"],
+           profile={k: prof[k] for k in ("wall_s", "steps", "operators",
+                                         "stages", "stage_coverage",
+                                         "memory")})
+    if not (same and got_rows == want_rows and np.isclose(
+            got_check, want_check, rtol=1e-9, atol=0.0)):
+        fail("(b) the W = 4 request differs from W = 1 or numpy")
+    if not (dj.get("bytes_true", 0) > 0 and dj.get("wall_s", 0) > 0):
+        fail(f"(b) the profile misses the exchange: {prof['operators']}")
+    if not part_launches["b"]["row_hash"]:
+        fail("(b) row_hash never launched in the W = 4 request")
+    eng.close()
+    del parts, whole, sides, sk, sv, prof, tk
+    catalog.clear()
+    gc.collect()
+
+    # -- (c) the result cache and appends on SF 1 tables of their own
+    ckeep = views_keep(["q1", "q3"])
+    base = tpch.generate(SERVE_CACHE_SF, SERVE_SEED, keep=ckeep)
+    telemetry.reset("serve.")
+    eng = ServeEngine(env, ServePolicy(max_queue=8))
+    engines.append(eng)
+    for name, f in tpch.ingest(base, device=dev).items():
+        if f.table.num_columns:
+            eng.register_table(f"tpch/{name}", f.table)
+    del f                          # the appends below replace the tables
+    q1_tables = tuple(f"tpch/{t}" for t in MANIFEST["q1"])
+    eng.register_query("q1", serve_named_query("q1"), tables=q1_tables)
+    with rec:
+        t = time.perf_counter()
+        first = eng.submit_named("q1", tenant="cache")
+        v1 = first.result(600)
+        first_s = time.perf_counter() - t
+    bank_launches("c")
+    t = time.perf_counter()
+    second = eng.submit_named("q1", tenant="cache")
+    v2 = second.result(600)
+    hit_s = time.perf_counter() - t
+    hit_launches = launch_counts()
+    reset_launches()
+    d = rf1_delta(len(base["orders"]["o_orderkey"]), 0, SERVE_DELTA_SF,
+                  SERVE_SEED, ckeep)
+    t = time.perf_counter()
+    appends = {}
+    for tname in ("orders", "lineitem"):
+        cols = catalog.get_table(f"tpch/{tname}").column_names
+        appends[tname] = eng.append_table(f"tpch/{tname}",
+                                          d[tname][list(cols)])
+    append_s = time.perf_counter() - t
+    with rec:
+        t = time.perf_counter()
+        third = eng.submit_named("q1", tenant="cache")
+        v3 = third.result(600)
+        miss_s = time.perf_counter() - t
+    bank_launches("c")
+    with reference():
+        fresh = serve_named_query("q1")()
+    record("c", "result_cache", sf=SERVE_CACHE_SF, first_s=first_s,
+           hit_s=hit_s, hit=second.cache_hit, hit_equal=v2.equals(v1),
+           hit_launches=hit_launches, appends=appends, append_s=append_s,
+           after_append_hit=third.cache_hit, after_append_s=miss_s,
+           after_append_equal_fresh=results_match(np, v3, fresh),
+           after_append_differs=not v3.equals(v1),
+           cache=eng._result_cache.stats())
+    if not (second.cache_hit and v2.equals(v1)) or any(
+            hit_launches.values()):
+        fail(f"(c) the second q1: cache hit {second.cache_hit}, "
+             f"launches {hit_launches}")
+    if third.cache_hit or not results_match(np, v3, fresh) \
+            or v3.equals(v1):
+        fail("(c) after the append the q1 hit the cache or differs from "
+             "a fresh run")
+    del v1, v2, v3, fresh, d, first, second, third
+
+    # -- (e) degrade on a real OOM, on (c)'s tables, in an engine of its
+    # own: the live bytes are read with no engine thread alive
+    eng.close()
+    qdata = {t: base[t] for t in MANIFEST["q3"]}
+    q3_want = tpch_q3_pandas({t: pd.DataFrame(v) for t, v in qdata.items()},
+                             tpch.date_int)
+    card_total = torch.cuda.mem_get_info()[1] if dev == "cuda" else 0
+
+    def too_big():
+        """A step that asks for more than the card holds."""
+        return torch.empty(card_total + (1 << 30), dtype=torch.uint8,
+                           device=dev)
+
+    def kept_storages(x) -> set:
+        """The storages of the tensors in ``x`` (nested lists and
+        tuples)."""
+        if isinstance(x, torch.Tensor):
+            return {x.untyped_storage().data_ptr()}
+        if isinstance(x, (list, tuple)):
+            return set().union(*(kept_storages(v) for v in x)) if x \
+                else set()
+        return set()
+
+    def live() -> dict:
+        """Every live device storage, ``{pointer: bytes}``, but the pair
+        scan's scratch and ``rec``'s copies of the kernels' inputs (an
+        allocator count would also read how its blocks were split)."""
+        from cylon_tpu_torch.kernels import scan as kscan
+        from cylon_tpu_torch.telemetry import memory as tmem
+
+        gc.collect()
+        sync()
+        skip = kept_storages(list(rec.inputs.values())) | kept_storages(
+            [st[0] for st in kscan._pair_state.values()])
+        out = {}
+        for x in tmem._live_tensors("cuda"):
+            st = x.untyped_storage()
+            if st.data_ptr() not in skip:
+                out[st.data_ptr()] = st.nbytes()
+        return out
+
+    before = live()
+    eng = ServeEngine(env, ServePolicy(max_queue=4))
+    engines.append(eng)
+    with rec:
+        t = time.perf_counter()
+        tk = eng.submit(too_big, tenant="oom", fallback=lambda: (
+            fallback.tpch_fallback("q3", qdata, env=env)))
+        got = tk.result(600)
+        degrade_s = time.perf_counter() - t
+    bank_launches("e")
+    prof = tk.profile()
+    breaker = eng._admission.breaker.state
+    eng.close()
+    after = live()
+    came = sum(n for p_, n in after.items() if p_ not in before)
+    went = sum(n for p_, n in before.items() if p_ not in after)
+    ok = q3_matches(np, got.reset_index(drop=True), q3_want)
+    record("e", "degraded", state=tk.state, degraded=prof["degraded"],
+           oom_report=prof["fallback"]["oom_report"] is not None,
+           fallbacks=prof["fallback"]["fallbacks"], equal_pandas=ok,
+           breaker=breaker, wall_s=degrade_s,
+           live_bytes_before=sum(before.values()),
+           live_bytes_after=sum(after.values()), bytes_came=came,
+           bytes_went=went, launches=part_launches.get("e"))
+    if not (tk.state == "done" and prof["degraded"] and ok
+            and prof["fallback"]["oom_report"] is not None
+            and breaker == "closed" and after == before):
+        fail(f"(e) degraded {prof['degraded']}, state {tk.state}, equal "
+             f"{ok}, breaker {breaker}, live storages {came} bytes came, "
+             f"{went} went")
+    del got, prof, base, qdata, tk
+    catalog.clear()
+    gc.collect()
+
+    # -- (f) journal and recovery
+    with tempfile.TemporaryDirectory() as tmp:
+        rdir = os.path.join(tmp, "serve")
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
+             rdir, dev], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        if child.returncode != KILL_EXIT_CODE:
+            fail(f"(f) the child exited {child.returncode}, not "
+                 f"{KILL_EXIT_CODE}: {child.stderr[-2000:]}")
+        calls = []
+
+        def counted(q):
+            inner = serve_named_query(q)
+
+            def run():
+                calls.append(q)
+                return inner()
+            return run
+
+        telemetry.reset("serve.")
+        t = time.perf_counter()
+        with rec:
+            eng = ServeEngine.recover(
+                rdir, env=None if dev == "cuda" else env,
+                queries={q: counted(q) for q in ("q3", "q5")})
+            engines.append(eng)
+            rep = eng.recovery_report
+            replayed = {k: tk.result(600) for k, tk in
+                        rep["replayed"].items()}
+        recover_s = time.perf_counter() - t
+        bank_launches("f")
+        keys = serve_kill_keys()
+        again = eng.submit_named("q3", idempotency_key=keys[-1],
+                                 tenant="retry")
+        with reference():
+            alone = {q: serve_named_query(q)() for q in ("q3", "q5")}
+        kind = {k: ("q3", "q5")[i % 2] for i, k in enumerate(keys)}
+        equal = {k: matches(kind[k], v, alone[kind[k]])
+                 for k, v in replayed.items()}
+        gens = {tid: catalog.generation(tid)
+                for tid in rep["restored_tables"]}
+        dev_ok = all(catalog.get_table(tid).device.type == dev
+                     for tid in rep["restored_tables"])
+        record("f", "recover", sf=SERVE_KILL_SF, child_exit=child.returncode,
+               child_s=child_s, recover_s=recover_s,
+               replayed=sorted(replayed), equal=equal, calls=sorted(calls),
+               unreplayable=len(rep["unreplayable"]),
+               restored_tables=rep["restored_tables"], generations=gens,
+               on_device=dev_ok,
+               resubmit_same_ticket=again is rep["replayed"].get(keys[-1]),
+               launches=part_launches.get("f"))
+        incomplete = keys[SERVE_KILL_DONE:]
+        if sorted(replayed) != sorted(incomplete) or not all(
+                equal.values()) or sorted(calls) != sorted(
+                kind[k] for k in incomplete) or rep["unreplayable"] \
+                or again is not rep["replayed"].get(keys[-1]) \
+                or not dev_ok or not rep["restored_tables"] \
+                or any(g != 1 for g in gens.values()):
+            fail(f"(f) replayed {sorted(replayed)} (want {incomplete}), "
+                 f"equal {equal}, calls {calls}, generations {gens}")
+        eng.close()
+        del replayed, alone, again, rep
+    for e in engines:
+        if not e.closing:
+            e.close()
+    del engines, frames, oracles, compiled
+    catalog.clear()
+    gc.collect()
+    bank_launches()
+    record("launches", "serve", launches=total_launches,
+           by_part=part_launches)
+    if total_launches["bucket_build"] or total_launches["bucket_probe"]:
+        fail(f"the bucket kernels ran on the serve path: {total_launches}")
+    return total_launches, rec.inputs, base_bytes
+
+
 def main(argv) -> int:
     import gc
 
@@ -5097,6 +5861,8 @@ def main(argv) -> int:
         return spill_child(*argv[1:6])
     if argv[:1] == ["--views-child"]:
         return views_child(*argv[1:3])
+    if argv[:1] == ["--serve-child"]:
+        return serve_child(*argv[1:3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive",
               file=sys.stderr)
@@ -5193,6 +5959,19 @@ def main(argv) -> int:
         raise SystemExit(f"views: {views_after} bytes live after the "
                          f"phase, {views_base} before it")
     memory_line(torch, card, "17 views")
+    t18 = time.perf_counter()
+    serve_launches, serve_inputs, serve_base = serve_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "serve", serve_inputs, card=card)
+    del serve_inputs
+    gc.collect()
+    serve_after = kept_bytes(torch)
+    emit({"phase": "serve_seconds", "card": card,
+          "seconds": time.perf_counter() - t18,
+          "kept_bytes_before": serve_base, "kept_bytes_after": serve_after})
+    if serve_after != serve_base:
+        raise SystemExit(f"serve: {serve_after} bytes live after the "
+                         f"phase, {serve_base} before it")
+    memory_line(torch, card, "18 serve")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -5221,6 +6000,7 @@ def main(argv) -> int:
             "telemetry_launches": telemetry_launches[wrapper.__name__],
             "spill_launches": spill_launches[wrapper.__name__],
             "views_launches": views_launches[wrapper.__name__],
+            "serve_launches": serve_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -188,6 +188,15 @@ def is_shard(table_id: str, env=None) -> bool:
         return _catalog[_find_locked(table_id, env)].world is not None
 
 
+def holds_shard(table: Table) -> bool:
+    """Is this very table object registered as a rank's shard? The
+    shard record a caller holding only the table reads (EXPLAIN's
+    ``distributed``); False for a local or an unregistered table."""
+    with _lock:
+        return any(ent.table is table and ent.world is not None
+                   for ent in _catalog.values())
+
+
 def _require_unpinned(key: tuple, verb: str) -> None:
     holders = _pins.get(key)
     if holders:

@@ -164,6 +164,7 @@ DEADLINE_SECTIONS: "dict[str, float | None]" = {
     "ooc_pass": None,        # out-of-core join/groupby/sort passes
     "ooc_prefetch": None,    # one pipelined-ingest unit (pipeline)
     "exchange": None,        # shuffle/repartition/dist_join
+    "serve_request": None,   # one serve-layer query step (serve.service)
     "fallback_merge": None,  # the two-phase fallback's global merge
 }
 

@@ -128,6 +128,31 @@ def _tight_rows_local(env, sizes, enabled: bool = True):
     return max(est + 4 * int(est ** 0.5) + 16, 1)
 
 
+def batched_true_rows(tables) -> "list[int] | None":
+    """Each table's true rows, in one host fetch for all of them (port
+    of ``cylon_tpu/parallel/dist_ops.py:165``): their row counts stacked
+    into one tensor a device, never one fetch a table. None when any
+    count marks an overflow (``nrows == capacity + 1``), since the count
+    is then a lie, as the JAX package's is None for a poisoned table.
+    The port has no per-table count memo: a table's count is one 0-d
+    tensor on its device, and each call reads it afresh. Tables given
+    here are this process's own (a rank's shard counts its rank's
+    rows)."""
+    tables = list(tables)
+    by_dev: "dict[torch.device, list]" = {}
+    for i, t in enumerate(tables):
+        by_dev.setdefault(t.nrows.device, []).append(i)
+    counts = [0] * len(tables)
+    for idx in by_dev.values():
+        host = torch.stack([tables[i].nrows.reshape(()).to(torch.int64)
+                            for i in idx]).tolist()
+        for i, c in zip(idx, host):
+            counts[i] = int(c)
+    if any(c > t.capacity for c, t in zip(counts, tables)):
+        return None
+    return counts
+
+
 def _out_cap_local(env, world_capacity: int, out_capacity=None,
                    skew=DEFAULT_SKEW, scale: int = 1,
                    tight_rows=None) -> int:

@@ -450,6 +450,11 @@ class CompiledQuery:
             scale = self._scale_memo.get(key, 1)
             if hit:
                 self._scale_memo.move_to_end(key)
+            else:
+                # first sight recorded at lookup, in the same lock hold:
+                # threads racing on one new key count one miss between
+                # them (``cylon_tpu/plan.py``'s no-double-count rule)
+                self._scale_memo[key] = scale
         while True:
             telemetry.counter("plan.cache_hits" if hit
                               else "plan.cache_misses").inc()

@@ -1,16 +1,49 @@
-"""cylon_tpu_torch.serve — the serving layer's durable spine and its
-versioned result cache (port of ``cylon_tpu/serve``, in part).
+"""cylon_tpu_torch.serve — the always-on multi-tenant query service (port
+of ``cylon_tpu/serve``, in part).
 
-Ported so far (ROADMAP A7.3): :mod:`.durability` — the write-ahead
-:class:`RequestJournal`, the multi-engine :class:`JournalLock` and
-:func:`fence_journal`, and the :class:`CatalogSnapshot` of the resident
-tables — and :mod:`.result_cache`, keyed on the catalog's table
-versions. The always-on engine itself (``ServeEngine``, admission, SLOs,
-sessions, introspection and the fleet) comes with ROADMAP A8.2.
+One resident device, many concurrent queries: a long-lived
+:class:`ServeEngine` admits requests against shared resident tables
+(:mod:`cylon_tpu_torch.catalog` pins), schedules them through the
+:mod:`cylon_tpu_torch.ops_graph` execution strategies (RoundRobin
+fair-share / Priority tenant weights), bounds each under a per-request
+SLO (:func:`cylon_tpu_torch.watchdog.deadline`), shares the compiled
+queries' scale memos across clients
+(:func:`cylon_tpu_torch.plan.shared_compiled`), dedups identical
+requests through the versioned result cache, and meters everything per
+tenant (``serve.*`` + tenant-labeled instruments, an ANALYZE profile a
+ticket, the ``CYLON_TPU_SERVE_HTTP_PORT`` ops endpoint). With a
+``durable_dir`` the engine is crash-safe: admitted requests journal
+write-ahead (:class:`RequestJournal`), resident tables snapshot
+(:class:`CatalogSnapshot`), and ``ServeEngine.recover(dir)`` rebuilds
+tables and in-flight work after a hard kill::
+
+    from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+
+    engine = ServeEngine(env, ServePolicy(max_queue=64))
+    engine.register_table("tpch/lineitem", frames["lineitem"].table)
+    with engine.session("alice", tables=["tpch/lineitem"]) as s:
+        ticket = s.submit(query, frames)
+        result = ticket.result(timeout=60)
+        ticket.profile()                # EXPLAIN ANALYZE of the request
+    engine.close()
+
+Ported so far (ROADMAP A7.3, A8.2 first half): the engine, admission
+and the circuit breaker, SLO burn accounting, sessions, the ops
+endpoint, the journal and snapshot, the result cache. The replicated
+fleet (``fleet``) and the serving benchmark (``bench``) come next.
 """
 
+from cylon_tpu_torch.serve.admission import (AdmissionController,
+                                             CircuitBreaker, ServePolicy,
+                                             default_policy)
 from cylon_tpu_torch.serve.durability import (CatalogSnapshot, JournalLock,
                                               RequestJournal, fence_journal)
+from cylon_tpu_torch.serve.introspect import IntrospectServer
+from cylon_tpu_torch.serve.service import QueryTicket, ServeEngine
+from cylon_tpu_torch.serve.session import Session
+from cylon_tpu_torch.serve.slo import SloTracker
 
-__all__ = ["CatalogSnapshot", "JournalLock", "RequestJournal",
-           "fence_journal"]
+__all__ = ["ServeEngine", "QueryTicket", "Session", "ServePolicy",
+           "AdmissionController", "CircuitBreaker", "SloTracker",
+           "IntrospectServer", "RequestJournal", "CatalogSnapshot",
+           "JournalLock", "fence_journal", "default_policy"]

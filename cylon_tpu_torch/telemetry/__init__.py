@@ -24,9 +24,9 @@ Prometheus text dump per process, armed lazily off the env knob.
 :mod:`cylon_tpu_torch.telemetry.memory` keeps the device-memory
 live-bytes gauges, per-op peak watermarks and OOM forensics; its OOM
 report names the largest resident tables of
-:mod:`cylon_tpu_torch.catalog`. The EXPLAIN / ANALYZE profiles of the
-JAX package (``profile``) are not ported yet: they come with the serve
-engine (ROADMAP A8.2).
+:mod:`cylon_tpu_torch.catalog`. :mod:`cylon_tpu_torch.telemetry.profile`
+holds the per-query EXPLAIN plans and the per-request ANALYZE profiles
+that the serve engine's ``QueryTicket.profile()`` renders.
 
 The event-level half is :mod:`cylon_tpu_torch.telemetry.trace` — the
 ``CYLON_TPU_TRACE`` flight recorder: per-rank span/instant/counter
@@ -37,7 +37,8 @@ timelines, Chrome Trace export (:func:`to_chrome_trace` /
 (``trace.critical_path``). Same no-overhead-when-off contract.
 """
 
-from cylon_tpu_torch.telemetry import events, memory, timeseries, trace
+from cylon_tpu_torch.telemetry import (events, memory, profile, timeseries,
+                                       trace)
 from cylon_tpu_torch.telemetry.aggregate import (gather_metrics,
                                                  gather_traces,
                                                  merge_snapshots)
@@ -75,5 +76,5 @@ __all__ = [
     "NVLINK_BYTES_PER_SEC", "fraction_of_peak", "trace",
     "to_chrome_trace", "chrome_trace_json", "write_chrome_trace",
     "tenant_scope", "current_tenant", "tenant_labels",
-    "merge_histograms", "memory", "events", "timeseries",
+    "merge_histograms", "memory", "profile", "events", "timeseries",
 ]

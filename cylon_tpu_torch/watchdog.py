@@ -81,6 +81,11 @@ SECTIONS: "dict[str, bool]" = {
     # says the mesh/pass state is unrecoverable
     "ooc_prefetch": False,
     "exchange": False,
+    # one admitted serve request's execution step
+    # (cylon_tpu_torch.serve.service) — never engine-retryable:
+    # re-running a half-executed query after its SLO passed only deepens
+    # the pile-up; the retry decision belongs to the client
+    "serve_request": False,
     # the two-phase fallback's global merge (cylon_tpu_torch.fallback):
     # the blocking scalar between the partial pass and the apply
     # pass — never retryable on its own: the merge is deterministic
@@ -96,8 +101,8 @@ SECTIONS: "dict[str, bool]" = {
 #: per call; here a caller sets this instead). ``SECTIONS`` and
 #: ``config.DEADLINE_SECTIONS`` cover the same sections
 #: (``tests/test_torch_watchdog.py`` holds them equal): the JAX
-#: package's, less ``serve_request`` and ``router_poll``, whose serving
-#: layer and fleet router the port does not have yet.
+#: package's, less ``router_poll``, whose fleet router the port does not
+#: have yet.
 DEADLINE_POLICY: "_config.DeadlinePolicy | None" = None
 
 

@@ -90,6 +90,12 @@ def test_no_file_imports_jax_or_the_jax_package():
                  "serve/result_cache.py", "views/__init__.py",
                  "views/combiners.py", "views/materialized.py"):
         assert PKG / name in files, name
+    # and the serve engine, its admission, SLO, sessions and ops
+    # endpoint, and the EXPLAIN / ANALYZE profiles (ROADMAP A8.2)
+    for name in ("telemetry/profile.py", "serve/admission.py",
+                 "serve/slo.py", "serve/session.py", "serve/introspect.py",
+                 "serve/service.py"):
+        assert PKG / name in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -172,17 +178,47 @@ def test_catalog_views_and_serve_pull_in_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+_SERVE_PROBE = """
+import sys
+import numpy as np
+from cylon_tpu_torch import Table, catalog
+from cylon_tpu_torch.context import CylonEnv
+from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+from cylon_tpu_torch.serve import service
+from cylon_tpu_torch.telemetry import profile
+eng = ServeEngine(CylonEnv(device="cpu"), ServePolicy(max_queue=4))
+eng.register_table("t", Table.from_pydict({"k": np.arange(4)}, device="cpu"))
+eng.register_query("n", lambda: catalog.get_table("t").num_rows,
+                   tables=["t"])
+tk = eng.submit_named("n", tenant="probe")
+assert tk.result(30) == 4 and tk.profile()["state"] == "done"
+assert eng.health()["status"] == "ok"
+assert profile.explain(lambda t: t, catalog.get_table("t"))["inputs"]
+eng.close()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_serve_engine_and_profiles_pull_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_telemetry_exports_the_jax_names():
     """The port's telemetry exports every name of the JAX package's but
-    ``profile`` (EXPLAIN / ANALYZE, which waits for the catalog) and the
-    TPU link rate, whose place the H100's NVLink data-sheet rate takes;
-    its registry is its own."""
+    the TPU link rate, whose place the H100's NVLink data-sheet rate
+    takes; its registry is its own."""
     import cylon_tpu.telemetry as jtel
 
     from cylon_tpu_torch import telemetry as tel
 
     assert "telemetry" in cylon_tpu_torch.__all__
-    want = set(jtel.__all__) - {"profile", "ICI_LINK_BYTES_PER_SEC"}
+    want = set(jtel.__all__) - {"ICI_LINK_BYTES_PER_SEC"}
     assert want | {"NVLINK_BYTES_PER_SEC"} == set(tel.__all__)
     for name in tel.__all__:
         assert getattr(tel, name) is not None, name
@@ -350,6 +386,30 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.views.materialized:view_version",
     "cylon_tpu_torch.views.materialized:drop_view",
     "cylon_tpu_torch.telemetry.memory:oom_report",
+    # the serve engine and the EXPLAIN / ANALYZE profiles (ROADMAP A8.2)
+    "cylon_tpu_torch.parallel.dist_ops:batched_true_rows",
+    "cylon_tpu_torch.telemetry.profile",
+    "cylon_tpu_torch.telemetry.profile:RequestProfiler",
+    "cylon_tpu_torch.telemetry.profile:ProfileHistory",
+    "cylon_tpu_torch.telemetry.profile:merged_history",
+    "cylon_tpu_torch.telemetry.profile:explain",
+    "cylon_tpu_torch.serve.admission",
+    "cylon_tpu_torch.serve.admission:ServePolicy",
+    "cylon_tpu_torch.serve.admission:default_policy",
+    "cylon_tpu_torch.serve.admission:CircuitBreaker",
+    "cylon_tpu_torch.serve.admission:AdmissionController",
+    "cylon_tpu_torch.serve.slo",
+    "cylon_tpu_torch.serve.slo:SloTracker",
+    "cylon_tpu_torch.serve.session",
+    "cylon_tpu_torch.serve.session:Session",
+    "cylon_tpu_torch.serve.introspect",
+    "cylon_tpu_torch.serve.introspect:health_verdict",
+    "cylon_tpu_torch.serve.introspect:IntrospectServer",
+    "cylon_tpu_torch.serve.service",
+    "cylon_tpu_torch.serve.service:QueryTicket",
+    "cylon_tpu_torch.serve.service:_QueryOp",
+    "cylon_tpu_torch.serve.service:ServeEngine",
+    "cylon_tpu_torch.serve.service:ServeEngine.recover",
 )
 
 
@@ -505,3 +565,25 @@ def test_chip_smoke_drives_the_views_phase():
     body = src[src.index("def views_phase("):src.index("def main(")]
     for part in ("(a)", "(b)", "(c)", "(d)", "(e)"):
         assert f"    {part} " in body, part
+
+
+def test_chip_smoke_drives_the_serve_phase():
+    """``chip_smoke.py`` names phase 18 in its docstring, runs it after
+    phase 17, holds its kernels against their plain versions, puts its
+    launches in the kernels line, ends it in a memory line, and runs its
+    killed engine through its own ``--serve-child`` entry."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "18. serve" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"serve_phase", "serve_child"} <= funcs
+    main = src[src.index("def main("):]
+    assert main.index("views_phase(") < main.index("serve_phase(")
+    assert '"serve_launches"' in main
+    assert 'path_kernel_phase(torch, rate, stats, "serve"' in main
+    assert 'memory_line(torch, card, "18 ' in main
+    assert main.index('"--serve-child"') < main.index("is_available()")
+    body = src[src.index("def serve_phase("):src.index("def main(")]
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)", "(g)"):
+        assert f"    {part} " in body, part
+    assert "CYLON_TPU_SERVE_HTTP_PORT" in body

@@ -40,8 +40,8 @@ def _clean():
 def test_sections_and_budgets_match_jax():
     import cylon_tpu.config as jcfg
 
-    # the serving layer's two sections wait for its port (ROADMAP A8.2)
-    serve = ("serve_request", "router_poll")
+    # the fleet router's section waits for its port (ROADMAP A8.2)
+    serve = ("router_poll",)
     assert watchdog.SECTIONS == {k: v for k, v in jwd.SECTIONS.items()
                                  if k not in serve}
     assert set(watchdog.SECTIONS) == set(config.DEADLINE_SECTIONS)
