@@ -3313,7 +3313,9 @@ def count_syncs(torch, fn):
     under ``torch.cuda.set_sync_debug_mode("warn")``: each call that
     waits for the card warns once, and the warnings are counted by the
     ``file:line`` of the Python call that made them (the file's path in
-    the repo, or its last three path parts outside it)."""
+    the repo, or its last three path parts outside it). A site outside
+    the repo is also named in :data:`SYNC_SOURCES`: its function and the
+    source line."""
     import warnings
 
     with warnings.catch_warnings(record=True) as seen:
@@ -3331,7 +3333,33 @@ def count_syncs(torch, fn):
                 if path.is_relative_to(ROOT) else "/".join(path.parts[-3:])
             key = f"{name}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
+            if not path.is_relative_to(ROOT) and key not in SYNC_SOURCES:
+                SYNC_SOURCES[key] = source_of(path, w.lineno)
     return out, sites
+
+
+#: ``count_syncs`` key -> "function: source line" of each sync site seen
+#: outside the repo (the key's three path parts name no function)
+SYNC_SOURCES: dict = {}
+
+
+def source_of(path, lineno: int) -> str:
+    """``"function: source line"`` of line ``lineno`` of ``path``: the
+    innermost function whose body holds the line."""
+    import ast
+    import linecache
+
+    text = linecache.getline(str(path), lineno).strip()
+    try:
+        tree = ast.parse(Path(path).read_text())
+    except (OSError, SyntaxError, ValueError):
+        return f"?: {text}"
+    func, start = "<module>", 0
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                and start <= node.lineno <= lineno <= node.end_lineno:
+            func, start = node.name, node.lineno
+    return f"{func}: {text}"
 
 
 def telemetry_syncs(runs) -> list:
@@ -5547,27 +5575,46 @@ def serve_phase(torch, card: str, dev="cuda") -> tuple:
         eng.close()
         del results, tickets, slow, prof
 
-    # a served request's synchronizing calls, profiled and not: a first
-    # request warms the engine's scheduler thread, then off and on
-    # alternate
-    eng = ServeEngine(env, ServePolicy(max_queue=4))
-    engines.append(eng)
-    syncs = {}
-    for on in (None, False, True, False, True):
-        tprofile.PROFILING = on is not False
+    # a served request's synchronizing calls, profiled and not. First
+    # the garbage of the replays is collected under the check, and one
+    # request is served unprofiled on an engine of its own: both settle
+    # what the process does once (neither can hide a profiler's sync).
+    # Then the first request of four fresh engines (each a new scheduler
+    # thread; profiler off, on, on, off) and, on the last engine's warm
+    # thread, off and on alternating: all eight make the same calls
+    syncs = {"settle": [count_syncs(torch, gc.collect)[1]], "fresh_off": [],
+             "fresh_on": [], "warm_off": [], "warm_on": []}
+
+    def served_syncs(eng, on, kind):
+        tprofile.PROFILING = on
         try:
             _, sites = count_syncs(torch, lambda: eng.submit(
                 staged(compiled["q6"]), tenant="syncs").result(600))
         finally:
             tprofile.PROFILING = True
-        syncs.setdefault({None: "warm", False: "off", True: "on"}[on],
-                         []).append(sites)
-    bank_launches("a_syncs")
-    record("a", "profile_syncs", query="q6", warm=syncs["warm"],
-           on=syncs["on"], off=syncs["off"])
-    if any(s != syncs["off"][0] for s in syncs["on"] + syncs["off"]):
-        fail(f"(a) profiling changes the synchronizing calls: {syncs}")
+        syncs[kind if kind == "settle" else
+              f"{kind}_{'on' if on else 'off'}"].append(sites)
+
+    for i, (on, kind) in enumerate(((False, "settle"), (False, "fresh"),
+                                    (True, "fresh"), (True, "fresh"),
+                                    (False, "fresh"))):
+        if i:
+            eng.close()
+        eng = ServeEngine(env, ServePolicy(max_queue=4))
+        engines.append(eng)
+        served_syncs(eng, on, kind)
+    for on in (False, True, False, True):
+        served_syncs(eng, on, "warm")
     eng.close()
+    bank_launches("a_syncs")
+    seen = {k for runs in syncs.values() for r in runs for k in r}
+    record("a", "profile_syncs", query="q6", **syncs,
+           outside={k: SYNC_SOURCES[k] for k in sorted(seen)
+                    if k in SYNC_SOURCES})
+    runs = [r for k, v in syncs.items() if k != "settle" for r in v]
+    if any(r != runs[0] for r in runs):
+        fail(f"(a) profiling changes a served request's synchronizing "
+             f"calls: {syncs}")
     a_launches = {k: sum(part_launches.get(p, {}).get(k, 0)
                          for p in part_launches) for k in total_launches}
     for k in ("scan32", "pair_max_scan"):

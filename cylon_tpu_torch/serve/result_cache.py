@@ -31,9 +31,9 @@ table ids in their vector; :meth:`invalidate_table` — wired to
 entries that read the mutated table. There is no TTL: an entry is
 correct until its inputs change, and wrong immediately after.
 
-**Bounded.** Byte-budgeted LRU (``CYLON_TPU_SERVE_RESULT_CACHE_BYTES``
-engine-side, ``CYLON_TPU_FLEET_RESULT_CACHE_BYTES`` router-side;
-``0`` disables). Counters ride telemetry as
+**Bounded.** Byte-budgeted LRU
+(:data:`cylon_tpu_torch.serve.service.RESULT_CACHE_BYTES` engine-side,
+``CYLON_TPU_FLEET_RESULT_CACHE_BYTES`` router-side; ``0`` disables). Counters ride telemetry as
 ``{prefix}.result_cache_{hits,misses,invalidations,evictions}``.
 """
 

@@ -79,13 +79,15 @@ Design — an assembly of the port's subsystems:
 A result held by a ticket keeps its device memory alive for as long as
 the ticket is reachable: the bounded rid -> ticket history
 (:data:`RECENT_ENTRIES`), the idempotency map (:data:`IDEM_ENTRIES`) and
-the result cache (``CYLON_TPU_SERVE_RESULT_CACHE_BYTES``, 256 MiB by
+the result cache (:data:`RESULT_CACHE_BYTES`, 256 MiB by
 :func:`~cylon_tpu_torch.serve.result_cache.value_nbytes`) all count;
 :meth:`ServeEngine.close` lets go of all three. The JAX package reads
-``CYLON_TPU_SERVE_PROFILE``, ``_COALESCE``, ``_IDEM_ENTRIES`` and
-``_RECENT_ENTRIES`` from the environment; here they are the module
-constants :data:`cylon_tpu_torch.telemetry.profile.PROFILING`,
-:data:`COALESCE`, :data:`IDEM_ENTRIES` and :data:`RECENT_ENTRIES`.
+``CYLON_TPU_SERVE_PROFILE``, ``_COALESCE``, ``_IDEM_ENTRIES``,
+``_RECENT_ENTRIES`` and ``_RESULT_CACHE_BYTES`` from the environment;
+here they are the module constants
+:data:`cylon_tpu_torch.telemetry.profile.PROFILING`, :data:`COALESCE`,
+:data:`IDEM_ENTRIES`, :data:`RECENT_ENTRIES` and
+:data:`RESULT_CACHE_BYTES`.
 ``CYLON_TPU_SERVE_HTTP_PORT`` still arms the ops endpoint
 (:mod:`cylon_tpu_torch.serve.introspect`).
 """
@@ -106,8 +108,8 @@ from cylon_tpu_torch.ops_graph.execution import (PriorityExecution,
 from cylon_tpu_torch.ops_graph.op import Op
 from cylon_tpu_torch.serve import introspect
 from cylon_tpu_torch.serve.admission import AdmissionController, ServePolicy
-from cylon_tpu_torch.serve.result_cache import (ResultCache,
-                                                cache_bytes_from_env,
+from cylon_tpu_torch.serve.result_cache import (DEFAULT_CACHE_BYTES,
+                                                ResultCache,
                                                 hook_on_append,
                                                 version_vector)
 from cylon_tpu_torch.serve.slo import SloTracker
@@ -118,7 +120,7 @@ from cylon_tpu_torch.telemetry import trace as _trace
 from cylon_tpu_torch.utils import tracing
 
 __all__ = ["QueryTicket", "ServeEngine", "COALESCE", "IDEM_ENTRIES",
-           "RECENT_ENTRIES"]
+           "RECENT_ENTRIES", "RESULT_CACHE_BYTES"]
 
 #: request lifecycle states (QueryTicket.state)
 QUEUED, RUNNING, DONE, FAILED = "queued", "running", "done", "failed"
@@ -132,6 +134,9 @@ IDEM_ENTRIES = 65536
 #: bound on the rid -> ticket history behind ``/profiles/<rid>``
 #: (``CYLON_TPU_SERVE_RECENT_ENTRIES`` there)
 RECENT_ENTRIES = 1024
+#: the engine's result-cache budget in bytes, 0 switches the cache off
+#: (``CYLON_TPU_SERVE_RESULT_CACHE_BYTES`` there)
+RESULT_CACHE_BYTES = DEFAULT_CACHE_BYTES
 
 
 class QueryTicket:
@@ -434,8 +439,7 @@ class ServeEngine:
         #: catalog.on_append invalidation) — the admission-time fast
         #: path that keeps hot queries off the card entirely
         self._result_cache = hook_on_append(ResultCache(
-            cache_bytes_from_env("CYLON_TPU_SERVE_RESULT_CACHE_BYTES"),
-            metric_prefix="serve"))
+            RESULT_CACHE_BYTES, metric_prefix="serve"))
         #: (fingerprint, version-vector) -> live leader op: identical
         #: in-queue requests attach here as followers of ONE scheduler
         #: op instead of executing N times (under ``_cond``)

@@ -751,7 +751,7 @@ def test_coalesced_fanout_byte_identical_to_independent_runs(monkeypatch):
         return q
 
     # baseline: every dedup layer off -> three independent runs
-    monkeypatch.setenv("CYLON_TPU_SERVE_RESULT_CACHE_BYTES", "0")
+    monkeypatch.setattr(service, "RESULT_CACHE_BYTES", 0)
     monkeypatch.setattr(service, "COALESCE", False)
     base_execs = []
     eng0 = ServeEngine(policy=ServePolicy(max_queue=16))
@@ -800,7 +800,7 @@ def test_coalesced_fanout_byte_identical_to_independent_runs(monkeypatch):
 
 
 def test_leader_failure_requeues_followers_with_budget(monkeypatch):
-    monkeypatch.setenv("CYLON_TPU_SERVE_RESULT_CACHE_BYTES", "0")
+    monkeypatch.setattr(service, "RESULT_CACHE_BYTES", 0)
     catalog.put_table("t", _t(8))
     gate = threading.Event()
     calls = []
