@@ -151,6 +151,23 @@ Phases, each printing one JSON line:
     recovered here, every journaled request replayed once; then the
     kernels at this phase's shapes, as in phase 10, and the live bytes
     back at their level before the phase; see :func:`serve_phase`.
+19. fleet: the replicated serve fleet and the serving harness
+    (``cylon_tpu_torch.serve.fleet``, ``serve.bench``). The JAX
+    package's ``serve.bench --fleet --clients 16``: two engine processes
+    on the card at SF 1 (cut from SF 10, whose engine set-up took 125 s)
+    behind a ``FleetRouter``, the mix q1, q3, q5, q6, q14, an engine
+    SIGKILLed mid-run right after it acknowledged a request, 0 lost acks, 0 double executions, every
+    result equal to its alone run and the alone runs to pandas; the
+    seeded kill of
+    ``tests/test_fleet_chaos.py`` at SF 0.1 (exit 43, the survivor
+    degrading every request through its spill fallback, the replayed
+    q14 recomputing its merge there); the fleet trace at SF 1 (one trace
+    id across the failover, the Chrome trace in ``chiprun_out/``); the
+    hot mix at SF 1 (``qps_multiplier`` >= 10, 0 stale); ``run_bench``
+    and ``run_refresh_bench`` at SF 0.1; then no engine process left, no
+    journal lock held, the kernels at this process's shapes, as in
+    phase 10, and the live bytes back at their level before the phase;
+    see :func:`fleet_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -160,11 +177,12 @@ peak (then reset) and reserved bytes, and the live bytes after a
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
-``telemetry_launches``, ``spill_launches``, ``views_launches`` and
-``serve_launches``, on phase 9's group-by calls, phase 12's calls, phase
-13's, phase 14's, phase 15's compared runs, phase 16's parts (a)-(f),
-phase 17's parts (a)-(d) and the engine's own requests in phase 18's
-parts (a)-(f)), the ``nvidia-smi``
+``telemetry_launches``, ``spill_launches``, ``views_launches``,
+``serve_launches`` and ``fleet_launches``, on phase 9's group-by calls,
+phase 12's calls, phase 13's, phase 14's, phase 15's compared runs,
+phase 16's parts (a)-(f), phase 17's parts (a)-(d), the engine's own
+requests in phase 18's parts (a)-(f) and this process's legs of phase
+19 (the engine processes print their own)), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -5169,6 +5187,32 @@ SERVE_KILL_REQUESTS = 6
 SERVE_KILL_DONE = 2
 
 
+def mix_pandas(data) -> dict:
+    """:data:`SERVE_MIX`'s answers on ``data`` by pandas (q6 by one numpy
+    sum), the oracles phase 18 holds its alone runs against."""
+    import pandas as pd
+
+    from cylon_tpu_torch import tpch
+
+    pdfs = {k: pd.DataFrame(v) for k, v in data.items() if v}
+    return {"q1": tpch_q1_pandas(pdfs, tpch.date_int),
+            "q3": tpch_q3_pandas(pdfs, tpch.date_int),
+            "q5": tpch_q5_pandas(pdfs, tpch.date_int),
+            "q6": tpch_q6_numpy(data["lineitem"], tpch.date_int),
+            "q14": tpch_q14_pandas(pdfs, tpch.date_int)}
+
+
+def mix_matches(np, q, got, want) -> bool:
+    """A mix query's result against another run or pandas (q3 by
+    :func:`q3_matches`, the rest by :func:`results_match`)."""
+    if q == "q3":
+        return q3_matches(np, got, want)
+    if hasattr(want, "columns"):
+        return results_match(np, got.reset_index(drop=True),
+                             want.reset_index(drop=True))
+    return results_match(np, got, want)
+
+
 def serve_resident(queries) -> dict:
     """The resident ``tpch/<name>`` tables ``queries`` read, as frames."""
     import cylon_tpu_torch as ct
@@ -5397,15 +5441,10 @@ def serve_phase(torch, card: str, dev="cuda") -> tuple:
         if f.table.num_columns:
             catalog.put_table(f"tpch/{name}", f.table)
             table_ids.append(f"tpch/{name}")
-    pdfs = {k: pd.DataFrame(v) for k, v in data.items() if v}
     t = time.perf_counter()
-    pandas_want = {"q1": tpch_q1_pandas(pdfs, tpch.date_int),
-                   "q3": tpch_q3_pandas(pdfs, tpch.date_int),
-                   "q5": tpch_q5_pandas(pdfs, tpch.date_int),
-                   "q6": tpch_q6_numpy(data["lineitem"], tpch.date_int),
-                   "q14": tpch_q14_pandas(pdfs, tpch.date_int)}
+    pandas_want = mix_pandas(data)
     pandas_s = time.perf_counter() - t
-    del pdfs, data
+    del data
     compiled = {q: tpch.compiled(q) for q in SERVE_MIX}
     oracles, alone_s = {}, {}
     with reference():
@@ -5415,12 +5454,7 @@ def serve_phase(torch, card: str, dev="cuda") -> tuple:
             alone_s[q] = time.perf_counter() - t
 
     def matches(q, got, want) -> bool:
-        if q == "q3":
-            return q3_matches(np, got, want)
-        if hasattr(want, "columns"):
-            return results_match(np, got.reset_index(drop=True),
-                                 want.reset_index(drop=True))
-        return results_match(np, got, want)
+        return mix_matches(np, q, got, want)
 
     bad = [q for q in SERVE_MIX if not matches(q, oracles[q],
                                                 pandas_want[q])]
@@ -5899,6 +5933,466 @@ def serve_phase(torch, card: str, dev="cuda") -> tuple:
     return total_launches, rec.inputs, base_bytes
 
 
+#: phase 19 (the fleet): the JAX package's ``serve.bench --fleet
+#: --clients 16`` (``cylon_tpu/serve/fleet.py:1905-2145``): two engine
+#: processes on the card, the mix q1, q3, q5, q6, q14. Cut from phase
+#: 18's SF 10 to SF 1: at SF 10 each engine's set-up took 125 s
+#: (generation 13, ingest 16, the snapshot 38-39 and the version
+#: digests 42-48 s) and phase 19 passed 240 s (PERF.md)
+FLEET_SF = TPCH_SF
+FLEET_MIX = SERVE_MIX
+FLEET_CLIENTS = 16
+FLEET_REQUESTS = 3
+FLEET_ENGINES = 2
+#: (b): the seeded kill of ``tests/test_fleet_chaos.py``
+FLEET_KILL_SF = SERVE_KILL_SF
+FLEET_KILL_MIX = ("q1", "q6", "q14")
+#: (c): the fleet trace, 4 clients x 2 requests
+FLEET_TRACE_SF = TPCH_SF
+FLEET_TRACE_CLIENTS = 4
+FLEET_TRACE_REQUESTS = 2
+#: (d): the hot mix, 64 clients x 4 requests over two engines
+FLEET_HOT_SF = TPCH_SF
+FLEET_HOT_CLIENTS = 64
+FLEET_HOT_REQUESTS = 4
+#: (e): the replay and the refresh rounds (cut: phases 17 and 18 run
+#: these paths at SF 1 and SF 10)
+FLEET_LEG_SF = SERVE_KILL_SF
+FLEET_BENCH_CLIENTS = 8
+FLEET_REFRESH_APPENDS = 2
+
+
+def fleet_processes() -> list:
+    """Pids of the live ``cylon_tpu_torch.serve.fleet`` engine processes
+    on this host (``/proc``; zombies left out)."""
+    import os
+
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{d}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if b"cylon_tpu_torch.serve.fleet" in cmd and state != "Z":
+            out.append(int(d))
+    return out
+
+
+def held_journal_locks(root: str) -> list:
+    """Journal locks under ``root`` still owned by a live process (a
+    clean close releases its lock; a failover fences the victim's)."""
+    import os
+
+    held = []
+    for dirpath, _, files in os.walk(root):
+        if "journal.lock" not in files:
+            continue
+        path = os.path.join(dirpath, "journal.lock")
+        try:
+            with open(path) as f:
+                lock = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if lock.get("fenced"):
+            continue
+        try:
+            os.kill(int(lock["pid"]), 0)
+        except (OSError, KeyError, ValueError):
+            continue
+        held.append(path)
+    return held
+
+
+def fleet_phase(torch, card: str, dev="cuda") -> tuple:
+    """The replicated serve fleet and the serving harness on the card
+    (phase 19), through ``cylon_tpu_torch.serve.fleet`` and
+    ``serve.bench``. Every line carries the card's name and power limit.
+    Engines are fresh interpreters (``spawn_engine``) time-slicing the
+    one card; the kernel library phase 2 built is loaded, not rebuilt.
+
+    (a) The fleet acceptance: ``run_fleet_bench`` with
+        :data:`FLEET_CLIENTS` clients x :data:`FLEET_REQUESTS` requests
+        of :data:`FLEET_MIX` over :data:`FLEET_ENGINES` engine processes
+        at :data:`FLEET_SF`, once a third of the requests completed the
+        next engine to acknowledge a request SIGKILLed right after. Every ``REQUIRED_FLEET_FIELDS`` field present,
+        ``failovers`` >= 1, ``lost_acks``, ``double_executions``,
+        ``oracle_mismatches`` and ``errors`` 0; the parent's alone-run
+        oracles bit for bit another alone run of each query
+        (``value_digest``), which is held against pandas;
+        the p99 before, during and after the kill, each engine's set-up
+        by stage, and the failover's detect and replay seconds.
+    (b) The seeded kill of ``tests/test_fleet_chaos.py`` at
+        :data:`FLEET_KILL_SF`, mix :data:`FLEET_KILL_MIX`: e0 dies at its
+        second ``plan`` dispatch (exit 43, "injected HARD KILL" in its
+        log), e1 raises an injected ``MemoryError`` from its first
+        dispatch, so every completion degrades through its spill
+        fallback; every ticket equals its oracle; the replayed q14 shows
+        ``merge_phase`` in e1's events and has no done line in e0's
+        journal; the audit finds 0 doubles.
+    (c) The fleet trace: ``run_fleet_bench(fleet_trace=True)`` at
+        :data:`FLEET_TRACE_SF` with :data:`FLEET_TRACE_CLIENTS` x
+        :data:`FLEET_TRACE_REQUESTS`: every ``REQUIRED_FLEET_TRACE_FIELDS``
+        field present, the headline request's one trace id across the
+        failover with ``replay_hops`` >= 1; the Chrome trace copied to
+        ``chiprun_out/fleet_trace.trace.json``.
+    (d) ``run_hotmix_bench`` at :data:`FLEET_HOT_SF`,
+        :data:`FLEET_HOT_CLIENTS` x :data:`FLEET_HOT_REQUESTS`, two
+        in-process engines: ``qps_multiplier`` >= 10, ``stale_results``
+        and ``oracle_mismatches`` 0.
+    (e) ``run_bench`` (:data:`FLEET_BENCH_CLIENTS` clients) and
+        ``run_refresh_bench`` (:data:`FLEET_REFRESH_APPENDS` appends) at
+        :data:`FLEET_LEG_SF`: both records hold their fields with 0
+        mismatches, the refresh ``speedup`` >= 2.
+    (f) Clean-up: no engine process left, no journal lock held, every
+        engine's own launches read from its log at a clean close (the
+        killed ones have none); the inputs the kernels met in this
+        process ((a)-(c)'s oracles, (d), (e)) go to
+        :func:`path_kernel_phase` (in ``main``), after which the live
+        bytes must be back at their level before the phase.
+
+    Returns ``(this process's launches in (a)-(e), the kernels' inputs,
+    the live bytes before the phase)``."""
+    import concurrent.futures as cf
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cylon_tpu_torch import catalog, telemetry, tpch, views
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.resilience import KILL_EXIT_CODE
+    from cylon_tpu_torch.serve import bench as sbench
+    from cylon_tpu_torch.serve import fleet
+    from cylon_tpu_torch.serve.durability import RequestJournal
+    from cylon_tpu_torch.telemetry import trace as ttrace
+
+    t_phase = time.perf_counter()
+    catalog.clear()
+    views.clear()
+    gc.collect()
+    base_bytes = kept_bytes(torch, dev)
+
+    def record(part, case, **fields):
+        row = {"phase": "fleet", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"fleet: {msg}")
+
+    rec = PathInputs()
+    total_launches = {k: 0 for k in launch_counts()}
+    part_launches = {}
+
+    def bank_launches(part):
+        got = launch_counts()
+        mine = part_launches.setdefault(part, {k: 0 for k in got})
+        for k, v in got.items():
+            total_launches[k] += v
+            mine[k] += v
+        reset_launches()
+
+    def fleet_gates(part, r):
+        missing = sbench.REQUIRED_FLEET_FIELDS - r.keys()
+        bad = {k: r[k] for k in ("lost_acks", "double_executions",
+                                 "oracle_mismatches", "errors") if r[k]}
+        if missing or bad or r["failovers"] < 1:
+            fail(f"({part}) missing {sorted(missing)}, {bad}, failovers "
+                 f"{r['failovers']}, errors {r.get('error_detail')}")
+
+    def fleet_row(r):
+        return {k: r.get(k) for k in (
+            "engines", "clients", "requests_total", "completed", "victim",
+            "failovers", "failover_detail", "detect_s", "replayed",
+            "lost_acks", "routed", "deduped", "retry_deduped",
+            "double_executions", "oracle_mismatches", "errors",
+            "error_detail", "p99_before_s", "p99_during_s", "p99_after_s",
+            "wall_s", "oracle_s", "spawn_s", "engine_setup_s",
+            "engine_launches",
+            "table_generations", "device")}
+
+    reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_fleet_")
+    procs = []
+    router = None
+    try:
+        # -- (a) the fleet acceptance
+        telemetry.reset("fleet.")
+        telemetry.reset("serve.")
+        t = time.perf_counter()
+        # the alone runs again, outside the path (their launches thrown
+        # away), against pandas
+        alone = fleet._fleet_oracles(FLEET_SF, SERVE_SEED, FLEET_MIX, dev)
+        reset_launches()
+        want = mix_pandas(tpch.generate(FLEET_SF, SERVE_SEED,
+                                        keep=sbench._mix_keep(FLEET_MIX)))
+        alone_pandas = {q: mix_matches(np, q, alone[q], want[q])
+                        for q in FLEET_MIX}
+        alone_digests = {q: fleet.value_digest(v) for q, v in alone.items()}
+        del alone, want
+        with rec:
+            a = fleet.run_fleet_bench(
+                clients=FLEET_CLIENTS, requests=FLEET_REQUESTS,
+                sf=FLEET_SF, seed=SERVE_SEED, mix=FLEET_MIX,
+                engines=FLEET_ENGINES, root=os.path.join(tmp, "a"),
+                device=dev)
+        a_s = time.perf_counter() - t
+        bank_launches("a")
+        same = {q: a["oracle_digests"].get(q) == d
+                for q, d in alone_digests.items()}
+        record("a", "fleet", sf=FLEET_SF, mix=list(FLEET_MIX),
+               part_s=a_s, alone_equal_pandas=alone_pandas,
+               oracles_equal_alone_runs=same,
+               launches=part_launches["a"], **fleet_row(a))
+        fleet_gates("a", a)
+        if not all(alone_pandas.values()) or not all(same.values()):
+            fail(f"(a) alone runs against pandas {alone_pandas}, the "
+                 f"bench's oracles against them {same}")
+        if a["replayed"] < 1:
+            fail("(a) the killed engine had no request to replay")
+        del a
+
+        # -- (b) the seeded kill at SF 0.1
+        telemetry.reset("fleet.")
+        root_b = os.path.join(tmp, "b")
+        t = time.perf_counter()
+        with rec:
+            oracles = fleet._fleet_oracles(FLEET_KILL_SF, SERVE_SEED,
+                                           FLEET_KILL_MIX, dev)
+        bank_launches("b")
+        with cf.ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(fleet.spawn_engine, root_b, name,
+                              FLEET_KILL_SF, SERVE_SEED, FLEET_KILL_MIX,
+                              device=dev, **chaos)
+                    for name, chaos in (("e0", {"chaos_kill": "plan:2"}),
+                                        ("e1", {"chaos_oom": "plan:1"}))]
+            errs = []
+            for f in futs:
+                try:
+                    procs.append(f.result())
+                except Exception as e:   # noqa: BLE001 -- reported
+                    errs.append(f"{type(e).__name__}: {e}")
+        if errs:
+            fail(f"(b) an engine never reported READY: {errs}")
+        p0, p1 = procs
+        router = fleet.FleetRouter([p0.client, p1.client],
+                                   poll_interval=0.2, fail_threshold=3,
+                                   unhealthy_dwell=45.0)
+        if not router.wait_for_verdicts():
+            fail(f"(b) an engine never answered a poll: {router.engines()}")
+        names = ["e0", "e1"]
+        tenants = {"e0": [], "e1": []}
+        i = 0
+        while any(len(v) < 2 for v in tenants.values()):
+            tn = f"tenant{i}"
+            first = fleet._affinity_order(tn, names)[0]
+            if len(tenants[first]) < 2:
+                tenants[first].append(tn)
+            i += 1
+        tickets = []
+        for q in FLEET_KILL_MIX:
+            for tn in tenants["e0"] + tenants["e1"]:
+                key = f"key{len(tickets)}"
+                tickets.append((key, q, router.submit(
+                    q, tenant=tn, idempotency_key=key)))
+        mism, errors = [], []
+        for key, q, tk in tickets:
+            try:
+                if not sbench._results_match(tk.result(600), oracles[q]):
+                    mism.append(key)
+            except Exception as e:   # noqa: BLE001 -- reported
+                errors.append(f"{key}: {type(e).__name__}: {e}")
+        rc0 = p0.proc.wait(120)
+        with open(p0.log_path) as f:
+            killed_here = "injected HARD KILL" in f.read()
+        rep = router.report()
+        key0, q0, tk0 = tickets[0]
+        again = router.submit(q0, tenant=tenants["e0"][0],
+                              idempotency_key=key0)
+        retry_ok = again is tk0 and sbench._results_match(
+            again.result(60), oracles[q0])
+        lay = fleet.FleetLayout(root_b)
+        doubles, detail = fleet.audit_double_executions(
+            lay, rep["replayed_keys"])
+        with open(os.path.join(lay.engine_dir("e0"), "journal.lock")) as f:
+            fenced = json.load(f).get("fenced") is True
+
+        def done_keys(name):
+            return {e.get("key") for e in
+                    RequestJournal.read(lay.engine_dir(name))
+                    if e["kind"] == "done" and e.get("state") == "done"}
+
+        done_e0, done_e1 = done_keys("e0"), done_keys("e1")
+        key_q = {k: q for k, q, _ in tickets}
+        replayed_q14 = [k for k in rep["replayed_keys"]
+                        if key_q.get(k) == "q14"]
+        evts = p1.client.events_since(0)["events"]
+        merges = [e for e in evts if e["kind"] == "merge_phase"
+                  and e.get("op") == "q14"]
+        degraded = [e for e in evts if e["kind"] == "degraded"]
+        router.close()
+        router = None
+        rc1 = p1.terminate(120)
+        b_row = record(
+            "b", "seeded_kill", sf=FLEET_KILL_SF, mix=list(FLEET_KILL_MIX),
+            tickets=len(tickets), mismatches=mism, errors=errors,
+            victim_exit=rc0, killed_at_the_fault_point=killed_here,
+            failovers=telemetry.total("fleet.failovers"),
+            lost_acks=telemetry.total("fleet.lost_acks"),
+            replayed_keys=rep["replayed_keys"],
+            failover_detail=[{k: v for k, v in f.items()
+                              if not k.endswith("_ts")}
+                             for f in rep["failovers"]],
+            retry_deduped=retry_ok, double_executions=doubles,
+            fenced=fenced, replayed_q14=replayed_q14,
+            q14_merge_events=len(merges), degraded_events=len(degraded),
+            survivor_exit=rc1, launches=part_launches["b"],
+            engine_launches={"e0": p0.launches(), "e1": p1.launches()},
+            part_s=time.perf_counter() - t)
+        if mism or errors or rc0 != KILL_EXIT_CODE or not killed_here \
+                or b_row["failovers"] != 1 or b_row["lost_acks"] \
+                or not rep["replayed_keys"] or not retry_ok or doubles \
+                or not fenced or not replayed_q14 \
+                or set(replayed_q14) & done_e0 \
+                or not set(replayed_q14) <= done_e1 or not merges \
+                or not set(rep["replayed_keys"]) <= done_e1 or rc1 != 0:
+            fail(f"(b) {b_row}")
+        procs.clear()
+        del oracles, tickets, again, tk0
+
+        # -- (c) the fleet trace at SF 1
+        telemetry.reset("fleet.")
+        saved = os.environ.get("CYLON_TPU_TRACE")
+        t = time.perf_counter()
+        try:
+            with rec:
+                c = fleet.run_fleet_bench(
+                    clients=FLEET_TRACE_CLIENTS,
+                    requests=FLEET_TRACE_REQUESTS, sf=FLEET_TRACE_SF,
+                    seed=SERVE_SEED, mix=FLEET_MIX, engines=FLEET_ENGINES,
+                    root=os.path.join(tmp, "c"), fleet_trace=True,
+                    device=dev)
+        finally:
+            if saved is None:
+                os.environ.pop("CYLON_TPU_TRACE", None)
+            else:
+                os.environ["CYLON_TPU_TRACE"] = saved
+            ttrace._RECORDER = None      # the next arming starts afresh
+        c_s = time.perf_counter() - t
+        bank_launches("c")
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        trace_copy = out_dir / "fleet_trace.trace.json"
+        shutil.copyfile(c["trace_path"], trace_copy)
+        stitched = c.get("stitched_request") or {}
+        missing = sbench.REQUIRED_FLEET_TRACE_FIELDS - c.keys()
+        record("c", "fleet_trace", sf=FLEET_TRACE_SF, part_s=c_s,
+               trace_copy=str(trace_copy.relative_to(ROOT)),
+               **{k: c.get(k) for k in sorted(
+                   sbench.REQUIRED_FLEET_TRACE_FIELDS
+                   | {"trace_dropped", "cost_model"})},
+               stitched_trace_id=stitched.get("trace_id"),
+               stitched_procs=stitched.get("procs"),
+               stitched_replay_hops=stitched.get("replay_hops"),
+               stitched_phases=stitched.get("phases"),
+               launches=part_launches["c"], **fleet_row(c))
+        fleet_gates("c", c)
+        if missing or c["replay_hops"] < 1 \
+                or not stitched.get("replay_hops") \
+                or "router" not in (stitched.get("procs") or ()):
+            fail(f"(c) missing {sorted(missing)}, replay hops "
+                 f"{c['replay_hops']}, stitched {stitched}")
+        del c
+
+        # -- (d) the hot mix at SF 1, two in-process engines
+        catalog.clear()
+        telemetry.reset("fleet.")
+        telemetry.reset("serve.")
+        t = time.perf_counter()
+        with rec:
+            d = sbench.run_hotmix_bench(
+                clients=FLEET_HOT_CLIENTS, requests=FLEET_HOT_REQUESTS,
+                sf=FLEET_HOT_SF, seed=SERVE_SEED, mix=FLEET_MIX,
+                engines=FLEET_ENGINES, device=dev)
+        bank_launches("d")
+        catalog.clear()
+        missing = sbench.REQUIRED_HOTMIX_FIELDS - d.keys()
+        record("d", "hot_mix", part_s=time.perf_counter() - t,
+               launches=part_launches["d"],
+               **{k: v for k, v in d.items() if k != "mix"})
+        if missing or d["oracle_mismatches"] or d["errors"] \
+                or d["stale_results"] or (d["qps_multiplier"] or 0) < 10:
+            fail(f"(d) missing {sorted(missing)}, {d}")
+        del d
+
+        # -- (e) the replay and the refresh rounds at SF 0.1
+        telemetry.reset("serve.")
+        t = time.perf_counter()
+        with rec:
+            e1 = sbench.run_bench(clients=FLEET_BENCH_CLIENTS, requests=2,
+                                  sf=FLEET_LEG_SF, seed=SERVE_SEED,
+                                  mix=FLEET_MIX, device=dev)
+        bank_launches("e")
+        catalog.clear()
+        e1_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with rec:
+            e2 = sbench.run_refresh_bench(
+                sf=FLEET_LEG_SF, rounds=FLEET_REFRESH_APPENDS,
+                seed=SERVE_SEED, device=dev)
+        bank_launches("e")
+        catalog.clear()
+        views.clear()
+        miss1 = sbench.REQUIRED_SERVE_FIELDS - e1.keys()
+        miss2 = sbench.REQUIRED_REFRESH_FIELDS - e2.keys()
+        record("e", "serve_bench", sf=FLEET_LEG_SF, part_s=e1_s,
+               **{k: e1[k] for k in sorted(sbench.REQUIRED_SERVE_FIELDS)
+                  if k != "slowest_profile"})
+        record("e", "refresh_bench", part_s=time.perf_counter() - t,
+               per_view=e2["per_view"], launches=part_launches["e"],
+               **{k: e2[k] for k in sorted(sbench.REQUIRED_REFRESH_FIELDS)})
+        if miss1 or miss2 or e1["oracle_mismatches"] or e1["errors"] \
+                or e2["oracle_mismatches"] or e2["errors"] \
+                or (e2["speedup"] or 0) < 2:
+            fail(f"(e) missing {sorted(miss1 | miss2)}, serve "
+                 f"{e1['oracle_mismatches']} / {e1['errors']}, refresh "
+                 f"{e2['oracle_mismatches']} / {e2['errors']} speedup "
+                 f"{e2['speedup']}")
+        del e1, e2
+    finally:
+        if router is not None:
+            router.close()
+        for p in procs:
+            p.terminate(120)
+        left = fleet_processes()
+        locks = held_journal_locks(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (f) clean-up
+    catalog.clear()
+    views.clear()
+    gc.collect()
+    record("f", "clean", engine_processes_left=left,
+           journal_locks_held=locks, launches=total_launches,
+           by_part=part_launches)
+    if left or locks:
+        fail(f"(f) engine processes left {left}, locks held {locks}")
+    for k in ("scan32", "pair_max_scan"):
+        if not total_launches[k]:
+            fail(f"{k} never launched in this process's legs")
+    if total_launches["bucket_build"] or total_launches["bucket_probe"]:
+        fail(f"the bucket kernels ran on the fleet path: {total_launches}")
+    return total_launches, rec.inputs, base_bytes
+
+
 def main(argv) -> int:
     import gc
 
@@ -6019,6 +6513,19 @@ def main(argv) -> int:
         raise SystemExit(f"serve: {serve_after} bytes live after the "
                          f"phase, {serve_base} before it")
     memory_line(torch, card, "18 serve")
+    t19 = time.perf_counter()
+    fleet_launches, fleet_inputs, fleet_base = fleet_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "fleet", fleet_inputs, card=card)
+    del fleet_inputs
+    gc.collect()
+    fleet_after = kept_bytes(torch)
+    emit({"phase": "fleet_seconds", "card": card,
+          "seconds": time.perf_counter() - t19,
+          "kept_bytes_before": fleet_base, "kept_bytes_after": fleet_after})
+    if fleet_after != fleet_base:
+        raise SystemExit(f"fleet: {fleet_after} bytes live after the "
+                         f"phase, {fleet_base} before it")
+    memory_line(torch, card, "19 fleet")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -6048,6 +6555,7 @@ def main(argv) -> int:
             "spill_launches": spill_launches[wrapper.__name__],
             "views_launches": views_launches[wrapper.__name__],
             "serve_launches": serve_launches[wrapper.__name__],
+            "fleet_launches": fleet_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

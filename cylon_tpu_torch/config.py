@@ -165,6 +165,7 @@ DEADLINE_SECTIONS: "dict[str, float | None]" = {
     "ooc_prefetch": None,    # one pipelined-ingest unit (pipeline)
     "exchange": None,        # shuffle/repartition/dist_join
     "serve_request": None,   # one serve-layer query step (serve.service)
+    "router_poll": None,     # one fleet-router health/events poll
     "fallback_merge": None,  # the two-phase fallback's global merge
 }
 

@@ -217,8 +217,26 @@ def _account_exchange_rows(label: str, sizes, out_counts) -> None:
             "duplicated across the collective")
 
 
+def _headroom(op: str, recv, w: int, scale: int) -> None:
+    """Set ``exchange.headroom_ratio{op}`` (port of
+    ``cylon_tpu/parallel/dist_ops.py:383-402``): the settled receive
+    buffers' rows over the true rows that entered the exchange. ``recv``
+    is ``(rows_of, sizes)``: ``rows_of(scale)``, one rank's receive rows
+    at ``scale``, and each input's ``(counts, caps)`` as
+    :func:`~cylon_tpu_torch.parallel.dtable.world_layout_sized` gathered
+    them, every count clamped to its capacity (exact for row-preserving
+    exchanges, an upper bound for pre-combining ones). Host lists both,
+    so the gauge reads no device. No true rows: the gauge stays unset."""
+    rows_of, sizes = recv
+    rows_in = sum(min(c, k) for counts, caps in sizes
+                  for c, k in zip(counts, caps))
+    if rows_in:
+        telemetry.gauge("exchange.headroom_ratio", op=op).set(
+            rows_of(scale) * w / rows_in)
+
+
 def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
-              tight: bool = False, conserve=None):
+              tight: bool = False, conserve=None, recv=None):
     """Run ``build(scale)(*args)``, doubling the default capacities while
     any rank overflowed (every bound defaulted: ``adaptive``), from the
     ambient :func:`~cylon_tpu_torch.plan.current_scale`; the scale that
@@ -240,7 +258,9 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
     ``conserve``: ``(label, sizes)`` of a row-preserving exchange, whose
     fitted result is held to its inputs' rows
     (:func:`_account_exchange_rows`) with the counts this check
-    gathered."""
+    gathered. ``recv``: ``(rows_of, sizes)`` of a named ``op``'s
+    exchange, whose fitted scale sets ``exchange.headroom_ratio``
+    (:func:`_headroom`)."""
     if tight and op is not None:
         telemetry.counter("exchange.tight_dispatches", op=op).inc()
     scale = plan.current_scale()
@@ -254,6 +274,8 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
         if fits:
             if conserve is not None:
                 _account_exchange_rows(conserve[0], conserve[1], counts)
+            if recv is not None and op is not None:
+                _headroom(op, recv, env.world_size, scale)
             plan.note_scale(scale)
             return out
         for t in args:
@@ -402,9 +424,12 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
                                   enabled=out_capacity is None)
     sent: list = []
 
+    def recv_rows(scale):
+        return _out_cap_local(env, sum(caps), out_capacity, scale=scale,
+                              tight_rows=tight)
+
     def build(scale):
-        out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
-                               tight_rows=tight)
+        out_l = recv_rows(scale)
 
         def run(t):
             sent.clear()
@@ -421,7 +446,8 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
 
     out = _adaptive(env, build, (table,), out_capacity is None,
                     op="shuffle", tight=tight is not None,
-                    conserve=("shuffle", [(counts, caps)]))
+                    conserve=("shuffle", [(counts, caps)]),
+                    recv=(recv_rows, [(counts, caps)]))
     _note_exchange(env, "shuffle", sent)
     return out
 
@@ -448,9 +474,12 @@ def repartition(env, table, out_capacity: "int | None" = None):
                                   enabled=out_capacity is None)
     sent: list = []
 
+    def recv_rows(scale):
+        return _out_cap_local(env, sum(caps), out_capacity, scale=scale,
+                              tight_rows=tight)
+
     def build(scale):
-        out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
-                               tight_rows=tight)
+        out_l = recv_rows(scale)
 
         def run(t):
             sent.clear()
@@ -462,7 +491,8 @@ def repartition(env, table, out_capacity: "int | None" = None):
 
     out = _adaptive(env, build, (table,), out_capacity is None,
                     op="repartition", tight=tight is not None,
-                    conserve=("repartition", [(counts, caps)]))
+                    conserve=("repartition", [(counts, caps)]),
+                    recv=(recv_rows, [(counts, caps)]))
     _note_exchange(env, "repartition", sent)
     return out
 
@@ -540,11 +570,14 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
                                     enabled=adaptive)
     sent: list = []
 
+    def recv_rows(scale):
+        return (_out_cap_local(env, caps[0], shuffle_capacity, scale=scale,
+                               tight_rows=tight_l),
+                _out_cap_local(env, caps[1], shuffle_capacity, scale=scale,
+                               tight_rows=tight_r))
+
     def build(scale):
-        shuf_l = _out_cap_local(env, caps[0], shuffle_capacity,
-                                scale=scale, tight_rows=tight_l)
-        shuf_r = _out_cap_local(env, caps[1], shuffle_capacity,
-                                scale=scale, tight_rows=tight_r)
+        shuf_l, shuf_r = recv_rows(scale)
         join_l = shuf_l + shuf_r if out_capacity is None \
             else -(-out_capacity // w)
 
@@ -569,7 +602,9 @@ def dist_join(env, left, right, *, on=None, left_on=None, right_on=None,
         return run
 
     out = _adaptive(env, build, (left, right), adaptive, op="dist_join",
-                    tight=tight_l is not None or tight_r is not None)
+                    tight=tight_l is not None or tight_r is not None,
+                    recv=(lambda s: sum(recv_rows(s)),
+                          [(lcounts, lcaps), (rcounts, rcaps)]))
     _note_exchange(env, "dist_join", sent)
     return out
 
@@ -619,9 +654,12 @@ def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
         else (None, None, None)
     sent: list = []
 
+    def recv_rows(scale):
+        return _out_cap_local(env, sum(caps), shuffle_capacity,
+                              scale=scale, tight_rows=tight)
+
     def build(scale):
-        shuf_l = _out_cap_local(env, sum(caps), shuffle_capacity,
-                                scale=scale, tight_rows=tight)
+        shuf_l = recv_rows(scale)
 
         def run(t):
             sent.clear()
@@ -650,7 +688,8 @@ def dist_groupby(env, table, by, aggs, out_capacity: "int | None" = None,
         return run
 
     out = _adaptive(env, build, (table,), adaptive, op="dist_groupby",
-                    tight=tight is not None)
+                    tight=tight is not None,
+                    recv=(recv_rows, [(counts, caps)]))
     _note_exchange(env, "dist_groupby", sent)
     return out
 
@@ -991,9 +1030,12 @@ def dist_sort(env, table, by, ascending=True,
                                   enabled=out_capacity is None)
     sent: list = []
 
+    def recv_rows(scale):
+        return _out_cap_local(env, sum(caps), out_capacity, scale=scale,
+                              tight_rows=tight)
+
     def build(scale):
-        out_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
-                               tight_rows=tight)
+        out_l = recv_rows(scale)
 
         def run(t):
             sent.clear()
@@ -1003,7 +1045,8 @@ def dist_sort(env, table, by, ascending=True,
         return run
 
     out = _adaptive(env, build, (table,), out_capacity is None,
-                    op="dist_sort", tight=tight is not None)
+                    op="dist_sort", tight=tight is not None,
+                    recv=(recv_rows, [(counts, caps)]))
     _note_exchange(env, "dist_sort", sent)
     return out
 
@@ -1175,11 +1218,14 @@ def _dist_setop(env, a, b, local_op, out_capacity):
     va, vb = paired_validities(ka, va, kb, vb)
     pa, pb = partition_ids(ka, w, va), partition_ids(kb, w, vb)
 
+    def recv_rows(scale):
+        return (_out_cap_local(env, sum(caps_a), scale=scale,
+                               tight_rows=tight_a),
+                _out_cap_local(env, sum(caps_b), scale=scale,
+                               tight_rows=tight_b))
+
     def build(scale):
-        shuf_a = _out_cap_local(env, sum(caps_a), scale=scale,
-                                tight_rows=tight_a)
-        shuf_b = _out_cap_local(env, sum(caps_b), scale=scale,
-                                tight_rows=tight_b)
+        shuf_a, shuf_b = recv_rows(scale)
 
         def run(ta, tb):
             sent.clear()
@@ -1191,7 +1237,9 @@ def _dist_setop(env, a, b, local_op, out_capacity):
         return run
 
     out = _adaptive(env, build, (a, b), adaptive, op=opname,
-                    tight=tight_a is not None or tight_b is not None)
+                    tight=tight_a is not None or tight_b is not None,
+                    recv=(lambda s: sum(recv_rows(s)),
+                          [(counts_a, caps_a), (counts_b, caps_b)]))
     _note_exchange(env, opname, sent)
     return out
 
@@ -1240,9 +1288,12 @@ def dist_unique(env, table, cols: "Sequence[str] | None" = None,
                                   enabled=out_capacity is None)
     sent: list = []
 
+    def recv_rows(scale):
+        return _out_cap_local(env, sum(caps), out_capacity, scale=scale,
+                              tight_rows=tight)
+
     def build(scale):
-        shuf_l = _out_cap_local(env, sum(caps), out_capacity, scale=scale,
-                                tight_rows=tight)
+        shuf_l = recv_rows(scale)
 
         def run(t):
             sent.clear()
@@ -1252,7 +1303,8 @@ def dist_unique(env, table, cols: "Sequence[str] | None" = None,
         return run
 
     out = _adaptive(env, build, (table,), out_capacity is None,
-                    op="dist_unique", tight=tight is not None)
+                    op="dist_unique", tight=tight is not None,
+                    recv=(recv_rows, [(counts, caps)]))
     _note_exchange(env, "dist_unique", sent)
     return out
 

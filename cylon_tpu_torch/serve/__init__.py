@@ -27,10 +27,12 @@ tables and in-flight work after a hard kill::
         ticket.profile()                # EXPLAIN ANALYZE of the request
     engine.close()
 
-Ported so far (ROADMAP A7.3, A8.2 first half): the engine, admission
-and the circuit breaker, SLO burn accounting, sessions, the ops
-endpoint, the journal and snapshot, the result cache. The replicated
-fleet (``fleet``) and the serving benchmark (``bench``) come next.
+All of ``cylon_tpu/serve`` is ported (ROADMAP A7.3, A8.2): the engine,
+admission and the circuit breaker, SLO burn accounting, sessions, the
+ops endpoint, the journal and snapshot, the result cache, the
+replicated fleet (:mod:`~cylon_tpu_torch.serve.fleet`: engine processes
+behind a :class:`FleetRouter` with journal-replay failover) and the
+serving harness (``python -m cylon_tpu_torch.serve.bench``).
 """
 
 from cylon_tpu_torch.serve.admission import (AdmissionController,
@@ -38,6 +40,9 @@ from cylon_tpu_torch.serve.admission import (AdmissionController,
                                              default_policy)
 from cylon_tpu_torch.serve.durability import (CatalogSnapshot, JournalLock,
                                               RequestJournal, fence_journal)
+from cylon_tpu_torch.serve.fleet import (EngineGateway, FleetLayout,
+                                         FleetRouter, HttpEngineClient,
+                                         LocalEngineClient, RouterTicket)
 from cylon_tpu_torch.serve.introspect import IntrospectServer
 from cylon_tpu_torch.serve.service import QueryTicket, ServeEngine
 from cylon_tpu_torch.serve.session import Session
@@ -46,4 +51,6 @@ from cylon_tpu_torch.serve.slo import SloTracker
 __all__ = ["ServeEngine", "QueryTicket", "Session", "ServePolicy",
            "AdmissionController", "CircuitBreaker", "SloTracker",
            "IntrospectServer", "RequestJournal", "CatalogSnapshot",
-           "JournalLock", "fence_journal", "default_policy"]
+           "JournalLock", "fence_journal", "default_policy",
+           "FleetLayout", "FleetRouter", "RouterTicket", "EngineGateway",
+           "HttpEngineClient", "LocalEngineClient"]

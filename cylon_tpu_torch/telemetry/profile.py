@@ -35,8 +35,11 @@ result is fetched, and no sync is added to move it back. A step that
 runs a ``ThreadWorld`` of W ranks records each rank's spans and exchange
 counters, so an operator's wall is the ranks' summed busy seconds (the
 coverage can then exceed 1) and its ``calls`` count every rank's
-exchanges. ``headroom_ratio`` stays None: the port's exchanges publish
-no ``exchange.headroom_ratio`` gauge. Field set pinned by
+exchanges. ``headroom_ratio`` is the largest ``exchange.headroom_ratio``
+gauge any exchange has set (settled receive rows over true input rows,
+from the host counts of the regrow ladder:
+:func:`cylon_tpu_torch.parallel.dist_ops._headroom`), None before the
+first distributed exchange. Field set pinned by
 :data:`REQUIRED_PROFILE_FIELDS`.
 
 Cost model: two registry scans plus one memory sample per step —

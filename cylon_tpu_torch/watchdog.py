@@ -86,6 +86,11 @@ SECTIONS: "dict[str, bool]" = {
     # re-running a half-executed query after its SLO passed only deepens
     # the pile-up; the retry decision belongs to the client
     "serve_request": False,
+    # one fleet-router poll of one engine's /health + /events cursor
+    # (cylon_tpu_torch.serve.fleet) — retryable: a poll is a read
+    # against a possibly-dying HTTP endpoint, and the router's whole
+    # failure model is "retry, then declare the engine dead"
+    "router_poll": True,
     # the two-phase fallback's global merge (cylon_tpu_torch.fallback):
     # the blocking scalar between the partial pass and the apply
     # pass — never retryable on its own: the merge is deterministic
@@ -100,9 +105,8 @@ SECTIONS: "dict[str, bool]" = {
 #: ``CYLON_TPU_WATCHDOG_POLL`` / ``_DEADLINE_ACTION`` / ``_DEADLINE_DUMP``
 #: per call; here a caller sets this instead). ``SECTIONS`` and
 #: ``config.DEADLINE_SECTIONS`` cover the same sections
-#: (``tests/test_torch_watchdog.py`` holds them equal): the JAX
-#: package's, less ``router_poll``, whose fleet router the port does not
-#: have yet.
+#: (``tests/test_torch_watchdog.py`` holds them equal to the JAX
+#: package's).
 DEADLINE_POLICY: "_config.DeadlinePolicy | None" = None
 
 

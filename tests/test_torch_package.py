@@ -96,6 +96,9 @@ def test_no_file_imports_jax_or_the_jax_package():
                  "serve/slo.py", "serve/session.py", "serve/introspect.py",
                  "serve/service.py"):
         assert PKG / name in files, name
+    # and the replicated fleet and the serving harness (ROADMAP A8.2)
+    for name in ("serve/fleet.py", "serve/bench.py"):
+        assert PKG / name in files, name
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -207,6 +210,66 @@ def test_serve_engine_and_profiles_pull_in_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+_FLEET_PROBE = """
+import sys
+import numpy as np
+import pandas as pd
+from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+from cylon_tpu_torch.serve import bench, fleet
+eng = ServeEngine(policy=ServePolicy(max_queue=4))
+eng.register_query("q", lambda x: x * 2)
+router = fleet.FleetRouter([fleet.LocalEngineClient(eng, "a0")],
+                           poll_interval=0.05)
+assert router.submit("q", 21, tenant="t").result(30) == 42
+router.close()
+eng.close()
+df = pd.DataFrame({"s": ["a", None], "v": np.asarray([1.0, np.nan])})
+back = fleet.decode_value(fleet.encode_value(df))
+assert back["s"].tolist() == ["a", None]
+assert bench._results_match(back, df)
+assert fleet.FleetLayout("/x").snapshot_dir.endswith("catalog-store")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_fleet_and_bench_pull_in_no_jax():
+    out = subprocess.run([sys.executable, "-c", _FLEET_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_fleet_engines_default_to_cuda_and_never_fall_back(tmp_path):
+    """``spawn_engine``, the engine process's ``--device`` and the bench
+    legs default to CUDA; a child asked for CUDA that finds no card dies
+    before READY with the reason in its log — it never carries on on the
+    CPU."""
+    import inspect
+
+    from cylon_tpu_torch.serve import bench, fleet
+
+    for fn in (fleet.spawn_engine, fleet.run_fleet_bench, bench.run_bench,
+               bench.run_hotmix_bench, bench.run_refresh_bench):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__name__
+    src = inspect.getsource(fleet.main)
+    assert 'p.add_argument("--device", default="cuda"' in src
+    assert 'p.add_argument("--device", default="cuda"' in \
+        inspect.getsource(bench.main)
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""   # no card, whatever the host has
+    proc = subprocess.run(
+        [sys.executable, "-m", "cylon_tpu_torch.serve.fleet", "--root",
+         str(tmp_path), "--name", "e0", "--sf", "0.001", "--mix", "q6"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "FLEET_ENGINE_READY" not in proc.stdout
+    assert "DeviceUnavailable" in proc.stderr
 
 
 def test_telemetry_exports_the_jax_names():
@@ -410,6 +473,32 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.serve.service:_QueryOp",
     "cylon_tpu_torch.serve.service:ServeEngine",
     "cylon_tpu_torch.serve.service:ServeEngine.recover",
+    # the replicated fleet and the serving harness (ROADMAP A8.2)
+    "cylon_tpu_torch.parallel.dist_ops:_headroom",
+    "cylon_tpu_torch.serve.fleet",
+    "cylon_tpu_torch.serve.fleet:EngineUnavailable",
+    "cylon_tpu_torch.serve.fleet:RemoteRequestFailed",
+    "cylon_tpu_torch.serve.fleet:encode_value",
+    "cylon_tpu_torch.serve.fleet:decode_value",
+    "cylon_tpu_torch.serve.fleet:FleetLayout",
+    "cylon_tpu_torch.serve.fleet:snapshot_generations",
+    "cylon_tpu_torch.serve.fleet:EngineGateway",
+    "cylon_tpu_torch.serve.fleet:HttpEngineClient",
+    "cylon_tpu_torch.serve.fleet:LocalEngineClient",
+    "cylon_tpu_torch.serve.fleet:_affinity_order",
+    "cylon_tpu_torch.serve.fleet:RouterTicket",
+    "cylon_tpu_torch.serve.fleet:FleetRouter",
+    "cylon_tpu_torch.serve.fleet:_engine_main",
+    "cylon_tpu_torch.serve.fleet:EngineProc",
+    "cylon_tpu_torch.serve.fleet:spawn_engine",
+    "cylon_tpu_torch.serve.fleet:audit_double_executions",
+    "cylon_tpu_torch.serve.fleet:run_fleet_bench",
+    "cylon_tpu_torch.serve.bench",
+    "cylon_tpu_torch.serve.bench:_results_match",
+    "cylon_tpu_torch.serve.bench:_mk_resident",
+    "cylon_tpu_torch.serve.bench:run_bench",
+    "cylon_tpu_torch.serve.bench:run_hotmix_bench",
+    "cylon_tpu_torch.serve.bench:run_refresh_bench",
 )
 
 
@@ -587,3 +676,28 @@ def test_chip_smoke_drives_the_serve_phase():
     for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)", "(g)"):
         assert f"    {part} " in body, part
     assert "CYLON_TPU_SERVE_HTTP_PORT" in body
+
+
+def test_chip_smoke_drives_the_fleet_phase():
+    """``chip_smoke.py`` names phase 19 in its docstring, runs it after
+    phase 18, holds its in-process kernels against their plain versions,
+    puts its launches in the kernels line, ends it in a memory line, and
+    drives the fleet through ``run_fleet_bench``, the seeded kill, the
+    fleet trace, the hot mix and the serve and refresh legs."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "19. fleet" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "fleet_phase" in funcs
+    main = src[src.index("def main("):]
+    assert main.index("serve_phase(") < main.index("fleet_phase(")
+    assert '"fleet_launches"' in main
+    assert 'path_kernel_phase(torch, rate, stats, "fleet"' in main
+    assert 'memory_line(torch, card, "19 ' in main
+    body = src[src.index("def fleet_phase("):src.index("def main(")]
+    for part in ("(a)", "(b)", "(c)", "(d)", "(e)", "(f)"):
+        assert f"    {part} " in body, part
+    for call in ("run_fleet_bench(", "spawn_engine", "run_hotmix_bench(",
+                 "run_bench(", "run_refresh_bench(",
+                 "audit_double_executions("):
+        assert call in body, call

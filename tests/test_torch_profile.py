@@ -392,8 +392,8 @@ def test_acceptance_dist_join_profile_at_w4():
     the profile attributes the ``dist_join`` operator and its exchange
     bytes to the request, covers its wall, and records a memory peak.
     Each rank records its own spans, so the operator's wall is the
-    ranks' summed busy seconds. The port's exchanges publish no
-    ``exchange.headroom_ratio`` gauge, so ``headroom_ratio`` is None."""
+    ranks' summed busy seconds. The exchange sets
+    ``exchange.headroom_ratio``, so ``headroom_ratio`` is that number."""
     from cylon_tpu_torch.parallel.dist_ops import dist_join
     from cylon_tpu_torch.telemetry import memory
 
@@ -428,5 +428,54 @@ def test_acceptance_dist_join_profile_at_w4():
     assert dj["calls"] >= w and dj["wall_s"] > 0
     assert p["memory"]["live_bytes_peak"] is not None
     assert p["memory"]["live_bytes_peak"] > 0
-    assert p["headroom_ratio"] is None
+    gauge = [inst.value for _, _, inst in
+             telemetry.instruments("exchange.headroom_ratio")]
+    assert isinstance(p["headroom_ratio"], float)
+    assert p["headroom_ratio"] == max(gauge) >= 1.0
     assert (memory.peak_live_bytes(op="serve_request") or 0) > 0
+
+
+def test_headroom_gauge_equals_the_ladder_ratio_at_w4():
+    """The ``exchange.headroom_ratio`` gauge of a W = 4 ``dist_join``
+    (4096 rows a rank a side) is the ladder's own ratio: each side's
+    settled receive rows (the power-of-two bucket of its tight estimate,
+    ``ceil(total / W) + 4 * sqrt + 16``) times W, over the true rows of
+    both sides; the request's profile reads it, and ``bench_metrics``
+    too."""
+    import math
+
+    from cylon_tpu_torch.parallel.dist_ops import dist_join
+    from cylon_tpu_torch.telemetry.export import bench_metrics
+    from cylon_tpu_torch.utils import pow2_bucket
+
+    telemetry.reset("exchange.")
+    w, n = 4, 4096
+    rng = np.random.default_rng(11)
+    sides = [(rng.integers(0, w * n, w * n), rng.normal(size=w * n))
+             for _ in range(2)]
+    shards = [[Table.from_pydict({"k": k[r * n:(r + 1) * n],
+                                  c: v[r * n:(r + 1) * n]}, device="cpu")
+               for (k, v), c in zip(sides, ("a", "b"))] for r in range(w)]
+
+    def q():
+        def rank(comm):
+            env = CylonEnv(comm, device="cpu")
+            lt, rt = shards[comm.rank]
+            return dist_join(env, lt, rt, on="k", how="inner").num_rows
+
+        return sum(ThreadWorld(w).run(rank))
+
+    eng = ServeEngine(policy=ServePolicy(max_queue=2))
+    tk = eng.submit(q, tenant="headroom")
+    tk.result(120)
+    p = tk.profile()
+    eng.close()
+    est = -(-(w * n) // w)
+    recv = pow2_bucket(est + 4 * int(math.sqrt(est)) + 16)
+    want = 2 * recv * w / (2 * w * n)
+    (gauge,) = [inst.value for _, lab, inst in
+                telemetry.instruments("exchange.headroom_ratio")
+                if dict(lab).get("op") == "dist_join"]
+    assert gauge == want
+    assert p["headroom_ratio"] == want
+    assert bench_metrics()["exchange.headroom_ratio"] == want

@@ -40,13 +40,9 @@ def _clean():
 def test_sections_and_budgets_match_jax():
     import cylon_tpu.config as jcfg
 
-    # the fleet router's section waits for its port (ROADMAP A8.2)
-    serve = ("router_poll",)
-    assert watchdog.SECTIONS == {k: v for k, v in jwd.SECTIONS.items()
-                                 if k not in serve}
+    assert watchdog.SECTIONS == jwd.SECTIONS
     assert set(watchdog.SECTIONS) == set(config.DEADLINE_SECTIONS)
-    assert config.DEADLINE_SECTIONS == {
-        k: v for k, v in jcfg.DEADLINE_SECTIONS.items() if k not in serve}
+    assert config.DEADLINE_SECTIONS == jcfg.DEADLINE_SECTIONS
     assert dict(vars(DeadlinePolicy())) == dict(vars(jcfg.DeadlinePolicy()))
 
 
