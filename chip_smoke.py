@@ -5,6 +5,8 @@ and check it.
     python3 chip_smoke.py --profile   # also trace a bench stage, a hash
                                       # join, a high-cardinality group-by,
                                       # the 100M sort and a 16M intersect
+    python3 chip_smoke.py --fleet-only  # phases 1, 2 and 19 alone, with
+                                        # no kernels line and no ok line
 
 Phases, each printing one JSON line:
 
@@ -156,18 +158,20 @@ Phases, each printing one JSON line:
     package's ``serve.bench --fleet --clients 16``: two engine processes
     on the card at SF 1 (cut from SF 10, whose engine set-up took 125 s)
     behind a ``FleetRouter``, the mix q1, q3, q5, q6, q14, an engine
-    SIGKILLed mid-run right after it acknowledged a request, 0 lost acks, 0 double executions, every
-    result equal to its alone run and the alone runs to pandas; the
-    seeded kill of
+    SIGKILLed mid-run right after it acknowledged a request, 0 lost
+    acks, 0 double executions, every result equal to its alone run and
+    the alone runs to pandas; the seeded kill of
     ``tests/test_fleet_chaos.py`` at SF 0.1 (exit 43, the survivor
     degrading every request through its spill fallback, the replayed
     q14 recomputing its merge there); the fleet trace at SF 1 (one trace
     id across the failover, the Chrome trace in ``chiprun_out/``); the
-    hot mix at SF 1 (``qps_multiplier`` >= 10, 0 stale); ``run_bench``
-    and ``run_refresh_bench`` at SF 0.1; then no engine process left, no
-    journal lock held, the kernels at this process's shapes, as in
-    phase 10, and the live bytes back at their level before the phase;
-    see :func:`fleet_phase`.
+    hot mix at SF 1 (``qps_multiplier`` >= 10 with the checks after the
+    window, and the JAX package's in-window rate beside it, 0 stale);
+    ``run_bench`` and ``run_refresh_bench`` at SF 0.1; then no engine
+    process of the phase left, no journal lock held, every cleanly
+    closed engine's own launches, the kernels at this process's shapes,
+    as in phase 10, and the live bytes back at their level before the
+    phase; see :func:`fleet_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -181,8 +185,9 @@ or hash-join path and, as ``groupby_launches``,
 ``serve_launches`` and ``fleet_launches``, on phase 9's group-by calls,
 phase 12's calls, phase 13's, phase 14's, phase 15's compared runs,
 phase 16's parts (a)-(f), phase 17's parts (a)-(d), the engine's own
-requests in phase 18's parts (a)-(f) and this process's legs of phase
-19 (the engine processes print their own)), the ``nvidia-smi``
+requests in phase 18's parts (a)-(f) and phase 19's served requests:
+the engine processes' own, as each logs them at a clean close, and the
+in-process engines' of (d) and (e)), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -5947,6 +5952,8 @@ FLEET_ENGINES = 2
 #: (b): the seeded kill of ``tests/test_fleet_chaos.py``
 FLEET_KILL_SF = SERVE_KILL_SF
 FLEET_KILL_MIX = ("q1", "q6", "q14")
+#: the order (b) submits in: e0's second dispatch is then a q14
+FLEET_KILL_ORDER = ("q1", "q14", "q6")
 #: (c): the fleet trace, 4 clients x 2 requests
 FLEET_TRACE_SF = TPCH_SF
 FLEET_TRACE_CLIENTS = 4
@@ -5962,23 +5969,30 @@ FLEET_BENCH_CLIENTS = 8
 FLEET_REFRESH_APPENDS = 2
 
 
-def fleet_processes() -> list:
-    """Pids of the live ``cylon_tpu_torch.serve.fleet`` engine processes
-    on this host (``/proc``; zombies left out)."""
+def fleet_processes(root: str) -> list:
+    """Pids of the live engine processes this process started over the
+    fleet trees under ``root``: children of this process (``/proc``;
+    zombies left out) running ``cylon_tpu_torch.serve.fleet`` with a
+    ``--root`` under ``root``."""
     import os
 
+    me, root = os.getpid(), os.path.realpath(root)
     out = []
     for d in os.listdir("/proc"):
         if not d.isdigit():
             continue
         try:
             with open(f"/proc/{d}/cmdline", "rb") as f:
-                cmd = f.read()
+                argv = f.read().decode(errors="replace").split("\0")
             with open(f"/proc/{d}/stat") as f:
-                state = f.read().rsplit(")", 1)[1].split()[0]
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
         except OSError:
             continue
-        if b"cylon_tpu_torch.serve.fleet" in cmd and state != "Z":
+        if int(ppid) != me or state == "Z" \
+                or "cylon_tpu_torch.serve.fleet" not in argv:
+            continue
+        tree = argv[argv.index("--root") + 1] if "--root" in argv else ""
+        if os.path.realpath(tree).startswith(root + os.sep):
             out.append(int(d))
     return out
 
@@ -6019,7 +6033,8 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         :data:`FLEET_CLIENTS` clients x :data:`FLEET_REQUESTS` requests
         of :data:`FLEET_MIX` over :data:`FLEET_ENGINES` engine processes
         at :data:`FLEET_SF`, once a third of the requests completed the
-        next engine to acknowledge a request SIGKILLed right after. Every ``REQUIRED_FLEET_FIELDS`` field present,
+        next engine to acknowledge a request SIGKILLed right after.
+        Every ``REQUIRED_FLEET_FIELDS`` field present,
         ``failovers`` >= 1, ``lost_acks``, ``double_executions``,
         ``oracle_mismatches`` and ``errors`` 0; the parent's alone-run
         oracles bit for bit another alone run of each query
@@ -6042,21 +6057,30 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         ``chiprun_out/fleet_trace.trace.json``.
     (d) ``run_hotmix_bench`` at :data:`FLEET_HOT_SF`,
         :data:`FLEET_HOT_CLIENTS` x :data:`FLEET_HOT_REQUESTS`, two
-        in-process engines: ``qps_multiplier`` >= 10, ``stale_results``
-        and ``oracle_mismatches`` 0.
+        in-process engines: ``qps_multiplier`` >= 10 (the results
+        checked after each timed window; the same run's in-window rate,
+        as the JAX package times it, and the hot phase's repeats beside
+        it), ``stale_results`` and ``oracle_mismatches`` 0.
     (e) ``run_bench`` (:data:`FLEET_BENCH_CLIENTS` clients) and
         ``run_refresh_bench`` (:data:`FLEET_REFRESH_APPENDS` appends) at
         :data:`FLEET_LEG_SF`: both records hold their fields with 0
         mismatches, the refresh ``speedup`` >= 2.
-    (f) Clean-up: no engine process left, no journal lock held, every
-        engine's own launches read from its log at a clean close (the
-        killed ones have none); the inputs the kernels met in this
-        process ((a)-(c)'s oracles, (d), (e)) go to
+    (f) Clean-up: none of the engine processes this phase started is
+        left, no journal lock held. The launches counted are the served
+        requests': each engine process's own, read from its log at a
+        clean close (the killed ones have none), and those of (d)'s and
+        (e)'s in-process engines. Every oracle and from-scratch
+        recompute runs in a ``reference()`` block, whose launches are
+        thrown away; in (a)-(c) this process runs nothing else. Each
+        cleanly closed engine of (a) and (c) must have launched
+        ``scan32`` and ``pair_max_scan``, (b)'s survivor (every request
+        on the eager spill path) ``scan32``. The inputs the kernels met
+        in this process ((a)-(c)'s oracles, (d), (e)) go to
         :func:`path_kernel_phase` (in ``main``), after which the live
         bytes must be back at their level before the phase.
 
-    Returns ``(this process's launches in (a)-(e), the kernels' inputs,
-    the live bytes before the phase)``."""
+    Returns ``(the served requests' launches in (a)-(e), the kernels'
+    inputs, the live bytes before the phase)``."""
     import concurrent.futures as cf
     import gc
     import os
@@ -6090,15 +6114,40 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
 
     rec = PathInputs()
     total_launches = {k: 0 for k in launch_counts()}
+    carry = dict(total_launches)
     part_launches = {}
+    #: (part, engine, its logged launches) of every cleanly closed engine
+    engine_counts = []
 
-    def bank_launches(part):
-        got = launch_counts()
-        mine = part_launches.setdefault(part, {k: 0 for k in got})
-        for k, v in got.items():
+    def keep_launches():
+        for k, v in launch_counts().items():
+            carry[k] += v
+        reset_launches()
+
+    @contextlib.contextmanager
+    def reference():
+        """Keep the served path's launches so far, then throw away those
+        made inside: an oracle's or a recompute's."""
+        keep_launches()
+        try:
+            yield
+        finally:
+            reset_launches()
+
+    def bank_launches(part, engines=None):
+        """Add ``part``'s served launches to the phase's: this process's
+        since the last bank (``reference()`` blocks left out), and each
+        cleanly closed engine process's in ``engines`` (name: its logged
+        counts, None for a killed one)."""
+        keep_launches()
+        mine = part_launches.setdefault(part, {k: 0 for k in carry})
+        logged = [(n, c) for n, c in (engines or {}).items() if c]
+        engine_counts.extend((part, n, c) for n, c in logged)
+        for k in carry:
+            v = carry[k] + sum(c.get(k, 0) for _, c in logged)
             total_launches[k] += v
             mine[k] += v
-        reset_launches()
+            carry[k] = 0
 
     def fleet_gates(part, r):
         missing = sbench.REQUIRED_FLEET_FIELDS - r.keys()
@@ -6138,14 +6187,16 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
                         for q in FLEET_MIX}
         alone_digests = {q: fleet.value_digest(v) for q, v in alone.items()}
         del alone, want
-        with rec:
+        # this process runs only the oracles: the requests are served in
+        # the engine processes
+        with rec, reference():
             a = fleet.run_fleet_bench(
                 clients=FLEET_CLIENTS, requests=FLEET_REQUESTS,
                 sf=FLEET_SF, seed=SERVE_SEED, mix=FLEET_MIX,
                 engines=FLEET_ENGINES, root=os.path.join(tmp, "a"),
                 device=dev)
         a_s = time.perf_counter() - t
-        bank_launches("a")
+        bank_launches("a", a["engine_launches"])
         same = {q: a["oracle_digests"].get(q) == d
                 for q, d in alone_digests.items()}
         record("a", "fleet", sf=FLEET_SF, mix=list(FLEET_MIX),
@@ -6158,16 +6209,20 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
                  f"bench's oracles against them {same}")
         if a["replayed"] < 1:
             fail("(a) the killed engine had no request to replay")
+        if a["engine_launches"][a["victim"]] is not None \
+                or not all(v for n, v in a["engine_launches"].items()
+                           if n != a["victim"]):
+            fail(f"(a) the killed engine logged launches or a survivor "
+                 f"none: {a['engine_launches']}")
         del a
 
         # -- (b) the seeded kill at SF 0.1
         telemetry.reset("fleet.")
         root_b = os.path.join(tmp, "b")
         t = time.perf_counter()
-        with rec:
+        with rec, reference():
             oracles = fleet._fleet_oracles(FLEET_KILL_SF, SERVE_SEED,
                                            FLEET_KILL_MIX, dev)
-        bank_launches("b")
         with cf.ThreadPoolExecutor(2) as ex:
             futs = [ex.submit(fleet.spawn_engine, root_b, name,
                               FLEET_KILL_SF, SERVE_SEED, FLEET_KILL_MIX,
@@ -6198,7 +6253,11 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
                 tenants[first].append(tn)
             i += 1
         tickets = []
-        for q in FLEET_KILL_MIX:
+        # e0's q1s, then its q14s: its second q1 is answered without a
+        # dispatch (coalesced, or a result-cache hit), so its second
+        # dispatch, the kill, is a q14 it acknowledged and had not
+        # completed, however fast it runs beside the submissions
+        for q in FLEET_KILL_ORDER:
             for tn in tenants["e0"] + tenants["e1"]:
                 key = f"key{len(tickets)}"
                 tickets.append((key, q, router.submit(
@@ -6241,6 +6300,8 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         router.close()
         router = None
         rc1 = p1.terminate(120)
+        b_engines = {"e0": p0.launches(), "e1": p1.launches()}
+        bank_launches("b", b_engines)
         b_row = record(
             "b", "seeded_kill", sf=FLEET_KILL_SF, mix=list(FLEET_KILL_MIX),
             tickets=len(tickets), mismatches=mism, errors=errors,
@@ -6255,15 +6316,16 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
             fenced=fenced, replayed_q14=replayed_q14,
             q14_merge_events=len(merges), degraded_events=len(degraded),
             survivor_exit=rc1, launches=part_launches["b"],
-            engine_launches={"e0": p0.launches(), "e1": p1.launches()},
-            part_s=time.perf_counter() - t)
+            engine_launches=b_engines, part_s=time.perf_counter() - t)
         if mism or errors or rc0 != KILL_EXIT_CODE or not killed_here \
                 or b_row["failovers"] != 1 or b_row["lost_acks"] \
                 or not rep["replayed_keys"] or not retry_ok or doubles \
                 or not fenced or not replayed_q14 \
                 or set(replayed_q14) & done_e0 \
                 or not set(replayed_q14) <= done_e1 or not merges \
-                or not set(rep["replayed_keys"]) <= done_e1 or rc1 != 0:
+                or not set(rep["replayed_keys"]) <= done_e1 or rc1 != 0 \
+                or b_engines["e0"] is not None \
+                or not (b_engines["e1"] or {}).get("scan32"):
             fail(f"(b) {b_row}")
         procs.clear()
         del oracles, tickets, again, tk0
@@ -6273,7 +6335,7 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         saved = os.environ.get("CYLON_TPU_TRACE")
         t = time.perf_counter()
         try:
-            with rec:
+            with rec, reference():
                 c = fleet.run_fleet_bench(
                     clients=FLEET_TRACE_CLIENTS,
                     requests=FLEET_TRACE_REQUESTS, sf=FLEET_TRACE_SF,
@@ -6287,7 +6349,7 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
                 os.environ["CYLON_TPU_TRACE"] = saved
             ttrace._RECORDER = None      # the next arming starts afresh
         c_s = time.perf_counter() - t
-        bank_launches("c")
+        bank_launches("c", c["engine_launches"])
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         trace_copy = out_dir / "fleet_trace.trace.json"
@@ -6316,17 +6378,20 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         catalog.clear()
         telemetry.reset("fleet.")
         telemetry.reset("serve.")
+        # the objects the collector tracks: a larger heap makes each
+        # collection, and so the GIL-bound hot phase, slower
+        gc_objects = len(gc.get_objects())
         t = time.perf_counter()
         with rec:
             d = sbench.run_hotmix_bench(
                 clients=FLEET_HOT_CLIENTS, requests=FLEET_HOT_REQUESTS,
                 sf=FLEET_HOT_SF, seed=SERVE_SEED, mix=FLEET_MIX,
-                engines=FLEET_ENGINES, device=dev)
+                engines=FLEET_ENGINES, device=dev, reference=reference)
         bank_launches("d")
         catalog.clear()
         missing = sbench.REQUIRED_HOTMIX_FIELDS - d.keys()
         record("d", "hot_mix", part_s=time.perf_counter() - t,
-               launches=part_launches["d"],
+               launches=part_launches["d"], gc_objects=gc_objects,
                **{k: v for k, v in d.items() if k != "mix"})
         if missing or d["oracle_mismatches"] or d["errors"] \
                 or d["stale_results"] or (d["qps_multiplier"] or 0) < 10:
@@ -6339,7 +6404,8 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         with rec:
             e1 = sbench.run_bench(clients=FLEET_BENCH_CLIENTS, requests=2,
                                   sf=FLEET_LEG_SF, seed=SERVE_SEED,
-                                  mix=FLEET_MIX, device=dev)
+                                  mix=FLEET_MIX, device=dev,
+                                  reference=reference)
         bank_launches("e")
         catalog.clear()
         e1_s = time.perf_counter() - t
@@ -6347,7 +6413,7 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
         with rec:
             e2 = sbench.run_refresh_bench(
                 sf=FLEET_LEG_SF, rounds=FLEET_REFRESH_APPENDS,
-                seed=SERVE_SEED, device=dev)
+                seed=SERVE_SEED, device=dev, reference=reference)
         bank_launches("e")
         catalog.clear()
         views.clear()
@@ -6372,7 +6438,7 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
             router.close()
         for p in procs:
             p.terminate(120)
-        left = fleet_processes()
+        left = fleet_processes(tmp)
         locks = held_journal_locks(tmp)
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6382,12 +6448,23 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
     gc.collect()
     record("f", "clean", engine_processes_left=left,
            journal_locks_held=locks, launches=total_launches,
-           by_part=part_launches)
+           by_part=part_launches,
+           engines=[{"part": p, "engine": n, "launches": c}
+                    for p, n, c in engine_counts])
     if left or locks:
         fail(f"(f) engine processes left {left}, locks held {locks}")
-    for k in ("scan32", "pair_max_scan"):
-        if not total_launches[k]:
-            fail(f"{k} never launched in this process's legs")
+    # the compiled path in every cleanly closed engine of (a) and (c)
+    idle = [(p, n, c) for p, n, c in engine_counts if p in ("a", "c")
+            and not (c.get("scan32") and c.get("pair_max_scan"))]
+    if idle or not any(p == "a" for p, _, _ in engine_counts) \
+            or not any(p == "c" for p, _, _ in engine_counts):
+        fail(f"(f) an engine process served without its kernels: "
+             f"{engine_counts}")
+    for part in ("d", "e"):
+        if not all(part_launches[part][k]
+                   for k in ("scan32", "pair_max_scan")):
+            fail(f"(f) ({part})'s in-process engines launched "
+                 f"{part_launches[part]}")
     if total_launches["bucket_build"] or total_launches["bucket_probe"]:
         fail(f"the bucket kernels ran on the fleet path: {total_launches}")
     return total_launches, rec.inputs, base_bytes
@@ -6432,6 +6509,13 @@ def main(argv) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": Path(build.last_build.get("path", "")).name or None})
     memory_line(torch, card, "2 build")
+    if "--fleet-only" in argv:
+        fleet_launches, fleet_inputs, _ = fleet_phase(torch, card)
+        path_kernel_phase(torch, rate, {}, "fleet", fleet_inputs,
+                          card=card)
+        emit({"phase": "fleet_only", "card": card,
+              "fleet_launches": fleet_launches})
+        return 0
 
     stats = kernel_phase(torch, rate)
     bucket_kernel_phase(torch, rate, stats)

@@ -37,19 +37,23 @@ audited at their pinned generations (:data:`REQUIRED_REFRESH_FIELDS`).
 Differences from the JAX package: every leg builds its tables on
 ``device`` (CUDA unless asked), never falling back to the CPU; the
 generator keeps only the mix's manifest columns (:func:`_mix_keep`, as
-the refresh leg already does); the hot-mix baseline switches the caches
-and coalescing off through the module constants
-(``serve.service.RESULT_CACHE_BYTES``, ``serve.service.COALESCE``,
-``serve.fleet.ROUTER_CACHE_BYTES``) the port reads instead of the
-environment, and checks each phase's results after its timed window
-(the JAX package checks them inside it, which bounds the hot phase's
-rate by the harness's host-side checks); ``_results_match`` tests float
-columns with
+the refresh leg already does); the hot-mix baseline switches the engine
+caches and coalescing off through the module constants
+``serve.service.RESULT_CACHE_BYTES`` and ``serve.service.COALESCE`` and
+the router's cache through ``FleetRouter(cache_bytes=0)``, which the
+port reads instead of the environment; the hot mix drives each phase
+with its results checked after the timed window (the gated
+``qps_multiplier``) and again with them checked inside it, as the JAX
+package does (``qps_multiplier_checks_in_window``), and repeats the hot
+phase; ``_results_match`` tests float columns with
 ``pd.api.types.is_float_dtype``, so pandas' string dtype compares as a
-key column.
+key column; ``run_bench``, ``run_hotmix_bench`` and
+``run_refresh_bench`` take ``reference=``, a context manager factory
+entered around each oracle and from-scratch recompute.
 """
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -132,6 +136,10 @@ DEFAULT_MIX = ("q1", "q3", "q5", "q6", "q14")
 #: the ``--refresh`` workload: the four mix shapes whose fallback merge
 #: is directly view-maintainable
 REFRESH_MIX = ("q1", "q3", "q5", "q6")
+
+#: the hot mix's hot phase runs this many times with its checks after
+#: the window: the first is the record's rate, the rest its spread
+HOT_REPEATS = 3
 
 
 def _emit_record(line: dict):
@@ -327,9 +335,10 @@ def run_bench(clients: int = 8, requests: int = 2, sf: float = 0.002,
               mix=DEFAULT_MIX, slo_target: "float | None" = None,
               slo_latency: "float | None" = None,
               slo_windows: "tuple | None" = None,
-              storm: int = 0, device="cuda") -> dict:
+              storm: int = 0, device="cuda", reference=None) -> dict:
     """The serving acceptance replay on ``device``; returns the record
-    (:data:`REQUIRED_SERVE_FIELDS`).
+    (:data:`REQUIRED_SERVE_FIELDS`). ``reference`` is a context manager
+    factory entered around the oracles (:func:`run_hotmix_bench`).
 
     (port of ``cylon_tpu/serve/bench.py`` ``run_bench``)"""
     import cylon_tpu_torch as ct
@@ -373,8 +382,9 @@ def run_bench(clients: int = 8, requests: int = 2, sf: float = 0.002,
     # same shared compiled query — every concurrent result must
     # reproduce these exactly
     compiled = {q: tpch.compiled(q) for q in mix}
-    oracles = {q: _materialize(compiled[q](resident, env=env))
-               for q in mix}
+    with (reference or contextlib.nullcontext)():
+        oracles = {q: _materialize(compiled[q](resident, env=env))
+                   for q in mix}
 
     engine = ServeEngine(env, policy)
     mismatches = []
@@ -518,7 +528,7 @@ def run_bench(clients: int = 8, requests: int = 2, sf: float = 0.002,
 def run_hotmix_bench(clients: int = 64, requests: int = 4,
                      sf: float = 0.002, seed: int = 0,
                      mix=DEFAULT_MIX, engines: int = 2,
-                     device="cuda") -> dict:
+                     device="cuda", reference=None) -> dict:
     """N concurrent clients replay a HOT mix (identical fingerprints,
     stable tables) through the FleetRouter twice — once against a single
     uncached engine (coalescing and both result caches off: every
@@ -527,7 +537,19 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
     hot-over-baseline QPS multiplier at >= 10x. A mid-probe append then
     proves the staleness contract: the next submission of an affected
     query must MISS and re-execute (0 stale results). Every result, both
-    phases, is oracle-checked, after its phase's timed window.
+    phases, is oracle-checked.
+
+    Each phase is driven twice, in this order: with every result checked
+    after the timed window (``qps_multiplier``, the gated rate: the
+    serving plane's own), then with each result checked in its client
+    thread inside the window, as the JAX package measures it
+    (``qps_multiplier_checks_in_window``: the same host-side check added
+    to every request of both phases, which bounds the hot rate by the
+    harness). The hot phase runs :data:`HOT_REPEATS` times with the
+    checks after the window; ``hot_qps`` is the first, the rest show the
+    run's own spread (``hot_qps_repeats``). ``reference`` is a context
+    manager factory entered around the oracles, so a caller counting the
+    served path's kernel launches can throw theirs away.
 
     (port of ``cylon_tpu/serve/bench.py`` ``run_hotmix_bench``)"""
     import cylon_tpu_torch as ct
@@ -546,10 +568,11 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
     # oracles warm the shared compiled queries for BOTH phases equally —
     # the multiplier measures the dedup plane, not scale memos
     compiled = {q: tpch.compiled(q) for q in mix}
-    oracles = {q: _materialize(compiled[q](resident, env=env))
-               for q in mix}
+    with (reference or contextlib.nullcontext)():
+        oracles = {q: _materialize(compiled[q](resident, env=env))
+                   for q in mix}
 
-    def mk_fleet(n_engines: int):
+    def mk_fleet(n_engines: int, cache_bytes: int):
         engs, clis = [], []
         for i in range(n_engines):
             e = ServeEngine(env)
@@ -561,9 +584,11 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
                             if nm in resident])
             engs.append(e)
             clis.append(_fleet.LocalEngineClient(e, f"hot{i}"))
-        return engs, _fleet.FleetRouter(clis, poll_interval=0.25)
+        return engs, _fleet.FleetRouter(clis, poll_interval=0.25,
+                                        cache_bytes=cache_bytes)
 
-    def drive(router, n_requests: int, label: str) -> dict:
+    def drive(router, n_requests: int, label: str,
+              check_in_window: bool = False) -> dict:
         mismatches: list = []
         errors: list = []
         shed = [0]
@@ -589,7 +614,12 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
                 w = time.monotonic() - s0
                 with lock:
                     walls.append(w)
-                    got_all.append((tenant, q, got))
+                    if not check_in_window:
+                        got_all.append((tenant, q, got))
+                if check_in_window and not _results_match(got,
+                                                          oracles[q]):
+                    with lock:
+                        mismatches.append((tenant, q, label))
 
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,),
@@ -600,8 +630,6 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
         for th in threads:
             th.join()
         wall = time.perf_counter() - t0
-        # every result against its oracle, outside the timed window: the
-        # rate is the serving plane's, not the harness's host-side checks
         mismatches.extend((tenant, q, label) for tenant, q, got in got_all
                           if not _results_match(got, oracles[q]))
         ws = sorted(walls)
@@ -620,26 +648,25 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
     # end to end — every submission executes). Fewer requests per
     # client than the hot phase: QPS is a rate
     base_requests = max(1, requests // 2)
-    saved = (_service.RESULT_CACHE_BYTES, _service.COALESCE,
-             _fleet.ROUTER_CACHE_BYTES)
+    saved = (_service.RESULT_CACHE_BYTES, _service.COALESCE)
     _service.RESULT_CACHE_BYTES = 0
     _service.COALESCE = False
-    _fleet.ROUTER_CACHE_BYTES = 0
     try:
-        engs, router = mk_fleet(1)
+        engs, router = mk_fleet(1, cache_bytes=0)
         try:
             base = drive(router, base_requests, "baseline")
+            base_in = drive(router, base_requests, "baseline",
+                            check_in_window=True)
         finally:
             router.close()
             for e in engs:
                 e.close(wait=True)
     finally:
-        (_service.RESULT_CACHE_BYTES, _service.COALESCE,
-         _fleet.ROUTER_CACHE_BYTES) = saved
+        _service.RESULT_CACHE_BYTES, _service.COALESCE = saved
 
     # ---- phase 2: the full dedup plane, warmed with one execution per
     # mix query so the measured window is the HOT path
-    engs, router = mk_fleet(engines)
+    engs, router = mk_fleet(engines, _fleet.ROUTER_CACHE_BYTES)
     try:
         for q in mix:
             got = router.submit(q, tenant="warmup").result(600)
@@ -652,6 +679,13 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
             telemetry.total("serve.result_cache_hits")
         hit_rate = ((hits1 - hits0) / hot["completed"]
                     if hot["completed"] else 0.0)
+        extra = [drive(router, requests, "hot")
+                 for _ in range(HOT_REPEATS - 1)]
+        hot_in = drive(router, requests, "hot", check_in_window=True)
+        for r in extra + [hot_in]:
+            hot["mismatches"] += r["mismatches"]
+            hot["errors"] += r["errors"]
+            hot["shed"] += r["shed"]
 
         # ---- the staleness probe: append one row to lineitem, then
         # re-submit a lineitem query — the dedup plane must MISS and the
@@ -684,11 +718,16 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
         for e in engs:
             e.close(wait=True)
 
-    mismatches = base["mismatches"] + hot["mismatches"]
-    errors = base["errors"] + hot["errors"]
+    mismatches = base["mismatches"] + base_in["mismatches"] + \
+        hot["mismatches"]
+    errors = base["errors"] + base_in["errors"] + hot["errors"]
 
     def rnd(x, n):
         return round(x, n) if x is not None else None
+
+    def ratio(h, b):
+        return round(h["qps"] / b["qps"], 2) if h["qps"] and b["qps"] \
+            else None
 
     return {
         "metric": "serve_hotmix_fleet",
@@ -707,12 +746,15 @@ def run_hotmix_bench(clients: int = 64, requests: int = 4,
         "baseline_p99_s": rnd(base["p99_s"], 4),
         "wall_s": round(hot["wall_s"], 3),
         "hot_qps": rnd(hot["qps"], 3) if hot["qps"] else None,
-        "qps_multiplier": (round(hot["qps"] / base["qps"], 2)
-                           if hot["qps"] and base["qps"] else None),
+        "qps_multiplier": ratio(hot, base),
+        "hot_qps_repeats": [rnd(r["qps"], 3) for r in [hot] + extra],
+        "baseline_qps_checks_in_window": rnd(base_in["qps"], 3),
+        "hot_qps_checks_in_window": rnd(hot_in["qps"], 3),
+        "qps_multiplier_checks_in_window": ratio(hot_in, base_in),
         "p50_s": rnd(hot["p50_s"], 4),
         "p99_s": rnd(hot["p99_s"], 4),
         "cache_hit_rate": round(hit_rate, 4),
-        "shed": base["shed"] + hot["shed"],
+        "shed": base["shed"] + base_in["shed"] + hot["shed"],
         "coalesced": int(telemetry.total("serve.coalesced")),
         "result_cache_hits": int(
             telemetry.total("fleet.result_cache_hits")
@@ -764,7 +806,8 @@ def _mk_view_query(q, env=None):
 
 def run_refresh_bench(sf: float = 0.05, delta_sf: "float | None" = None,
                       rounds: int = 2, clients: int = 4, seed: int = 0,
-                      mix=REFRESH_MIX, device="cuda") -> dict:
+                      mix=REFRESH_MIX, device="cuda",
+                      reference=None) -> dict:
     """TPC-H RF1-style appends (new orders arriving WITH their
     lineitems) interleaved with the q1/q3/q5/q6 mix served as
     incremental materialized views.
@@ -775,7 +818,9 @@ def run_refresh_bench(sf: float = 0.05, delta_sf: "float | None" = None,
     the oracle (timed — the denominator of ``speedup``). ``clients``
     reader threads hammer ``engine.read_view`` throughout; every read's
     ``(generations, result)`` pair is verified post-hoc against the
-    from-scratch oracle at exactly those generations.
+    from-scratch oracle at exactly those generations. ``reference`` is a
+    context manager factory entered around each recompute
+    (:func:`run_hotmix_bench`).
 
     (port of ``cylon_tpu/serve/bench.py`` ``run_refresh_bench``)"""
     import pandas as pd
@@ -841,9 +886,10 @@ def run_refresh_bench(sf: float = 0.05, delta_sf: "float | None" = None,
         if hit is not None:
             return hit[0], hit[1], False
         tabs = {a: content_at(a, g) for a, g in gens.items()}
-        t0 = time.perf_counter()
-        out = query_fns[q](tabs)
-        wall = time.perf_counter() - t0
+        with (reference or contextlib.nullcontext)():
+            t0 = time.perf_counter()
+            out = query_fns[q](tabs)
+            wall = time.perf_counter() - t0
         res = views.present(out, FALLBACK[q], limits[q])
         with oracle_mu:
             oracle_cache[(q, combo)] = (res, wall)

@@ -72,7 +72,7 @@ environment are arguments with module-constant defaults —
 fail_threshold=FAIL_THRESHOLD, unhealthy_dwell=UNHEALTHY_DWELL_S)``
 (``CYLON_TPU_FLEET_POLL`` / ``_FAIL_THRESHOLD`` / ``_DWELL`` there),
 ``HttpEngineClient(probe_timeout=PROBE_TIMEOUT_S)``
-(``_PROBE_TIMEOUT``), :data:`ROUTER_CACHE_BYTES`
+(``_PROBE_TIMEOUT``), ``FleetRouter(cache_bytes=ROUTER_CACHE_BYTES)``
 (``CYLON_TPU_FLEET_RESULT_CACHE_BYTES``), ``run_fleet_bench(root=)``
 (``CYLON_BENCH_FLEET_DIR``), and the chaos hooks ``CHAOS_KILL`` /
 ``CHAOS_OOM`` and the child's stall age are ``spawn_engine`` arguments
@@ -155,9 +155,9 @@ UNHEALTHY_DWELL_S = 5.0
 #: per-probe HTTP timeout in seconds: a busy engine is not a dead one
 #: (``CYLON_TPU_FLEET_PROBE_TIMEOUT`` there)
 PROBE_TIMEOUT_S = 30.0
-#: the router's fleet-scoped result-cache budget in bytes, 0 switches it
-#: off (``CYLON_TPU_FLEET_RESULT_CACHE_BYTES`` there); read when a
-#: router is built
+#: the router's fleet-scoped result-cache budget in bytes, the default
+#: of ``FleetRouter(cache_bytes=)``; 0 switches the cache off
+#: (``CYLON_TPU_FLEET_RESULT_CACHE_BYTES`` there)
 ROUTER_CACHE_BYTES = DEFAULT_CACHE_BYTES
 #: the stall age :func:`spawn_engine` gives a child's ``/health`` probe
 #: (``serve.introspect.STALL_AGE_S``, 10 s in one process): one degraded
@@ -918,6 +918,7 @@ class FleetRouter:
     def __init__(self, clients, poll_interval: float = POLL_INTERVAL_S,
                  fail_threshold: int = FAIL_THRESHOLD,
                  unhealthy_dwell: float = UNHEALTHY_DWELL_S,
+                 cache_bytes: int = ROUTER_CACHE_BYTES,
                  retry_policy=None, start: bool = True):
         clients = list(clients)
         if len({c.name for c in clients}) != len(clients):
@@ -942,7 +943,7 @@ class FleetRouter:
         # last vector an engine answered with (a stale mapping can only
         # MISS, never hit stale)
         self._result_cache = hook_on_append(ResultCache(
-            ROUTER_CACHE_BYTES, metric_prefix="fleet"))
+            cache_bytes, metric_prefix="fleet"))
         self._vv_by_fp: "dict[str, tuple]" = {}
         self._tickets: "dict[str, RouterTicket]" = {}
         self._acks: "dict[str, object]" = {}
@@ -1993,14 +1994,9 @@ def run_fleet_bench(clients: int = 16, requests: int = 3,
         # repeats stop reaching the engines after their first sweep, and
         # a kill mid-run would find no request to fail over (the hot-mix
         # leg measures the cache)
-        global ROUTER_CACHE_BYTES
-        saved, ROUTER_CACHE_BYTES = ROUTER_CACHE_BYTES, 0
-        try:
-            router = FleetRouter([p.client for p in procs],
-                                 poll_interval=0.25, fail_threshold=3,
-                                 unhealthy_dwell=45.0)
-        finally:
-            ROUTER_CACHE_BYTES = saved
+        router = FleetRouter([p.client for p in procs],
+                             poll_interval=0.25, fail_threshold=3,
+                             unhealthy_dwell=45.0, cache_bytes=0)
         router.wait_for_verdicts()
         record = _drive_fleet_bench(
             router, procs, layout, oracles, clients=clients,

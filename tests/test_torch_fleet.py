@@ -25,7 +25,7 @@ import pytest
 from cylon_tpu_torch import Table, catalog, telemetry
 from cylon_tpu_torch.errors import (DataLossError, FailedPrecondition,
                                     InvalidArgument)
-from cylon_tpu_torch.serve import ServeEngine, ServePolicy
+from cylon_tpu_torch.serve import ServeEngine, ServePolicy, fleet
 from cylon_tpu_torch.serve.durability import (JournalLock, RequestJournal,
                                               fence_journal)
 from cylon_tpu_torch.serve.fleet import (EngineUnavailable, FleetLayout,
@@ -652,6 +652,30 @@ def test_router_cache_survives_engine_death(tmp_path):
         router.close()
         e0.close()
         e1.close()
+
+
+def test_router_cache_bytes_switches_one_router(tmp_path):
+    """``cache_bytes=0`` turns one router's result cache off, so a
+    repeat reaches an engine; a router built after it with the default
+    budget serves the repeat from its own cache."""
+    _put_shared()
+    eng = ServeEngine(policy=ServePolicy(max_queue=16))
+    eng.register_query("q", lambda x: x * 2, tables=("shared",))
+    hits = []
+    for budget in (0, fleet.ROUTER_CACHE_BYTES):
+        router = _polled(FleetRouter([LocalEngineClient(eng, "a0")],
+                                     poll_interval=0.05,
+                                     cache_bytes=budget))
+        try:
+            for _ in range(2):
+                assert router.submit("q", 21, tenant="t").result(WAIT) \
+                    == 42
+            hits.append(telemetry.total("fleet.result_cache_hits"))
+        finally:
+            router.close()
+    eng.close()
+    assert hits == [0, 1]
+    assert fleet.ROUTER_CACHE_BYTES > 0
 
 
 class _DyingClient(_MortalClient):

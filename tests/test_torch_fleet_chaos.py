@@ -32,6 +32,11 @@ from cylon_tpu_torch.serve.fleet import (FleetLayout, FleetRouter,
                                          spawn_engine)
 
 MIX = ("q1", "q6", "q14")  # q14: two-phase global aggregate
+#: e0's q1s, then its q14s, then its q6s: its second q1 is answered
+#: without a dispatch (coalesced, or a result-cache hit), so its second
+#: dispatch, the kill, is a q14 it acknowledged and had not completed,
+#: however fast the victim runs beside the submissions
+SUBMIT_ORDER = ("q1", "q14", "q6")
 SF, SEED = 0.001, 0
 READY_S = 120
 RESULT_S = 120
@@ -100,7 +105,7 @@ def test_kill_one_engine_mid_tpch_run_loses_nothing(tmp_path):
         k = 0
         # each tenant submits one of each mix query, so e0 sees >= 2
         # dispatches (the second kills it) with acknowledged work queued
-        for q in MIX:
+        for q in SUBMIT_ORDER:
             for t in tenants["e0"] + tenants["e1"]:
                 key = f"key{k}"
                 tickets.append((key, q, router.submit(
@@ -148,8 +153,8 @@ def test_kill_one_engine_mid_tpch_run_loses_nothing(tmp_path):
             assert rk in done_e1, (rk, done_e1)
 
         # a replayed TWO-PHASE request recomputed its merge scalar on
-        # the survivor: e0 died at its 2nd dispatch, so its tenants' q14
-        # requests were journaled but incomplete
+        # the survivor: e0 died at its 2nd dispatch, a q14 it had
+        # journaled and not completed (SUBMIT_ORDER)
         key_q = {key: q for key, q, _ in tickets}
         replayed_q14 = [k for k in rep["replayed_keys"]
                         if key_q.get(k) == "q14"]

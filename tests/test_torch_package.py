@@ -690,7 +690,8 @@ def test_chip_smoke_drives_the_fleet_phase():
     funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert "fleet_phase" in funcs
     main = src[src.index("def main("):]
-    assert main.index("serve_phase(") < main.index("fleet_phase(")
+    # the whole run's call (the last; ``--fleet-only`` calls it first)
+    assert main.index("serve_phase(") < main.rindex("fleet_phase(")
     assert '"fleet_launches"' in main
     assert 'path_kernel_phase(torch, rate, stats, "fleet"' in main
     assert 'memory_line(torch, card, "19 ' in main
@@ -701,3 +702,15 @@ def test_chip_smoke_drives_the_fleet_phase():
                  "run_bench(", "run_refresh_bench(",
                  "audit_double_executions("):
         assert call in body, call
+    # only the served requests' launches count: the parent's oracles and
+    # recomputes run in reference() blocks, the engine processes' own
+    # counts are added, and only this phase's children are looked for
+    assert body.count("with rec, reference():") == 3
+    for call in ("run_hotmix_bench(", "run_bench(", "run_refresh_bench("):
+        seg = body[body.index(call):]
+        assert "reference=reference)" in seg[:seg.index(")\n") + 1], call
+    for part in ("a", "c"):
+        assert f'bank_launches("{part}", {part}["engine_launches"])' \
+            in body, part
+    assert 'bank_launches("b", b_engines)' in body
+    assert "fleet_processes(tmp)" in body

@@ -8,6 +8,7 @@ runs at SF 0.002 and passes its record's gates. The refresh leg's
 is small beside a recompute: it runs at SF 0.02, where the from-scratch
 recompute partitions."""
 
+import contextlib
 import json
 
 import numpy as np
@@ -106,8 +107,24 @@ def test_mk_resident_one_shard_a_rank():
 
 
 # ------------------------------------------------------ the legs
+class Entered:
+    """A ``reference=`` factory that counts the blocks it was entered
+    for: the oracles a leg computes apart from its served path."""
+
+    def __init__(self):
+        self.n = 0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        self.n += 1
+        yield
+
+
 def test_run_bench_record_and_gates():
-    rec = bench.run_bench(clients=4, requests=2, sf=SF, device="cpu")
+    ref = Entered()
+    rec = bench.run_bench(clients=4, requests=2, sf=SF, device="cpu",
+                          reference=ref)
+    assert ref.n == 1  # the mix's oracles, once
     assert not bench.REQUIRED_SERVE_FIELDS - rec.keys()
     assert rec["oracle_mismatches"] == 0 and rec["errors"] == 0
     assert rec["completed"] == 8 and rec["rejected"] == 0
@@ -118,18 +135,30 @@ def test_run_bench_record_and_gates():
 
 
 def test_run_hotmix_bench_record_and_gates():
+    ref = Entered()
     rec = bench.run_hotmix_bench(clients=8, requests=4, sf=SF,
-                                 device="cpu")
+                                 device="cpu", reference=ref)
+    assert ref.n == 1
     assert not bench.REQUIRED_HOTMIX_FIELDS - rec.keys()
     assert rec["oracle_mismatches"] == 0 and rec["errors"] == 0
     assert rec["stale_results"] == 0
     assert rec["qps_multiplier"] >= 10.0, rec
+    # the same run, its checks inside the window as the JAX package
+    # times them, and the hot phase's repeats
+    assert rec["qps_multiplier_checks_in_window"] > 0
+    assert rec["hot_qps_checks_in_window"] > 0
+    assert len(rec["hot_qps_repeats"]) == bench.HOT_REPEATS
+    assert rec["hot_qps_repeats"][0] == rec["hot_qps"]
     assert rec["completed"] == 32 and rec["cache_hit_rate"] > 0.5
     json.dumps(rec)
 
 
 def test_run_refresh_bench_record_and_gates():
-    rec = bench.run_refresh_bench(sf=SF, rounds=2, device="cpu")
+    ref = Entered()
+    rec = bench.run_refresh_bench(sf=SF, rounds=2, device="cpu",
+                                  reference=ref)
+    # one recompute a view and pinned generations, each in its block
+    assert ref.n >= rec["refreshes"]
     assert not bench.REQUIRED_REFRESH_FIELDS - rec.keys()
     assert rec["oracle_mismatches"] == 0 and rec["errors"] == 0
     assert rec["refreshes"] == 8 and rec["reads_total"] > 0
