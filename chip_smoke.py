@@ -7,6 +7,8 @@ and check it.
                                       # the 100M sort and a 16M intersect
     python3 chip_smoke.py --fleet-only  # phases 1, 2 and 19 alone, with
                                         # no kernels line and no ok line
+    python3 chip_smoke.py --native-only # phases 1, 2 and 20 alone, the
+                                        # same way
 
 Phases, each printing one JSON line:
 
@@ -114,14 +116,14 @@ Phases, each printing one JSON line:
     coverage (at least 0.8), the exchange's true bytes against the rows
     the ranks sent, a strict-JSON Chrome trace; then the kernels at this
     phase's shapes, as in phase 10; see :func:`telemetry_phase`.
-16. spill: resilience, deadlines and the spill path. The 100M x 100M
+16. spill: resilience, deadlines and the spill path. The 50M x 50M
     out-of-core join (``ooc_join``, 8 partitions spilled to host
     memory) against numpy, prefetched and sequential, beside the in-core
     join; ``fallback.join`` by the pre-flight route and after a real
     CUDA OOM (a ballast tensor), the live bytes back where they were;
     a child process killed mid-join and resumed here, byte for byte;
-    TPC-H through the fallback (q5 spilled, the streaming q1 and q5 at
-    SF 10, the six two-phase queries at SF 1) against the in-core
+    TPC-H through the fallback (q5 spilled, the streaming q1 and q5 and
+    the six two-phase queries at SF 1) against the in-core
     result and pandas; a transient exchange fault retried at W = 4, a
     barrier against a hung peer, and the hooks' sync sites; then the
     kernels at this phase's shapes, as in phase 10; see
@@ -172,6 +174,18 @@ Phases, each printing one JSON line:
     closed engine's own launches, the kernels at this process's shapes,
     as in phase 10, and the live bytes back at their level before the
     phase; see :func:`fleet_phase`.
+20. native: the native host library (``cylon_tpu_torch.native``) on the
+    H100's host: its ``g++`` build; TPC-H SF 1 ``lineitem`` and
+    ``orders`` from the port's generator written as CSV and read onto
+    the card by ``engine="native"`` and ``engine="arrow"``, the tables
+    equal column by column, each engine's wall beside its parse and its
+    copy to the card; ``orders`` joined to ``lineitem`` on the card from
+    the native-read tables (the sort join), equal element for element
+    to the arrow-read join and to numpy's count; the same join through
+    ``to_native``, the C ABI's ``cylon_catalog_join`` and
+    ``from_native``, equal to it as a row set; then the kernels at this
+    phase's shapes, as in phase 10, and the live bytes back at their
+    level before the phase; see :func:`native_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -182,12 +196,13 @@ Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
 ``telemetry_launches``, ``spill_launches``, ``views_launches``,
-``serve_launches`` and ``fleet_launches``, on phase 9's group-by calls,
-phase 12's calls, phase 13's, phase 14's, phase 15's compared runs,
-phase 16's parts (a)-(f), phase 17's parts (a)-(d), the engine's own
-requests in phase 18's parts (a)-(f) and phase 19's served requests:
-the engine processes' own, as each logs them at a clean close, and the
-in-process engines' of (d) and (e)), the ``nvidia-smi``
+``serve_launches``, ``fleet_launches`` and ``native_launches``, on
+phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
+phase 15's compared runs, phase 16's parts (a)-(f), phase 17's parts
+(a)-(d), the engine's own requests in phase 18's parts (a)-(f), phase
+19's served requests (the engine processes' own, as each logs them at a
+clean close, and the in-process engines' of (d) and (e)) and phase
+20's join of the native-read tables), the ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -3666,27 +3681,33 @@ def telemetry_phase(torch, rate, stats, card: str, dev="cuda") -> dict:
 
 
 # ------------------------------------------------------------ phase 16
-#: the out-of-core join's configuration (``cylon_tpu/outofcore.py:188``
-#: names the 100M x 100M join): rows a side, keys uniform in [0, rows)
-SPILL_ROWS = 100_000_000
+#: the out-of-core join's configuration: rows a side, keys uniform in
+#: [0, rows). ``cylon_tpu/outofcore.py:188`` names the 100M x 100M join,
+#: which phase 16 ran until phase 20 needed its room under the script's
+#: 1200 s: at 100M its joins took 233 s of a 1131 s run
+SPILL_ROWS = 50_000_000
 SPILL_PARTS = 8
 SPILL_CHUNK = 1 << 22
 SPILL_SEED = 0
-#: the pre-flight route's budget, ``CYLON_TPU_HBM_BUDGET_BYTES``
-SPILL_BUDGET = 8 << 30
+#: the pre-flight route's budget, ``CYLON_TPU_HBM_BUDGET_BYTES``: below
+#: the join's predicted 6.4 GB at 50M rows a side
+SPILL_BUDGET = 4 << 30
 #: the kill-and-resume run dies at this partition's durable write, so
 #: this many partitions were complete before it
 SPILL_KILL_AT = 4
 #: the card the ballast of part (c) leaves beyond two partitions' peak
 SPILL_HEADROOM = 1 << 30
-#: TPC-H through the fallback: phase 14's scales and seed
-SPILL_TPCH_SF = TPCH_BASELINE_SF
+#: TPC-H through the fallback: phase 14's SF 1 and seed (the streaming
+#: q1 and q5 ran at SF 10 until phase 20 needed the room: 98 s of the
+#: script there)
+SPILL_TPCH_SF = TPCH_SF
 SPILL_TPCH_SMALL_SF = TPCH_SF
 #: every query with a two-phase plan (``tpch.twophase``)
 SPILL_TWO_PHASE = ("q8", "q11", "q14", "q15", "q16", "q22")
 #: the free-memory budget ``run_query("q5")`` is given, below q5's
-#: predicted working set at SF 10, so that it takes the spill path
-SPILL_TPCH_BUDGET = 1 << 30
+#: predicted working set at SF 1 (``fallback.predict_query_bytes``), so
+#: that it takes the spill path
+SPILL_TPCH_BUDGET = 256 << 20
 #: part (f): the 16M share at W = 4, and the barrier's hang and timeout
 SPILL_W4_RANK_ROWS = 4 << 20
 BARRIER_TIMEOUT_S = 0.5
@@ -3919,7 +3940,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
     """Resilience, deadlines and the spill path on the card (phase 16).
     Every line carries the card's name and power limit.
 
-    (a) The 100M x 100M out-of-core join (:data:`SPILL_ROWS` a side,
+    (a) The 50M x 50M out-of-core join (:data:`SPILL_ROWS` a side,
         keys uniform in [0, SPILL_ROWS), seed :data:`SPILL_SEED`) through
         ``ooc_join`` (:data:`SPILL_PARTS` partitions, :data:`SPILL_CHUNK`
         rows a chunk, a sink that sums ``v_l * v_r`` and digests each
@@ -3950,7 +3971,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
         resumes it: (a)'s total, the partitions' digests in order equal
         to (a)'s, ``SPILL_KILL_AT - 1`` partitions resumed.
     (e) TPC-H through the fallback on phase 14's generator, seed and
-        scales (the lineitem columns of Q1 added at SF 10):
+        SF 1 (the lineitem columns of Q1 added):
         ``fallback.run_query("q5")`` with a budget that forces the spill
         path, ``streaming.q1_ooc`` and ``q5_ooc`` at :data:`SPILL_TPCH_SF`,
         and the two-phase :data:`SPILL_TWO_PHASE` at
@@ -4030,7 +4051,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
 
     reset_launches()
 
-    # -- (a) the 100M x 100M out-of-core join
+    # -- (a) the 50M x 50M out-of-core join
     n = SPILL_ROWS
     t = time.perf_counter()
     left, right = spill_tables(np, n)
@@ -6470,6 +6491,345 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
     return total_launches, rec.inputs, base_bytes
 
 
+# ------------------------------------------------------------ phase 20
+#: TPC-H SF 1's lineitem and orders, from the port's generator
+NATIVE_SF = TPCH_SF
+NATIVE_SEED = TPCH_SEED
+#: every 2nd comment gets a comma and every 5th a quote (the generator's
+#: comments are words and spaces only), so that both parsers meet quoted
+#: fields holding the delimiter and doubled quotes
+NATIVE_COMMA_EVERY = 2
+NATIVE_QUOTE_EVERY = 5
+#: the date columns, written as ISO dates and read as str by both
+#: engines (the native engine parses int64, float64 and str only)
+NATIVE_DATES = {"lineitem": ("l_shipdate", "l_commitdate", "l_receiptdate"),
+                "orders": ("o_orderdate",)}
+
+
+def native_csv(np, cols: dict, name: str, path: str) -> int:
+    """Write the generator's table ``name`` (``{column: array}``) as a
+    CSV with pyarrow's writer, which quotes every string: dates as ISO
+    dates, lineitem with TPC-H's ``l_linenumber`` (each row's place in
+    its order, which the generator does not draw) after ``l_suppkey``,
+    and the comments salted with commas and quotes. Returns its bytes."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.csv as pacsv
+
+    out = {}
+    for col, arr in cols.items():
+        if col in NATIVE_DATES[name]:
+            out[col] = pa.array(arr.astype("datetime64[D]"))
+        elif col.endswith("comment"):
+            a = pa.array(arr, pa.string())
+            rows = np.arange(len(arr))
+            a = pc.if_else(pa.array(rows % NATIVE_COMMA_EVERY == 0),
+                           pc.replace_substring(a, " ", ", ",
+                                                max_replacements=1), a)
+            out[col] = pc.if_else(pa.array(rows % NATIVE_QUOTE_EVERY == 0),
+                                  pc.replace_substring(a, " ", ' "',
+                                                       max_replacements=1),
+                                  a)
+        else:
+            out[col] = pa.array(arr)
+        if col == "l_suppkey":
+            key = cols["l_orderkey"]
+            starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+            sizes = np.diff(np.r_[starts, len(key)])
+            out["l_linenumber"] = pa.array(
+                np.arange(len(key)) - np.repeat(starts, sizes) + 1)
+    pacsv.write_csv(pa.table(out), path)
+    return os.path.getsize(path)
+
+
+def tables_differ(torch, a, b, n: int) -> list:
+    """The columns where two tables' first ``n`` rows differ: names and
+    order, dtypes, values (floats bit for bit) and validity; string
+    columns by value (codes mapped through the dictionaries)."""
+    import numpy as np
+
+    if a.column_names != b.column_names:
+        return ["<column names>"]
+    bad = []
+    for name in a.column_names:
+        ca, cb = a.column(name), b.column(name)
+        if ca.dtype != cb.dtype:
+            bad.append(name)
+            continue
+        da, db = ca.data[:n], cb.data[:n]
+        if ca.dtype.is_dictionary and ca.dictionary != cb.dictionary:
+            va, vb = ca.dictionary.values, cb.dictionary.values
+            remap = np.searchsorted(vb, va).clip(0, max(len(vb) - 1, 0))
+            if len(va) and not (vb[remap] == va).all():
+                bad.append(name)
+                continue
+            da = torch.from_numpy(remap.astype(np.int32)).to(da.device)[
+                da.long()]
+        if da.dtype.is_floating_point:
+            da, db = da.view(torch.int64), db.view(torch.int64)
+        ones = torch.ones(n, dtype=torch.bool, device=da.device)
+        va = ones if ca.validity is None else ca.validity[:n]
+        vb = ones if cb.validity is None else cb.validity[:n]
+        if not (torch.equal(da, db) and torch.equal(va, vb)):
+            bad.append(name)
+    return bad
+
+
+def host_rows(np, t, ref) -> dict:
+    """``t``'s valid rows on the host, column by column: string codes
+    mapped into ``ref``'s dictionary of the same column, floats as their
+    bits, a null as -1 with its validity kept beside."""
+    n = t.num_rows
+    out = {}
+    for name in t.column_names:
+        c = t.column(name)
+        data = c.data[:n].cpu().numpy()
+        if c.dtype.is_dictionary and \
+                c.dictionary != ref.column(name).dictionary:
+            remap = np.searchsorted(ref.column(name).dictionary.values,
+                                    c.dictionary.values)
+            data = remap[data] if len(remap) else data
+        elif data.dtype.kind == "f":
+            data = data.view(np.int64)
+        valid = (np.ones(n, bool) if c.validity is None
+                 else c.validity[:n].cpu().numpy())
+        out[name] = np.where(valid, data, -1)
+        out[name + "\x00valid"] = valid
+    return out
+
+
+def native_col_index(lib, table_id: str, name: str) -> int:
+    """A column's index in a native catalog image (whose dictionary
+    sidecars count as columns)."""
+    import ctypes
+
+    for i in range(lib.cylon_catalog_ncols(table_id.encode())):
+        buf = ctypes.create_string_buffer(4096)
+        tag, nbytes, hasv = (ctypes.c_int32(), ctypes.c_int64(),
+                             ctypes.c_int32())
+        lib.cylon_catalog_col_info(table_id.encode(), i, buf, 4096,
+                                   ctypes.byref(tag), ctypes.byref(nbytes),
+                                   ctypes.byref(hasv))
+        if buf.value.decode() == name:
+            return i
+    raise SystemExit(f"native: no column {name!r} in {table_id!r}")
+
+
+def native_phase(torch, card: str, dev="cuda") -> tuple:
+    """The port's native host library on the H100's host (phase 20).
+    Every line carries the card's name and power limit.
+
+    (a) The host library (``cylon_tpu_torch/native/cylon_host.cpp``)
+        built with ``g++`` on this host, its build seconds; a build
+        failure fails the run.
+    (b) TPC-H SF 1 (:data:`NATIVE_SF`, seed :data:`NATIVE_SEED`):
+        ``lineitem`` and ``orders`` from the port's ``tpch.dbgen``
+        written as CSV to a temporary directory (:func:`native_csv`:
+        quoted strings, commas and quotes in the comments, ISO dates),
+        each read onto the card with ``engine="native"`` and
+        ``engine="arrow"``, the date columns pinned to str on both
+        (:data:`NATIVE_DATES`). The two tables equal column by column
+        (:func:`tables_differ`), and each engine's wall beside its host
+        parse and its copy to the card (the spans ``native.csv_parse`` /
+        ``native.csv_to_device`` and ``io.csv_parse`` /
+        ``io.csv_to_device``) and the native parser's thread count.
+    (c) ``orders`` joined to ``lineitem`` on the order key on the card
+        from the native-read tables (``ops.join.join``, the sort route):
+        element for element the same join of the arrow-read tables, and
+        numpy's row count. Its launches are the phase's
+        (``native_launches``); the arrow-read join runs in a
+        ``reference()`` block.
+    (d) The same join through the native host join: ``catalog.to_native``
+        of both tables, ``cylon_catalog_join`` called on
+        ``native._load()``, then ``catalog.from_native`` onto the card;
+        equal to (c) as a row set, both sorted by (orderkey,
+        linenumber) on the host. Its walls beside the card's.
+    (e) The inputs (c) gave the kernels go to :func:`path_kernel_phase`
+        (in ``main``); the CSVs are deleted, and the live bytes must be
+        back at their level before the phase.
+
+    Returns ``(launches of (c), the kernels' inputs, the live bytes
+    before the phase)``."""
+    import ctypes
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cylon_tpu_torch import catalog, io, native, telemetry
+    from cylon_tpu_torch.config import CSVReadOptions
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.ops.join import join
+    from cylon_tpu_torch.tpch import dbgen
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    base_bytes = kept_bytes(torch, dev)
+
+    def record(part, case, **fields):
+        row = {"phase": "native", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"native: {msg}")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def span_s(name):
+        return telemetry.timer("tracing.span_seconds", name=name).sum
+
+    # -- (a) the build
+    t = time.perf_counter()
+    try:
+        native._load()
+    except native.NativeBuildError as e:
+        fail(f"(a) the host library did not build: {e}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    record("a", "build", load_s=time.perf_counter() - t,
+           build_s=native.last_build.get("seconds"),
+           built_here=bool(native.last_build),
+           library=native.library_path().name, compiler=gxx)
+
+    tmp = tempfile.mkdtemp(prefix="native_phase_")
+    ids = ("native.orders", "native.lineitem", "native.joined")
+    try:
+        # -- (b) both engines
+        t = time.perf_counter()
+        data = dbgen.generate(NATIVE_SF, NATIVE_SEED)
+        gen_s = time.perf_counter() - t
+        paths, tables = {}, {}
+        for name in ("orders", "lineitem"):
+            t = time.perf_counter()
+            paths[name] = os.path.join(tmp, f"{name}.csv")
+            nbytes = native_csv(np, data[name], name, paths[name])
+            record("b", f"write_{name}", sf=NATIVE_SF,
+                   rows=len(data[name][next(iter(data[name]))]),
+                   csv_bytes=nbytes, gen_s=gen_s,
+                   write_s=time.perf_counter() - t)
+        okey = data["orders"]["o_orderkey"]
+        lkey = data["lineitem"]["l_orderkey"]
+        del data
+        for name in ("orders", "lineitem"):
+            opts = CSVReadOptions(
+                column_types={c: "str" for c in NATIVE_DATES[name]})
+            got = {}
+            for engine, spans in (("native", "native.csv_"),
+                                  ("arrow", "io.csv_")):
+                parse0, copy0 = span_s(spans + "parse"), \
+                    span_s(spans + "to_device")
+                sync()
+                t = time.perf_counter()
+                got[engine] = io.read_csv(paths[name], opts, engine=engine,
+                                          device=dev).to_table()
+                sync()
+                wall = time.perf_counter() - t
+                record("b", f"read_{name}_{engine}", engine=engine,
+                       rows=got[engine].num_rows, wall_s=wall,
+                       parse_s=span_s(spans + "parse") - parse0,
+                       to_device_s=span_s(spans + "to_device") - copy0,
+                       parse_threads=(os.cpu_count() if engine == "native"
+                                      else None))
+            n = got["native"].num_rows
+            bad = tables_differ(torch, got["native"], got["arrow"], n)
+            record("b", f"equal_{name}", rows=n,
+                   arrow_rows=got["arrow"].num_rows,
+                   columns=got["native"].column_names, differ=bad)
+            if bad or got["arrow"].num_rows != n:
+                fail(f"(b) {name}: the engines' tables differ in {bad}")
+            tables[name] = got
+
+        # -- (c) the sort join on the card
+        rec = PathInputs()
+        reset_launches()
+        sync()
+        t = time.perf_counter()
+        with rec:
+            joined = join(tables["orders"]["native"],
+                          tables["lineitem"]["native"],
+                          left_on="o_orderkey", right_on="l_orderkey")
+            rows = joined.num_rows
+        sync()
+        card_s = time.perf_counter() - t
+        launches = launch_counts()
+        # the arrow-read join is the comparison: its launches come after
+        # the phase's were read, and are thrown away
+        t = time.perf_counter()
+        arrow_joined = join(tables["orders"]["arrow"],
+                            tables["lineitem"]["arrow"],
+                            left_on="o_orderkey", right_on="l_orderkey")
+        sync()
+        arrow_s = time.perf_counter() - t
+        bad = tables_differ(torch, joined, arrow_joined, rows)
+        want = int(np.isin(lkey, okey).sum())
+        reset_launches()
+        record("c", "sort_join", rows=rows, numpy_rows=want,
+               arrow_rows=arrow_joined.num_rows, differ=bad,
+               card_s=card_s, arrow_card_s=arrow_s, launches=launches)
+        if bad or rows != want or arrow_joined.num_rows != rows:
+            fail(f"(c) {rows} rows (numpy {want}); differ in {bad}")
+        for k in ("scan32", "pair_max_scan"):
+            if not launches[k]:
+                fail(f"(c) {k} never launched on the join")
+        del arrow_joined
+
+        # -- (d) the native host join
+        lib = native._load()
+        t = time.perf_counter()
+        catalog.put_table(ids[0], tables["orders"]["native"])
+        catalog.put_table(ids[1], tables["lineitem"]["native"])
+        catalog.to_native(ids[0])
+        catalog.to_native(ids[1])
+        to_native_s = time.perf_counter() - t
+        kl = (ctypes.c_int32 * 1)(native_col_index(lib, ids[0],
+                                                   "o_orderkey"))
+        kr = (ctypes.c_int32 * 1)(native_col_index(lib, ids[1],
+                                                   "l_orderkey"))
+        t = time.perf_counter()
+        rc = lib.cylon_catalog_join(ids[0].encode(), ids[1].encode(),
+                                    ids[2].encode(), 1, kl, kr, 0)
+        host_join_s = time.perf_counter() - t
+        if rc != 0:
+            fail(f"(d) cylon_catalog_join returned {rc}")
+        t = time.perf_counter()
+        catalog.from_native(ids[2], device=dev)
+        host = catalog.get_table(ids[2])
+        sync()
+        from_native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        a, b = host_rows(np, joined, joined), host_rows(np, host, joined)
+        order_a = np.lexsort((a["l_linenumber"], a["o_orderkey"]))
+        order_b = np.lexsort((b["l_linenumber"], b["o_orderkey"]))
+        differ = sorted(k.split("\x00")[0] for k in a
+                        if k not in b or not np.array_equal(
+                            a[k][order_a], b[k][order_b]))
+        record("d", "host_join", rows=host.num_rows, card_rows=rows,
+               differ=differ, to_native_s=to_native_s,
+               host_join_s=host_join_s, from_native_s=from_native_s,
+               card_join_s=card_s, compare_s=time.perf_counter() - t,
+               columns_match=sorted(a) == sorted(b))
+        if differ or host.num_rows != rows or sorted(a) != sorted(b):
+            fail(f"(d) the host join differs from the card's in {differ}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for tid in ids:
+            catalog.drop(tid)
+        native.catalog_clear()
+    del tables, joined, host
+    gc.collect()
+    record("launches", "native", launches=launches,
+           csv_dir_removed=not os.path.exists(tmp))
+    return launches, rec.inputs, base_bytes
+
+
 def main(argv) -> int:
     import gc
 
@@ -6515,6 +6875,13 @@ def main(argv) -> int:
                           card=card)
         emit({"phase": "fleet_only", "card": card,
               "fleet_launches": fleet_launches})
+        return 0
+    if "--native-only" in argv:
+        native_launches, native_inputs, _ = native_phase(torch, card)
+        path_kernel_phase(torch, rate, {}, "native", native_inputs,
+                          card=card)
+        emit({"phase": "native_only", "card": card,
+              "native_launches": native_launches})
         return 0
 
     stats = kernel_phase(torch, rate)
@@ -6610,6 +6977,21 @@ def main(argv) -> int:
         raise SystemExit(f"fleet: {fleet_after} bytes live after the "
                          f"phase, {fleet_base} before it")
     memory_line(torch, card, "19 fleet")
+    t20 = time.perf_counter()
+    native_launches, native_inputs, native_base = native_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "native", native_inputs,
+                      card=card)
+    del native_inputs
+    gc.collect()
+    native_after = kept_bytes(torch)
+    emit({"phase": "native_seconds", "card": card,
+          "seconds": time.perf_counter() - t20,
+          "kept_bytes_before": native_base,
+          "kept_bytes_after": native_after})
+    if native_after != native_base:
+        raise SystemExit(f"native: {native_after} bytes live after the "
+                         f"phase, {native_base} before it")
+    memory_line(torch, card, "20 native")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -6640,6 +7022,7 @@ def main(argv) -> int:
             "views_launches": views_launches[wrapper.__name__],
             "serve_launches": serve_launches[wrapper.__name__],
             "fleet_launches": fleet_launches[wrapper.__name__],
+            "native_launches": native_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -58,7 +58,11 @@ The port carries:
   prefetch and async-commit pipeline (``pipeline``), the out-of-core
   join, group-by and sort that spill partitions to host memory
   (``outofcore``), and the OOM→spill fallback with its TPC-H plans
-  (``fallback``, ``tpch.twophase``, ``tpch.streaming``).
+  (``fallback``, ``tpch.twophase``, ``tpch.streaming``);
+- the native host library (``native``, imported by name, as in
+  ``cylon_tpu``): the C++ host runtime behind the JAX package's C ABI,
+  built with ``g++`` at first use, which ``read_csv(engine="native")``
+  and ``catalog.to_native`` / ``from_native`` use.
 """
 
 from cylon_tpu_torch import dtypes, plan, telemetry

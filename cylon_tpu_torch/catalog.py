@@ -47,7 +47,7 @@ from typing import Mapping, Sequence
 
 from cylon_tpu_torch.config import JoinConfig
 from cylon_tpu_torch.errors import (FailedPrecondition, InvalidArgument,
-                                    KeyError_, NotImplemented_)
+                                    KeyError_)
 from cylon_tpu_torch.table import Table
 
 _lock = threading.Lock()
@@ -819,17 +819,22 @@ def table_to_pydict(table_id: str, env=None) -> Mapping[str, list]:
 # --------------------------------------------------------- native bridge
 def to_native(table_id: str) -> None:
     """Copy a catalog entry into the native C-ABI registry
-    (``cylon_tpu/catalog.py`` ``to_native``). Waits for the port's host
-    library (ROADMAP A9)."""
-    raise NotImplemented_(
-        "the native catalog bridge comes with the port's host library "
-        "(ROADMAP A9)")
+    (``cylon_catalog_*`` in ``native/cylon_host.cpp``) where any FFI
+    host (the JNI-style binding surface) can read it. A sharded id
+    raises, as every read without ``env`` does.
+
+    (``cylon_tpu/catalog.py`` ``to_native``)"""
+    from cylon_tpu_torch import native
+
+    native.catalog_put(table_id, get_table(table_id))
 
 
-def from_native(table_id: str) -> None:
-    """Import a table published in the native registry
-    (``cylon_tpu/catalog.py`` ``from_native``). Waits for the port's
-    host library (ROADMAP A9)."""
-    raise NotImplemented_(
-        "the native catalog bridge comes with the port's host library "
-        "(ROADMAP A9)")
+def from_native(table_id: str, device=None) -> None:
+    """Import a table published in the native registry into this
+    catalog, built on ``device`` (None: CUDA); the reverse of
+    :func:`to_native`.
+
+    (``cylon_tpu/catalog.py`` ``from_native``)"""
+    from cylon_tpu_torch import native
+
+    put_table(table_id, native.catalog_get(table_id, device=device))

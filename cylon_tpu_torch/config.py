@@ -80,8 +80,13 @@ class JoinConfig:
 @dataclasses.dataclass(frozen=True)
 class CSVReadOptions:
     """Parity: ``io/csv_read_config.hpp:28-152`` (``cylon_tpu/config.py:151``):
-    every builder method is a field. The port reads with pyarrow only
-    (the native engine waits for its host library)."""
+    every builder method is a field. Both engines of ``read_csv`` read
+    it: pyarrow honours every field; the native engine
+    (:mod:`cylon_tpu_torch.native`) honours the delimiter, quoting,
+    ``na_values``, ``strings_can_be_null``, int64 / float64 / str
+    ``column_types``, ``use_cols``, ``slice`` and
+    ``concurrent_file_reads``, and ``engine="auto"`` takes arrow for any
+    other field set."""
 
     use_threads: bool = True
     delimiter: str = ","

@@ -5,16 +5,20 @@ Port of ``cylon_tpu/io/__init__.py`` with its ``arrow`` engine (parity:
 ``table.cpp:788-795`` / ``:1121-1127``). pyarrow parses, as in the
 reference; the columns then go to the device as a padded table.
 
+:func:`read_csv` also takes the C++ chunk-parallel ``native`` engine of
+:mod:`cylon_tpu_torch.native`, and ``"auto"`` routes to it when its
+library builds and the options are plain, as
+``cylon_tpu/io/__init__.py:119-173`` does.
+
 Distributed reads follow the port's SPMD model: ``read_csv(env=...)``
 parses the whole file on every rank, which keeps its own block;
 :func:`read_csv_sharded` is the scale-out path, rank ``r`` parsing
-``paths[r]`` only. The JAX package's C++ ``native`` engine waits for the
-port's host library (ROADMAP A9): ``engine="native"`` raises
-:class:`NotImplemented_` and ``"auto"`` takes ``arrow``. Every file read
-and chunk reader's open hits the ``io_read`` injection point and runs
-under :func:`cylon_tpu_torch.resilience.retrying` (a transient failure
-is retried with backoff), as in ``cylon_tpu/io/__init__.py:96-101``,
-``:432-438``, ``:483-487`` and ``:610-613``.
+``paths[r]`` only. Every pyarrow file read and chunk reader's open hits
+the ``io_read`` injection point and runs under
+:func:`cylon_tpu_torch.resilience.retrying` (a transient failure is
+retried with backoff), as in ``cylon_tpu/io/__init__.py:96-101``,
+``:432-438``, ``:483-487`` and ``:610-613``; the native engine's read
+runs once, without them, as the JAX package's does.
 """
 
 import pickle
@@ -39,12 +43,62 @@ __all__ = ["read_csv", "read_csv_chunks", "read_csv_sharded", "read_json",
 
 
 def _check_engine(engine: str) -> None:
-    if engine == "native":
-        raise NotImplemented_(
-            "the native csv engine comes with the port's host library "
-            "(ROADMAP A9); use engine='arrow'")
-    if engine not in ("auto", "arrow"):
+    if engine not in ("auto", "arrow", "native"):
         raise InvalidArgument(f"unknown csv engine {engine!r}")
+
+
+def _native_plain(options: CSVReadOptions) -> bool:
+    """Can the native engine honour ``options``? It covers plain reads
+    plus quoting, ``na_values`` and int64 / float64 / str dtype
+    overrides; skip_rows, explicit or generated column names, escaping,
+    embedded newlines, bool spellings, arrow's default null spellings
+    for strings and missing-column filling take arrow
+    (``cylon_tpu/io/__init__.py:120-138``)."""
+    from cylon_tpu_torch.native import csv_dtype_ok
+
+    return (options.skip_rows == 0 and options.column_names is None
+            and not options.auto_generate_column_names
+            and not options.use_escaping
+            and not options.has_newlines_in_values
+            and options.true_values is None
+            and options.false_values is None
+            and options.double_quote
+            and not options.include_missing_columns
+            and not (options.strings_can_be_null
+                     and options.na_values is None)
+            and all(csv_dtype_ok(t)
+                    for t in (options.column_types or {}).values()))
+
+
+def _native_read(path_list: list, options: CSVReadOptions, capacity,
+                 dev) -> Table:
+    """The native engine's read: each path parsed on its own thread
+    (the parser itself splits a file into chunks over the host's cores),
+    then one ``concat_tables``. Parse failures raise :class:`IOError_`;
+    a library that does not build raises its
+    :class:`~cylon_tpu_torch.native.NativeBuildError`."""
+    from cylon_tpu_torch import native
+    from cylon_tpu_torch.ops.selection import concat_tables
+
+    kw = dict(quote_char=(options.quote_char if options.use_quoting
+                          else None),
+              na_values=(list(options.na_values) if options.na_values
+                         else None),
+              column_types=options.column_types,
+              strings_can_be_null=options.strings_can_be_null,
+              device=dev)
+    native._load()
+    try:
+        if len(path_list) == 1:
+            return native.csv_to_table(path_list[0], options.delimiter,
+                                       capacity=capacity, **kw)
+        tables = _read_all(
+            path_list,
+            lambda p: native.csv_to_table(p, options.delimiter, **kw),
+            options.concurrent_file_reads)
+        return concat_tables(tables, capacity=capacity)
+    except Exception as e:
+        raise IOError_(f"csv read failed: {e}") from e
 
 
 def _column_types_arrow(column_types):
@@ -136,21 +190,49 @@ def read_csv(paths, options: "CSVReadOptions | None" = None, env=None,
     """Read one or many CSVs (parity: ``FromCSV``, table.cpp:788: many
     paths on threads, concatenated in path order) into a DataFrame on
     ``device`` (None: CUDA). With ``env`` every rank parses the files and
-    keeps its own block: a distributed frame."""
+    keeps its own block: a distributed frame.
+
+    ``engine``: ``"native"`` the C++ chunk-parallel parser
+    (:mod:`cylon_tpu_torch.native`; options it cannot honour raise
+    :class:`NotImplemented_`), ``"arrow"`` pyarrow, ``"auto"`` native
+    when its library builds and the options are plain, else arrow. The
+    parse and the copy to the device run under the spans
+    ``native.csv_parse`` / ``native.csv_to_device`` or ``io.csv_parse``
+    / ``io.csv_to_device``."""
+    from cylon_tpu_torch import native
+    from cylon_tpu_torch.utils import tracing
+
     _check_engine(engine)
     dev = _device.resolve(device)
     options = options or CSVReadOptions()
     path_list = [paths] if isinstance(paths, (str, bytes)) else list(paths)
-    try:
-        atables = _read_all(path_list,
-                            lambda p: _arrow_csv_read(p, options),
-                            options.concurrent_file_reads)
-    except Exception as e:   # pyarrow raises its own hierarchy
-        raise IOError_(f"csv read failed: {e}") from e
+    plain = _native_plain(options)
+    if engine == "native" or (engine == "auto" and plain
+                              and native.available()):
+        if not plain:
+            raise NotImplemented_(
+                "native csv engine does not support skip_rows/"
+                "column_names/escaping/newlines-in-values/bool "
+                "spellings/missing-column filling/default null "
+                "spellings/non-{int64,float64,str} dtype overrides; "
+                "use engine='arrow'")
+        t = _native_read(path_list, options, capacity, dev)
+        if options.use_cols:
+            t = t.select(list(options.use_cols))
+        return _frame(t, env, options.slice)
+    with tracing.span("io.csv_parse"):
+        try:
+            atables = _read_all(path_list,
+                                lambda p: _arrow_csv_read(p, options),
+                                options.concurrent_file_reads)
+        except Exception as e:   # pyarrow raises its own hierarchy
+            raise IOError_(f"csv read failed: {e}") from e
     import pyarrow as pa
 
     at = pa.concat_tables(atables) if len(atables) > 1 else atables[0]
-    return _frame(Table.from_arrow(at, capacity, dev), env, options.slice)
+    with tracing.span("io.csv_to_device"):
+        t = Table.from_arrow(at, capacity, dev)
+    return _frame(t, env, options.slice)
 
 
 def _exchange_meta(env, local_meta: dict, device) -> list:

@@ -240,7 +240,7 @@ def encode_value(v) -> dict:
         return x
 
     def _enc_item(x):
-        if _missing(x):
+        if x is None or x is pd.NA or x is pd.NaT:
             return None
         if isinstance(x, bytes):
             return {"__b64__": base64.b64encode(x).decode("ascii")}
@@ -253,9 +253,14 @@ def encode_value(v) -> dict:
         raise InvalidArgument(
             f"fleet result codec cannot encode {type(x).__name__}")
 
+    def _enc_cell(x):
+        # a string, object or nullable column's cell: NaN there is a
+        # missing value, while a float scalar or float column keeps it
+        return None if _missing(x) else _enc_item(x)
+
     def _obj(items) -> dict:
         return {"dtype": "object", "kind": "obj",
-                "data": [_enc_item(x) for x in items]}
+                "data": [_enc_cell(x) for x in items]}
 
     def _enc_col(col):
         if isinstance(col, pd.Series):
@@ -266,7 +271,7 @@ def encode_value(v) -> dict:
                      or pd.api.types.is_bool_dtype(dt)):
                 # nullable Int64 / Float64 / boolean: dtype kept
                 return {"dtype": str(dt), "kind": "ext",
-                        "data": [_enc_item(x) for x in
+                        "data": [_enc_cell(x) for x in
                                  col.astype(object).tolist()]}
             if pd.api.types.is_string_dtype(dt):
                 return _obj(col.astype(object).tolist())

@@ -21,9 +21,31 @@ import numpy as np
 import torch
 
 from cylon_tpu_torch import device as _device
-from cylon_tpu_torch.column import Column
+from cylon_tpu_torch import dtypes
+from cylon_tpu_torch.column import Column, Dictionary
 from cylon_tpu_torch.errors import InvalidArgument, KeyError_, OutOfCapacity
 from cylon_tpu_torch.utils import pow2_bucket
+
+
+def _arrow_dict_column(arr, capacity, device) -> Column:
+    """A pyarrow string array as a dictionary column, encoded and sorted
+    by pyarrow: the same codes, sorted values and validity as
+    ``Column.from_numpy`` of ``arr.to_numpy()`` (a null takes the empty
+    string's code there too), without a Python sort of every value."""
+    import pyarrow.compute as pc
+
+    valid = None
+    if arr.null_count:
+        valid = arr.is_valid().to_numpy(zero_copy_only=False)
+        arr = pc.fill_null(arr, "")
+    enc = arr.dictionary_encode()
+    order = pc.sort_indices(enc.dictionary).to_numpy()
+    rank = np.empty(len(order), np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    codes = rank[enc.indices.to_numpy(zero_copy_only=False)]
+    values = enc.dictionary.take(order).to_numpy(zero_copy_only=False)
+    return Column._pad(codes, valid, dtypes.string, Dictionary(values),
+                       capacity, device)
 
 
 class Table:
@@ -268,11 +290,11 @@ class Table:
             arr = atable.column(name).combine_chunks()
             if pa.types.is_string(arr.type) \
                     or pa.types.is_large_string(arr.type):
-                cols[str(name)] = Column.from_numpy(
-                    arr.to_numpy(zero_copy_only=False), capacity,
-                    device=dev,
-                    string_storage=Table._storage_of(string_storage,
-                                                     str(name)))
+                storage = Table._storage_of(string_storage, str(name))
+                cols[str(name)] = _arrow_dict_column(arr, capacity, dev) \
+                    if storage == "dict" else Column.from_numpy(
+                        arr.to_numpy(zero_copy_only=False), capacity,
+                        device=dev, string_storage=storage)
                 continue
             if arr.null_count and (pa.types.is_integer(arr.type)
                                    or pa.types.is_boolean(arr.type)):

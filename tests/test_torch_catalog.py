@@ -1,7 +1,7 @@
 """The port's table catalog (``cylon_tpu_torch.catalog``) against the JAX
 package's (``cylon_tpu.catalog``) on the same inputs: every case of
-``tests/test_catalog.py`` but the native bridge (which waits for the
-port's host library), the pin/drop refusals, the ``stats`` key set,
+``tests/test_catalog.py`` (the native bridge round trip too), the
+pin/drop refusals, the ``stats`` key set,
 ``table_version`` digests string-equal to JAX's, the append sequence
 (``append``, ``deltas_since``, ``restore_version``, ``on_append``), the
 OOM report's tables, and shards at W = 4 on ``ThreadWorld`` against
@@ -19,7 +19,7 @@ from cylon_tpu import catalog as jcat
 from cylon_tpu_torch import Table, catalog
 from cylon_tpu_torch.context import CylonEnv
 from cylon_tpu_torch.errors import (FailedPrecondition, InvalidArgument,
-                                    KeyError_, NotImplemented_)
+                                    KeyError_)
 from cylon_tpu_torch.parallel.comm import ThreadWorld
 from cylon_tpu_torch.telemetry import memory
 
@@ -135,11 +135,37 @@ def test_read_csv_by_id(tmp_path):
 
 
 def test_native_bridge_waits_for_the_host_library():
-    catalog.put_table("t", Table.from_pydict({"a": [1]}, device="cpu"))
-    with pytest.raises(NotImplemented_, match="A9"):
+    """The host library is here: ``to_native`` / ``from_native`` round
+    trip a catalog entry through the native registry as the JAX
+    package's bridge does; a sharded id raises without ``env``."""
+    from cylon_tpu import native as jnative
+    from cylon_tpu_torch import native
+
+    data = {"a": np.array([3, 1, 2]), "s": np.array(["x", None, "y"],
+                                                     object)}
+    catalog.put_table("t", Table.from_pydict(data, device="cpu"))
+    jcat.put_table("t", jct.Table.from_pydict(data))
+    try:
         catalog.to_native("t")
-    with pytest.raises(NotImplemented_, match="A9"):
-        catalog.from_native("t")
+        jcat.to_native("t")
+        catalog.drop("t")
+        jcat.drop("t")
+        catalog.from_native("t", device="cpu")
+        jcat.from_native("t")
+        assert catalog.table_to_pydict("t") == jcat.table_to_pydict("t") \
+            == {"a": [3, 1, 2], "s": ["x", None, "y"]}
+    finally:
+        native.catalog_clear()
+        jnative.catalog_clear()
+
+    def rank(env):
+        catalog.put_table("sh", Table.from_pydict(
+            {"a": np.arange(4)}, device="cpu"), env=env)
+        return True
+
+    ThreadWorld(2).run(lambda comm: rank(CylonEnv(comm, device="cpu")))
+    with pytest.raises(InvalidArgument, match="shards"):
+        catalog.to_native("sh")
 
 
 def test_pin_unpin_drop_refusals_name_holders():

@@ -286,6 +286,54 @@ def test_codec_numeric_frames_decode_as_the_jax_envelopes():
         assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("value", [float("nan"), np.float64("nan")],
+                         ids=["float", "np_float64"])
+def test_codec_nan_scalar_stays_nan_as_in_the_jax_codec(value):
+    """A NaN scalar (the median of no valid row) crosses the codec as
+    NaN, not as a missing value, as the JAX package's codec gives."""
+    from cylon_tpu.serve import fleet as jfleet
+
+    ours = decode_value(json.loads(json.dumps(encode_value(value),
+                                              allow_nan=False)))
+    theirs = jfleet.decode_value(json.loads(json.dumps(
+        jfleet.encode_value(value), allow_nan=False)))
+    assert isinstance(ours, float) and np.isnan(ours)
+    assert isinstance(theirs, float) and np.isnan(theirs)
+
+
+def test_router_delivers_a_nan_scalar_as_its_alone_run(tmp_path):
+    """A query whose answer is a NaN scalar, routed through an
+    in-process FleetRouter, equals the same query run alone."""
+    import cylon_tpu_torch as ct
+
+    def median_of_nothing():
+        df = ct.DataFrame({"v": np.array([np.nan, np.nan, np.nan])},
+                          device="cpu")
+        return df.median()["v"]
+
+    alone = median_of_nothing()
+    assert np.isnan(alone)
+    lay = FleetLayout(str(tmp_path))
+    engines = {n: ServeEngine(policy=ServePolicy(max_queue=16),
+                              durable_dir=lay.engine_dir(n))
+               for n in ("a0", "a1")}
+    for eng in engines.values():
+        eng.register_query("m", median_of_nothing)
+    router = _polled(FleetRouter(
+        [LocalEngineClient(e, n) for n, e in engines.items()],
+        poll_interval=0.1, fail_threshold=2, unhealthy_dwell=1.0))
+    try:
+        got = router.submit("m", tenant="alice",
+                            idempotency_key="nan").result(WAIT)
+        assert got is not None and np.isnan(got)
+        assert np.array_equal(np.asarray(got), np.asarray(alone),
+                              equal_nan=True)
+    finally:
+        router.close()
+        for e in engines.values():
+            e.close()
+
+
 # ------------------------------------------------- affinity
 def test_affinity_order_is_stable_and_spreads():
     names = ["e0", "e1", "e2"]

@@ -1,8 +1,8 @@
 """The port's io (CSV, Parquet, JSON lines; one file or many; a rank a
 file) against the JAX package's on the same files in ``tmp_path``, on
-the CPU: the cases of ``tests/test_io.py`` that use neither the native
-engine nor a resilience hook, each read compared with the JAX package's
-read of the same file and with pandas; ``read_csv_sharded`` and
+the CPU: the cases of ``tests/test_io.py`` that use no resilience hook,
+each read compared with the JAX package's read of the same file and with
+pandas (the native engine's own cases are in ``test_torch_native.py``); ``read_csv_sharded`` and
 ``write_csv_sharded`` at W = 4 on ``ThreadWorld``.
 """
 
@@ -102,12 +102,20 @@ def test_csv_missing_file():
 
 
 def test_csv_engines(tmp_path):
-    p = _write(tmp_path, "e.csv", "a\n1\n")
-    with pytest.raises(NotImplemented_, match="A9"):
-        io.read_csv(p, engine="native", device=CPU)
+    """Every engine reads the file as the JAX package's native read
+    does; the native engine refuses options it cannot honour."""
+    p = _write(tmp_path, "e.csv", "a,s\n1,x\n2,y\n")
+    want = jio.read_csv(p, engine="native").to_pandas()
+    for engine in ("native", "auto", "arrow"):
+        got = io.read_csv(p, engine=engine, device=CPU)
+        assert got.to_dict() == {"a": [1, 2], "s": ["x", "y"]}, engine
+        pd.testing.assert_frame_equal(got.to_pandas(), want,
+                                      check_dtype=False)
+    with pytest.raises(NotImplemented_, match="native csv engine"):
+        io.read_csv(p, CSVReadOptions(skip_rows=1), engine="native",
+                    device=CPU)
     with pytest.raises(InvalidArgument):
         io.read_csv(p, engine="pandas", device=CPU)
-    assert io.read_csv(p, engine="auto", device=CPU).to_dict() == {"a": [1]}
 
 
 def test_readers_default_to_cuda(tmp_path, monkeypatch):
@@ -346,3 +354,37 @@ def test_parquet_options_roundtrip(tmp_path, sample_df):
     jproj = jio.read_parquet(path, options=JParquetOptions(
         use_cols=["k"], concurrent_file_reads=False))
     pd.testing.assert_frame_equal(proj.to_pandas(), jproj.to_pandas())
+
+
+@pytest.mark.parametrize("case", ["plain", "nulls", "empty", "large"])
+def test_from_arrow_dictionary_encoding_matches_from_numpy(rng, case):
+    """``Table.from_arrow`` encodes a string column with pyarrow; its
+    codes, sorted dictionary and validity equal ``Column.from_numpy``'s
+    of the same values (nulls take the empty string's code there)."""
+    import pyarrow as pa
+
+    from cylon_tpu_torch.column import Column
+
+    pool = np.array(["", "a", "b", "ä", "zz", "Ωmega", "a b, c", "\"q\""],
+                    object)
+    vals = list(pool[rng.integers(0, len(pool), 200)])
+    if case == "nulls":
+        vals = [None if i % 7 == 0 else v for i, v in enumerate(vals)]
+    if case == "empty":
+        vals = []
+    arr = pa.array(vals, pa.large_string() if case == "large"
+                   else pa.string())
+    got = ct.Table.from_arrow(pa.table({"s": arr}), device=CPU).column("s")
+    want = Column.from_numpy(np.array(vals, object), device=CPU)
+    assert got.dtype == want.dtype
+    assert got.dictionary == want.dictionary
+    assert torch_equal(got.data, want.data)
+    assert (got.validity is None) == (want.validity is None)
+    if got.validity is not None:
+        assert torch_equal(got.validity, want.validity)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a, b)

@@ -244,6 +244,33 @@ def test_fleet_and_bench_pull_in_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+_NATIVE_PROBE = """
+import sys
+from cylon_tpu_torch import native
+lib = native._load()
+assert native.murmur3_32(b"hello", 0) == 0x248BFA47
+print("PATH", native.library_path())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "cylon_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_native_import_pulls_in_no_jax_and_builds_into_the_port():
+    """``import cylon_tpu_torch.native`` and a build pull in neither
+    ``jax`` nor ``cylon_tpu``, and the library lands under
+    ``cylon_tpu_torch/_build/``, never under ``cylon_tpu/``."""
+    out = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    path = Path(out.stdout.split("PATH ", 1)[1].split()[0])
+    assert path.exists()
+    assert path.parent == PKG / "_build"
+    assert (ROOT / "cylon_tpu") not in path.parents
+
+
 def test_fleet_engines_default_to_cuda_and_never_fall_back(tmp_path):
     """``spawn_engine``, the engine process's ``--device`` and the bench
     legs default to CUDA; a child asked for CUDA that finds no card dies
@@ -499,6 +526,13 @@ _COUNTERPARTS = (
     "cylon_tpu_torch.serve.bench:run_bench",
     "cylon_tpu_torch.serve.bench:run_hotmix_bench",
     "cylon_tpu_torch.serve.bench:run_refresh_bench",
+    # the native host library (ROADMAP A9)
+    "cylon_tpu_torch.native",
+    "cylon_tpu_torch.native:read_csv_native",
+    "cylon_tpu_torch.native:csv_to_table",
+    "cylon_tpu_torch.native:catalog_put",
+    "cylon_tpu_torch.native:catalog_get",
+    "cylon_tpu_torch.catalog:from_native",
 )
 
 
@@ -560,6 +594,29 @@ def test_chip_smoke_drives_the_frame_phase():
     assert main.index("sort_setops_phase(") < main.index("frame_phase(") \
         < main.index('path_kernel_phase(torch, rate, stats, "frame"')
     assert '"frame_launches"' in main
+
+
+def test_chip_smoke_drives_the_native_phase():
+    """``chip_smoke.py`` names phase 20 in its docstring, runs it after
+    phase 19, holds its kernels against their plain versions, puts its
+    launches in the kernels line and ends it in a memory line."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    assert "20. native" in ast.get_docstring(tree)
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "native_phase" in funcs
+    main = src[src.index("def main("):]
+    # the whole run's calls (the last; ``--native-only`` calls it first)
+    assert main.rindex("fleet_phase(") < main.rindex("native_phase(")
+    assert '"native_launches"' in main
+    assert 'path_kernel_phase(torch, rate, stats, "native"' in main
+    assert 'memory_line(torch, card, "20 ' in main
+    body = src[src.index("def native_phase("):src.index("def main(")]
+    for part in ("(a)", "(b)", "(c)", "(d)"):
+        assert f"    {part} " in body, part
+    for call in ('engine="native"', 'engine="arrow"', "to_native(",
+                 "cylon_catalog_join(", "from_native(", "join("):
+        assert call in body, call
 
 
 def test_no_kernel_takes_the_pointer_of_a_temporary_tensor():

@@ -228,6 +228,7 @@ def test_profile_memory_block_unknown_when_sampling_off(monkeypatch):
 
 def test_profile_render_safe_against_concurrent_steps():
     gate = threading.Event()
+    stepped = threading.Event()
 
     def churn():
         from cylon_tpu_torch.utils import tracing
@@ -238,14 +239,19 @@ def test_profile_render_safe_against_concurrent_steps():
                 pass
             telemetry.counter("exchange.rows", op=f"op{i % 53}").inc(1)
             i += 1
+            stepped.set()
             yield
         return i
 
     eng = ServeEngine(policy=ServePolicy(max_queue=2))
     tk = eng.submit(churn, tenant="race")
     errors = []
+    # poll for 1 s, and on until the churn step has yielded once: on a
+    # loaded host the scheduler may not reach the request within 1 s
     t_end = time.monotonic() + 1.0
-    while time.monotonic() < t_end:
+    give_up = time.monotonic() + WAIT
+    while (time.monotonic() < t_end or not stepped.is_set()) \
+            and time.monotonic() < give_up:
         try:
             tk.profile()
         except Exception as e:  # the race under test

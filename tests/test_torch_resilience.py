@@ -439,17 +439,23 @@ def test_ooc_sort_chunk_source_fault_mid_pass2(rng):
 
 # ------------------------------------------------------ io retry wiring
 def test_read_csv_retries_injected_io_fault(tmp_path):
+    """The arrow engine's read retries (``"auto"`` takes the native
+    engine for this file, whose read runs once, as the JAX package's
+    does: ``tests/test_resilience.py`` reads with ``engine="arrow"``)."""
     p = str(tmp_path / "t.csv")
     pd.DataFrame({"x": np.arange(20)}).to_csv(p, index=False)
     plan = FaultPlan([FaultRule("io_read", nth=1, times=1)])
     with resilience.active(plan):
-        df = ct.read_csv(p, device="cpu")
+        df = ct.read_csv(p, engine="arrow", device="cpu")
     assert plan.hits("io_read") == 2
     assert len(df) == 20
     plan = FaultPlan([FaultRule("io_read", nth=1, times=0)])
     with resilience.active(plan):
         with pytest.raises(IOError_):
-            ct.read_csv(p, device="cpu")
+            ct.read_csv(p, engine="arrow", device="cpu")
+        hits = plan.hits("io_read")
+        assert len(ct.read_csv(p, engine="native", device="cpu")) == 20
+    assert plan.hits("io_read") == hits
 
 
 @pytest.mark.parametrize("fmt", ["parquet", "csv"])
