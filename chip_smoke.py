@@ -9,6 +9,8 @@ and check it.
                                         # no kernels line and no ok line
     python3 chip_smoke.py --native-only # phases 1, 2 and 20 alone, the
                                         # same way
+    python3 chip_smoke.py --hier-only   # phases 1, 2 and 21 alone, the
+                                        # same way
 
 Phases, each printing one JSON line:
 
@@ -186,6 +188,17 @@ Phases, each printing one JSON line:
     ``from_native``, equal to it as a row set; then the kernels at this
     phase's shapes, as in phase 10, and the live bytes back at their
     level before the phase; see :func:`native_phase`.
+21. hier: the two-tier exchange (``ThreadWorld(8, devices_per_slice=4)``,
+    2 slices of 4 ranks, the JAX package's slice x worker mesh) against
+    the flat ``ThreadWorld(8)`` on phase 4's 16M x 16M rows, 2M a rank
+    a side: ``dist_join``, ``shuffle``, ``dist_groupby``, ``dist_sort``
+    and ``dist_union``, each after a flat warm-up twice a world in
+    turns, every rank's output bit for bit the flat world's, the join's
+    row count and checksum numpy's; each run's wall, peak bytes, ``shuffle.intra`` and
+    ``shuffle.inter`` spans, ``exchange.calls`` by path and
+    ``exchange.pad_ratio`` (2.25 for the join and the shuffle); then
+    the kernels at this phase's shapes, as in phase 10, and the live
+    bytes back at their level before the phase; see :func:`hier_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -196,13 +209,15 @@ Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
 ``telemetry_launches``, ``spill_launches``, ``views_launches``,
-``serve_launches``, ``fleet_launches`` and ``native_launches``, on
+``serve_launches``, ``fleet_launches``, ``native_launches`` and
+``hier_launches``, on
 phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
 phase 15's compared runs, phase 16's parts (a)-(f), phase 17's parts
 (a)-(d), the engine's own requests in phase 18's parts (a)-(f), phase
 19's served requests (the engine processes' own, as each logs them at a
-clean close, and the in-process engines' of (d) and (e)) and phase
-20's join of the native-read tables), the ``nvidia-smi``
+clean close, and the in-process engines' of (d) and (e)), phase 20's
+join of the native-read tables and phase 21's two-tier runs), the
+``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
 non-zero and prints no result.
@@ -6830,6 +6845,197 @@ def native_phase(torch, card: str, dev="cuda") -> tuple:
     return launches, rec.inputs, base_bytes
 
 
+# ------------------------------------------------------------ phase 21
+#: the two-tier world: 2 slices of 4 ranks, the JAX tests' mesh
+HIER_WORLD = 8
+HIER_SLICE = 4
+#: each operator's runs after its flat warm-up: the worlds in turns
+#: (None: flat; else ranks a slice)
+HIER_TURNS = (None, HIER_SLICE, HIER_SLICE, None)
+HIER_OPS = ("dist_join", "shuffle", "dist_groupby", "dist_sort",
+            "dist_union")
+
+
+def hier_phase(torch, card: str, dev="cuda", rows: int = DIST_ROWS) -> tuple:
+    """The two-tier exchange (phase 21): ``ThreadWorld(8,
+    devices_per_slice=4)``, 2 slices of 4 ranks as the JAX package's
+    slice x worker mesh, against the flat ``ThreadWorld(8)`` on the card
+    (one card holds no valid NCCL world of several processes). Phase
+    4's sizes and distribution: ``rows`` x ``rows`` int64 keys uniform
+    over the rows and float64 values from a seeded generator, each rank
+    holding ``rows / 8`` a side. Every line carries the card's name and
+    power limit.
+
+    (a) ``dist_join``, ``shuffle``, ``dist_groupby`` (sum, count,
+        min), ``dist_sort`` and ``dist_union``, each first on the flat
+        world as a warm-up whose output is the reference, then on the
+        worlds in turns (:data:`HIER_TURNS`: flat, 2 x 4, 2 x 4, flat),
+        each two-tier run from zeroed launch counters (their sum is the
+        phase's launches, ``hier_launches``). A line a run: the wall by
+        CUDA events, the peak bytes (the reference held), the
+        ``shuffle.intra`` and ``shuffle.inter`` spans (summed over the
+        ranks), ``exchange.calls`` by path and ``exchange.pad_ratio``.
+    (b) A line an operator: every rank's output of every run equal to
+        the reference, bit for bit; the join's row total numpy's
+        ``sum_k cnt_l[k] * cnt_r[k]`` and its checksum ``sum v_l * v_r``
+        within rtol 1e-9; ``exchange.calls{path="hier"}`` 8 a run and
+        the join's and the shuffle's ``pad_ratio`` 2.25 (rows of 4
+        words: (2w + 1) / w); both worlds' walls.
+    (c) The inputs the two-tier runs gave the kernels go to
+        :func:`path_kernel_phase` (in ``main``); the live bytes must be
+        back at their level before the phase.
+
+    Returns ``(launches of the two-tier runs, the kernels' inputs, the
+    live bytes before the phase)``."""
+    import gc
+
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import dtypes, telemetry
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    base_bytes = kept_bytes(torch, dev)
+    cuda = dev == "cuda"
+
+    def record(part, case, **fields):
+        row = {"phase": "hier", "part": part, "case": case, "card": card,
+               **fields, "phase_s": time.perf_counter() - t_phase}
+        emit(row)
+        return row
+
+    def fail(msg):
+        raise SystemExit(f"hier: {msg}")
+
+    w, n = HIER_WORLD, rows
+    nr = n // w
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    sides = [(torch.randint(0, n, (n,), dtype=torch.int64, device=dev,
+                            generator=g),
+              torch.rand(n, dtype=torch.float64, device=dev, generator=g))
+             for _ in range(2)]
+
+    def shard(side, r):
+        k, v = sides[side]
+        return ct.Table({"k": Column(k[r * nr:(r + 1) * nr], None,
+                                     dtypes.int64),
+                         "v": Column(v[r * nr:(r + 1) * nr], None,
+                                     dtypes.float64)}, nr)
+
+    ops = {
+        "dist_join": lambda e, lt, rt: ct.dist_join(e, lt, rt, on="k"),
+        "shuffle": lambda e, lt, rt: ct.shuffle(e, lt, ["k"]),
+        "dist_groupby": lambda e, lt, rt: ct.dist_groupby(
+            e, lt, ["k"], [("v", "sum"), ("v", "count"), ("v", "min")]),
+        "dist_sort": lambda e, lt, rt: ct.dist_sort(e, lt, "k"),
+        "dist_union": lambda e, lt, rt: ct.dist_union(e, lt, rt)}
+
+    def run(op, per, warm_up=False):
+        def rank(comm):
+            e = ct.CylonEnv(comm)
+            return ops[op](e, shard(0, e.rank), shard(1, e.rank))
+
+        world = ct.ThreadWorld(w, devices_per_slice=per)
+        telemetry.reset("exchange.")
+        tracing.reset_timings()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = event_wall(torch, lambda: world.run(rank))
+        else:
+            t = time.perf_counter()
+            out = world.run(rank)
+            ms = (time.perf_counter() - t) * 1e3
+        spans = tracing.timings()
+        snap = telemetry.snapshot()
+        calls = {p: snap.get(f"exchange.calls{{op={op},path={p}}}",
+                             {}).get("value", 0) for p in ("hier", "ragged")}
+        ratio = snap.get(f"exchange.pad_ratio{{op={op}}}", {}).get("value")
+        record("a", op, world="2x4" if per else "flat", warm_up=warm_up,
+               wall_ms=ms,
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+               rows=sum(t.num_rows for t in out),
+               spans={s: {"count": spans[s].count,
+                          "total_s": spans[s].total_s}
+                      for s in ("shuffle.intra", "shuffle.inter")
+                      if s in spans},
+               exchange_calls=calls, pad_ratio=ratio,
+               bytes_true=telemetry.total("exchange.bytes_true"),
+               bytes_padded=telemetry.total("exchange.bytes_padded"))
+        return out, calls, ratio, ms
+
+    # -- the join's oracle, on the host
+    lk, rk = (sides[s][0].cpu().numpy() for s in (0, 1))
+    lv, rv = (sides[s][1].cpu().numpy() for s in (0, 1))
+    want_rows = int((np.bincount(lk, minlength=n).astype(np.int64)
+                     * np.bincount(rk, minlength=n)).sum())
+    want_check = float((np.bincount(lk, weights=lv, minlength=n)
+                        * np.bincount(rk, weights=rv, minlength=n)).sum())
+
+    # -- (a) and (b), an operator at a time: a flat warm-up whose output
+    # is the reference, then the two worlds in turns
+    rec = PathInputs()
+    launches = {}
+    for op in HIER_OPS:
+        ref = run(op, None, warm_up=True)[0]
+        walls = {"flat": [], "2x4": []}
+        equal, calls, ratios = [], [], []
+        for per in HIER_TURNS:
+            if per:
+                with rec:
+                    reset_launches()
+                    out, c, r, ms = run(op, per)
+                    for name, k in launch_counts().items():
+                        launches[name] = launches.get(name, 0) + k
+                calls.append(c)
+                ratios.append(r)
+            else:
+                out, _, _, ms = run(op, None)
+            walls["2x4" if per else "flat"].append(ms)
+            equal.append(sum(same_bits(torch, a, b)
+                             for a, b in zip(ref, out)))
+            if op == "dist_join" and per and len(calls) == 1:
+                got_rows = sum(t.num_rows for t in out)
+                check = float(sum(float(
+                    (t.column("v_x").data[:t.num_rows]
+                     * t.column("v_y").data[:t.num_rows]).sum())
+                    for t in out))
+            del out
+        fields = {"walls_ms": walls, "ranks_equal_flat": equal,
+                  "exchange_calls": calls, "pad_ratio": ratios,
+                  "hier_over_flat": sum(walls["2x4"]) / sum(walls["flat"])}
+        if op == "dist_join":
+            fields.update(result_rows=got_rows, expected_rows=want_rows,
+                          checksum=check, expected_checksum=want_check)
+        record("b", op, **fields)
+        del ref
+        if any(e != w for e in equal):
+            fail(f"{op}: ranks equal to the flat world {equal}, not "
+                 f"{w} a run")
+        if any(c["hier"] != w or c["ragged"] for c in calls):
+            fail(f"{op}: exchange.calls {calls}")
+        if op in ("dist_join", "shuffle") and any(r != 2.25
+                                                  for r in ratios):
+            fail(f"{op}: pad_ratio {ratios}, not 2.25")
+        if op == "dist_join" and (
+                got_rows != want_rows
+                or abs(check - want_check) > 1e-9 * abs(want_check)):
+            fail(f"dist_join: {got_rows} rows, checksum {check}; numpy "
+                 f"{want_rows}, {want_check}")
+    del sides
+    gc.collect()
+    record("launches", "hier", launches=launches)
+    if cuda and (launches["row_hash"] < 1 or launches["scan32"] < 1
+                 or launches["pair_max_scan"] < 1):
+        fail(f"the two-tier path missed a kernel: {launches}")
+    return launches, rec.inputs, base_bytes
+
+
 def main(argv) -> int:
     import gc
 
@@ -6882,6 +7088,14 @@ def main(argv) -> int:
                           card=card)
         emit({"phase": "native_only", "card": card,
               "native_launches": native_launches})
+        return 0
+    if "--hier-only" in argv:
+        t21 = time.perf_counter()
+        hier_launches, hier_inputs, _ = hier_phase(torch, card)
+        path_kernel_phase(torch, rate, {}, "hier", hier_inputs, card=card)
+        emit({"phase": "hier_only", "card": card,
+              "hier_launches": hier_launches,
+              "seconds": time.perf_counter() - t21})
         return 0
 
     stats = kernel_phase(torch, rate)
@@ -6992,6 +7206,19 @@ def main(argv) -> int:
         raise SystemExit(f"native: {native_after} bytes live after the "
                          f"phase, {native_base} before it")
     memory_line(torch, card, "20 native")
+    t21 = time.perf_counter()
+    hier_launches, hier_inputs, hier_base = hier_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "hier", hier_inputs, card=card)
+    del hier_inputs
+    gc.collect()
+    hier_after = kept_bytes(torch)
+    emit({"phase": "hier_seconds", "card": card,
+          "seconds": time.perf_counter() - t21,
+          "kept_bytes_before": hier_base, "kept_bytes_after": hier_after})
+    if hier_after != hier_base:
+        raise SystemExit(f"hier: {hier_after} bytes live after the "
+                         f"phase, {hier_base} before it")
+    memory_line(torch, card, "21 hier")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -7023,6 +7250,7 @@ def main(argv) -> int:
             "serve_launches": serve_launches[wrapper.__name__],
             "fleet_launches": fleet_launches[wrapper.__name__],
             "native_launches": native_launches[wrapper.__name__],
+            "hier_launches": hier_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -32,7 +32,11 @@ The port carries:
   ``ThreadWorld`` (W ranks as threads, for tests) and
   ``ProcessGroupComm`` over ``torch.distributed`` (NCCL on the cards,
   gloo on the CPU), which ``CylonEnv(config=DistConfig())`` sets up:
-  ``torchrun --nproc-per-node W prog.py`` runs W ranks;
+  ``torchrun --nproc-per-node W prog.py`` runs W ranks; the two-tier
+  (node x GPU) world of the JAX package's slice x worker mesh, whose
+  table exchange moves rows inside each node first
+  (``DistConfig(devices_per_slice=)``, or ``torchrun`` across nodes;
+  ``ThreadWorld(W, devices_per_slice=L)`` in tests);
 - the user-facing layer: ``DataFrame`` / ``Series`` (``frame``,
   ``series``; ``env=`` dispatches the distributed ops, and a
   distributed frame is this rank's shard), ``loc`` / ``iloc`` over

@@ -13,6 +13,11 @@ JAX package's ``TPUConfig`` stands here).
 Run W processes with ``torchrun --nproc-per-node W prog.py``, each
 calling ``CylonEnv(config=DistConfig())`` (NCCL on the cards), or
 ``CylonEnv(config=DistConfig(), device="cpu")`` (gloo on the CPU).
+Across N nodes (``torchrun --nnodes N --nproc-per-node G``) the world is
+two tiers by default, N slices of G ranks
+(:mod:`cylon_tpu_torch.parallel.comm`): the table exchange moves rows
+inside each node first, then between nodes. ``DistConfig`` sets the
+split as the JAX package's ``TPUConfig`` does.
 """
 
 import dataclasses
@@ -25,7 +30,8 @@ import torch
 
 from cylon_tpu_torch import device as _device
 from cylon_tpu_torch.errors import DeviceUnavailable, InvalidArgument
-from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm
+from cylon_tpu_torch.parallel.comm import LocalComm, ProcessGroupComm, \
+    slice_size
 
 
 class CommConfig:
@@ -46,12 +52,44 @@ class DistConfig(CommConfig):
     left None takes ``init_process_group``'s default: the backend is
     ``"nccl"`` for a CUDA env and ``"gloo"`` for ``device="cpu"``;
     ``init_method`` is ``"env://"`` (``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE`` and ``RANK``, as ``torchrun`` sets them)."""
+    ``WORLD_SIZE`` and ``RANK``, as ``torchrun`` sets them).
+
+    ``hierarchical`` and ``devices_per_slice`` split the world into
+    slices (nodes) of ``devices_per_slice`` ranks, the rules of
+    ``cylon_tpu/context.py:213-230``: ``hierarchical=None`` splits when
+    ``devices_per_slice`` is given, or when ``torchrun``'s
+    ``LOCAL_WORLD_SIZE`` is less than the world (more than one node; a
+    slice is then ``LOCAL_WORLD_SIZE`` ranks); ``False`` keeps the world
+    flat; ``True`` with neither a ``devices_per_slice`` nor a second
+    node raises. A size that does not divide the world raises; one of
+    the whole world or more gives a flat world."""
 
     backend: Optional[str] = None
     init_method: Optional[str] = None
     world_size: Optional[int] = None
     rank: Optional[int] = None
+    hierarchical: Optional[bool] = None
+    devices_per_slice: Optional[int] = None
+
+    def slice_split(self, world_size: int) -> Optional[int]:
+        """The ``devices_per_slice`` a ``world_size`` world gets, or None
+        for a flat world by choice."""
+        per, hier = self.devices_per_slice, self.hierarchical
+        local = os.environ.get("LOCAL_WORLD_SIZE")
+        nodes = local is not None and int(local) < world_size
+        if hier is None:
+            hier = per is not None or nodes
+        if not hier:
+            return None
+        if per is None:
+            if not nodes:
+                raise InvalidArgument(
+                    "DistConfig(hierarchical=True): the world is one "
+                    "node (LOCAL_WORLD_SIZE is unset or the whole "
+                    "world); pass devices_per_slice")
+            per = int(local)
+        slice_size(world_size, per)   # raises unless it divides
+        return per
 
 
 class CylonEnv:
@@ -68,7 +106,12 @@ class CylonEnv:
     a card raises :class:`DeviceUnavailable`: it never becomes gloo.
     :attr:`device` is where an entry point that builds tables from host
     data for this env (the TPC-H queries given a raw mapping) puts
-    them."""
+    them.
+
+    The topology is the communicator's: a comm with ``intra`` and
+    ``inter`` makes the env two tiers (:attr:`is_hierarchical`), and a
+    comm with only one of them, or with sub-worlds that do not tile its
+    world slice-major, raises."""
 
     def __init__(self, comm=None, *, config: "CommConfig | None" = None,
                  device=None):
@@ -86,6 +129,7 @@ class CylonEnv:
                 and not isinstance(config, LocalConfig):
             raise InvalidArgument(f"CylonEnv: unknown config {config!r}")
         self.comm = LocalComm() if comm is None else comm
+        _check_topology(self.comm)
         self._kv: "dict[str, str]" = {}
         self._finalized = False
         self._clock_offset: "float | None" = None
@@ -115,7 +159,13 @@ class CylonEnv:
         else:
             self._bootstrap(dist, backend, config)
             self._owns_group = True
-        return ProcessGroupComm()
+        try:
+            return ProcessGroupComm(devices_per_slice=config.slice_split(
+                dist.get_world_size()))
+        except BaseException:
+            # a refused split leaves no group of this env's behind
+            self.finalize()
+            raise
 
     def _bootstrap(self, dist, backend: str, config: DistConfig) -> None:
         """``init_process_group`` with the JAX package's bootstrap
@@ -177,6 +227,23 @@ class CylonEnv:
     @property
     def is_distributed(self) -> bool:
         return self.world_size > 1
+
+    # -- two-tier topology (``cylon_tpu/context.py:277-299``) -------------
+    @property
+    def is_hierarchical(self) -> bool:
+        """True when the world is slices of ranks: the table exchange
+        then stages inside each slice, then between slices."""
+        return self.comm.intra is not None
+
+    @property
+    def n_slices(self) -> int:
+        return self.comm.inter.world_size if self.is_hierarchical else 1
+
+    @property
+    def devices_per_slice(self) -> int:
+        """Ranks a slice (the whole world when flat)."""
+        return self.comm.intra.world_size if self.is_hierarchical \
+            else self.world_size
 
     # -- string KV config store (parity: ctx/cylon_context.hpp:32,69-77
     #    AddConfig/GetConfig/GetConfigs) ---------------------------------
@@ -310,3 +377,23 @@ class CylonEnv:
 
     def __repr__(self):
         return f"CylonEnv(rank={self.rank}, world_size={self.world_size})"
+
+
+def _check_topology(comm) -> None:
+    """A two-tier comm has both sub-communicators, and they tile the
+    world slice-major: ``intra`` is rank ``rank % L`` of L, ``inter``
+    rank ``rank // L`` of W / L. No quiet flat fallback."""
+    intra, inter = comm.intra, comm.inter
+    if intra is None and inter is None:
+        return
+    if intra is None or inter is None:
+        raise InvalidArgument("CylonEnv: a hierarchical comm needs both "
+                              "its intra and its inter sub-communicator")
+    per = intra.world_size
+    if per * inter.world_size != comm.world_size \
+            or intra.rank != comm.rank % per \
+            or inter.rank != comm.rank // per:
+        raise InvalidArgument(
+            f"CylonEnv: rank {comm.rank} of {comm.world_size} has intra "
+            f"rank {intra.rank} of {per} and inter rank {inter.rank} of "
+            f"{inter.world_size}: not a slice-major split")

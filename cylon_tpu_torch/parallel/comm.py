@@ -25,6 +25,17 @@ the role the 8-device virtual CPU mesh plays for the JAX package.
 :class:`ProcessGroupComm` runs the collectives over ``torch.distributed``:
 NCCL between processes on the cards, gloo between processes on the CPU
 (see :class:`cylon_tpu_torch.context.DistConfig`).
+
+**Two tiers.** A world of S slices of L ranks (a slice is a node, the
+ranks in it share its fast links; the JAX package's slice x worker
+mesh, ``cylon_tpu/context.py:213-230``) numbers its ranks slice-major,
+``rank = slice * L + local``, which is ``torchrun``'s order. Each rank's
+communicator then also carries two sub-communicators: ``intra``, over
+the L ranks of its slice (rank ``local``), and ``inter``, over the S
+ranks with its local index (rank ``slice``). The table exchange stages
+through them (:func:`cylon_tpu_torch.parallel.shuffle.exchange_arrays`);
+the world-level collectives stay over the whole world. A flat
+communicator has ``intra = inter = None``.
 """
 
 import threading
@@ -35,6 +46,20 @@ import torch
 from cylon_tpu_torch.errors import InvalidArgument
 
 _FOLDS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def slice_size(world_size: int, devices_per_slice) -> int:
+    """The ranks a slice of a two-tier world holds, or 0 for a flat
+    world: ``devices_per_slice`` None, or at least ``world_size``.
+    A size that does not divide the world raises, as the JAX package's
+    ``_slice_split`` does."""
+    if devices_per_slice is None:
+        return 0
+    per = int(devices_per_slice)
+    if per <= 0 or world_size % per:
+        raise InvalidArgument(f"devices_per_slice={per} does not divide "
+                              f"the {world_size}-rank world")
+    return per if per < world_size else 0
 
 
 def _reduce_gathered(gathered: torch.Tensor, op: str, shape) -> torch.Tensor:
@@ -55,6 +80,7 @@ class LocalComm:
 
     world_size = 1
     rank = 0
+    intra = inter = None
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(1, -1).clone()
@@ -68,7 +94,10 @@ class LocalComm:
 
 
 class _RankComm:
-    """One rank's view of a :class:`ThreadWorld`."""
+    """One rank's view of a :class:`ThreadWorld` (or of one of its
+    sub-worlds)."""
+
+    intra = inter = None
 
     def __init__(self, world: "ThreadWorld", rank: int):
         self._world = world
@@ -106,15 +135,41 @@ class _RankComm:
 
 class ThreadWorld:
     """W ranks as threads of one process; :meth:`run` calls ``fn(comm)``
-    on every rank and returns the results in rank order."""
+    on every rank and returns the results in rank order.
 
-    def __init__(self, world_size: int, timeout: float = 120.0):
+    ``devices_per_slice=L`` (dividing W, below it) makes the world two
+    tiers of W / L slices: each rank's communicator carries ``intra``
+    and ``inter``, each a rank of a sub-world with its own barrier and
+    slots (the module docstring)."""
+
+    def __init__(self, world_size: int, timeout: float = 120.0,
+                 devices_per_slice: "int | None" = None):
         self.world_size = world_size
         self.barrier = threading.Barrier(world_size, timeout=timeout)
         self.slots = [None] * world_size
+        per = self._per = slice_size(world_size, devices_per_slice)
+        self._intra = [ThreadWorld(per, timeout)
+                       for _ in range(world_size // per)] if per else []
+        self._inter = [ThreadWorld(world_size // per, timeout)
+                       for _ in range(per)]
 
     def comms(self) -> list:
-        return [_RankComm(self, r) for r in range(self.world_size)]
+        out = []
+        per = self._per
+        for r in range(self.world_size):
+            comm = _RankComm(self, r)
+            if per:
+                comm.intra = _RankComm(self._intra[r // per], r % per)
+                comm.inter = _RankComm(self._inter[r % per], r // per)
+            out.append(comm)
+        return out
+
+    def _abort(self) -> None:
+        """Break this world's barrier and every sub-world's, so that no
+        rank waits out the timeout on a peer that raised."""
+        self.barrier.abort()
+        for sub in self._intra + self._inter:
+            sub.barrier.abort()
 
     def run(self, fn: Callable) -> list:
         results = [None] * self.world_size
@@ -125,7 +180,7 @@ class ThreadWorld:
                 results[comm.rank] = fn(comm)
             except BaseException as e:   # noqa: BLE001 -- re-raised below
                 errors.append(e)
-                self.barrier.abort()     # free the ranks waiting on us
+                self._abort()            # free the ranks waiting on us
 
         threads = [threading.Thread(target=rank_main, args=(c,))
                    for c in self.comms()]
@@ -154,9 +209,17 @@ class ProcessGroupComm:
       matrix with the split sizes in rows. NCCL takes the split sizes on
       the host, so the count matrix reaches the host before the payload
       moves (``parallel.shuffle.exchange_arrays``);
-    - :meth:`all_reduce`: an all-gather and a fold in rank order."""
+    - :meth:`all_reduce`: an all-gather and a fold in rank order.
 
-    def __init__(self, group=None):
+    ``devices_per_slice=L`` (of the default group only) makes the world
+    two tiers: every rank creates the slices' groups and then the local
+    indices' groups, in one order
+    (``torch.distributed.new_subgroups_by_enumeration``), and ``intra``
+    and ``inter`` wrap its own two."""
+
+    intra = inter = None
+
+    def __init__(self, group=None, devices_per_slice: "int | None" = None):
         import torch.distributed as dist
 
         if not dist.is_initialized():
@@ -168,6 +231,18 @@ class ProcessGroupComm:
         self.rank = dist.get_rank(group)
         self.world_size = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
+        per = slice_size(self.world_size, devices_per_slice)
+        if per and group is not None:
+            raise InvalidArgument("ProcessGroupComm: devices_per_slice "
+                                  "splits the default group only")
+        if per:
+            w = self.world_size
+            slices = [list(range(s, s + per)) for s in range(0, w, per)]
+            lanes = [list(range(j, w, per)) for j in range(per)]
+            mine, _ = dist.new_subgroups_by_enumeration(slices)
+            self.intra = ProcessGroupComm(mine)
+            mine, _ = dist.new_subgroups_by_enumeration(lanes)
+            self.inter = ProcessGroupComm(mine)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist

@@ -304,37 +304,54 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
 
 def _note_exchange(env, op: str, ledger: list) -> None:
     """Telemetry for one eager exchange dispatch (port of
-    ``cylon_tpu/parallel/dist_ops.py:551``), priced from the ``(count
-    matrix, words)`` pairs the dispatch's exchanges left in ``ledger``
-    (:func:`~cylon_tpu_torch.parallel.shuffle.exchange_arrays`): host
+    ``cylon_tpu/parallel/dist_ops.py:551``), priced from the exchange
+    stages the dispatch left in ``ledger``
+    (:class:`~cylon_tpu_torch.parallel.shuffle.Stage`, from
+    :func:`~cylon_tpu_torch.parallel.shuffle.exchange_arrays`): host
     data already, so pricing adds no device→host transfer. A regrown
-    dispatch leaves only its last run's pairs.
+    dispatch leaves only its last run's stages.
 
-    This rank's ``exchange.rows`` are the rows it sent, its
-    ``exchange.bytes_true`` those rows times their u32 words times 4,
-    summed over the op's exchanges (both sides of a join); summed over
-    the ranks they are the JAX package's counts of a row-preserving
-    exchange. The port's exchange moves exactly those rows (the JAX
-    package's "ragged" path), so ``exchange.bytes_padded`` equals
-    ``exchange.bytes_true`` and ``exchange.pad_ratio`` is 1. The
-    decomposable ``dist_groupby`` exchanges its pre-combined partials:
-    the matrices count those, where the JAX package prices the input
-    rows. Then one ``memory.sample(op=op)`` at the stage boundary, and,
-    when the recorder is armed, an ``exchange.dispatch`` instant whose
-    ``rows_shards`` are every rank's sent rows."""
+    This rank's ``exchange.rows`` are the rows it sent (its row of a
+    flat or intra stage's count matrix), its ``exchange.bytes_true``
+    those rows times their u32 words times 4, summed over the op's
+    exchanges (both sides of a join); summed over the ranks they are the
+    JAX package's counts of a row-preserving exchange, in a flat world
+    and a two-tier one alike. On a flat world the exchange moves exactly
+    those rows (the JAX package's "ragged" path), so
+    ``exchange.bytes_padded`` equals ``exchange.bytes_true``. On a
+    two-tier world (``path="hier"``) ``exchange.bytes_padded`` is the
+    wire bytes of both stages, priced to the rank whose rows they are:
+    each row it sent crosses stage 1 with its rider word and stage 2
+    without, so for rows of w words ``exchange.pad_ratio`` is
+    ``(2w + 1) / w``, and the world's sum is both stages' wire bytes
+    exactly. (The JAX package prices its padded capacities and leaves
+    the rider out.) The decomposable ``dist_groupby`` exchanges its
+    pre-combined partials: the matrices count those, where the JAX
+    package prices the input rows. Then one ``memory.sample(op=op)`` at
+    the stage boundary, and, when the recorder is armed, an
+    ``exchange.dispatch`` instant whose ``rows_shards`` are every rank's
+    sent rows, or None where this rank does not know them all (on a
+    two-tier world it sees its own slice's)."""
     if not ledger:
         return
     me = env.rank
+    path = "hier" if env.is_hierarchical else "ragged"
     with _stage(op, "price"):
-        rows = true_b = 0
-        shard_rows = [0] * env.world_size
-        for cmat, words in ledger:
-            sent = cmat.sum(dim=1).tolist()
-            shard_rows = [a + int(b) for a, b in zip(shard_rows, sent)]
-            rows += int(sent[me])
-            true_b += int(sent[me]) * words * 4
-        pad_b = true_b
-        telemetry.counter("exchange.calls", op=op, path="ragged").inc()
+        rows = true_b = pad_b = 0
+        shard_rows: list = [None] * env.world_size
+        for st in ledger:
+            if st.stage == "inter":
+                continue   # priced with its rows' own stage 1
+            sent = st.cmat.sum(dim=1).tolist()
+            for r, n in zip(st.ranks, sent):
+                shard_rows[r] = (shard_rows[r] or 0) + int(n)
+            mine = int(sent[st.ranks.index(me)])
+            words = st.words - (st.stage == "intra")   # less the rider
+            rows += mine
+            true_b += mine * words * 4
+            pad_b += mine * (st.words + words if st.stage == "intra"
+                             else words) * 4
+        telemetry.counter("exchange.calls", op=op, path=path).inc()
         telemetry.counter("exchange.rows", op=op).inc(rows)
         telemetry.counter("exchange.bytes_true", op=op).inc(true_b)
         telemetry.counter("exchange.bytes_padded", op=op).inc(pad_b)
@@ -345,10 +362,11 @@ def _note_exchange(env, op: str, ledger: list) -> None:
         if true_b:
             telemetry.gauge("exchange.pad_ratio", op=op).set(pad_b / true_b)
         if _trace.enabled():
+            known = None not in shard_rows and sum(shard_rows)
             _trace.instant(
-                "exchange.dispatch", cat="exchange", op=op, path="ragged",
+                "exchange.dispatch", cat="exchange", op=op, path=path,
                 rows=rows, bytes_true=true_b, bytes_padded=pad_b,
-                rows_shards=shard_rows if sum(shard_rows) else None,
+                rows_shards=shard_rows if known else None,
                 counter="exchange.rows")
             _trace.counter("exchange.bytes_true",
                            telemetry.total("exchange.bytes_true"), op=op)
@@ -407,11 +425,17 @@ def shuffle(env, table, key_cols, out_capacity: "int | None" = None,
     ``out_capacity`` raises on overflow instead. ``bucket_cap`` bounds
     each (sender, destination) pair of the JAX package's padded
     exchange; the port's exchange sends exact counts and has no such
-    bound, so the argument changes nothing here. The JAX package refuses
-    it only on a hierarchical mesh, which the port has no counterpart
-    of, so every value it accepts is accepted."""
+    bound, so on a flat world the argument changes nothing. On a
+    two-tier world it raises, as the JAX package's does
+    (``dist_ops.py:697-702``): a bound on a flat world's pairs says
+    nothing of the stages' pairs."""
     if partitioning not in ("hash", "modulo"):
         raise InvalidArgument(f"unknown partitioning {partitioning!r}")
+    if bucket_cap is not None and env.is_hierarchical:
+        raise InvalidArgument(
+            "bucket_cap is a flat-world per-(sender, dest) bound; the "
+            "stages of a hierarchical world have other pairs: omit "
+            "bucket_cap")
     resilience.inject("exchange", "shuffle", env=env)
     key_cols = list(key_cols)
     with _stage("shuffle", "prepare"):

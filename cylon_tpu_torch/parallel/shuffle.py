@@ -12,8 +12,12 @@ reference's streaming all-to-all (``net/ops/all_to_all.hpp:65-170``):
 
 Received rows are grouped by sender rank, each sender's order kept.
 A receive larger than ``out_cap`` is truncated and reported as
-``nrows = out_cap + 1``, exactly as in JAX.
+``nrows = out_cap + 1``, exactly as in JAX. On a two-tier world the
+exchange runs in two stages, inside the slices and then between them
+(:func:`_exchange_hier`), with the same result.
 """
+
+import typing
 
 import torch
 
@@ -21,6 +25,7 @@ from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.selection import _dense
 from cylon_tpu_torch.telemetry import trace
+from cylon_tpu_torch.utils.tracing import span
 
 
 def exchange_arrays(comm, arrays, pid: torch.Tensor, n_local, out_cap: int,
@@ -30,13 +35,38 @@ def exchange_arrays(comm, arrays, pid: torch.Tensor, n_local, out_cap: int,
     arrays: [cap] tensors sharing the row dim; pid: [cap] int32
     destinations; n_local: valid leading rows. Returns ``(out_arrays,
     n_recv)`` with the arrays at capacity ``out_cap`` and ``n_recv`` the
-    0-d int32 received count, or ``out_cap + 1`` on overflow.
+    0-d int32 received count, or ``out_cap + 1`` on overflow. On a
+    two-tier comm (``comm.intra``) the rows go in two stages
+    (:func:`_exchange_hier`), with the same result.
 
-    ``ledger``, when given, receives ``(count matrix, words)``: the host
-    ``[W send, W dest]`` row counts every rank already holds, and the
-    u32 words a row, which the dist ops' telemetry prices the exchange
-    from (no transfer of its own).
+    ``ledger``, when given, receives one :class:`Stage` an exchange
+    stage: the host row counts every rank of the stage's group already
+    holds, and the u32 words a row, which the dist ops' telemetry prices
+    the exchange from (no transfer of its own).
     """
+    if comm.intra is not None:
+        return _exchange_hier(comm, arrays, pid, n_local, out_cap, ledger)
+    return _exchange(comm, arrays, pid, n_local, out_cap, ledger, "flat",
+                     list(range(comm.world_size)))
+
+
+class Stage(typing.NamedTuple):
+    """One exchange stage as the ledger keeps it: ``stage`` is
+    ``"flat"``, ``"intra"`` or ``"inter"``; ``cmat`` the host ``[n send,
+    n dest]`` row counts of the stage's group; ``words`` the u32 words a
+    row on the wire (the intra stage's rider included); ``ranks`` the
+    group's members as global ranks, in group order."""
+
+    stage: str
+    cmat: torch.Tensor
+    words: int
+    ranks: list
+
+
+def _exchange(comm, arrays, pid, n_local, out_cap, ledger, stage, ranks):
+    """The exact-count exchange over one communicator. ``out_cap`` None
+    receives exactly the rows sent (a stage's middle buffer: it cannot
+    overflow)."""
     w = comm.world_size
     cap = pid.shape[0]
     dev = pid.device
@@ -59,11 +89,14 @@ def exchange_arrays(comm, arrays, pid: torch.Tensor, n_local, out_cap: int,
     # the port has one, the exact-count route the JAX package calls
     # "ragged"; its CYLON_TPU_SHUFFLE override has no counterpart here
     trace.instant("shuffle.path", cat="exchange", path="ragged",
-                  mode="exact")
+                  mode="exact", stage=stage)
     if ledger is not None:
-        ledger.append((cmat, int(packed.shape[1])))
+        ledger.append(Stage(stage, cmat, int(packed.shape[1]), ranks))
     got = comm.exchange(packed.index_select(0, order[:n_send]), send_counts,
                         recv_counts)
+    if out_cap is None:
+        return (_unpack_words(got, spec),
+                torch.tensor(n_recv_true, dtype=torch.int32, device=dev))
     buf = torch.zeros((out_cap, packed.shape[1]), dtype=torch.int32,
                       device=dev)
     k = min(n_recv_true, out_cap)
@@ -71,6 +104,48 @@ def exchange_arrays(comm, arrays, pid: torch.Tensor, n_local, out_cap: int,
     n_recv = out_cap + 1 if n_recv_true > out_cap else n_recv_true
     return (_unpack_words(buf, spec),
             torch.tensor(n_recv, dtype=torch.int32, device=dev))
+
+
+def _exchange_hier(comm, arrays, pid, n_local, out_cap, ledger):
+    """The two-stage exchange of a two-tier world (port of
+    ``cylon_tpu/parallel/shuffle.py:346-406``), L ranks a slice:
+
+    1. **intra** (over ``comm.intra``, the slice's fast links): each row
+       goes to the rank of its slice whose local index is the row's
+       final one, ``pid % L``, with ``pid`` riding as one int32 column;
+    2. **inter** (over ``comm.inter``): each row goes to the slice
+       ``rider // L``, between ranks of one local index, and the rider is
+       dropped.
+
+    Every transfer between slices is then between ranks of one local
+    index: L parallel streams, where a flat exchange would put
+    ``(S - 1) * L`` of every rank's W peer streams on the slow tier.
+
+    The received rows come out grouped by the sender's global rank
+    (slice-major), each sender's order kept, as the flat exchange's:
+    stage 1 groups the rows by in-slice sender, and stage 2's stable
+    destination sort keeps that order inside each slice's block. So a
+    two-tier world and a flat one of the same W give every rank the same
+    bits.
+
+    Stage 1 receives the exact count its own count matrix gives, so it
+    cannot overflow, and only stage 2 applies ``out_cap``: the JAX
+    package's stage-1 probe (``_probe_hier_mid``), which sizes a padded
+    middle buffer, and its poisoning of every shard on a stage-1
+    overflow have nothing to do here.
+    """
+    per = comm.intra.world_size
+    me = comm.rank
+    pid = pid.to(torch.int32)
+    with span("shuffle.intra", cat="exchange"):
+        mids, n_mid = _exchange(
+            comm.intra, list(arrays) + [pid], pid % per, n_local, None,
+            ledger, "intra", [me - me % per + i for i in range(per)])
+    with span("shuffle.inter", cat="exchange"):
+        return _exchange(
+            comm.inter, mids[:-1], mids[-1] // per, n_mid, out_cap, ledger,
+            "inter", [me % per + s * per
+                      for s in range(comm.inter.world_size)])
 
 
 def transport_words(table) -> int:

@@ -1,7 +1,10 @@
 """The communicators against each other: ``ProcessGroupComm`` over gloo
 in W real processes (W = 4 and W = 1; ``spawn`` start method, rendezvous
 through a ``FileStore`` in a temporary directory, every process joined
-under a timeout) against ``ThreadWorld`` on the same inputs.
+under a timeout) against ``ThreadWorld`` on the same inputs. W = 4 also
+runs as two tiers, 2 slices of 2 ranks: by ``DistConfig(devices_per_slice
+=2)`` and by ``torchrun``'s variables (``LOCAL_WORLD_SIZE=2``,
+``WORLD_SIZE=4``), each against the flat ``ThreadWorld(4)``.
 
 Collectives: ``all_gather`` (int64 and bool), ``all_reduce`` (sum, min
 and max of int64 and float64: the same bits on every rank) and
@@ -30,6 +33,7 @@ from cylon_tpu_torch.parallel.dist_ops import (dist_aggregate, dist_groupby,
                                                dist_join, repartition,
                                                shuffle)
 from cylon_tpu_torch.parallel.dtable import scatter_table
+from cylon_tpu_torch.telemetry.aggregate import _gathers
 
 #: seconds a world of processes may take, start to end
 TIMEOUT = 180
@@ -108,26 +112,36 @@ def _run(env) -> dict:
     return {**_collectives(env), **_operators(env)}
 
 
-def _rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
-    """One spawned rank: join the gloo group, run everything, write the
-    results where the parent reads them."""
+def _rank_main(rank: int, world: int, store: str, out_dir: str,
+               tiers: "str | None") -> None:
+    """One spawned rank: join the gloo group (two tiers of slices of 2
+    when ``tiers`` is ``"config"`` or ``"torchrun"``), run everything,
+    write the results where the parent reads them."""
+    per = None
+    if tiers == "config":
+        per = 2
+    elif tiers == "torchrun":
+        os.environ.update(LOCAL_WORLD_SIZE="2", WORLD_SIZE=str(world))
     env = CylonEnv(config=DistConfig(backend="gloo",
                                      init_method=f"file://{store}",
-                                     world_size=world, rank=rank),
+                                     world_size=world, rank=rank,
+                                     devices_per_slice=per),
                    device="cpu")
     try:
         assert isinstance(env.comm, ProcessGroupComm)
         res = _run(env)
+        res["topology"] = (env.is_hierarchical, env.n_slices,
+                           env.devices_per_slice, _gathers(env))
     finally:
         env.finalize()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
 
 
-def _spawn_world(world: int, tmp) -> list:
+def _spawn_world(world: int, tmp, tiers: "str | None" = None) -> list:
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, str(tmp / "store"), str(tmp)))
+                         args=(r, world, str(tmp / "store"), str(tmp), tiers))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -151,13 +165,27 @@ def _spawn_world(world: int, tmp) -> list:
     return out
 
 
-@pytest.fixture(scope="module", params=[4, 1], ids=["w4", "w1"])
+@pytest.fixture(scope="module",
+                params=[(4, None), (1, None), (4, "config"),
+                        (4, "torchrun")],
+                ids=["w4", "w1", "w4_tiers", "w4_torchrun_tiers"])
 def worlds(request, tmp_path_factory):
-    """``(gloo results, ThreadWorld results)``, a dict a rank each."""
-    w = request.param
-    gloo = _spawn_world(w, tmp_path_factory.mktemp(f"gloo{w}"))
+    """``(gloo results, ThreadWorld results)``, a dict a rank each; the
+    threads are a flat world, whatever the gloo world's tiers."""
+    w, tiers = request.param
+    gloo = _spawn_world(w, tmp_path_factory.mktemp(f"gloo{w}"), tiers)
     threads = ThreadWorld(w).run(lambda comm: _run(CylonEnv(comm)))
     return gloo, threads
+
+
+def test_topology(worlds, request):
+    """The two-tier gloo worlds are 2 slices of 2 ranks; the others
+    flat. Each rank of a world of processes, two-tier or not, holds a
+    registry of its own, so telemetry gathers over it."""
+    gloo, _ = worlds
+    w, tiers = request.node.callspec.params["worlds"]
+    want = (True, 2, 2, True) if tiers else (False, 1, w, w > 1)
+    assert [res["topology"] for res in gloo] == [want] * w
 
 
 def _same_bits(a, b) -> bool:

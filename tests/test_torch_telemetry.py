@@ -266,10 +266,18 @@ class _StubEnv:
 
     world_size = 4
     rank = 1
+    is_hierarchical = False
 
 
 def _cmat(rows):
     return torch.tensor(rows, dtype=torch.int32)
+
+
+def _flat(rows, words):
+    """A flat exchange's ledger entry: the world's count matrix."""
+    from cylon_tpu_torch.parallel.shuffle import Stage
+
+    return Stage("flat", _cmat(rows), words, list(range(len(rows))))
 
 
 def test_torch_note_exchange_prices_true_bytes_from_the_count_matrices():
@@ -277,10 +285,11 @@ def test_torch_note_exchange_prices_true_bytes_from_the_count_matrices():
 
     # two exchanges (a join's sides): [W send, W dest] row counts every
     # rank holds; this rank (1) sent 10 + 6 rows of 4 words, 5 + 1 of 3
-    left = _cmat([[1, 2, 3, 4], [1, 2, 3, 4], [0, 0, 0, 0], [5, 5, 5, 5]])
-    right = _cmat([[0, 0, 0, 0], [2, 2, 1, 1], [1, 1, 1, 1], [0, 0, 0, 0]])
-    dist_ops._note_exchange(_StubEnv(), "dist_join",
-                            [(left, 4), (right, 3)])
+    left = _flat([[1, 2, 3, 4], [1, 2, 3, 4], [0, 0, 0, 0], [5, 5, 5, 5]],
+                 4)
+    right = _flat([[0, 0, 0, 0], [2, 2, 1, 1], [1, 1, 1, 1], [0, 0, 0, 0]],
+                  3)
+    dist_ops._note_exchange(_StubEnv(), "dist_join", [left, right])
     assert telemetry.total("exchange.rows") == 10 + 6
     true_b = telemetry.total("exchange.bytes_true")
     assert true_b == (10 * 4 + 6 * 3) * 4
@@ -305,8 +314,40 @@ def test_torch_note_exchange_never_reads_the_device(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "cpu", _no_copy)
     monkeypatch.setattr(torch.Tensor, "item", _no_copy)
     dist_ops._note_exchange(_StubEnv(), "shuffle",
-                            [(_cmat([[1] * 4] * 4), 2)])
+                            [_flat([[1] * 4] * 4, 2)])
     assert telemetry.total("exchange.bytes_true") == 4 * 2 * 4
+
+
+def test_torch_note_exchange_prices_both_stages_of_a_two_tier_world(
+        monkeypatch):
+    """Rank 1 of 2 slices of 2 ranks: its rows are its row of the intra
+    stage's [2, 2] matrix (4 words and the rider); each crosses stage 1
+    at 5 words and stage 2 at 4, so the ratio is 9 / 4. The inter stage
+    (rows other ranks sent) prices nothing of its own, and the rank
+    knows only its slice's sent rows."""
+    from cylon_tpu_torch.parallel import dist_ops
+    from cylon_tpu_torch.parallel.shuffle import Stage
+
+    class Hier(_StubEnv):
+        is_hierarchical = True
+
+    monkeypatch.setattr(telemetry.trace, "_RECORDER", None)
+    monkeypatch.setenv("CYLON_TPU_TRACE", "1")
+    ledger = [Stage("intra", _cmat([[3, 4], [6, 1]]), 5, [0, 1]),
+              Stage("inter", _cmat([[5, 2], [7, 9]]), 4, [1, 3])]
+    dist_ops._note_exchange(Hier(), "shuffle", ledger)
+    assert telemetry.total("exchange.rows") == 7
+    assert telemetry.total("exchange.bytes_true") == 7 * 4 * 4
+    assert telemetry.total("exchange.bytes_padded") == 7 * 9 * 4
+    assert telemetry.metric("exchange.calls", op="shuffle",
+                            path="hier").value == 1
+    assert telemetry.metric("exchange.pad_ratio",
+                            op="shuffle").value == 9 / 4
+    (ev,) = [e for e in telemetry.trace.events()
+             if e["name"] == "exchange.dispatch"]
+    assert ev["args"]["path"] == "hier"
+    assert ev["args"]["rows_shards"] is None
+    monkeypatch.setattr(telemetry.trace, "_RECORDER", None)
 
 
 def test_torch_note_exchange_of_no_exchange_records_nothing():
