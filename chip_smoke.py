@@ -11,6 +11,8 @@ and check it.
                                         # same way
     python3 chip_smoke.py --hier-only   # phases 1, 2 and 21 alone, the
                                         # same way
+    python3 chip_smoke.py --capture-only  # phases 1, 2 and 22 alone, the
+                                          # same way
 
 Phases, each printing one JSON line:
 
@@ -33,7 +35,11 @@ Phases, each printing one JSON line:
    at element 0, ties on hi that lo decides and hi and lo at or above
    2^31, at every shape and at its dispatch threshold and one pair on
    each side of it, so that both of its paths run, and a look-back call
-   after a three-pass one whose carries read as the next call's flags);
+   after a three-pass one whose carries read as the next call's flags;
+   ``row_hash``, ``scan32`` (int32 add, uint32 add that wraps, int32 and
+   float32 max) and ``pair_max_scan`` (three passes and look-back) each
+   captured alone into a CUDA graph and replayed 20 times on inputs
+   rewritten in place, every replay bit for bit the plain version);
    the time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
    function), by CUDA events over calls back to back and as device time
@@ -102,8 +108,8 @@ Phases, each printing one JSON line:
 14. tpch: whole TPC-H queries through ``cylon_tpu_torch.tpch``: all 22
     at SF 1 (each equal to the port's run on the CPU), BASELINE.json's
     configuration 5 cut to one card (Q3 and Q5 at SF 10, eager and
-    ``tpch.compiled``, bit for bit each other and equal to a pandas
-    oracle), six queries at W = 4 on ``ThreadWorld`` against W = 1 in 4
+    ``tpch.compiled``, whose second call replays its CUDA graph, bit for
+    bit each other and equal to a pandas oracle), six queries at W = 4 on ``ThreadWorld`` against W = 1 in 4
     runs; then ``row_hash``, ``scan32`` and ``pair_max_scan`` at the
     shapes this phase gave them, as in phase 10. Every line of the phase
     carries the card's name and power limit; see :func:`tpch_phase`.
@@ -177,7 +183,7 @@ Phases, each printing one JSON line:
     as in phase 10, and the live bytes back at their level before the
     phase; see :func:`fleet_phase`.
 20. native: the native host library (``cylon_tpu_torch.native``) on the
-    H100's host: its ``g++`` build; TPC-H SF 1 ``lineitem`` and
+    H100's host: its ``g++`` build; TPC-H SF 0.25 ``lineitem`` and
     ``orders`` from the port's generator written as CSV and read onto
     the card by ``engine="native"`` and ``engine="arrow"``, the tables
     equal column by column, each engine's wall beside its parse and its
@@ -199,6 +205,18 @@ Phases, each printing one JSON line:
     ``exchange.pad_ratio`` (2.25 for the join and the shuffle); then
     the kernels at this phase's shapes, as in phase 10, and the live
     bytes back at their level before the phase; see :func:`hier_phase`.
+22. capture: whole queries as one CUDA graph each (``plan.CompiledQuery``
+    on CUDA tensors): the query of ``examples/whole_query.py`` at 16M
+    orders rows, q1, q3, q5, q6 and q14 at SF 1 locally and with an env
+    of one rank, Q3 and Q5 at SF 10; each query's eager wall, its first
+    compiled call (the capture-mode program run eagerly, then captured)
+    and five replays, each replay one graph launch and one fetch under
+    ``set_sync_debug_mode("error")`` but for the fetch, bit for bit the
+    first call's result, which agrees with the eager query; the
+    launches a replay makes by kernel and the graph's pool growth; then
+    the kernels at this phase's shapes, as in phase 10, and the live
+    bytes back at their level before the phase, every graph let go; see
+    :func:`capture_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -209,14 +227,15 @@ Then a ``{"kernels": [...]}`` line (each kernel's launches on the bench
 or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
 ``telemetry_launches``, ``spill_launches``, ``views_launches``,
-``serve_launches``, ``fleet_launches``, ``native_launches`` and
-``hier_launches``, on
+``serve_launches``, ``fleet_launches``, ``native_launches``,
+``hier_launches`` and ``capture_replay_launches``, on
 phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
 phase 15's compared runs, phase 16's parts (a)-(f), phase 17's parts
 (a)-(d), the engine's own requests in phase 18's parts (a)-(f), phase
 19's served requests (the engine processes' own, as each logs them at a
 clean close, and the in-process engines' of (d) and (e)), phase 20's
-join of the native-read tables and phase 21's two-tier runs), the
+join of the native-read tables, phase 21's two-tier runs and phase
+22's replays), the
 ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
@@ -519,7 +538,107 @@ def kernel_phase(torch, rate):
             stats[(name, n)] = row
     pair_split_phase(torch, rate, stats)
     pair_scratch_phase(torch, stats)
+    graph_kernel_phase(torch, stats)
     return stats
+
+
+#: replays of each kernel's graph in phase 3, its inputs rewritten in
+#: place before each
+GRAPH_REPLAYS = 20
+
+
+def graph_kernel_phase(torch, stats):
+    """Each kernel on the captured path captured alone into a CUDA graph
+    and replayed :data:`GRAPH_REPLAYS` times, its inputs rewritten in
+    place before each replay, every replay bit for bit its plain version
+    on the same inputs: ``row_hash`` (16 words, and the fused modulo),
+    ``scan32`` (int32 add, uint32 add that wraps, int32 and float32 max)
+    and ``pair_max_scan`` on both paths (three passes at 2M pairs, the
+    look-back at 8M: its epoch is frozen in the graph, so every replay
+    must reset its flags). The launch counters are left as they were."""
+    from cylon_tpu_torch import kernels
+    from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+
+    saved = kernels.launch_counts()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+
+    def rand32(n):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                             device="cuda", generator=g)
+
+    def refill_pairs(hi, lo):
+        n = hi.shape[0]
+        marks = torch.rand(n, device="cuda", generator=g) < 0.02
+        iota = torch.arange(n, dtype=torch.int32, device="cuda")
+        hi.copy_(torch.where(marks, iota, 0))
+        lo.copy_(torch.where(marks, rand32(n), 0))
+
+    def refill_near(x):
+        x.copy_(torch.randint(-1000, 0, x.shape, dtype=torch.int32,
+                              device="cuda", generator=g).view(torch.uint32))
+
+    def refill_f32(x):
+        x.copy_(torch.randn(x.shape, device="cuda", generator=g))
+
+    def refill_i32(*xs):
+        for x in xs:
+            x.copy_(rand32(x.shape[0]))
+
+    n = BENCH_ROWS
+    words = [rand32(n) for _ in range(16)]
+    i32, near = rand32(4 * n), rand32(4 * n).view(torch.uint32)
+    f32 = torch.randn(4 * n, device="cuda", generator=g)
+    p3 = (torch.empty(2 * n, dtype=torch.int32, device="cuda"),
+          torch.empty(2 * n, dtype=torch.int32, device="cuda"))
+    lb = (torch.empty(8 * n, dtype=torch.int32, device="cuda"),
+          torch.empty(8 * n, dtype=torch.int32, device="cuda"))
+    refill_pairs(*p3)
+    refill_pairs(*lb)
+    cases = (
+        ("row_hash/16_words", lambda: row_hash(words),
+         lambda: row_hash.plain(words), lambda: refill_i32(*words)),
+        ("row_hash/nparts", lambda: row_hash(words[:2], 64),
+         lambda: row_hash.plain(words[:2], 64),
+         lambda: refill_i32(*words[:2])),
+        ("scan32/add", lambda: scan32(i32, "add"),
+         lambda: scan32.plain(i32, "add"), lambda: refill_i32(i32)),
+        ("scan32/add_uint32_wraps", lambda: scan32(near, "add"),
+         lambda: scan32.plain(near, "add"), lambda: refill_near(near)),
+        ("scan32/max", lambda: scan32(i32, "max"),
+         lambda: scan32.plain(i32, "max"), lambda: refill_i32(i32)),
+        ("scan32/max_float32", lambda: scan32(f32, "max"),
+         lambda: scan32.plain(f32, "max"), lambda: refill_f32(f32)),
+        ("pair_max_scan/three_passes", lambda: pair_max_scan(*p3),
+         lambda: pair_max_scan.plain(*p3), lambda: refill_pairs(*p3)),
+        ("pair_max_scan/look_back", lambda: pair_max_scan(*lb),
+         lambda: pair_max_scan.plain(*lb), lambda: refill_pairs(*lb)),
+    )
+    for name, kern, plain, refill in cases:
+        kern()                       # built and warm before the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kern()
+        bad = err = 0
+        for _ in range(GRAPH_REPLAYS):
+            refill()
+            graph.replay()
+            b, e = compare(torch, out, plain())
+            bad, err = bad + b, max(err, e)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel_graph", "name": name,
+               "n": (out[0] if isinstance(out, tuple) else out).shape[0],
+               "replays": GRAPH_REPLAYS, "mismatches": bad,
+               "max_abs_err": err, "tolerance": 0}
+        emit(row)
+        del graph, out
+        if bad:
+            raise SystemExit(f"{name} in a CUDA graph: {bad} mismatches "
+                             f"over {GRAPH_REPLAYS} replays")
+        stats[(f"{name}/graph", row["n"])] = row
+    for w in kernels.WRAPPERS:
+        w.launches = saved[w.__name__]
 
 
 def pair_split_phase(torch, rate, stats):
@@ -2222,13 +2341,21 @@ class PathInputs:
     copy on the card, for :func:`path_kernel_phase`. The wrappers'
     modules are left alone: each wrapper counts its launches through its
     module's name for it. The copies cost a device copy a shape (64 MB
-    at 16M int32 values) inside the timed first calls."""
+    at 16M int32 values) inside the timed first calls. Nothing is kept
+    while a CUDA graph is captured: the copy would join the graph, and
+    its input is the graph's own memory, rewritten at each replay (the
+    warm-up run before each capture meets the same shapes)."""
 
     def __init__(self):
         self.inputs = {}
         self._lock = threading.Lock()
 
     def _keep(self, key, make):
+        import torch
+
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            return
         with self._lock:
             if key not in self.inputs:
                 self.inputs[key] = make()
@@ -6507,8 +6634,10 @@ def fleet_phase(torch, card: str, dev="cuda") -> tuple:
 
 
 # ------------------------------------------------------------ phase 20
-#: TPC-H SF 1's lineitem and orders, from the port's generator
-NATIVE_SF = TPCH_SF
+#: TPC-H lineitem and orders from the port's generator at SF 0.25 (1.5M
+#: lineitem rows): cut from SF 1, whose native parse alone took 85–126 s
+#: of host time, to keep the script under its time limit with phase 22
+NATIVE_SF = 0.25
 NATIVE_SEED = TPCH_SEED
 #: every 2nd comment gets a comma and every 5th a quote (the generator's
 #: comments are words and spaces only), so that both parsers meet quoted
@@ -6639,7 +6768,7 @@ def native_phase(torch, card: str, dev="cuda") -> tuple:
     (a) The host library (``cylon_tpu_torch/native/cylon_host.cpp``)
         built with ``g++`` on this host, its build seconds; a build
         failure fails the run.
-    (b) TPC-H SF 1 (:data:`NATIVE_SF`, seed :data:`NATIVE_SEED`):
+    (b) TPC-H SF 0.25 (:data:`NATIVE_SF`, seed :data:`NATIVE_SEED`):
         ``lineitem`` and ``orders`` from the port's ``tpch.dbgen``
         written as CSV to a temporary directory (:func:`native_csv`:
         quoted strings, commas and quotes in the comments, ISO dates),
@@ -7036,6 +7165,220 @@ def hier_phase(torch, card: str, dev="cuda", rows: int = DIST_ROWS) -> tuple:
     return launches, rec.inputs, base_bytes
 
 
+# ------------------------------------------------------------ phase 22
+#: orders rows of the whole-query example's query (examples/whole_query.py:
+#: 50K orders over 500 keys there)
+CAPTURE_ROWS = 16 << 20
+CAPTURE_KEYS = 500
+#: TPC-H scales of phase 22: the serve mix at SF 1, BASELINE.json
+#: configuration 5's Q3 and Q5 at phase 14's SF 10
+CAPTURE_SF = TPCH_SF
+CAPTURE_MIX = ("q1", "q3", "q5", "q6", "q14")
+CAPTURE_BASELINE_SF = TPCH_BASELINE_SF
+CAPTURE_BASELINE_QUERIES = TPCH_BASELINE_QUERIES
+#: replays timed a case
+CAPTURE_REPLAYS = 5
+
+
+def example_query(plan):
+    """The query of ``examples/whole_query.py`` (filter -> join ->
+    group-by -> sort) on the port's ops, as a ``CompiledQuery``."""
+    from cylon_tpu_torch.ops.groupby import groupby_aggregate
+    from cylon_tpu_torch.ops.join import join
+    from cylon_tpu_torch.ops.selection import filter_table, sort_table
+
+    def revenue_by_key(orders, items, cutoff=None):
+        recent = filter_table(orders, orders.column("day").data >= cutoff)
+        j = join(recent, items, on="k", how="inner")
+        g = groupby_aggregate(j, ["k"], [("amount", "sum", "revenue")])
+        return sort_table(g, ["revenue"], ascending=False)
+
+    return revenue_by_key, plan.compile_query(revenue_by_key)
+
+
+@contextlib.contextmanager
+def sync_guard(torch, plan):
+    """``torch.cuda.set_sync_debug_mode("error")`` over a compiled call,
+    but for its one fetch (``plan._fetch``), which runs with the mode off
+    and is counted: yields ``[fetches]``."""
+    real = plan._fetch
+    fetches = [0]
+
+    def fetch(packed):
+        fetches[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    plan._fetch = fetch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield fetches
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        plan._fetch = real
+
+
+def result_bits_equal(torch, a, b) -> bool:
+    """Two query results bit for bit: tables (frames) by
+    :func:`same_bits`, 0-d tensors by their bits."""
+    if hasattr(a, "table"):
+        return same_bits(torch, a.table, b.table)
+    if hasattr(a, "columns"):
+        return same_bits(torch, a, b)
+    return bool(torch.equal(bits_of(torch, a.reshape(1)),
+                            bits_of(torch, b.reshape(1))))
+
+
+def capture_phase(torch, card: str, dev="cuda") -> tuple:
+    """Whole queries as one CUDA graph each (``plan.CompiledQuery``):
+
+    (a) the query of ``examples/whole_query.py`` on :data:`CAPTURE_ROWS`
+        orders rows;
+    (b) :data:`CAPTURE_MIX` at :data:`CAPTURE_SF`, locally and with an
+        env of one rank (as the serve engine runs them);
+    (c) :data:`CAPTURE_BASELINE_QUERIES` at :data:`CAPTURE_BASELINE_SF`.
+
+    For each: the eager query's wall (the per-op ladders), the first
+    compiled call's (the warm-up: the query eagerly in capture mode, its
+    sizes recorded, its fetch; then the capture at those sizes), then
+    :data:`CAPTURE_REPLAYS` replays, each under
+    ``set_sync_debug_mode("error")`` but for its one fetch
+    (:func:`sync_guard`), each one graph launch and one fetch, each bit
+    for bit the first call's result, which must agree with the eager
+    query (:func:`results_match`); the launches a replay makes by
+    kernel, which must be the warm-up's (the same kernels at the same
+    sizes; the capture adds none), and the graph's pool bytes. The phase
+    ends with every graph let go: the bytes live after it equal those
+    before.
+
+    Returns ``(replay launches, inputs the kernels met, kept bytes
+    before)``."""
+    import gc
+
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import plan, tpch
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    t0 = time.perf_counter()
+    base = kept_bytes(torch)
+    rec = PathInputs()
+    reset_launches()
+    replay_launches = {k: 0 for k in launch_counts()}
+    bad = []
+
+    def case(part, label, cq, eager_fn, call, **extra):
+        with rec:
+            want, eager_ms = event_wall(torch, eager_fn)
+            graphs0 = len(cq.graph_stats())
+            warm0 = launch_counts()
+            first, first_ms = event_wall(torch, call)
+            warm = {k: v - warm0[k] for k, v in launch_counts().items()}
+        stats = cq.graph_stats()
+        walls, equal, fetches, launches = [], True, [], None
+        for _ in range(CAPTURE_REPLAYS):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with sync_guard(torch, plan) as fetched:
+                out = call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            fetches.append(fetched[0])
+            after = launch_counts()
+            launches = {k: after[k] - before[k] for k in after}
+            for k in launches:
+                replay_launches[k] += launches[k]
+            equal = equal and result_bits_equal(torch, out, first)
+            del out
+        now = cq.graph_stats()
+        replays = sum(g["replays"] for g in now) - sum(
+            g["replays"] for g in stats)
+        # the query's graphs, least recently used first: this case's
+        # is the last (q3's local and W = 1 graphs share a query)
+        graph = now[-1] if now else {}
+        agrees = results_match(np, host_result(first), host_result(want))
+        row = {"phase": "capture", "part": part, "query": label,
+               "card": card, "eager_wall_ms": eager_ms,
+               "first_call_wall_ms": first_ms,
+               "replay_wall_ms": walls,
+               "replay_median_ms": sorted(walls)[len(walls) // 2],
+               "graphs_captured": len(stats) - graphs0,
+               "graph_replays": replays, "fetches": fetches,
+               "launches_per_replay": launches,
+               "warm_up_launches": warm,
+               "graph_launches_recorded": graph.get("launches"),
+               "pool_bytes": graph.get("pool_bytes"),
+               "scale": graph.get("scale"),
+               "replays_equal_bits": equal, "equal_to_eager": agrees,
+               **extra}
+        emit(row)
+        ok = (equal and agrees and replays == CAPTURE_REPLAYS
+              and fetches == [1] * CAPTURE_REPLAYS
+              and row["graphs_captured"] == 1
+              and launches == graph.get("launches") == warm)
+        if not ok:
+            bad.append(label)
+        del want, first
+
+    # -- (a) the whole-query example's query
+    rng = np.random.default_rng(0)
+    n = CAPTURE_ROWS
+    orders = ct.Table.from_pydict({
+        "k": rng.integers(0, CAPTURE_KEYS, n).astype(np.int64),
+        "day": rng.integers(0, 365, n).astype(np.int64),
+        "amount": rng.uniform(1.0, 100.0, n)}, device=dev)
+    items = ct.Table.from_pydict({
+        "k": np.arange(CAPTURE_KEYS, dtype=np.int64),
+        "label": rng.integers(0, 9, CAPTURE_KEYS).astype(np.int64)},
+        device=dev)
+    fn, cq = example_query(plan)
+    case("a", "whole_query_example", cq,
+         lambda: fn(orders, items, cutoff=180),
+         lambda: cq(orders, items, cutoff=180), rows=n)
+    del orders, items, fn, cq
+
+    # -- (b) and (c) TPC-H, through tpch.compiled
+    for part, sf, queries, envs in (
+            ("b", CAPTURE_SF, CAPTURE_MIX, (None, "w1")),
+            ("c", CAPTURE_BASELINE_SF, CAPTURE_BASELINE_QUERIES, (None,))):
+        t = time.perf_counter()
+        data = tpch.generate(sf, TPCH_SEED,
+                             keep=manifest_keep(MANIFEST, queries))
+        frames = tpch.ingest(data, device=dev)
+        del data
+        torch.cuda.synchronize()
+        emit({"phase": "capture", "part": part, "sf": sf,
+              "data_host_s": time.perf_counter() - t})
+        for mode in envs:
+            env = None if mode is None else ct.CylonEnv(device=dev)
+            kw = {} if env is None else {"env": env}
+            for qn in queries:
+                q, cq = getattr(tpch, qn), tpch.compiled(qn)
+                case(part, qn if mode is None else f"{qn}_w1", cq,
+                     lambda: q(frames, **kw), lambda: cq(frames, **kw),
+                     sf=sf)
+        del frames, env
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "capture_seconds", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "replay_launches": replay_launches, "kept_bytes_before": base,
+          "failed": bad})
+    if bad:
+        raise SystemExit(f"capture: {bad} failed their replay checks")
+    missing = [k for k in ("scan32", "pair_max_scan")
+               if replay_launches[k] < 1]
+    if missing:
+        raise SystemExit(f"capture: {missing} never launched in a replay")
+    return replay_launches, rec.inputs, base
+
+
 def main(argv) -> int:
     import gc
 
@@ -7096,6 +7439,15 @@ def main(argv) -> int:
         emit({"phase": "hier_only", "card": card,
               "hier_launches": hier_launches,
               "seconds": time.perf_counter() - t21})
+        return 0
+    if "--capture-only" in argv:
+        t22 = time.perf_counter()
+        capture_launches, capture_inputs, _ = capture_phase(torch, card)
+        path_kernel_phase(torch, rate, {}, "capture", capture_inputs,
+                          card=card)
+        emit({"phase": "capture_only", "card": card,
+              "capture_launches": capture_launches,
+              "seconds": time.perf_counter() - t22})
         return 0
 
     stats = kernel_phase(torch, rate)
@@ -7219,6 +7571,22 @@ def main(argv) -> int:
         raise SystemExit(f"hier: {hier_after} bytes live after the "
                          f"phase, {hier_base} before it")
     memory_line(torch, card, "21 hier")
+    t22 = time.perf_counter()
+    capture_launches, capture_inputs, capture_base = capture_phase(torch,
+                                                                   card)
+    path_kernel_phase(torch, rate, stats, "capture", capture_inputs,
+                      card=card)
+    del capture_inputs
+    gc.collect()
+    capture_after = kept_bytes(torch)
+    emit({"phase": "capture_phase_seconds", "card": card,
+          "seconds": time.perf_counter() - t22,
+          "kept_bytes_before": capture_base,
+          "kept_bytes_after": capture_after})
+    if capture_after != capture_base:
+        raise SystemExit(f"capture: {capture_after} bytes live after the "
+                         f"phase, {capture_base} before it")
+    memory_line(torch, card, "22 capture")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -7251,6 +7619,7 @@ def main(argv) -> int:
             "fleet_launches": fleet_launches[wrapper.__name__],
             "native_launches": native_launches[wrapper.__name__],
             "hier_launches": hier_launches[wrapper.__name__],
+            "capture_replay_launches": capture_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

@@ -301,7 +301,9 @@ int run_flat(const void* x, void* y, long long n, void* scratch,
 // flag carries the call's epoch (flag = epoch << 2 | status), so the
 // state needs no memset: the wrapper keeps it zeroed once, and a flag of
 // an earlier call reads as not yet published. The block that draws the
-// last tile resets the counter.
+// last tile resets the counter. A CUDA graph replays the epoch it was
+// captured with, so a call captured into one takes a scratch of its own
+// with epoch 1, zeroed by a fill captured before it (kernels/scan.py).
 //
 // Tiles are large (16384 pairs, one 1024-thread block an SM), which
 // keeps the chains of look-backs short.

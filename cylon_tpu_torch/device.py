@@ -23,6 +23,20 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host scalar as a 0-d tensor of ``dtype`` on ``device``, made by
+    a fill on the device (no host-to-device copy, so it captures into a
+    CUDA graph). A float past the dtype's range becomes an infinity, as
+    ``torch.tensor`` makes it."""
+    import math
+
+    v = np.asarray(value).item()
+    if dtype.is_floating_point and isinstance(v, (int, float)) and \
+            math.isfinite(v) and abs(v) > torch.finfo(dtype).max:
+        v = math.copysign(math.inf, v)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
 def from_host(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A host array as a contiguous tensor on ``device`` (in ``dtype``,
     default the array's), with unit strides even when it has no

@@ -189,9 +189,27 @@ def from_numpy_dtype(dt) -> DType:
     return DType(kind)
 
 
+#: torch dtype -> numpy dtype, for the types numpy has
+_TORCH_TO_NUMPY = {
+    torch.bool: np.dtype(np.bool_), torch.uint8: np.dtype(np.uint8),
+    torch.int8: np.dtype(np.int8), torch.uint16: np.dtype(np.uint16),
+    torch.int16: np.dtype(np.int16), torch.uint32: np.dtype(np.uint32),
+    torch.int32: np.dtype(np.int32), torch.uint64: np.dtype(np.uint64),
+    torch.int64: np.dtype(np.int64), torch.float16: np.dtype(np.float16),
+    torch.float32: np.dtype(np.float32),
+    torch.float64: np.dtype(np.float64)}
+
+
+def numpy_dtype(dt: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (no tensor made)."""
+    if dt not in _TORCH_TO_NUMPY:
+        raise TypeError(f"torch dtype {dt} has no numpy dtype")
+    return _TORCH_TO_NUMPY[dt]
+
+
 def from_torch_dtype(dt: torch.dtype) -> DType:
     """Physical torch dtype -> logical DType (numeric and bool)."""
-    return from_numpy_dtype(torch.empty(0, dtype=dt).numpy().dtype)
+    return from_numpy_dtype(numpy_dtype(dt))
 
 
 def from_name(name: str) -> DType:

@@ -28,7 +28,6 @@ op. Elementwise ops, column selection, ``filter`` on the frame's own
 shard, ``isnull`` / ``fillna`` / ``isin`` and renames stay shard-local.
 """
 
-import os
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -52,14 +51,34 @@ from cylon_tpu_torch.parallel.dtable import (dist_num_rows, dist_to_pandas,
 from cylon_tpu_torch.series import Series, fill_column, map_device
 from cylon_tpu_torch.table import Table
 
-_NO_SHRINK = bool(os.environ.get("CYLON_TPU_NO_SHRINK"))
+#: True turns the shrink after selective ops off (the JAX package reads
+#: ``CYLON_TPU_NO_SHRINK``; the port keeps a module value, which tests
+#: monkeypatch)
+_NO_SHRINK = False
 
 
 def _shrink(t: Table) -> Table:
     """Capacity shrink-to-fit after a selective local op
-    (:meth:`Table.shrink_to_fit`); ``CYLON_TPU_NO_SHRINK`` turns it off.
-    Distributed results keep their layout."""
-    return t if _NO_SHRINK else t.shrink_to_fit()
+    (:meth:`Table.shrink_to_fit`: one host read of the row count); a
+    no-op when :data:`_NO_SHRINK` is set. In capture mode
+    (:func:`~cylon_tpu_torch.plan.settle`) the count is not read: the
+    table is cut to its graph warm-up's capacity, its overflow past it
+    registered, or, outside a graph, keeps the op's bound, as under a JAX
+    trace. Distributed results keep their layout."""
+    if _NO_SHRINK:
+        return t
+
+    def eager():
+        s = t.shrink_to_fit()
+        return s, s.capacity
+
+    def fixed(cap):
+        if cap is None or cap >= t.capacity:
+            return t
+        plan.note_overflow(t.nrows > cap)
+        return t.with_capacity(cap)
+
+    return plan.settle(("shrink", t.capacity), eager, fixed)
 
 
 class DataFrame:
@@ -616,14 +635,12 @@ class DataFrame:
                     # non-float columns take NaN as null (Arrow semantics)
                     cols[name] = Column(c.data, base & m, c.dtype)
                 else:
-                    fill = torch.tensor(np.asarray(other).item(),
-                                        dtype=c.data.dtype, device=t.device)
+                    fill = _device.scalar(other, c.data.dtype, t.device)
                     cols[name] = Column(torch.where(m, c.data, fill),
                                         validity, c.dtype)
             else:
-                fill = torch.tensor(float("nan") if nan_fill
-                                    else np.asarray(other).item(),
-                                    dtype=c.data.dtype, device=t.device)
+                fill = _device.scalar(float("nan") if nan_fill else other,
+                                      c.data.dtype, t.device)
                 cols[name] = Column(torch.where(m, c.data, fill),
                                     c.validity if nan_fill else validity,
                                     c.dtype)

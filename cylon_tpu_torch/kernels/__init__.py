@@ -2,7 +2,9 @@
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); it counts launches in
-``wrapper.launches`` and names its plain version in ``wrapper.plain``.
+``wrapper.launches`` (:func:`~cylon_tpu_torch.kernels.build.count`; a
+thread capturing a CUDA graph tallies its own apart, and the replays
+count them) and names its plain version in ``wrapper.plain``.
 """
 
 from cylon_tpu_torch.kernels.bucket import bucket_build, bucket_probe

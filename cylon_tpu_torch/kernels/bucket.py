@@ -210,7 +210,7 @@ def bucket_build(bids: torch.Tensor, nb: int, width: int):
         staging_a.numel() // 2, staging_b.data_ptr(), plan.staging,
         table.data_ptr(), overflow.data_ptr(), build.stream_of(bids))
     build.check(err, "bucket_build")
-    bucket_build.launches += 1
+    build.count(bucket_build)
     return table, overflow
 
 
@@ -284,7 +284,7 @@ def bucket_probe(pbids: torch.Tensor, pwords, table: torch.Tensor,
         k, int(one_int64_key(pwords, bwords)), table.data_ptr(), nb, width,
         bcap, mask.data_ptr(), build.stream_of(pbids))
     build.check(err, "bucket_probe")
-    bucket_probe.launches += 1
+    build.count(bucket_probe)
     return mask
 
 

@@ -149,6 +149,51 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False where
+    PyTorch has no CUDA)."""
+    import torch
+
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+#: per thread, the tally of the graph this thread is capturing
+#: (:func:`graph_tally`); absent outside one
+_TALLY = threading.local()
+
+
+def graph_tally():
+    """A context in which this thread's launches into a graph it
+    captures are tallied by wrapper name in the dict it yields, not
+    counted in the wrappers' ``launches`` (a capture runs nothing; the
+    replays count them). Other threads, which may launch meanwhile, keep
+    counting their own."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        prev = getattr(_TALLY, "counts", None)
+        _TALLY.counts = {}
+        try:
+            yield _TALLY.counts
+        finally:
+            _TALLY.counts = prev
+
+    return scope()
+
+
+def count(wrapper, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel, made by this call:
+    into the capturing thread's :func:`graph_tally` while it captures,
+    else into ``wrapper.launches``."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None and capturing():
+        tally[wrapper.__name__] = tally.get(wrapper.__name__, 0) + n
+    else:
+        wrapper.launches += n
+
+
 def stream_of(t) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer value."""
     import torch

@@ -84,7 +84,7 @@ def row_hash(words, nparts: int = 0, *,
     err = lib.cylon_row_hash(ptrs, strides, k, n, seed & 0xFFFFFFFF,
                              nparts, out.data_ptr(), build.stream_of(out))
     build.check(err, "row_hash")
-    row_hash.launches += -(-k // CHUNK)
+    build.count(row_hash, -(-k // CHUNK))
     return out
 
 

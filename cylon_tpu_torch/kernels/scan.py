@@ -91,7 +91,7 @@ def scan32(x: torch.Tensor, kind: str) -> torch.Tensor:
                            _DTYPES[x.dtype], scratch.data_ptr(),
                            build.stream_of(x))
     build.check(err, "scan32")
-    scan32.launches += 1
+    build.count(scan32)
     return out
 
 
@@ -153,6 +153,18 @@ def _pair_scratch(lib, n: int, device, stream: int):
         return state[0], state[1]
 
 
+def _graph_pair_scratch(lib, n: int, device):
+    """The pair scan's scratch for a call captured into a CUDA graph, and
+    its epoch (1). A graph freezes the epoch it was captured with, so a
+    second replay would read the first one's flags as this call's: the
+    scratch is the call's own, from the graph's pool, zeroed by a fill
+    captured before the scan, which every replay runs again. The three
+    passes' carries need no zeroing; the look-back's flags and its tile
+    counter start from the fill."""
+    return torch.zeros(-(-lib.cylon_pair_scan_scratch(n) // 8),
+                       dtype=torch.int64, device=device), 1
+
+
 def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
     """Inclusive running lexicographic max over u32 (hi, lo) pairs (int32
     or uint32 tensors holding the bits); returns both outputs. Positions
@@ -176,13 +188,16 @@ def pair_max_scan(hi: torch.Tensor, lo: torch.Tensor):
     # during the call): another thread's passes on this stream then run
     # wholly before or after this call's
     with _pair_lock:
-        scratch, epoch = _pair_scratch(lib, n, hi.device, stream)
+        if build.capturing():
+            scratch, epoch = _graph_pair_scratch(lib, n, hi.device)
+        else:
+            scratch, epoch = _pair_scratch(lib, n, hi.device, stream)
         err = lib.cylon_pair_max_scan(hi.data_ptr(), lo.data_ptr(),
                                       out_hi.data_ptr(), out_lo.data_ptr(),
                                       n, scratch.data_ptr(),
                                       8 * scratch.numel(), epoch, stream)
     build.check(err, "pair_max_scan")
-    pair_max_scan.launches += 1
+    build.count(pair_max_scan)
     return out_hi, out_lo
 
 

@@ -241,13 +241,11 @@ def align_table_strings(tables) -> list:
 
 
 # ------------------------------------------------------------ device parts
-_SHIFTS = (24, 16, 8, 0)
-
-
 def byte_matrix(data: torch.Tensor) -> torch.Tensor:
     """[cap, nwords] words -> [cap, nwords*4] int32 byte values (0..255),
     first byte first."""
-    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=data.device)
+    # (24, 16, 8, 0), made on the device
+    shifts = 24 - 8 * torch.arange(4, dtype=torch.int32, device=data.device)
     b = (data.to(torch.int32)[:, :, None] >> shifts) & 0xFF
     return b.reshape(data.shape[0], -1)
 

@@ -15,8 +15,11 @@ from cylon_tpu_torch.column import Column, Dictionary
 
 
 def _remap(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
-    """``remap[codes]`` on the codes' device (codes clamped into range)."""
-    table = torch.from_numpy(remap.astype(np.int32)).to(codes.device)
+    """``remap[codes]`` on the codes' device (codes clamped into range);
+    the map is a host constant (:func:`~cylon_tpu_torch.plan.staged`)."""
+    from cylon_tpu_torch import plan
+
+    table = plan.staged(remap.astype(np.int32), codes.device)
     return table[torch.clamp(codes, 0, len(remap) - 1).to(torch.int64)]
 
 

@@ -30,6 +30,7 @@ import operator
 import numpy as np
 import torch
 
+from cylon_tpu_torch import device as _device
 from cylon_tpu_torch.errors import TypeError_
 
 _NAMES = {
@@ -121,8 +122,7 @@ def _numeric(dt: torch.dtype) -> torch.dtype:
 def _as(x, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.to(dtype)
-    return torch.tensor(np.asarray(x).item(), dtype=dtype,
-                        device=like.device)
+    return _device.scalar(x, dtype, like.device)
 
 
 def _trunc_divmod(a: torch.Tensor, b: torch.Tensor):

@@ -69,7 +69,25 @@ def groupby_aggregate(table: Table, by: Sequence[str], aggs,
     def bound(scale):
         return min(cap, max(8192, cap // 16) * scale)
 
-    key = (cap, by_t, aggs_t)
+    def fixed(b):
+        # in capture mode one rung, at the graph warm-up's bound or the
+        # ambient scale's; the whole query regrows on the overflow
+        # (``cylon_tpu/ops/groupby.py:126``). Groups never outnumber
+        # rows, so a bound of the whole capacity cannot overflow, and an
+        # upstream overflow is the upstream op's flag
+        b = bound(plan.current_scale()) if b is None else b
+        t = dispatch(b)
+        if b < cap:
+            plan.note_overflow(t.nrows > t.capacity)
+        return t
+
+    return plan.settle(("groupby", cap), lambda: _ladder(
+        table, (cap, by_t, aggs_t), bound, dispatch), fixed)
+
+
+def _ladder(table: Table, key, bound, dispatch):
+    """The group-by's eager ladder: ``(result, the bound it fitted)``."""
+    cap = table.capacity
     # from the ambient scale too (``cylon_tpu/ops/groupby.py:140``). The
     # settled scale is not reported to an enclosing CompiledQuery: its
     # optimistic bound is another ladder than the joins' and exchanges',
@@ -86,12 +104,12 @@ def groupby_aggregate(table: Table, by: Sequence[str], aggs,
             # an upstream overflow rides carry_overflow and would raise
             # at every rung: groups never outnumber rows
             if int(table.nrows) > cap or bound(scale) >= cap:
-                return t
+                return t, bound(scale)
             scale *= 2
             continue
         if scale > start:
             _EAGER_SCALE_MEMO[key] = scale
-        return t
+        return t, bound(scale)
 
 
 class _Channels:

@@ -263,12 +263,30 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
     (:func:`_headroom`)."""
     if tight and op is not None:
         telemetry.counter("exchange.tight_dispatches", op=op).inc()
+    if not adaptive:
+        with _stage(op, "dispatch", scale=plan.current_scale()):
+            return build(plan.current_scale())(*args)
+
+    def fixed(scale):
+        # capture mode: no count is read; the warm-up's scale or the
+        # ambient one, the overflow registered and the whole query
+        # regrows (``cylon_tpu/plan.py:747``)
+        scale = plan.current_scale() if scale is None else scale
+        with _stage(op, "dispatch", scale=scale):
+            out = build(scale)(*args)
+        plan.note_overflow(out.nrows > out.capacity)
+        return out
+
+    return plan.settle(("exchange", op), lambda: _ladder(
+        env, build, args, op, tight, conserve, recv), fixed)
+
+
+def _ladder(env, build, args, op, tight, conserve, recv):
+    """:func:`_adaptive`'s eager ladder: ``(result, its scale)``."""
     scale = plan.current_scale()
     while True:
         with _stage(op, "dispatch", scale=scale):
             out = build(scale)(*args)
-        if not adaptive:
-            return out
         with _stage(op, "sync"):
             fits, counts = _shard_fit(env, out)
         if fits:
@@ -277,7 +295,7 @@ def _adaptive(env, build, args, adaptive: bool, op: "str | None" = None,
             if recv is not None and op is not None:
                 _headroom(op, recv, env.world_size, scale)
             plan.note_scale(scale)
-            return out
+            return out, scale
         for t in args:
             t_fits, tc = _shard_fit(env, t)
             if not t_fits:
@@ -871,11 +889,25 @@ def dist_aggregate(env, table, col: str, op: str, quantile: float = 0.5,
     if op not in AGGS:
         raise InvalidArgument(f"unknown aggregate {op!r}")
     memo = table.__dict__.setdefault("_agg_scale_memo", {})
-    table, counts, caps = world_layout_sized(env, table)
+    one = env.world_size == 1
+    if not one:
+        table, counts, caps = world_layout_sized(env, table)
     c = table.column(col)
     if c.data.dim() == 2 and op not in ("count", "nunique"):
         raise TypeError_(f"{op!r} of the string column {col!r}: a "
                          "device-bytes column takes count and nunique")
+    if one:
+        # the poison decided on the device; only the eager call's raise
+        # reads it on the host
+        flag = table.nrows > table.capacity
+        if not plan.in_compiled() and bool(flag):
+            raise OutOfCapacity(
+                f"dist_aggregate({op!r}): poisoned input (an upstream op "
+                "overflowed its capacity)")
+        plan.note_overflow(flag)
+        return _poisoned(_world_aggregate(env, table, [table.capacity], c,
+                                          col, op, quantile, exact, memo),
+                         flag)
     # every rank reads the same counts, so every rank takes one branch
     poisoned = any(n > k for n, k in zip(counts, caps))
     flag = torch.full((), poisoned, dtype=torch.bool, device=c.data.device)
@@ -990,6 +1022,11 @@ def dist_head(env, table, n: int):
     before this one, as ``repartition`` computes its offset; this rank
     keeps ``clip(n - before, 0, its count)``. An overflow on any rank
     marks every rank's result."""
+    if env.world_size == 1:
+        # the same rows from the device count, the mark kept
+        n_dev = table.nrows
+        return table.with_nrows(torch.where(
+            n_dev > table.capacity, n_dev, torch.clamp(n_dev, max=n)))
     counts, caps = shard_sizes(env, table)
     if any(c > k for c, k in zip(counts, caps)):
         return table.with_nrows(table.capacity + 1)
@@ -1299,7 +1336,13 @@ def dist_unique(env, table, cols: "Sequence[str] | None" = None,
     ``cylon_tpu/parallel/dist_ops.py:1400``; parity
     ``DistributedUnique``, ``table.cpp:977-989``): hash-partition on the
     key columns, exchange, local :func:`unique`. ``out_capacity`` bounds
-    the exchange, as in the JAX package."""
+    the exchange, as in the JAX package. A world of one runs the local
+    op, as :func:`dist_join` does, its rows bounded by ``out_capacity``
+    as the exchange would."""
+    if env.world_size == 1:
+        lt, inof = checked_recv(table, table.capacity if out_capacity is None
+                                else out_capacity)
+        return poison(unique(lt, cols, keep=keep), inof)
     with _stage("dist_unique", "prepare"):
         table, counts, caps = world_layout_sized(env, table)
     names = list(cols) if cols is not None else table.column_names

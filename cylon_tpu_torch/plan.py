@@ -8,41 +8,76 @@ overflow, runs it again at twice the scale, up to :data:`MAX_SCALE`.
 
 :func:`compile_query` wraps a whole query (tables or frames in, tables,
 frames or scalars out) into a :class:`CompiledQuery`. The JAX package
-traces the query into one XLA program, whose row counts the host cannot
-read until the end, so only the whole-query ladder can regrow there. The
-port runs the query eagerly (CUDA graphs are a later option): every op's
-count is concrete, so each op's ladder still regrows on its own, seeded
-from the ambient scale. A :class:`CompiledQuery` keeps what the JAX one
-promises its callers:
+traces the query into one XLA program: one dispatch, one fetch of the
+row counts and overflow flags, and a whole-query regrow on an overflow.
+On a CUDA device the port does the same with one CUDA graph a query:
+
+- the query runs in *capture mode* (:func:`capture_mode`), the port's
+  counterpart of a JAX trace: no op reads a count on the host, each op
+  of a bound or a shrink takes its size from :func:`settle` and
+  registers its overflow with :func:`note_overflow` (at its one-rung
+  default under a bare capture mode: the group-by takes one rung,
+  frames do not shrink), scalars stay 0-d tensors, host constants come
+  from :func:`staged`; the flags, the result tables' row counts and the
+  small result scalars are packed into one device tensor;
+- the first call at a scale is the graph's warm-up: the query runs
+  eagerly with its ladders and shrinks, reading counts on the host, and
+  each op's settled size is kept in order on a :class:`SizeTape` (it
+  builds and warms the kernels, and its fetch settles the scale: an
+  overflow reruns it at twice the scale). Then the query is captured
+  into one ``torch.cuda.CUDAGraph`` (:data:`GRAPH_CLASS`) with each op
+  given its size back from the tape, so the graph runs at the eager
+  route's capacities with no host read;
+- a later call on the same inputs replays the graph, fetches the packed
+  tensor once, regrows on an overflow (twice the scale, a new warm-up
+  and capture) and returns the results shrunk to the power-of-two
+  bucket of their rows, copied out of the graph's memory pool.
+
+The same inputs are the same tensors, unchanged (their ``_version``),
+under the same schema: each table's column names in order, their
+logical dtypes and each column's dictionary (by identity), a frame's
+env and index. A graph keeps its tensors by weak reference and is let
+go with its pool when one of them dies, on
+:meth:`CompiledQuery.invalidate`, or past :data:`GRAPH_ENTRIES` graphs a
+query (least recently used first). New tensors of the same shapes
+capture again, where a JAX executable would serve them: a graph reads
+the addresses it was captured on, and its sizes are its warm-up's.
+
+The eager route is today's ladder of per-op regrows and one overflow
+check after the query. It runs, and counts ``plan.eager_runs{reason}``,
+by rule: for CPU tensors and host arrays (``reason="cpu"``) and for an
+env of more than one rank (``"world"``: the ranks' counts cross on the
+host). A capture or replay that fails raises; nothing falls back to the
+eager route.
+
+A :class:`CompiledQuery` keeps what the JAX one promises its callers:
 
 - one host transfer after the call reads every result table's row count,
-  the overflow flags the ops registered (:func:`note_overflow`) and the
-  small result scalars; an overflow reruns the whole query at twice the
-  scale, or raises :class:`OutOfCapacity` past :data:`MAX_SCALE`;
-- a scale memo per static arguments and input shapes, widen-only: the
-  ladders report the highest scale they reached (:func:`note_scale`), so
-  a second call starts where the first settled and runs each op once;
+  the overflow flags the ops registered and the small result scalars; an
+  overflow reruns the whole query at twice the scale, or raises
+  :class:`OutOfCapacity` past :data:`MAX_SCALE`;
+- a scale memo per static arguments and input schema and shapes,
+  widen-only: the ladders report the highest scale they reached
+  (:func:`note_scale`), so a second call starts where the first
+  settled;
 - scalar aggregates inside it stay 0-d tensors, and local result tables
   come back shrunk to the power-of-two bucket of their rows.
 
 Its telemetry is the JAX package's (``cylon_tpu/plan.py:495-571``):
 ``plan.cache_hits`` / ``plan.cache_misses`` / ``plan.cache_evictions``
-read off the scale memo (a hit is a run at the scale the memo holds for
-its static key and input shapes; a miss, the eager "compile", counts in
-``plan.compile_count`` with a ``plan.compile`` instant),
-``plan.dispatch`` and ``plan.fetch`` stage spans each under
-:func:`~cylon_tpu_torch.telemetry.memory.forensics`, and the
-whole-query regrow's ``plan.overflow_events`` /
+(a hit is a replay, or on the eager route a run at the memo's scale; a
+capture, or an eager run at a new key, counts in ``plan.compile_count``
+with a ``plan.compile`` instant), ``plan.dispatch`` and ``plan.fetch``
+stage spans each under :func:`~cylon_tpu_torch.telemetry.memory.forensics`,
+and the whole-query regrow's ``plan.overflow_events`` /
 ``plan.capacity_rescales`` with their ``capacity.*`` instants. The memo
-keeps the ``_MEMO_ENTRIES`` most recently used entries (the JAX
-package's ``CYLON_TPU_PLAN_CACHE_ENTRIES`` bounds its compiled
-programs, which the eager port has none of).
+keeps the ``_MEMO_ENTRIES`` most recently used entries.
 
 Left out, with the reasons in ``ROADMAP.md``: the row hint (the port's
 exchanges size from real counts), the result-size memo and its slicer
-(eager results are already shrunk), the ``CYLON_TPU_ADAPTIVE`` and
-``CYLON_TPU_TIGHT`` switches (the port's ladders and tight sizing are
-always on), and the watchdog and fault hooks (with their modules).
+(results are shrunk from the fetched counts), and the
+``CYLON_TPU_ADAPTIVE`` and ``CYLON_TPU_TIGHT`` switches (the port's
+ladders and tight sizing are always on).
 """
 
 import collections
@@ -50,6 +85,7 @@ import contextlib
 import contextvars
 import functools
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -60,10 +96,12 @@ from cylon_tpu_torch.telemetry import memory as _memory
 from cylon_tpu_torch.telemetry import trace as _trace
 from cylon_tpu_torch.utils.tracing import span as _span
 
-__all__ = ["CompiledQuery", "MAX_SCALE", "capacity_scale", "compile_query",
-           "current_scale", "in_compiled", "note_overflow", "note_scale",
-           "plan_cache_stats", "query_fingerprint", "regrow_eager",
-           "shared_compiled"]
+__all__ = ["CaptureFailed", "CompiledQuery", "GRAPH_ENTRIES", "MAX_SCALE",
+           "SizeTape", "capacity_scale", "capture_mode", "capturing",
+           "compile_query", "current_scale", "in_compiled", "note_overflow",
+           "note_scale", "plan_cache_stats", "query_fingerprint",
+           "regrow_eager", "run_captured", "settle", "shared_compiled",
+           "staged"]
 
 #: regrow ceiling: 1024x the default budget (``cylon_tpu/plan.py:58``)
 MAX_SCALE = 1024
@@ -72,6 +110,10 @@ MAX_SCALE = 1024
 #: first: far above any sane shape churn, so that a pathological
 #: workload cannot grow the memo without bound
 _MEMO_ENTRIES = 4096
+
+#: graphs a :class:`CompiledQuery` keeps, least recently used let go
+#: first: each holds its memory pool, so the bound is small
+GRAPH_ENTRIES = 8
 
 _SCALE: contextvars.ContextVar = contextvars.ContextVar(
     "cylon_torch_capacity_scale", default=1)
@@ -89,6 +131,158 @@ _REACHED: contextvars.ContextVar = contextvars.ContextVar(
     "cylon_torch_reached_scales", default=None)
 
 
+#: True while a query runs in capture mode (:func:`capture_mode`)
+_CAPTURE: contextvars.ContextVar = contextvars.ContextVar(
+    "cylon_torch_capture_mode", default=False)
+
+#: the sizes of the graph being warmed or captured (:class:`SizeTape`);
+#: None outside one
+_TAPE: contextvars.ContextVar = contextvars.ContextVar(
+    "cylon_torch_size_tape", default=None)
+
+#: the host constants of the graph being warmed or captured
+#: (:func:`staged`): content -> device tensor; None outside one
+_STAGED: contextvars.ContextVar = contextvars.ContextVar(
+    "cylon_torch_staged_constants", default=None)
+
+#: the set of :class:`CompiledQuery` objects that captured a graph for
+#: the caller's owner (a serve engine, which lets go of them on close);
+#: None outside one (:func:`own_graphs`)
+_OWNER: contextvars.ContextVar = contextvars.ContextVar(
+    "cylon_torch_graph_owner", default=None)
+
+#: set while :func:`staged` itself builds a tensor from host data (the
+#: host-read lint of the tests tells it from any other upload)
+_STAGING = threading.local()
+
+
+class CaptureFailed(RuntimeError):
+    """Capturing a query into a CUDA graph failed; the message names the
+    query and the op, the cause is chained."""
+
+
+def capturing() -> bool:
+    """Whether the caller runs in capture mode: no host read of a device
+    value, no shrink, one rung a ladder (see the module docstring)."""
+    return _CAPTURE.get()
+
+
+@contextlib.contextmanager
+def capture_mode():
+    """Run the enclosed query in capture mode, the port's counterpart of
+    a JAX trace (``cylon_tpu/plan.py:747``)."""
+    tok = _CAPTURE.set(True)
+    try:
+        yield
+    finally:
+        _CAPTURE.reset(tok)
+
+
+class SizeTape:
+    """The sizes a graph's warm-up run settled its ops at (their capacity
+    bounds and shrinks), in the order the ops asked for them
+    (:func:`settle`): recorded while the warm-up reads counts eagerly,
+    given back to the same ops in the same order while the graph is
+    captured (:meth:`replaying`)."""
+
+    def __init__(self):
+        #: ``(site, size)`` an op
+        self.sizes: list = []
+        #: the next size to give back; None while recording
+        self.pos: "int | None" = None
+
+    def replaying(self) -> "SizeTape":
+        """A tape that gives these sizes back from the first."""
+        tape = SizeTape()
+        tape.sizes, tape.pos = self.sizes, 0
+        return tape
+
+    def take(self, site):
+        if self.pos >= len(self.sizes) or self.sizes[self.pos][0] != site:
+            had = self.sizes[self.pos][0] if self.pos < len(self.sizes) \
+                else "nothing"
+            raise CaptureFailed(f"op {self.pos} of the capture is {site}, "
+                                f"its warm-up's was {had}")
+        self.pos += 1
+        return self.sizes[self.pos - 1][1]
+
+    def check_done(self) -> None:
+        if self.pos is not None and self.pos != len(self.sizes):
+            raise CaptureFailed(f"the capture asked {self.pos} sizes, its "
+                                f"warm-up {len(self.sizes)}")
+
+
+def settle(site, eager, fixed):
+    """An op of a bound or a shrink at its size. ``eager()`` runs the op
+    eagerly, finding its size by reading counts on the host (its ladder,
+    its shrink), and returns ``(result, size)``; ``fixed(size)`` runs it
+    at ``size`` with no host read, registering its overflow
+    (:func:`note_overflow`), its one-rung default for ``size=None``.
+
+    Outside capture mode ``eager()`` runs. In capture mode: under a
+    recording :class:`SizeTape` (a graph's warm-up) ``eager()`` runs
+    and its size is recorded under ``site``; under a replaying one (the
+    capture) ``fixed`` takes the recorded size back, which must be
+    ``site``'s; with no tape ``fixed(None)``."""
+    if not capturing():
+        return eager()[0]
+    tape = _TAPE.get()
+    if tape is None:
+        return fixed(None)
+    if tape.pos is None:
+        out, size = eager()
+        tape.sizes.append((site, size))
+        return out
+    return fixed(tape.take(site))
+
+
+def own_graphs(owner: "weakref.WeakSet") -> None:
+    """Record in ``owner`` every :class:`CompiledQuery` that captures a
+    graph in the caller's context from now on (a thread's top-level
+    function calls it once)."""
+    _OWNER.set(owner)
+
+
+def in_staging() -> bool:
+    """Whether :func:`staged` is building a tensor from host data."""
+    return getattr(_STAGING, "on", False)
+
+
+def staged(values, device, dtype=None) -> torch.Tensor:
+    """A constant made on the host (a list of codes, a lookup table) as a
+    tensor on ``device``: the one way such a constant enters a query.
+
+    Outside a graph it is uploaded. While a graph is warmed (its eager
+    capture-mode run) the upload is kept, keyed by the constant's
+    content, with the graph (:data:`_STAGED`); while it is captured the
+    kept tensor is returned, so the capture holds no host-to-device copy
+    and the constant lives as long as the graph. A constant first seen
+    inside a capture raises :class:`CaptureFailed`."""
+    from cylon_tpu_torch.device import from_host
+
+    arr = np.ascontiguousarray(np.asarray(values))
+    device = torch.device(device)
+    cache = _STAGED.get()
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), str(device),
+           str(dtype))
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise CaptureFailed(
+            f"a host constant of shape {arr.shape} first seen inside a "
+            "capture: its warm-up run did not stage it")
+    _STAGING.on = True
+    try:
+        t = from_host(arr, device, dtype)
+    finally:
+        _STAGING.on = False
+    if cache is not None:
+        cache[key] = t
+    return t
+
+
 def note_overflow(flag) -> None:
     """Register an overflow indicator (a bool, or a 0-d or 1-element bool
     tensor) with the enclosing :class:`CompiledQuery` (port of
@@ -97,7 +291,8 @@ def note_overflow(flag) -> None:
     call it."""
     flags = _FLAGS.get()
     if flags is not None:
-        flags.append(torch.as_tensor(flag).reshape(()))
+        flags.append(flag.reshape(()) if torch.is_tensor(flag)
+                     else bool(flag))
 
 
 def note_scale(scale: int) -> None:
@@ -151,22 +346,36 @@ def regrow_eager(run, *, bounded: bool):
     (the caller passed an explicit capacity) keeps the raise-on-overflow
     contract: the result is returned unchecked. Otherwise the row count
     is read (one host sync) and an overflow reruns at twice the scale;
-    the scale that fitted is reported (:func:`note_scale`)."""
-    scale = current_scale()
-    while True:
-        with capacity_scale(scale):
+    the scale that fitted is reported (:func:`note_scale`). In capture
+    mode (:func:`settle`) the count is not read: the op runs at its
+    warm-up's scale, or the ambient one, its overflow is registered
+    (:func:`note_overflow`) and the whole query regrows
+    (``cylon_tpu/plan.py:747``)."""
+    if bounded:
+        return run()
+
+    def ladder():
+        scale = current_scale()
+        while True:
+            with capacity_scale(scale):
+                t = run()
+            try:
+                t.num_rows
+            except OutOfCapacity:
+                if scale >= MAX_SCALE:
+                    raise
+                scale *= 2
+                continue
+            note_scale(scale)
+            return t, scale
+
+    def fixed(scale):
+        with capacity_scale(current_scale() if scale is None else scale):
             t = run()
-        if bounded:
-            return t
-        try:
-            t.num_rows
-        except OutOfCapacity:
-            if scale >= MAX_SCALE:
-                raise
-            scale *= 2
-            continue
-        note_scale(scale)
+        note_overflow(t.nrows > t.capacity)
         return t
+
+    return settle("regrow", ladder, fixed)
 
 
 # ------------------------------------------------------------ whole queries
@@ -234,24 +443,14 @@ def _as_words(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64)
 
 
-def _check_overflow(out, flags: list) -> list:
-    """Raise :class:`OutOfCapacity` if a registered flag fired or a result
-    table overflowed (``cylon_tpu/plan.py:246``); else return the local
-    result tables' row counts (None for a distributed one).
-
-    One host transfer: the flags, every result table's count and
-    capacity (a distributed table's gathered over its env in one
-    all-gather, so every rank takes the same decision) and the small
-    result scalars are stacked into one tensor, and ``.cpu()`` is called
-    once. Its one sync also completes the scalars, so the caller's
-    ``float()`` of one is a copy, not a wait for the query. A wedged card
-    hangs exactly there, so the transfer is the watchdog's
-    ``overflow_fetch`` section (:func:`cylon_tpu_torch.watchdog.bounded`,
-    ``cylon_tpu/plan.py:288``; never retryable)."""
-    # imported here: the resilience layer's config imports the dist ops,
-    # which import this module
-    from cylon_tpu_torch import watchdog
-
+def _pack(out, flags: list):
+    """The one tensor the overflow check fetches, on the device: the
+    flags OR-ed into word 0, each result table's count and capacity, the
+    small result scalars as words; for a distributed result, every
+    rank's row of it (one all-gather, so every rank takes the same
+    decision; a distributed scalar is the same on every rank). Returns
+    ``(packed, env)``. Every piece is made on the device (a fill, never
+    a copy from the host), so packing holds no sync and captures."""
     tables = _result_tables(out)
     scalars = _result_scalars(out)
     envs = {id(env): env for _, env in tables if env is not None}
@@ -260,12 +459,13 @@ def _check_overflow(out, flags: list) -> list:
                               "several envs; the overflow check needs one")
     env = next(iter(envs.values()), None)
     dev = next((t.device for t, _ in tables), None) or next(
-        (x.device for x in scalars + flags), torch.device("cpu"))
-    # every piece is made on the device (a fill, never a copy from the
-    # host, which would sync the stream once a piece)
-    flag = torch.zeros(1, dtype=torch.int64, device=dev)
+        (x.device for x in scalars + [f for f in flags if torch.is_tensor(f)]),
+        torch.device("cpu"))
+    fired = any(bool(f) for f in flags if not torch.is_tensor(f))
+    flag = torch.full((1,), int(fired), dtype=torch.int64, device=dev)
     for f in flags:
-        flag = flag | f.to(device=dev, dtype=torch.int64).reshape(1)
+        if torch.is_tensor(f):
+            flag = flag | f.to(device=dev, dtype=torch.int64).reshape(1)
     parts = [flag]
     for t, _ in tables:
         parts.append(t.nrows.to(torch.int64).reshape(1))
@@ -273,20 +473,35 @@ def _check_overflow(out, flags: list) -> list:
                                 device=dev))
     parts.extend(_as_words(s.to(dev)) for s in scalars)
     local = torch.cat(parts)
+    if env is None:
+        return local, None
+    return env.comm.all_gather(local).reshape(env.world_size, -1), env
+
+
+def _fetch(packed: torch.Tensor):
+    """The one device-to-host transfer of a call. A wedged card hangs
+    exactly there, so it is the watchdog's ``overflow_fetch`` section
+    (:func:`cylon_tpu_torch.watchdog.bounded`, ``cylon_tpu/plan.py:288``;
+    never retryable)."""
+    # imported here: the resilience layer's config imports the dist ops,
+    # which import this module
+    from cylon_tpu_torch import watchdog
+
+    return watchdog.bounded(lambda: packed.cpu().numpy(), "overflow_fetch",
+                            detail=f"{packed.numel()} words")
+
+
+def _decide(out, host, env) -> list:
+    """Raise :class:`OutOfCapacity` if a registered flag fired or a result
+    table overflowed (``cylon_tpu/plan.py:246``); else return the local
+    result tables' row counts (None for a distributed one), from the
+    fetched words of :func:`_pack`."""
+    tables = _result_tables(out)
     if env is not None:
-        # the flags and counts of every rank, so the decision is the
-        # world's (the scalars ride along: a distributed scalar is the
-        # same on every rank)
-        gathered = env.comm.all_gather(local).reshape(env.world_size, -1)
-        host = watchdog.bounded(lambda: gathered.cpu().numpy(),
-                                "overflow_fetch",
-                                detail=f"{gathered.numel()} words")
         mine = host[env.rank]
         bad = bool(host[:, 0].any())
     else:
-        mine = watchdog.bounded(lambda: local.cpu().numpy(),
-                                "overflow_fetch",
-                                detail=f"{local.numel()} words")
+        mine = host
         bad = bool(mine[0])
     if bad:
         raise OutOfCapacity("an op inside the compiled query overflowed "
@@ -306,6 +521,15 @@ def _check_overflow(out, flags: list) -> list:
             raise OutOfCapacity(f"result rows {n} exceed capacity {cap}")
         counts.append(n)
     return counts
+
+
+def _check_overflow(out, flags: list) -> list:
+    """The overflow check after an eager query
+    (``cylon_tpu/plan.py:246``): :func:`_pack`, one ``.cpu()`` (whose
+    sync also completes the scalars, so the caller's ``float()`` of one
+    is a copy, not a wait for the query), then :func:`_decide`."""
+    packed, env = _pack(out, flags)
+    return _decide(out, _fetch(packed), env)
 
 
 def _shrink_results(out, counts: list):
@@ -388,80 +612,430 @@ def _split_args(args, kwargs):
     return dyn_pos, tuple(static_pos), tuple(sorted(static_kw)), dyn_kw
 
 
-def _leaves(x) -> list:
-    """The tensors and arrays of the dynamic arguments, in a fixed order:
-    a table's columns (data, then validity) and its row count."""
+def _inputs(x, leaves: list, pins: list):
+    """What a query sees of its dynamic arguments ``x``, hashable: each
+    table's column names in order with their logical dtypes, a frame's
+    index, a container's keys and the static values inside it. Appends
+    their tensors and arrays to ``leaves`` in a fixed order (a column's
+    data then its validity, a table's row count after its columns, a
+    frame's index after its table) and the host objects a result depends
+    on by identity (a column's dictionary, a frame's env) to ``pins``."""
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.indexing.index import BaseIndex
     from cylon_tpu_torch.table import Table
 
+    def walk(x):
+        if _is_frame(x):
+            if x.env is not None:
+                pins.append(x.env)
+            return ("frame", walk(x.table), walk(x._index))
+        if isinstance(x, Table):
+            cols = tuple((n, walk(c)) for n, c in x.columns.items())
+            leaves.append(x.nrows)
+            return ("table", cols)
+        if isinstance(x, Column):
+            leaves.append(x.data)
+            if x.validity is not None:
+                leaves.append(x.validity)
+            if x.dictionary is not None:
+                pins.append(x.dictionary)
+            return (x.dtype, x.validity is not None,
+                    x.dictionary is not None)
+        if isinstance(x, BaseIndex):
+            return (type(x).__name__,
+                    tuple((k, walk(v)) for k, v in sorted(vars(x).items())))
+        if isinstance(x, (list, tuple)):
+            return (type(x).__name__, tuple(walk(v) for v in x))
+        if isinstance(x, dict):
+            return ("dict", tuple((k, walk(x[k])) for k in sorted(x, key=repr)))
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            leaves.append(x)
+            return "array"
+        return ("static", _hashable(x))
+
+    return walk(x)
+
+
+def _describe(args, kwargs):
+    """``(memo key, leaves, pins)`` of a call: the key holds its static
+    arguments and its inputs' schema and shapes (:func:`_inputs`)."""
+    dyn_pos, static_pos, static_kw, dyn_kw = _split_args(args, kwargs)
+    leaves, pins = [], []
+    schema = _inputs((list(dyn_pos), dyn_kw), leaves, pins)
+    shapes = tuple((tuple(x.shape), str(x.dtype)) for x in leaves)
+    return (static_pos, static_kw, schema, shapes), leaves, pins
+
+
+def _map_tables(out, table_fn):
+    """``out`` with every table (bare or in a frame) replaced by
+    ``table_fn(table)``, nested lists, tuples and dicts rebuilt, and bare
+    tensors passed to ``table_fn`` too."""
+    from cylon_tpu_torch.frame import DataFrame
+    from cylon_tpu_torch.table import Table
+
+    def walk(x):
+        if isinstance(x, Table) or torch.is_tensor(x):
+            return table_fn(x)
+        if isinstance(x, DataFrame):
+            return DataFrame._wrap(table_fn(x.table), x._index, x.env)
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        if isinstance(x, tuple):
+            return tuple(walk(v) for v in x)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        return x
+
+    return walk(out)
+
+
+def _walk_frames(out, fn) -> None:
+    """Call ``fn`` on every frame of a query result (nested in lists,
+    tuples and dicts)."""
+    if _is_frame(out):
+        fn(out)
+    elif isinstance(out, (list, tuple)):
+        for v in out:
+            _walk_frames(v, fn)
+    elif isinstance(out, dict):
+        for v in out.values():
+            _walk_frames(v, fn)
+
+
+def _copy_tensors(pick):
+    """A ``table_fn`` for :func:`_map_tables` that clones each tensor
+    ``pick`` selects (a table's columns and row count, or a bare
+    tensor) and keeps the others."""
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.table import Table
+
+    def cp(x):
+        return x.clone() if pick(x) else x
+
+    def table_fn(x):
+        if torch.is_tensor(x):
+            return cp(x)
+        cols = {n: Column(cp(c.data),
+                          None if c.validity is None else cp(c.validity),
+                          c.dtype, c.dictionary)
+                for n, c in x.columns.items()}
+        return Table(cols, cp(x.nrows))
+
+    return table_fn
+
+
+def run_captured(fn, args=(), kwargs=None, scale: int = 1, detach=None,
+                 tape: "SizeTape | None" = None):
+    """Run the query ``fn(*args, **kwargs)`` in capture mode at
+    ``scale`` and pack what its one fetch reads: returns ``(out,
+    packed, env)`` (:func:`_pack`). This is the program a
+    :class:`CompiledQuery` warms (``tape`` recording), captures and
+    replays (``tape`` replaying); the tests run it on CPU tensors under
+    their host-read lint. ``detach``: storages (their ``data_ptr``) of
+    the inputs; a result tensor on one of them is copied, so that a
+    graph's outputs never keep its inputs alive."""
+    flags = []
+    tok = _TAPE.set(tape)
+    try:
+        with capture_mode(), capacity_scale(scale), \
+                _collect_flags(flags, []):
+            out = fn(*args, **(kwargs or {}))
+            if tape is not None:
+                tape.check_done()
+            if detach:
+                out = _map_tables(out, _copy_tensors(
+                    lambda x: x.untyped_storage().data_ptr() in detach))
+            packed, env = _pack(out, flags)
+    finally:
+        _TAPE.reset(tok)
+    return out, packed, env
+
+
+#: the live graphs of each CUDA device, which share one memory pool: a
+#: graph's temporaries may lie where another graph's lay, so the pools
+#: of N queries cost about the largest query's working set, not N of
+#: them. That is safe because replays take turns (:data:`_GRAPH_MU`,
+#: :data:`_TURN`) and each copies its results out before the next one
+#: runs. A capture joins the pool of a live graph; with none live it
+#: takes a new pool, never the id of one whose graphs are all gone (its
+#: last tensors may not be collected yet, and PyTorch refuses it)
+_LIVE: dict = {}
+
+#: held while a graph is captured and while one is replayed, fetched and
+#: copied out: graphs that share a pool never run over each other
+_GRAPH_MU = threading.RLock()
+
+#: per CUDA device, an event recorded after the last replay's copy-out;
+#: the next replay's stream waits on it, so turns hold on the device
+#: when callers replay from several streams
+_TURN: dict = {}
+
+
+class _CudaGraph:
+    """One ``torch.cuda.CUDAGraph`` in its device's shared pool
+    (:data:`_LIVE`); the :data:`GRAPH_CLASS` the package uses.
+    ``device_type`` is the device whose tensors take the graph route."""
+
+    device_type = "cuda"
+
+    def __init__(self):
+        self._graph = torch.cuda.CUDAGraph()
+        self._device = torch.cuda.current_device()
+        self.pool_bytes = 0
+
+    @contextlib.contextmanager
+    def capture(self):
+        # torch.cuda.graph empties the cache on entry too; emptied here
+        # first, the reserved bytes' growth is what this capture added to
+        # the pool. thread_local: another thread's work (a serve
+        # engine's scheduler, a client) is not an error of this capture.
+        # Called under _GRAPH_MU, as reset is
+        live = _LIVE.setdefault(self._device, [])
+        pool = live[0]._graph.pool() if live else \
+            torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        with torch.cuda.graph(self._graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            yield
+        self.pool_bytes = torch.cuda.memory_reserved() - before
+        live.append(self)
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+    def reset(self) -> None:
+        live = _LIVE.get(self._device, [])
+        if self in live:
+            live.remove(self)
+        self._graph.reset()
+
+
+#: the graph class of the graph route; tests put a stand-in here
+GRAPH_CLASS = _CudaGraph
+
+#: what a replay returns when its graph overflowed, or was let go by
+#: another thread before it ran
+_OVERFLOWED = object()
+_RELEASED = object()
+
+
+class _Entry:
+    """One captured graph: its inputs (weak references and ``_version``
+    at capture; the host objects its key names by identity, held), the
+    pool-resident result and packed words it writes, and each kernel's
+    launches a replay makes."""
+
+    def __init__(self, gkey, graph, leaves, pins, out, packed, env,
+                 launches, stage, scale, on_death):
+        self.gkey = gkey
+        self.graph = graph
+        self.refs = [weakref.ref(x, lambda _r, e=self: on_death(e))
+                     for x in leaves]
+        self.versions = [x._version for x in leaves]
+        # held: while the graph lives, no other object takes their ids
+        self.pins = pins
+        self.out, self.packed, self.env = out, packed, env
+        self.launches = launches
+        self.stage = stage
+        self.scale = scale
+        self.replays = 0
+
+    def matches(self, leaves) -> bool:
+        return all(r() is x and x._version == v
+                   for r, x, v in zip(self.refs, leaves, self.versions))
+
+    def release(self) -> None:
+        """Let go of the graph and every tensor of its pool; never while
+        it is replayed (:data:`_GRAPH_MU`)."""
+        with _GRAPH_MU:
+            if self.graph is not None:
+                self.graph.reset()
+            self.graph = self.out = self.packed = self.stage = None
+            self.pins = None
+
+    def stats(self) -> dict:
+        return {"scale": self.scale, "replays": self.replays,
+                "launches": dict(self.launches),
+                "pool_bytes": getattr(self.graph, "pool_bytes", 0)}
+
+
+def _world_size(x) -> int:
+    """The world size of an env or of a frame's env in ``x`` (nested);
+    1 when there is none."""
     if _is_frame(x):
-        x = x.table
-    if isinstance(x, Table):
-        out = []
-        for c in x.columns.values():
-            out.append(c.data)
-            if c.validity is not None:
-                out.append(c.validity)
-        return out + [x.nrows]
+        x = x.env
     if isinstance(x, (list, tuple)):
-        return [leaf for v in x for leaf in _leaves(v)]
+        return max((_world_size(v) for v in x), default=1)
     if isinstance(x, dict):
-        return [leaf for k in sorted(x, key=repr) for leaf in _leaves(x[k])]
-    if isinstance(x, (torch.Tensor, np.ndarray)):
-        return [x]
-    return []
+        return max((_world_size(v) for v in x.values()), default=1)
+    n = getattr(x, "world_size", 1)
+    return n if isinstance(n, int) else 1
 
 
-def _shape_signature(dyn_pos, dyn_kw) -> tuple:
-    return tuple((tuple(x.shape), str(x.dtype))
-                 for x in _leaves((list(dyn_pos), dyn_kw)))
+def _add_launches(delta: dict) -> None:
+    from cylon_tpu_torch import kernels
+
+    for w in kernels.WRAPPERS:
+        w.launches += delta.get(w.__name__, 0)
 
 
 class CompiledQuery:
-    """A whole query with one overflow check and a scale memo (port of
-    ``cylon_tpu/plan.py:374``, eager; see the module docstring).
+    """A whole query: one CUDA graph a query on the card, one overflow
+    check and a scale memo everywhere (port of ``cylon_tpu/plan.py:374``;
+    see the module docstring).
 
     Call it like the function. Tables, frames, tensors and arrays
     (positional or keyword, nested in dicts and lists) are the data;
     every other argument must be hashable and joins the memo key with
-    the data's shapes and dtypes."""
+    the data's schema, shapes and dtypes (:func:`_describe`)."""
 
     def __init__(self, fn):
         self._fn = fn
-        #: one lock for the memo: a CompiledQuery is shared across
-        #: threads (:func:`shared_compiled`, ``ThreadWorld`` ranks), and
-        #: each read-modify-write of the memo holds it; the query itself
-        #: runs outside it
+        #: one lock for the memo and the graphs: a CompiledQuery is
+        #: shared across threads (:func:`shared_compiled`, ``ThreadWorld``
+        #: ranks, a serve engine), and each read-modify-write of them
+        #: holds it; the query itself runs outside it
         self._mu = threading.Lock()
         #: (static key, input shapes) -> the highest scale a run settled
         #: at; least recently used first, at most ``_MEMO_ENTRIES``
         self._scale_memo: "collections.OrderedDict" = \
             collections.OrderedDict()
+        #: (memo key, input ids, pin ids) -> _Entry, least recently
+        #: used first
+        self._graphs: "collections.OrderedDict" = collections.OrderedDict()
+        #: entries whose input died, let go at the next chance to take
+        #: the lock (a weak-reference callback may fire while it is held)
+        self._dead: collections.deque = collections.deque()
+
+    @property
+    def _name(self) -> str:
+        return getattr(self._fn, "__name__", "?")
+
+    # -- graph bookkeeping ---------------------------------------------
+    def _on_death(self, entry) -> None:
+        self._dead.append(entry)
+        self._reap()
+
+    def _reap(self) -> None:
+        while self._dead:
+            if not self._mu.acquire(blocking=False):
+                return
+            try:
+                while self._dead:
+                    e = self._dead.popleft()
+                    if self._graphs.get(e.gkey) is e:
+                        del self._graphs[e.gkey]
+                    e.release()
+            finally:
+                self._mu.release()
+
+    def _drop_locked(self, gkey) -> None:
+        e = self._graphs.pop(gkey, None)
+        if e is not None:
+            e.release()
+
+    def release_graphs(self) -> None:
+        """Let go of every graph and its pool; the memo stays."""
+        with self._mu:
+            while self._graphs:
+                self._graphs.popitem(last=False)[1].release()
+        self._reap()
 
     def invalidate(self) -> None:
-        """Drop the memo (``cylon_tpu/plan.py:449``)."""
+        """Drop the memo and let go of every graph
+        (``cylon_tpu/plan.py:449``)."""
         with self._mu:
             self._scale_memo.clear()
+        self.release_graphs()
+
+    def graph_stats(self) -> list:
+        """Per graph held: its scale, replays, launches a replay and pool
+        bytes."""
+        with self._mu:
+            out = [e.stats() for e in self._graphs.values()]
+        self._reap()
+        return out
+
+    # -- calls -----------------------------------------------------------
+    def _eager_reason(self, args, kwargs, leaves) -> "str | None":
+        if _world_size(list(args) + list(kwargs.values())) > 1:
+            return "world"
+        want = GRAPH_CLASS.device_type
+        if not leaves or any(not torch.is_tensor(x) or x.device.type != want
+                             for x in leaves):
+            return "cpu"
+        return None
+
+    def _memo_lookup(self, key):
+        """``(hit, scale)`` for ``key``, recording a first sight at its
+        lookup: threads racing on one new key count one miss between
+        them (``cylon_tpu/plan.py``'s no-double-count rule)."""
+        hit = key in self._scale_memo
+        scale = self._scale_memo.get(key, 1)
+        if hit:
+            self._scale_memo.move_to_end(key)
+        else:
+            self._scale_memo[key] = scale
+        return hit, scale
+
+    def _memo_settle(self, key, top: int) -> None:
+        """Widen-only: a concurrent call that settled higher is never
+        clobbered back down (``cylon_tpu/plan.py:577``)."""
+        with self._mu:
+            if top > self._scale_memo.get(key, 0):
+                self._scale_memo[key] = top
+            self._scale_memo.move_to_end(key)
+            evicted = 0
+            while len(self._scale_memo) > _MEMO_ENTRIES:
+                self._scale_memo.popitem(last=False)
+                evicted += 1
+        if evicted:
+            telemetry.counter("plan.cache_evictions").inc(evicted)
+
+    def _regrow(self, scale: int) -> int:
+        """Count a whole-query overflow at ``scale``; the next scale, or
+        raise past :data:`MAX_SCALE`."""
+        telemetry.counter("plan.overflow_events", site="compiled").inc()
+        _trace.instant("capacity.overflow", cat="capacity",
+                       site="compiled", scale=scale)
+        if scale >= MAX_SCALE:
+            raise OutOfCapacity("an op inside the compiled query "
+                                f"overflowed its bound at scale {scale}")
+        telemetry.counter("plan.capacity_rescales", site="compiled").inc()
+        _trace.instant("capacity.regrow", cat="capacity", site="compiled",
+                       scale=scale * 2)
+        return scale * 2
+
+    def _inject(self) -> None:
+        # seeded-fault hook (the "plan" injection point,
+        # cylon_tpu/plan.py:522-525): the OOM→spill fallback's tests
+        # inject allocation failures where a real one surfaces
+        from cylon_tpu_torch import resilience
+
+        resilience.inject("plan", self._name)
 
     def __call__(self, *args, **kwargs):
-        dyn_pos, static_pos, static_kw, dyn_kw = _split_args(args, kwargs)
-        key = (static_pos, static_kw, _shape_signature(dyn_pos, dyn_kw))
+        key, leaves, pins = _describe(args, kwargs)
+        reason = self._eager_reason(args, kwargs, leaves)
+        if reason is not None:
+            telemetry.counter("plan.eager_runs", reason=reason).inc()
+            return self._run_eager(key, args, kwargs)
+        return self._run_graph(key, leaves, pins, args, kwargs)
+
+    def _run_eager(self, key, args, kwargs):
+        """The eager route: the query with its per-op ladders, one
+        overflow check, a whole-query regrow on an overflow."""
         with self._mu:
-            hit = key in self._scale_memo
-            scale = self._scale_memo.get(key, 1)
-            if hit:
-                self._scale_memo.move_to_end(key)
-            else:
-                # first sight recorded at lookup, in the same lock hold:
-                # threads racing on one new key count one miss between
-                # them (``cylon_tpu/plan.py``'s no-double-count rule)
-                self._scale_memo[key] = scale
+            hit, scale = self._memo_lookup(key)
         while True:
             telemetry.counter("plan.cache_hits" if hit
                               else "plan.cache_misses").inc()
             if not hit:
                 telemetry.counter("plan.compile_count").inc()
                 _trace.instant("plan.compile", cat="plan", scale=scale,
-                               fn=getattr(self._fn, "__name__", "?"))
+                               fn=self._name)
             flags, reached = [], [scale]
             # the dispatch span covers the eager query (its device work
             # queued, its ops' own syncs included); the fetch span is
@@ -471,47 +1045,162 @@ class CompiledQuery:
             with _span("plan.dispatch", cat="stage", cache_hit=hit), \
                     _memory.forensics("plan.dispatch"), \
                     capacity_scale(scale), _collect_flags(flags, reached):
-                # seeded-fault hook (the "plan" injection point,
-                # cylon_tpu/plan.py:522-525): the OOM→spill fallback's
-                # tests inject allocation failures where a real one
-                # surfaces
-                from cylon_tpu_torch import resilience
-
-                resilience.inject("plan", getattr(self._fn, "__name__",
-                                                  "?"))
+                self._inject()
                 out = self._fn(*args, **kwargs)
             try:
                 with _span("plan.fetch", cat="stage"), \
                         _memory.forensics("plan.fetch"):
                     counts = _check_overflow(out, flags)
             except OutOfCapacity:
-                telemetry.counter("plan.overflow_events",
-                                  site="compiled").inc()
-                _trace.instant("capacity.overflow", cat="capacity",
-                               site="compiled", scale=scale)
-                if scale >= MAX_SCALE:
-                    raise
-                scale *= 2
+                scale = self._regrow(scale)
                 hit = False
-                telemetry.counter("plan.capacity_rescales",
-                                  site="compiled").inc()
-                _trace.instant("capacity.regrow", cat="capacity",
-                               site="compiled", scale=scale)
                 continue
-            with self._mu:
-                # widen-only: a concurrent call that settled higher is
-                # never clobbered back down (``cylon_tpu/plan.py:577``)
-                top = max(reached)
-                if top > self._scale_memo.get(key, 0):
-                    self._scale_memo[key] = top
-                self._scale_memo.move_to_end(key)
-                evicted = 0
-                while len(self._scale_memo) > _MEMO_ENTRIES:
-                    self._scale_memo.popitem(last=False)
-                    evicted += 1
-            if evicted:
-                telemetry.counter("plan.cache_evictions").inc(evicted)
+            self._memo_settle(key, max(reached))
             return _shrink_results(out, counts)
+
+    def _run_graph(self, key, leaves, pins, args, kwargs):
+        """The graph route: replay the graph of these inputs, or warm and
+        capture one."""
+        gkey = (key, tuple(id(x) for x in leaves),
+                tuple(id(p) for p in pins))
+        with self._mu:
+            entry = self._graphs.get(gkey)
+            if entry is not None and not entry.matches(leaves):
+                # an input written in place, or a new tensor at a dead
+                # one's address
+                self._drop_locked(gkey)
+                entry = None
+            if entry is not None:
+                self._graphs.move_to_end(gkey)
+            _, scale = self._memo_lookup(key)
+        self._reap()
+        if entry is not None:
+            out = self._replay(entry)
+            if out is not _RELEASED:
+                telemetry.counter("plan.cache_hits").inc()
+                if out is not _OVERFLOWED:
+                    return out
+                with self._mu:
+                    if self._graphs.get(gkey) is entry:
+                        self._drop_locked(gkey)
+                scale = self._regrow(entry.scale)
+            else:
+                telemetry.counter("plan.cache_misses").inc()
+        else:
+            telemetry.counter("plan.cache_misses").inc()
+        return self._warm_and_capture(key, gkey, leaves, pins, args,
+                                      kwargs, scale)
+
+    def _replay(self, entry):
+        """One graph launch, one fetch, the copy-out; :data:`_OVERFLOWED`
+        on an overflow, :data:`_RELEASED` when another thread let go of
+        the graph first."""
+        with _GRAPH_MU:
+            if entry.graph is None:
+                return _RELEASED
+            dev = entry.packed.device
+            cuda = dev.type == "cuda"
+            with _span("plan.dispatch", cat="stage", cache_hit=True), \
+                    _memory.forensics("plan.dispatch"):
+                self._inject()
+                if cuda and dev.index in _TURN:
+                    torch.cuda.current_stream(dev).wait_event(
+                        _TURN[dev.index])
+                entry.graph.replay()
+                entry.replays += 1
+                _add_launches(entry.launches)
+            with _span("plan.fetch", cat="stage"), \
+                    _memory.forensics("plan.fetch"):
+                host = _fetch(entry.packed)
+            try:
+                counts = _decide(entry.out, host, entry.env)
+            except OutOfCapacity:
+                return _OVERFLOWED
+            out = _map_tables(_shrink_results(entry.out, counts),
+                              _copy_tensors(lambda x: True))
+            if cuda:
+                turn = torch.cuda.Event()
+                turn.record(torch.cuda.current_stream(dev))
+                _TURN[dev.index] = turn
+            return out
+
+    def _warm_and_capture(self, key, gkey, leaves, pins, args, kwargs,
+                          scale: int):
+        """The warm-up: the query eagerly, its sizes recorded, until it
+        fits (its result is the call's); then the capture at that scale
+        and those sizes."""
+        stage: dict = {}
+        while True:
+            tape = SizeTape()
+            tok = _STAGED.set(stage)
+            try:
+                with _span("plan.dispatch", cat="stage", cache_hit=False), \
+                        _memory.forensics("plan.dispatch"):
+                    self._inject()
+                    out, packed, env = run_captured(self._fn, args, kwargs,
+                                                    scale, tape=tape)
+            finally:
+                _STAGED.reset(tok)
+            try:
+                with _span("plan.fetch", cat="stage"), \
+                        _memory.forensics("plan.fetch"):
+                    counts = _decide(out, _fetch(packed), env)
+            except OutOfCapacity:
+                scale = self._regrow(scale)
+                continue
+            break
+        result = _shrink_results(out, counts)
+        del out, packed
+        self._memo_settle(key, scale)
+        entry = self._capture(gkey, leaves, pins, args, kwargs, scale,
+                              stage, tape.replaying())
+        with self._mu:
+            self._drop_locked(gkey)
+            self._graphs[gkey] = entry
+            while len(self._graphs) > GRAPH_ENTRIES:
+                self._graphs.popitem(last=False)[1].release()
+        self._reap()
+        return result
+
+    def _capture(self, gkey, leaves, pins, args, kwargs, scale: int,
+                 stage: dict, tape: SizeTape):
+        from cylon_tpu_torch import kernels
+        from cylon_tpu_torch.kernels import build
+
+        telemetry.counter("plan.compile_count").inc()
+        _trace.instant("plan.compile", cat="plan", scale=scale,
+                       fn=self._name)
+        detach = {x.untyped_storage().data_ptr() for x in leaves}
+        graph = GRAPH_CLASS()
+        tok = _STAGED.set(stage)
+        try:
+            # a capture runs nothing: this thread's launches into it are
+            # tallied apart and count at each replay
+            with _GRAPH_MU, build.graph_tally() as tally, graph.capture():
+                out, packed, env = run_captured(self._fn, args, kwargs,
+                                                scale, detach=detach,
+                                                tape=tape)
+        except Exception as exc:
+            raise CaptureFailed(
+                f"capturing {self._name} at scale {scale} failed: "
+                f"{type(exc).__name__}: {exc}") from exc
+        finally:
+            _STAGED.reset(tok)
+        indexed = []
+        _walk_frames(out, lambda f: indexed.append(f._index is not None))
+        if any(indexed):
+            with _GRAPH_MU:
+                graph.reset()
+            raise CaptureFailed(f"{self._name} returns a frame with an "
+                                "index, whose tensors a replay would not "
+                                "copy out of the graph's pool")
+        owner = _OWNER.get()
+        if owner is not None:
+            owner.add(self)
+        launches = {w.__name__: tally.get(w.__name__, 0)
+                    for w in kernels.WRAPPERS}
+        return _Entry(gkey, graph, leaves, pins, out, packed, env, launches,
+                      stage, scale, self._on_death)
 
 
 #: the process-wide compiled queries: fn -> CompiledQuery
@@ -522,7 +1211,8 @@ _SHARED: "dict[object, CompiledQuery]" = {}
 
 def shared_compiled(fn) -> CompiledQuery:
     """Get or create the process-wide :class:`CompiledQuery` of ``fn``
-    (``cylon_tpu/plan.py:627``): every caller shares one memo."""
+    (``cylon_tpu/plan.py:627``): every caller shares one memo and its
+    graphs."""
     with _SHARED_MU:
         cq = _SHARED.get(fn)
         if cq is None:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from cylon_tpu_torch import device as _device
-from cylon_tpu_torch import dtypes
+from cylon_tpu_torch import dtypes, plan
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument, TypeError_
 from cylon_tpu_torch.ops import elementwise as ew
@@ -280,7 +280,7 @@ class Series:
                                      dtypes.bool_))
         has_null = any(is_nullish(v) for v in vset)
         vals = [v for v in vset if not is_nullish(v)]
-        pdt = c.data.cpu()[:0].numpy().dtype
+        pdt = dtypes.numpy_dtype(c.data.dtype)
         probe = []
         if c.dtype.is_dictionary:
             dvals = [] if c.dictionary is None else c.dictionary.values
@@ -311,7 +311,7 @@ class Series:
                 if cv == v:  # 1.5 must not match int 1 by truncation
                     probe.append(cv)
         if probe:
-            p = _device.from_host(np.asarray(probe, pdt), dev)
+            p = plan.staged(np.asarray(probe, pdt), dev)
             mask = (c.data[:, None] == p[None, :]).any(dim=1)
         else:
             mask = torch.zeros(c.capacity, dtype=torch.bool, device=dev)
@@ -465,12 +465,11 @@ def fill_column(c: Column, value) -> Column:
             return c
         c2, code = encode_fill_value(c, value)
         data = torch.where(c2.validity, c2.data,
-                           torch.tensor(code, dtype=c2.data.dtype,
-                                        device=c2.data.device))
+                           _device.scalar(code, c2.data.dtype,
+                                          c2.data.device))
         return Column(data, None, c2.dtype, c2.dictionary)
     data = c.data
-    fill = torch.tensor(np.asarray(value).item(), dtype=data.dtype,
-                        device=data.device)
+    fill = _device.scalar(value, data.dtype, data.device)
     if data.is_floating_point():
         data = torch.where(torch.isnan(data), fill, data)
     if c.validity is not None:

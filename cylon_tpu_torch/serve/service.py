@@ -99,6 +99,7 @@ import itertools
 import os
 import threading
 import time
+import weakref
 
 from cylon_tpu_torch import catalog, plan, resilience, telemetry, watchdog
 from cylon_tpu_torch.errors import (DeadlineExceeded, FailedPrecondition,
@@ -427,6 +428,7 @@ class ServeEngine:
             self._exec = RoundRobinExecution()
         self._cond = threading.Condition()
         self._thread: "threading.Thread | None" = None
+        self._graph_users: weakref.WeakSet = weakref.WeakSet()
         self._closed = False
         self._op_ids = itertools.count(1)
         #: named-query registry: the replayable submission surface
@@ -1195,6 +1197,9 @@ class ServeEngine:
 
     # ------------------------------------------------- scheduler loop
     def _loop(self) -> None:
+        # the compiled queries that capture a graph for this engine's
+        # requests, let go of at close()
+        plan.own_graphs(self._graph_users)
         while True:
             with self._cond:
                 while not self._exec.ops and not self._closed:
@@ -1622,6 +1627,8 @@ class ServeEngine:
                 self._idem.clear()
                 self._coalesce.clear()
         self._result_cache.clear()
+        for cq in list(self._graph_users):
+            cq.release_graphs()
 
     def __enter__(self) -> "ServeEngine":
         return self

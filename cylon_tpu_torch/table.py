@@ -59,9 +59,13 @@ class Table:
         devs = {c.data.device for c in self._columns.values()}
         if len(devs) > 1:
             raise InvalidArgument(f"columns lie on several devices: {devs}")
-        dev = next(iter(devs)) if devs else torch.device("cpu")
+        # a table of no columns lies where its count does
+        dev = next(iter(devs)) if devs else (
+            nrows.device if torch.is_tensor(nrows) else torch.device("cpu"))
         if not torch.is_tensor(nrows):
-            nrows = torch.tensor(int(nrows), dtype=torch.int32, device=dev)
+            # a fill on the device, not a copy from the host: it captures
+            nrows = torch.full((), int(nrows), dtype=torch.int32,
+                               device=dev)
         self.nrows = nrows.to(device=dev, dtype=torch.int32).reshape(())
 
     # -- shape / schema --------------------------------------------------

@@ -618,10 +618,7 @@ def explain(fn, *args, _history=None, _fingerprint=None, **kwargs) -> dict:
     row_bucket = None if rows is None else pow2_bucket(max(rows))
     scale, cache_state = 1, "untracked"
     if cq is not None:
-        dyn_pos, static_pos, static_kw, dyn_kw = plan._split_args(
-            args, kwargs)
-        key = (static_pos, static_kw,
-               plan._shape_signature(dyn_pos, dyn_kw))
+        key = plan._describe(args, kwargs)[0]
         with cq._mu:
             cache_state = "hit" if key in cq._scale_memo else "miss"
             scale = cq._scale_memo.get(key, 1)

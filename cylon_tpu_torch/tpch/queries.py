@@ -32,7 +32,6 @@ import torch
 
 from cylon_tpu_torch import dtypes, plan
 from cylon_tpu_torch.column import Column
-from cylon_tpu_torch.device import from_host
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.frame import DataFrame
 from cylon_tpu_torch.ops.aggregates import table_aggregate
@@ -217,8 +216,8 @@ def _dict_mask(col, values=None, pred=None) -> torch.Tensor:
     else:
         lut = {v: i for i, v in enumerate(vals)}
         codes = [lut[v] for v in values if v in lut]
-    probe = from_host(np.asarray(codes or [-1], np.int64), col.data.device,
-                      col.data.dtype)
+    probe = plan.staged(np.asarray(codes or [-1], np.int64),
+                        col.data.device, col.data.dtype)
     m = (col.data[:, None] == probe[None, :]).any(dim=1)
     if col.validity is not None:
         m = m & col.validity
@@ -1067,7 +1066,7 @@ def q16(data: Mapping, env=None, brand: str = "Brand#45",
         supplier.table.column("s_comment"), "Customer", "Complaints"), env)
     good = good[["s_suppkey"]]
     t = part.table
-    sizes_arr = from_host(np.asarray(sizes, np.int64), t.device)
+    sizes_arr = plan.staged(np.asarray(sizes, np.int64), t.device)
     pmask = (~_dict_mask(t.column("p_brand"), [brand])
              & ~_dict_mask(t.column("p_type"),
                            pred=lambda v: v is not None
