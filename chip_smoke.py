@@ -124,7 +124,7 @@ Phases, each printing one JSON line:
     coverage (at least 0.8), the exchange's true bytes against the rows
     the ranks sent, a strict-JSON Chrome trace; then the kernels at this
     phase's shapes, as in phase 10; see :func:`telemetry_phase`.
-16. spill: resilience, deadlines and the spill path. The 50M x 50M
+16. spill: resilience, deadlines and the spill path. The 40M x 40M
     out-of-core join (``ooc_join``, 8 partitions spilled to host
     memory) against numpy, prefetched and sequential, beside the in-core
     join; ``fallback.join`` by the pre-flight route and after a real
@@ -244,6 +244,7 @@ non-zero and prints no result.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -552,12 +553,17 @@ def graph_kernel_phase(torch, stats):
     and replayed :data:`GRAPH_REPLAYS` times, its inputs rewritten in
     place before each replay, every replay bit for bit its plain version
     on the same inputs: ``row_hash`` (16 words, and the fused modulo),
-    ``scan32`` (int32 add, uint32 add that wraps, int32 and float32 max)
-    and ``pair_max_scan`` on both paths (three passes at 2M pairs, the
+    ``scan32`` (int32 add, uint32 add that wraps, int32 and float32 max),
+    ``pair_max_scan`` on both paths (three passes at 2M pairs, the
     look-back at 8M: its epoch is frozen in the graph, so every replay
-    must reset its flags). The launch counters are left as they were."""
+    must reset its flags), ``bucket_build`` (every other replay's ids in
+    eight buckets, which overflow: the captured memsets must reset the
+    count) and ``bucket_probe`` on int64 keys (the one-load path). The
+    launch counters are left as they were."""
     from cylon_tpu_torch import kernels
-    from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+    from cylon_tpu_torch.kernels import (bucket_build, bucket_probe,
+                                         pair_max_scan, row_hash, scan32)
+    from cylon_tpu_torch.ops.hash_join import table_slots
 
     saved = kernels.launch_counts()
     g = torch.Generator(device="cuda")
@@ -595,6 +601,35 @@ def graph_kernel_phase(torch, stats):
           torch.empty(8 * n, dtype=torch.int32, device="cuda"))
     refill_pairs(*p3)
     refill_pairs(*lb)
+
+    nb = table_slots(n)
+    bids = torch.empty(n, dtype=torch.int32, device="cuda")
+    turn = [0]
+
+    def refill_bids():
+        turn[0] += 1
+        top = nb if turn[0] % 2 else 8
+        bids.copy_(torch.randint(-1, top, (n,), dtype=torch.int32,
+                                 device="cuda", generator=g))
+
+    def words_of(keys):
+        pair = keys.view(torch.int32).view(-1, 2)
+        return [pair[:, 0], pair[:, 1]]
+
+    bkeys = torch.randperm(n, device="cuda", generator=g)
+    bwords = words_of(bkeys)
+    table, _ = bucket_build(row_hash(bwords) & (nb - 1), nb, BUCKET_WIDTH)
+    pkeys = torch.empty(n, dtype=torch.int64, device="cuda")
+    pwords = words_of(pkeys)
+    pbids = torch.empty(n, dtype=torch.int32, device="cuda")
+
+    def refill_probe():
+        pkeys.copy_(torch.randint(0, 2 * n, (n,), dtype=torch.int64,
+                                  device="cuda", generator=g))
+        pbids.copy_(row_hash(pwords) & (nb - 1))
+
+    refill_bids()
+    refill_probe()
     cases = (
         ("row_hash/16_words", lambda: row_hash(words),
          lambda: row_hash.plain(words), lambda: refill_i32(*words)),
@@ -613,6 +648,13 @@ def graph_kernel_phase(torch, stats):
          lambda: pair_max_scan.plain(*p3), lambda: refill_pairs(*p3)),
         ("pair_max_scan/look_back", lambda: pair_max_scan(*lb),
          lambda: pair_max_scan.plain(*lb), lambda: refill_pairs(*lb)),
+        ("bucket_build/overflow_every_other",
+         lambda: bucket_build(bids, nb, BUCKET_WIDTH),
+         lambda: bucket_build.plain(bids, nb, BUCKET_WIDTH), refill_bids),
+        ("bucket_probe/int64",
+         lambda: bucket_probe(pbids, pwords, table, bwords),
+         lambda: bucket_probe.plain(pbids, pwords, table, bwords),
+         refill_probe),
     )
     for name, kern, plain, refill in cases:
         kern()                       # built and warm before the capture
@@ -628,7 +670,7 @@ def graph_kernel_phase(torch, stats):
             bad, err = bad + b, max(err, e)
         torch.cuda.synchronize()
         row = {"phase": "kernel_graph", "name": name,
-               "n": (out[0] if isinstance(out, tuple) else out).shape[0],
+               "n": (out[0] if isinstance(out, tuple) else out).shape[-1],
                "replays": GRAPH_REPLAYS, "mismatches": bad,
                "max_abs_err": err, "tolerance": 0}
         emit(row)
@@ -2335,16 +2377,19 @@ def groupby_phase(torch, profile: bool) -> dict:
 # ------------------------------------------------------------ phase 10
 class PathInputs:
     """While active, ``scan32`` and ``pair_max_scan`` (as
-    ``ops.kernels`` reaches them, through its name ``scan``) and
-    ``row_hash`` (as ``ops.hash`` reaches it) run as before, each launch
-    counted by its wrapper, and the first input of each shape is kept, a
-    copy on the card, for :func:`path_kernel_phase`. The wrappers'
-    modules are left alone: each wrapper counts its launches through its
-    module's name for it. The copies cost a device copy a shape (64 MB
-    at 16M int32 values) inside the timed first calls. Nothing is kept
-    while a CUDA graph is captured: the copy would join the graph, and
-    its input is the graph's own memory, rewritten at each replay (the
-    warm-up run before each capture meets the same shapes)."""
+    ``ops.kernels`` reaches them, through its name ``scan``), ``row_hash``
+    (as ``ops.hash`` and ``ops.hash_join`` reach it) and ``bucket_build``
+    and ``bucket_probe`` (as ``ops.hash_join`` reaches them) run as
+    before, each launch counted by its wrapper, and the first input of
+    each shape is kept, a copy on the card, for :func:`path_kernel_phase`
+    (a probe's int64 key words keep their in-place (lo, hi) layout). The
+    wrappers' modules are left alone: each wrapper counts its launches
+    through its module's name for it. The copies cost a device copy a
+    shape (64 MB at 16M int32 values) inside the timed first calls.
+    Nothing is kept while a CUDA graph is captured: the copy would join
+    the graph, and its input is the graph's own memory, rewritten at
+    each replay (the warm-up run before each capture meets the same
+    shapes)."""
 
     def __init__(self):
         self.inputs = {}
@@ -2361,13 +2406,19 @@ class PathInputs:
                 self.inputs[key] = make()
 
     def __enter__(self):
+        import torch
+
         from cylon_tpu_torch.kernels import scan as kscan
+        from cylon_tpu_torch.kernels.bucket import one_int64_key
         from cylon_tpu_torch.ops import hash as ohash
+        from cylon_tpu_torch.ops import hash_join as ohj
         from cylon_tpu_torch.ops import kernels as okernels
 
-        self._saved = okernels.scan, ohash.row_hash
+        self._saved = (okernels.scan, ohash.row_hash, ohj.row_hash,
+                       ohj.bucket_build, ohj.bucket_probe)
         real_scan, real_pair, real_hash = \
             kscan.scan32, kscan.pair_max_scan, ohash.row_hash
+        real_build, real_probe = ohj.bucket_build, ohj.bucket_probe
 
         class Scan:
             """``kernels.scan`` with its two wrappers recorded."""
@@ -2392,16 +2443,40 @@ class PathInputs:
                        lambda: ([w.clone() for w in words], kw))
             return real_hash(words, nparts, **kw)
 
+        def bucket_build(bids, nb, width):
+            self._keep(("bucket_build", bids.shape[0], nb, width),
+                       lambda: bids.clone())
+            return real_build(bids, nb, width)
+
+        def kept_words(ws, one):
+            if not one:
+                return [w.clone() for w in ws]
+            pair = torch.stack(ws, dim=1)   # [n, 2]: lo, hi in place
+            return [pair[:, 0], pair[:, 1]]
+
+        def bucket_probe(pbids, pwords, table, bwords):
+            pwords, bwords = list(pwords), list(bwords)
+            one = one_int64_key(pwords, bwords)
+            self._keep(("bucket_probe", pbids.shape[0], len(pwords),
+                        bwords[0].shape[0], tuple(table.shape), one),
+                       lambda: (pbids.clone(), kept_words(pwords, one),
+                                table.clone(), kept_words(bwords, one)))
+            return real_probe(pbids, pwords, table, bwords)
+
         proxy = Scan()
         proxy.scan32, proxy.pair_max_scan = scan32, pair_max_scan
         okernels.scan, ohash.row_hash = proxy, row_hash
+        ohj.row_hash, ohj.bucket_build, ohj.bucket_probe = \
+            row_hash, bucket_build, bucket_probe
         return self
 
     def __exit__(self, *exc):
         from cylon_tpu_torch.ops import hash as ohash
+        from cylon_tpu_torch.ops import hash_join as ohj
         from cylon_tpu_torch.ops import kernels as okernels
 
-        okernels.scan, ohash.row_hash = self._saved
+        (okernels.scan, ohash.row_hash, ohj.row_hash, ohj.bucket_build,
+         ohj.bucket_probe) = self._saved
 
 
 def path_kernel_phase(torch, rate, stats, path: str, inputs: dict,
@@ -2411,17 +2486,21 @@ def path_kernel_phase(torch, rate, stats, path: str, inputs: dict,
     and for ``scan32``'s int32 add also on 0/1 flags and on counts in
     [0, 64) (the group-by's numbering and count channels), for
     ``row_hash`` on random words of the path's width, for
-    ``pair_max_scan`` on :func:`pair_inputs`' edge cases. Bit for bit
-    (float32 adds within ``F32_ADD_RTOL``). The rows join ``stats``, so
+    ``pair_max_scan`` on :func:`pair_inputs`' edge cases, for
+    ``bucket_build`` (table and overflow count) and ``bucket_probe`` on
+    the path's input alone. Bit for bit (float32 adds within
+    ``F32_ADD_RTOL``). The rows join ``stats``, so
     the ``kernels`` line's mismatches count them. With ``card``
     (the card's name and power limit) each row carries it."""
-    from cylon_tpu_torch.kernels import pair_max_scan, row_hash, scan32
+    from cylon_tpu_torch.kernels import (bucket_build, bucket_probe,
+                                         pair_max_scan, row_hash, scan32)
 
     g = None
     for key in sorted(inputs, key=repr):
         got = inputs[key]
         dev = (got[0][0] if key[0] == "row_hash" else
-               got[0] if key[0] == "pair_max_scan" else got).device
+               got[0] if key[0] in ("pair_max_scan", "bucket_probe")
+               else got).device
         if g is None:
             g = torch.Generator(device=dev)
             g.manual_seed(15)
@@ -2453,6 +2532,21 @@ def path_kernel_phase(torch, rate, stats, path: str, inputs: dict,
                        lambda ws=ws: row_hash.plain(ws, nparts, **kw))
                    for c, ws in (("path", words), ("random", rand))}
             nbytes = (4 * k + 4) * n
+        elif key[0] == "bucket_build":
+            _, n, nb, width = key
+            name = f"bucket_build/{path}_nb{nb}_w{width}"
+            run = {"path": (lambda: bucket_build(got, nb, width),
+                            lambda: bucket_build.plain(got, nb, width))}
+            nbytes = 4 * n + 4 * width * nb
+        elif key[0] == "bucket_probe":
+            _, n, k, _, _, one = key
+            pb, pw, table, bw = got
+            name = f"bucket_probe/{path}_{k}words" + ("_int64" if one
+                                                       else "")
+            run = {"path": (lambda: bucket_probe(pb, pw, table, bw),
+                            lambda: bucket_probe.plain(pb, pw, table, bw))}
+            nbytes = 4 * n * (2 + k) + \
+                4 * int((table >= 0).sum()) * (1 + k)
         else:
             _, n = key
             pairs = {"path": got, **{c: p for c, p in pair_inputs(
@@ -3466,11 +3560,15 @@ def memory_line(torch, card: str, after: str) -> None:
     sample, the caching allocator's live and peak bytes (the peak then
     reset) and its reserved bytes, then the live bytes again after a
     ``gc.collect()``, so that memory held only by unreachable cycles
-    shows as the difference. A telemetry failure fails the run."""
+    shows as the difference. A telemetry failure fails the run. The
+    process-wide compiled queries let go of their graphs first (a graph
+    outlives the inputs it served), so that the next phase starts
+    without the last one's graphs and input copies."""
     import gc
 
-    from cylon_tpu_torch import telemetry
+    from cylon_tpu_torch import plan, telemetry
 
+    plan.release_shared_graphs()
     sampled = telemetry.memory.sample(force=True)
     allocated = torch.cuda.memory_allocated()
     peak = torch.cuda.max_memory_allocated()
@@ -3826,13 +3924,15 @@ def telemetry_phase(torch, rate, stats, card: str, dev="cuda") -> dict:
 #: the out-of-core join's configuration: rows a side, keys uniform in
 #: [0, rows). ``cylon_tpu/outofcore.py:188`` names the 100M x 100M join,
 #: which phase 16 ran until phase 20 needed its room under the script's
-#: 1200 s: at 100M its joins took 233 s of a 1131 s run
-SPILL_ROWS = 50_000_000
+#: 1200 s: at 100M its joins took 233 s of a 1131 s run; at 50M its five
+#: joins and the killed child took about 125 s of a 952 s run, and 40M
+#: makes room for phase 23
+SPILL_ROWS = 40_000_000
 SPILL_PARTS = 8
 SPILL_CHUNK = 1 << 22
 SPILL_SEED = 0
 #: the pre-flight route's budget, ``CYLON_TPU_HBM_BUDGET_BYTES``: below
-#: the join's predicted 6.4 GB at 50M rows a side
+#: the join's predicted 5.12 GB at 40M rows a side
 SPILL_BUDGET = 4 << 30
 #: the kill-and-resume run dies at this partition's durable write, so
 #: this many partitions were complete before it
@@ -4082,7 +4182,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
     """Resilience, deadlines and the spill path on the card (phase 16).
     Every line carries the card's name and power limit.
 
-    (a) The 50M x 50M out-of-core join (:data:`SPILL_ROWS` a side,
+    (a) The 40M x 40M out-of-core join (:data:`SPILL_ROWS` a side,
         keys uniform in [0, SPILL_ROWS), seed :data:`SPILL_SEED`) through
         ``ooc_join`` (:data:`SPILL_PARTS` partitions, :data:`SPILL_CHUNK`
         rows a chunk, a sink that sums ``v_l * v_r`` and digests each
@@ -4193,7 +4293,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
 
     reset_launches()
 
-    # -- (a) the 50M x 50M out-of-core join
+    # -- (a) the 40M x 40M out-of-core join
     n = SPILL_ROWS
     t = time.perf_counter()
     left, right = spill_tables(np, n)
@@ -4666,11 +4766,16 @@ VIEWS_ONE_PARTITION_ROWS = 100_000
 def kept_bytes(torch, dev="cuda") -> int:
     """Live device bytes less the pair scan's scratch, which its wrapper
     keeps (grown, never shrunk) across calls a stream (each block as the
-    allocator counts it, rounded up to 512 bytes). 0 off the card."""
+    allocator counts it, rounded up to 512 bytes), once the process-wide
+    compiled queries (``tpch.compiled``) let go of their graphs: a graph
+    outlives the inputs it served, keeping its own copies of them. 0 off
+    the card."""
+    from cylon_tpu_torch import plan
     from cylon_tpu_torch.kernels import scan as kscan
 
     if dev != "cuda":
         return 0
+    plan.release_shared_graphs()
     return torch.cuda.memory_allocated() - sum(
         -(-s[0].numel() * s[0].element_size() // 512) * 512
         for s in kscan._pair_state.values())
@@ -7327,16 +7432,8 @@ def capture_phase(torch, card: str, dev="cuda") -> tuple:
         del want, first
 
     # -- (a) the whole-query example's query
-    rng = np.random.default_rng(0)
     n = CAPTURE_ROWS
-    orders = ct.Table.from_pydict({
-        "k": rng.integers(0, CAPTURE_KEYS, n).astype(np.int64),
-        "day": rng.integers(0, 365, n).astype(np.int64),
-        "amount": rng.uniform(1.0, 100.0, n)}, device=dev)
-    items = ct.Table.from_pydict({
-        "k": np.arange(CAPTURE_KEYS, dtype=np.int64),
-        "label": rng.integers(0, 9, CAPTURE_KEYS).astype(np.int64)},
-        device=dev)
+    orders, items = example_tables(np, ct, 0, n, dev)
     fn, cq = example_query(plan)
     case("a", "whole_query_example", cq,
          lambda: fn(orders, items, cutoff=180),
@@ -7376,6 +7473,341 @@ def capture_phase(torch, card: str, dev="cuda") -> tuple:
                if replay_launches[k] < 1]
     if missing:
         raise SystemExit(f"capture: {missing} never launched in a replay")
+    return replay_launches, rec.inputs, base
+
+
+# ------------------------------------------------------------ phase 23
+#: the calls of phase 23 after the first call on set A: five on set B,
+#: then A, B, A; every one must replay
+REBIND_SEQUENCE = ("b",) * 5 + ("a", "b", "a")
+#: copy-ins of a set timed a case
+REBIND_COPIES = 3
+#: the hash route phase 23 (c) captures
+BUCKETED_ENV = {"CYLON_TPU_JOIN_ALGORITHM": "hash",
+                "CYLON_TPU_JOIN_HASH_IMPL": "bucketed"}
+
+
+def example_tables(np, ct, seed: int, n: int, dev, day=None, key=None,
+                   dup=None):
+    """The whole-query example's ``(orders, items)`` from ``seed``:
+    ``n`` orders rows over :data:`CAPTURE_KEYS` keys. ``day`` and ``key``
+    replace every order's day and key; ``dup`` (``(key, rows)``) gives
+    the first ``rows`` items that key (``key`` below ``rows`` keeps its
+    own item: ``rows`` items hold it; else ``rows + 1``)."""
+    rng = np.random.default_rng(seed)
+    orders = {"k": rng.integers(0, CAPTURE_KEYS, n).astype(np.int64),
+              "day": rng.integers(0, 365, n).astype(np.int64),
+              "amount": rng.uniform(1.0, 100.0, n)}
+    items = {"k": np.arange(CAPTURE_KEYS, dtype=np.int64),
+             "label": rng.integers(0, 9, CAPTURE_KEYS).astype(np.int64)}
+    if day is not None:
+        orders["day"] = np.full(n, day, np.int64)
+    if key is not None:
+        orders["k"] = np.full(n, key, np.int64)
+    if dup is not None:
+        items["k"][:dup[1]] = dup[0]
+    return (ct.Table.from_pydict(orders, device=dev),
+            ct.Table.from_pydict(items, device=dev))
+
+
+def rebind_tpch_sets(dev, sf, queries) -> list:
+    """TPC-H at ``sf`` from two seeds (``TPCH_SEED`` and the next), the
+    ``queries``' manifest columns, as frames brought to the same
+    capacities and, column by column, onto one dictionary."""
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import tpch
+    from cylon_tpu_torch.ops.dictenc import unify_table_dictionaries
+    from cylon_tpu_torch.tpch.manifest import MANIFEST
+
+    keep = manifest_keep(MANIFEST, queries)
+    sets = [tpch.ingest(tpch.generate(sf, seed, keep=keep), device=dev)
+            for seed in (TPCH_SEED, TPCH_SEED + 1)]
+    for name in sets[0]:
+        cap = max(s[name].table.capacity for s in sets)
+        tables = unify_table_dictionaries(
+            [s[name].table.with_capacity(cap) for s in sets])
+        for s, t in zip(sets, tables):
+            s[name] = ct.DataFrame(t)
+    return sets
+
+
+@contextlib.contextmanager
+def environ(values: dict):
+    """``os.environ`` with ``values`` set, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def route_counts(telemetry) -> dict:
+    """The hash join's routing decisions so far (``join.algorithm`` by
+    kind, ``join.overflow_fallbacks``)."""
+    out = {k: telemetry.counter("join.algorithm", kind=k).value
+           for k in ("hash->hash_bucketed", "hash->sort_overflow")}
+    out["overflow_fallbacks"] = telemetry.total("join.overflow_fallbacks")
+    return out
+
+
+def rebind_phase(torch, card: str, dev="cuda") -> tuple:
+    """Compiled queries that serve any input of their shapes (phase 23),
+    at ``BASELINE.json`` configuration 5's share of one card:
+
+    (a) rebinding: the whole-query example at :data:`CAPTURE_ROWS` orders
+        rows and TPC-H Q3 / Q5 at :data:`CAPTURE_BASELINE_SF`. Set A is
+        the usual tables, set B another seed's, brought to A's
+        capacities. A first call on A (warm-up and capture), then
+        :data:`REBIND_SEQUENCE`: every call a replay (no capture, one
+        graph launch, one fetch under :func:`sync_guard`), launching the
+        warm-up's kernels; each result bit for bit the other replays of
+        its set and equal to the eager query on its own inputs. Printed:
+        each set's copy-in (CUDA events), the replay walls, the eager
+        wall on B, what the parent paid for B (a first call on a fresh
+        ``CompiledQuery``: warm-up and capture), the entry's pool and
+        input-copy bytes;
+    (b) a stale size: set C, every order past the cutoff and of one key,
+        which two items hold, joins into twice its rows, past the join's
+        recorded bound (orders and items): the call flags and reruns
+        (a warm-up, whose own fetch overflows and doubles the scale, and
+        a capture) and returns the eager answer (the eager query at
+        twice the scale);
+    (c) the guarded hash route (:data:`BUCKETED_ENV`): the example and
+        Q3 / Q5 captured, each join's route at warm-up printed; replays
+        of A and B as in (a), their ``bucket_build`` / ``bucket_probe``
+        launches the warm-up's, equal to the default-route eager query;
+        set D (17 items of one key, past ``bucket_width()``) flags, and
+        its rerun takes the sort join (``join.overflow_fallbacks`` + 1)
+        with the eager answer.
+
+    Every graph and input copy is let go at the end. Returns
+    ``(replay launches, inputs the kernels met, kept bytes before)``."""
+    import gc
+
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch import plan, telemetry, tpch
+    from cylon_tpu_torch.kernels import launch_counts, reset_launches
+
+    t0 = time.perf_counter()
+    base = kept_bytes(torch)
+    rec = PathInputs()
+    reset_launches()
+    replay_launches = {k: 0 for k in launch_counts()}
+    bad = []
+
+    def compiles():
+        return telemetry.total("plan.compile_count")
+
+    def default_route(run):
+        with environ({k: "" for k in BUCKETED_ENV}):
+            return run()
+
+    def copy_in_ms(cq, args, kw):
+        """The newest graph's copy-in of ``args`` (forced), CUDA events,
+        :data:`REBIND_COPIES` times; the bytes copied."""
+        entry = next(reversed(cq._graphs.values()))
+        leaves = plan._describe(args, kw)[1]
+        walls = []
+        for _ in range(REBIND_COPIES):
+            nbytes, ms = event_wall(
+                torch, lambda: entry.inputs.copy_in(leaves, force=True))
+            walls.append(ms)
+        return walls, nbytes
+
+    def replays(cq, calls, want, expect, need_bucket):
+        """The calls of :data:`REBIND_SEQUENCE` (``calls[s]()`` runs set
+        ``s``), each checked: its launches must be ``expect``, the
+        graph's; returns the per-call rows."""
+        rows, kept = [], {}
+        for s in REBIND_SEQUENCE:
+            before, c0 = launch_counts(), compiles()
+            r0 = sum(g["replays"] for g in cq.graph_stats())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with sync_guard(torch, plan) as fetched:
+                out = calls[s]()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            after = launch_counts()
+            launches = {k: after[k] - before[k] for k in after}
+            for k in launches:
+                replay_launches[k] += launches[k]
+            same = result_bits_equal(torch, out, kept[s]) if s in kept \
+                else True
+            kept.setdefault(s, out)
+            row = {"set": s, "wall_ms": wall, "fetches": fetched[0],
+                   "graph_replays": sum(g["replays"] for g in
+                                        cq.graph_stats()) - r0,
+                   "captures": compiles() - c0, "launches": launches,
+                   "bits_equal": same,
+                   "equal_to_eager": results_match(
+                       np, host_result(out), host_result(want[s]))}
+            ok = (row["fetches"] == 1 and row["graph_replays"] == 1
+                  and row["captures"] == 0 and same
+                  and row["equal_to_eager"] and launches == expect)
+            if need_bucket and not (launches["bucket_build"] > 0
+                                    and launches["bucket_probe"] > 0):
+                ok = False
+            row["ok"] = ok
+            rows.append(row)
+            del out
+        return rows
+
+    def case(part, label, query, sets, kw, hashed=False,
+             need_bucket=False):
+        """One query through a fresh ``CompiledQuery``: the eager walls,
+        the first call on A, the parent's first call on B, the replays,
+        the copy-ins, the bytes. ``hashed``: under :data:`BUCKETED_ENV`,
+        held against the default-route eager query; a warm-up's chain
+        checks hash the build keys (``row_hash``) where the graph does
+        not, so there only the other kernels' launches equal the
+        warm-up's. ``need_bucket``: every replay must launch the bucket
+        kernels."""
+        reference = default_route if hashed else (lambda f: f())
+        want, eager_ms = {}, {}
+        with rec:
+            for s in ("a", "b"):
+                want[s], eager_ms[s] = event_wall(
+                    torch, lambda: reference(
+                        lambda: query(*sets[s], **kw)))
+            cq = plan.compile_query(query)
+            routes0, warm0 = route_counts(telemetry), launch_counts()
+            first, first_ms = event_wall(torch, lambda: cq(*sets["a"], **kw))
+            warm = {k: v - warm0[k] for k, v in launch_counts().items()}
+            routes = {k: v - routes0[k]
+                      for k, v in route_counts(telemetry).items()}
+        recorded = cq.graph_stats()[-1]["launches"]
+        fresh = plan.compile_query(query)
+        _, parent_b_ms = event_wall(torch, lambda: fresh(*sets["b"], **kw))
+        fresh.invalidate()
+        del fresh
+        calls = {s: (lambda s=s: cq(*sets[s], **kw)) for s in sets}
+        rows = replays(cq, calls, want, recorded, need_bucket)
+        copies = {s: copy_in_ms(cq, sets[s], kw) for s in ("a", "b")}
+        stats = cq.graph_stats()[-1]
+        skip = ("row_hash",) if hashed else ()
+        launches_ok = all(recorded[k] == warm[k] for k in warm
+                          if k not in skip)
+        out = {"phase": "rebind", "part": part, "query": label,
+               "card": card, "eager_wall_ms": eager_ms,
+               "first_call_a_ms": first_ms,
+               "parent_first_call_b_ms": parent_b_ms,
+               "warm_up_launches": warm, "warm_up_routes": routes,
+               "graph_launches_recorded": recorded,
+               "calls": rows,
+               "copy_in_ms": {s: c[0] for s, c in copies.items()},
+               "copy_in_bytes": {s: c[1] for s, c in copies.items()},
+               "pool_bytes": stats["pool_bytes"],
+               "input_bytes": stats["input_bytes"],
+               "equal_to_eager_a": results_match(
+                   np, host_result(first), host_result(want["a"]))}
+        emit(out)
+        if not (all(r["ok"] for r in rows) and out["equal_to_eager_a"]
+                and launches_ok):
+            bad.append(f"{part}:{label}")
+        return cq
+
+    def rerun(part, label, cq, query, args, kw, reference, extra=None):
+        """A call whose replay must flag: it reruns (warm-up and capture)
+        and returns ``reference()``'s answer."""
+        with rec:
+            want = reference()
+        before = {k: telemetry.total(k) for k in (
+            "plan.overflow_events", "plan.capacity_rescales",
+            "plan.compile_count", "plan.cache_hits")}
+        routes0 = route_counts(telemetry)
+        got, wall = event_wall(torch, lambda: cq(*args, **kw))
+        moved = {k: telemetry.total(k) - v for k, v in before.items()}
+        routes = {k: v - routes0[k]
+                  for k, v in route_counts(telemetry).items()}
+        row = {"phase": "rebind", "part": part, "query": label,
+               "card": card, "rerun_wall_ms": wall, "moved": moved,
+               "routes": routes, "scale": cq.graph_stats()[-1]["scale"],
+               "equal_to_eager": results_match(
+                   np, host_result(got), host_result(want)), **(extra or {})}
+        emit(row)
+        ok = (row["equal_to_eager"] and moved["plan.cache_hits"] == 1
+              and moved["plan.overflow_events"] >= 1
+              and moved["plan.compile_count"] == 1)
+        if extra and "fallbacks" in extra:
+            ok = ok and routes["overflow_fallbacks"] == extra["fallbacks"]
+        if not ok:
+            bad.append(f"{part}:{label}")
+
+    fn, _ = example_query(plan)
+    n = CAPTURE_ROWS
+    example = {"a": example_tables(np, ct, 0, n, dev),
+               "b": example_tables(np, ct, 1, n, dev)}
+    kw = {"cutoff": 180}
+
+    # -- (a) the example and Q3 / Q5 SF 10 on new tables
+    cq = case("a", "whole_query_example", fn, example, kw)
+    # -- (b) set C: every order past the cutoff and of key 7, which two
+    # items hold: 2n join rows pass the recorded bound (n + 500)
+    hot = example_tables(np, ct, 2, n, dev, day=300, key=7, dup=(7, 1))
+
+    def hot_eager():
+        with plan.capacity_scale(2):
+            return fn(*hot, **kw)
+
+    rerun("b", "whole_query_example_stale_size", cq, fn, hot, kw, hot_eager)
+    cq.invalidate()
+    del cq, hot
+    t = time.perf_counter()
+    sets = rebind_tpch_sets(dev, CAPTURE_BASELINE_SF,
+                            CAPTURE_BASELINE_QUERIES)
+    torch.cuda.synchronize()
+    emit({"phase": "rebind", "part": "a", "sf": CAPTURE_BASELINE_SF,
+          "data_host_s": time.perf_counter() - t})
+    tsets = {"a": (sets[0],), "b": (sets[1],)}
+    for qn in CAPTURE_BASELINE_QUERIES:
+        cq = case("a", qn, getattr(tpch, qn), tsets, {})
+        cq.invalidate()
+        del cq
+
+    # -- (c) the guarded hash route
+    hash_launches = {}
+    with environ(BUCKETED_ENV):
+        for label, query, args, kwq in (
+                ("whole_query_example", fn, example, kw),
+                *((qn, getattr(tpch, qn), tsets, {})
+                  for qn in CAPTURE_BASELINE_QUERIES)):
+            before = dict(replay_launches)
+            cq = case("c", label, query, args, kwq, hashed=True,
+                      need_bucket=label == "whole_query_example")
+            hash_launches[label] = {
+                k: replay_launches[k] - before[k]
+                for k in ("bucket_build", "bucket_probe")}
+            if label == "whole_query_example":
+                dup = example_tables(np, ct, 3, n, dev, dup=(7, 17))
+                rerun("c", "whole_query_example_chain_overflow", cq, fn,
+                      dup, kw, lambda: default_route(lambda: fn(*dup, **kw)),
+                      {"fallbacks": 1})
+                del dup
+            cq.invalidate()
+            del cq
+    del example, sets, tsets
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not any(hash_launches[q]["bucket_build"] > 0
+               and hash_launches[q]["bucket_probe"] > 0
+               for q in CAPTURE_BASELINE_QUERIES):
+        bad.append(f"c: no SF {CAPTURE_BASELINE_SF} query replayed the "
+                   f"bucket kernels ({hash_launches})")
+    emit({"phase": "rebind_seconds", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "replay_launches": replay_launches,
+          "hash_route_replay_launches": hash_launches,
+          "kept_bytes_before": base, "failed": bad})
+    if bad:
+        raise SystemExit(f"rebind: {bad} failed their checks")
     return replay_launches, rec.inputs, base
 
 
@@ -7439,6 +7871,15 @@ def main(argv) -> int:
         emit({"phase": "hier_only", "card": card,
               "hier_launches": hier_launches,
               "seconds": time.perf_counter() - t21})
+        return 0
+    if "--rebind-only" in argv:
+        t23 = time.perf_counter()
+        rebind_launches, rebind_inputs, _ = rebind_phase(torch, card)
+        path_kernel_phase(torch, rate, {}, "rebind", rebind_inputs,
+                          card=card)
+        emit({"phase": "rebind_only", "card": card,
+              "rebind_launches": rebind_launches,
+              "seconds": time.perf_counter() - t23})
         return 0
     if "--capture-only" in argv:
         t22 = time.perf_counter()
@@ -7587,6 +8028,21 @@ def main(argv) -> int:
         raise SystemExit(f"capture: {capture_after} bytes live after the "
                          f"phase, {capture_base} before it")
     memory_line(torch, card, "22 capture")
+    t23 = time.perf_counter()
+    rebind_launches, rebind_inputs, rebind_base = rebind_phase(torch, card)
+    path_kernel_phase(torch, rate, stats, "rebind", rebind_inputs,
+                      card=card)
+    del rebind_inputs
+    gc.collect()
+    rebind_after = kept_bytes(torch)
+    emit({"phase": "rebind_phase_seconds", "card": card,
+          "seconds": time.perf_counter() - t23,
+          "kept_bytes_before": rebind_base,
+          "kept_bytes_after": rebind_after})
+    if rebind_after != rebind_base:
+        raise SystemExit(f"rebind: {rebind_after} bytes live after the "
+                         f"phase, {rebind_base} before it")
+    memory_line(torch, card, "23 rebind")
 
     # each kernel at the shape its path gives it: on the bench path
     # partition_ids' fused modulo, the join's add scans, its fills; on the
@@ -7620,11 +8076,12 @@ def main(argv) -> int:
             "native_launches": native_launches[wrapper.__name__],
             "hier_launches": hier_launches[wrapper.__name__],
             "capture_replay_launches": capture_launches[wrapper.__name__],
+            "rebind_replay_launches": rebind_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],
             "plain_device_ms": s["plain_device_ms"],
-            "library_device_ms": s["library_device_ms"]})
+            "library_device_ms": s["library_device_ms"], "card": card})
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

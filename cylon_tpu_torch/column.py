@@ -25,13 +25,14 @@ class Dictionary:
     """Host-side values of a STRING/BINARY column, sorted ascending so that
     code order is value order. Hash and equality are by content."""
 
-    __slots__ = ("values", "_key", "_vhash")
+    __slots__ = ("values", "_key", "_hash", "_vhash")
 
     def __init__(self, values):
         arr = np.array(values, dtype=object)
         arr.flags.writeable = False
         self.values = arr
         self._key = None
+        self._hash = None
         self._vhash = {}
 
     def value_hashes(self, device) -> torch.Tensor:
@@ -56,7 +57,11 @@ class Dictionary:
         return self._key
 
     def __hash__(self):
-        return hash(self._content_key())
+        # kept: a compiled query's graph key hashes every dictionary of
+        # its inputs at each call
+        if self._hash is None:
+            self._hash = hash(self._content_key())
+        return self._hash
 
     def __eq__(self, other):
         return self is other or (isinstance(other, Dictionary)

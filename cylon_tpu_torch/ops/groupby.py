@@ -97,6 +97,7 @@ def _ladder(table: Table, key, bound, dispatch):
     # says nothing of this group count
     start = scale = max(plan.current_scale(), _EAGER_SCALE_MEMO.get(key, 1))
     while True:
+        plan.rung()
         t = dispatch(bound(scale))
         try:
             t.num_rows   # host sync; raises on overflow

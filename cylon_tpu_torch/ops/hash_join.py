@@ -22,10 +22,12 @@ A chain longer than ``width`` cannot be stored: the build reports an
 overflow count, and the join takes the unchanged sort join instead. The
 eager caller decides that before the join, on the host
 (:func:`chain_overflow`); :func:`bucketed_join_indices` can also check
-the build's own count (``sort_fallback``), the eager counterpart of the
-JAX package's in-graph ``lax.cond``. Either way the output equals the
-sort join's: the same rows in pandas order for ``ordered=True``, the same
-row set for ``ordered=False``.
+the build's own count (``sort_fallback``, one host read), or register it
+as a compiled query's overflow flag (``guard``, no host read: a replay
+whose chains overflow reruns the query, which then takes the sort join;
+``ops.join._guarded_route``). Either way the output equals the sort
+join's: the same rows in pandas order for ``ordered=True``, the same row
+set for ``ordered=False``.
 
 Supported: ``how`` in {"inner", "left"} ("right" is swapped into "left"
 by ``ops.join.join``; "fullouter" keeps the sort path, whose key-union
@@ -36,6 +38,7 @@ import os
 
 import torch
 
+from cylon_tpu_torch import plan
 from cylon_tpu_torch.kernels import bucket_build, bucket_probe, row_hash
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.hash import M32, _row_words, paired_validities
@@ -182,15 +185,20 @@ def _emit(mask, pbids, pvalid, table, how, probe_is_left, out_cap,
 
 def bucketed_join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows,
                           how: str, out_cap: int, ordered: bool,
-                          sort_fallback=None, width: "int | None" = None):
+                          sort_fallback=None, width: "int | None" = None,
+                          guard: bool = False):
     """(left_idx, right_idx, total) gather plans of length ``out_cap``,
     the bucketed counterpart of ``join._join_indices`` (same contract: -1
     marks the null side of an output row, valid slots first).
 
     Build side: see :func:`sides` (for "left" the right, so an unmatched
-    left row is a per-probe-row test). ``sort_fallback``, a callable returning the same triple, is taken
-    when the build overflowed (one host sync on the overflow count). Pass
-    ``None`` only when overflow was ruled out (:func:`chain_overflow`).
+    left row is a per-probe-row test). ``sort_fallback``, a callable
+    returning the same triple, is taken when the build overflowed (one
+    host sync on the overflow count; eager callers only). ``guard``
+    registers the overflow count as an overflow flag of the enclosing
+    compiled query instead (:func:`cylon_tpu_torch.plan.note_overflow`),
+    with no host read. Pass neither only when overflow was ruled out
+    (:func:`chain_overflow`).
     """
     (bkeys, bvals, brows), (pkeys, pvals, prows), build_left = sides(
         lkeys, lvals, lrows, rkeys, rvals, rrows, how)
@@ -198,6 +206,8 @@ def bucketed_join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows,
                                              width=width)
     if sort_fallback is not None and int(overflow) > 0:
         return sort_fallback()
+    if guard:
+        plan.note_overflow(overflow > 0)
     mask, pbids = probe_phase(pkeys, pvals, prows, table, bwords)
     pvalid = kernels.valid_mask(pkeys[0].shape[0], prows, pbids.device)
     return _emit(mask, pbids, pvalid, table, how,

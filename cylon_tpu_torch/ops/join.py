@@ -18,6 +18,15 @@ bucket first (``group_sort(hash_first=True)``); with
 :mod:`cylon_tpu_torch.ops.hash_join`, whose chains are checked on the
 host first. An over-budget chain, or ``how="fullouter"``, takes the sort
 join. Every route gives the same rows.
+
+Inside a compiled query's graph the chain check cannot read the host:
+the graph's warm-up checks the chains and records the route it took on
+the :class:`~cylon_tpu_torch.plan.SizeTape` (:func:`_guarded_route`),
+the capture takes that route back, and on the bucketed route registers
+the build's overflow count as an overflow flag. A replay on data whose
+chains no longer fit flags, and the query's rerun takes the sort join:
+the port's counterpart of the JAX package's in-graph ``"hash_guarded"``
+``lax.cond``.
 """
 
 import os
@@ -64,8 +73,8 @@ def _route_algorithm(requested: str, how: str) -> str:
     (``cylon_tpu/ops/join.py:107``): here, unless the route is
     "hash_bucketed", whose count waits for :func:`_join`'s chain check
     ("hash->hash_bucketed", or "hash->sort_overflow" with
-    ``join.overflow_fallbacks``). The JAX package's traced route
-    "hash_guarded" has no counterpart in the eager port.
+    ``join.overflow_fallbacks``), counted in a graph's warm-up and never
+    in its capture (:func:`_guarded_route`).
     """
     chosen = requested
     if requested == "hash":
@@ -144,11 +153,36 @@ def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
     rkeys = [right.column(n).data for n in right_on]
     lvals = [left.column(n).validity for n in left_on]
     rvals = [right.column(n).validity for n in right_on]
+    guard = False
     if routine == "hash_bucketed":
-        # the build side's chains, checked on the host before the join
-        # (the JAX package's eager route; its traced route checks in-graph)
-        build, _, _ = hash_join.sides(lkeys, lvals, left.nrows, rkeys, rvals,
-                                      right.nrows, how)
+        routine, guard = _guarded_route(lkeys, lvals, left.nrows, rkeys,
+                                        rvals, right.nrows, how)
+    if routine == "hash_bucketed":
+        left_idx, right_idx, total = hash_join.bucketed_join_indices(
+            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+            out_cap, ordered, guard=guard)
+    else:
+        left_idx, right_idx, total = _join_indices(
+            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+            out_cap, ordered, hash_first=routine == "hash_sort")
+    res = _assemble(left, right, list(left_on), list(right_on), suffixes,
+                    left_idx, right_idx, total, how)
+    return kernels.carry_overflow(res, left, right)
+
+
+def _guarded_route(lkeys, lvals, lrows, rkeys, rvals, rrows, how):
+    """``(routine, guard)`` of a join routed to "hash_bucketed": the
+    build side's chains checked on the host, "sort" when one passes the
+    chain width (the JAX package's eager route), counted in
+    ``join.algorithm``. In capture mode (:func:`plan.settle`) the check
+    runs in a graph's warm-up, which records the route on its tape; the
+    capture takes the route back with no host read, and ``guard`` asks
+    the bucketed build to register its overflow count as a flag. With no
+    tape (a bare capture mode) the bucketed route is taken, guarded."""
+    def eager():
+        build, _, _ = hash_join.sides(lkeys, lvals, lrows, rkeys, rvals,
+                                      rrows, how)
+        routine = "hash_bucketed"
         with span("join.route"):
             if hash_join.chain_overflow(*build):
                 telemetry.counter("join.overflow_fallbacks").inc()
@@ -157,17 +191,14 @@ def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
             "join.algorithm",
             kind=("hash->sort_overflow" if routine == "sort"
                   else "hash->hash_bucketed")).inc()
-    if routine == "hash_bucketed":
-        left_idx, right_idx, total = hash_join.bucketed_join_indices(
-            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
-            out_cap, ordered)
-    else:
-        left_idx, right_idx, total = _join_indices(
-            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
-            out_cap, ordered, hash_first=routine == "hash_sort")
-    res = _assemble(left, right, list(left_on), list(right_on), suffixes,
-                    left_idx, right_idx, total, how)
-    return kernels.carry_overflow(res, left, right)
+        return (routine, False), routine
+
+    def fixed(routine):
+        routine = routine or "hash_bucketed"
+        return routine, routine == "hash_bucketed"
+
+    return plan.settle(("join_route", how, lkeys[0].shape[0],
+                        rkeys[0].shape[0]), eager, fixed)
 
 
 def _aligned_keys(left, right, left_on, right_on):

@@ -285,6 +285,7 @@ def _ladder(env, build, args, op, tight, conserve, recv):
     """:func:`_adaptive`'s eager ladder: ``(result, its scale)``."""
     scale = plan.current_scale()
     while True:
+        plan.rung()
         with _stage(op, "dispatch", scale=scale):
             out = build(scale)(*args)
         with _stage(op, "sync"):

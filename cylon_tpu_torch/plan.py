@@ -28,20 +28,63 @@ On a CUDA device the port does the same with one CUDA graph a query:
   into one ``torch.cuda.CUDAGraph`` (:data:`GRAPH_CLASS`) with each op
   given its size back from the tape, so the graph runs at the eager
   route's capacities with no host read;
-- a later call on the same inputs replays the graph, fetches the packed
-  tensor once, regrows on an overflow (twice the scale, a new warm-up
-  and capture) and returns the results shrunk to the power-of-two
-  bucket of their rows, copied out of the graph's memory pool.
+- a later call on inputs of the same shapes replays the graph: the
+  call's tensors are copied into the graph's own input buffers, one
+  graph launch, one fetch of the packed tensor, and the results shrunk
+  to the power-of-two bucket of their rows, copied out of the graph's
+  memory pool.
 
-The same inputs are the same tensors, unchanged (their ``_version``),
-under the same schema: each table's column names in order, their
-logical dtypes and each column's dictionary (by identity), a frame's
-env and index. A graph keeps its tensors by weak reference and is let
-go with its pool when one of them dies, on
-:meth:`CompiledQuery.invalidate`, or past :data:`GRAPH_ENTRIES` graphs a
-query (least recently used first). New tensors of the same shapes
-capture again, where a JAX executable would serve them: a graph reads
-the addresses it was captured on, and its sizes are its warm-up's.
+A graph serves any input of its key, as a JAX executable serves any
+input of its shapes. The key is the memo key (:func:`_describe`: static
+arguments, schema, shapes and dtypes) with each input tensor's strides
+and storage offset and which inputs share a storage (:func:`_layout`),
+each column's dictionary by content (``column.Dictionary`` hashes by
+its values) and a frame's env by identity. A graph is captured on its
+own input buffers (:class:`_InputBuffers`), not on the caller's tensors:
+one buffer a storage the inputs share, each input a view at its offset
+and strides, so an int64 column's halves stay 8-byte aligned
+(``kernels.bucket.one_int64_key``). Before each replay the call's
+tensors are copied in, one copy a storage, after the turn event on the
+replay's stream; the copy is skipped when they are the tensors last
+copied in and unchanged (a weak reference and ``_version``). The
+buffers lie outside the shared pool and belong to the graph, which holds
+no reference to a caller's tensor: a graph is let go on
+:meth:`CompiledQuery.invalidate` or :func:`release_shared_graphs`, by a
+serve engine's close, past :data:`GRAPH_ENTRIES` graphs a query (least
+recently used first), or with its :class:`CompiledQuery`.
+
+Every decision the warm-up took from the data is guarded on the device,
+so a replay on new data never returns a stale answer. A replay whose
+fetched flags show an overflow (new data past a size the warm-up
+recorded, or a result past its capacity) drops its graph and the call
+warms up and captures again at the same scale; the scale doubles only
+when that warm-up's own fetch overflows. The audit of what a warm-up
+decides:
+
+- sizes on the :class:`SizeTape`, each registered as an overflow flag by
+  its op's ``fixed`` branch: the regrow ladders (``"regrow"``: the join,
+  the set ops and ``dist_join`` at W = 1 through :func:`regrow_eager`),
+  the group-by's bound (``ops.groupby``; a bound of the whole capacity
+  cannot overflow), ``frame._shrink`` (a cut below the op's bound), the
+  exchanges' scales (``parallel.dist_ops._adaptive``);
+- the hash join's route (``ops.join``, ``CYLON_TPU_JOIN_HASH_IMPL=
+  bucketed``): recorded on the tape; the bucketed route registers the
+  build's overflow count as a flag, the sort route fits any data;
+- :func:`staged` constants, each a function of the key: dictionary
+  remaps (``ops.dictenc``: dictionary content), ``Series.isin``'s probe
+  (the call's values and the dictionary), TPC-H's ``_dict_mask`` codes
+  (dictionary content and static arguments), Q16's sizes (a static
+  argument). A capture takes constants only from its warm-up's cache,
+  frozen: a constant made from data misses it and raises
+  :class:`CaptureFailed`;
+- dictionary unification (``dictenc.unify_dictionaries``): content, in
+  the key;
+- the W = 1 paths of ``dist_ops``: ``dist_aggregate`` registers the
+  poison flag and computes on the device (its exact-median gate reads
+  capacities, its nunique ladder reads a count on the host, so a
+  capture of it fails rather than replaying); ``dist_head`` clips on
+  the device by its static ``n``; ``dist_unique`` bounds by its static
+  ``out_capacity`` and carries the poison in its row count.
 
 The eager route is today's ladder of per-op regrows and one overflow
 check after the query. It runs, and counts ``plan.eager_runs{reason}``,
@@ -65,12 +108,14 @@ A :class:`CompiledQuery` keeps what the JAX one promises its callers:
 
 Its telemetry is the JAX package's (``cylon_tpu/plan.py:495-571``):
 ``plan.cache_hits`` / ``plan.cache_misses`` / ``plan.cache_evictions``
-(a hit is a replay, or on the eager route a run at the memo's scale; a
-capture, or an eager run at a new key, counts in ``plan.compile_count``
-with a ``plan.compile`` instant), ``plan.dispatch`` and ``plan.fetch``
-stage spans each under :func:`~cylon_tpu_torch.telemetry.memory.forensics`,
-and the whole-query regrow's ``plan.overflow_events`` /
-``plan.capacity_rescales`` with their ``capacity.*`` instants. The memo
+(a hit is a replay, on the call's tensors or on new ones copied in, or
+on the eager route a run at the memo's scale; a capture, or an eager run
+at a new key, counts in ``plan.compile_count`` with a ``plan.compile``
+instant), ``plan.dispatch`` and ``plan.fetch`` stage spans each under
+:func:`~cylon_tpu_torch.telemetry.memory.forensics`, and
+``plan.overflow_events`` / ``plan.capacity_rescales`` with their
+``capacity.*`` instants: a flagged replay, or a warm-up whose fetch
+overflows, is an overflow event; only a doubled scale is a rescale. The memo
 keeps the ``_MEMO_ENTRIES`` most recently used entries.
 
 Left out, with the reasons in ``ROADMAP.md``: the row hint (the port's
@@ -83,8 +128,10 @@ ladders and tight sizing are always on).
 import collections
 import contextlib
 import contextvars
+import copy
 import functools
 import threading
+import types
 import weakref
 
 import numpy as np
@@ -100,8 +147,8 @@ __all__ = ["CaptureFailed", "CompiledQuery", "GRAPH_ENTRIES", "MAX_SCALE",
            "SizeTape", "capacity_scale", "capture_mode", "capturing",
            "compile_query", "current_scale", "in_compiled", "note_overflow",
            "note_scale", "plan_cache_stats", "query_fingerprint",
-           "regrow_eager", "run_captured", "settle", "shared_compiled",
-           "staged"]
+           "regrow_eager", "release_shared_graphs", "run_captured", "rung",
+           "settle", "shared_compiled", "staged"]
 
 #: regrow ceiling: 1024x the default budget (``cylon_tpu/plan.py:58``)
 MAX_SCALE = 1024
@@ -141,7 +188,9 @@ _TAPE: contextvars.ContextVar = contextvars.ContextVar(
     "cylon_torch_size_tape", default=None)
 
 #: the host constants of the graph being warmed or captured
-#: (:func:`staged`): content -> device tensor; None outside one
+#: (:func:`staged`): content -> device tensor, a dict while the warm-up
+#: fills it, a read-only view of it while the graph is captured (a miss
+#: there raises); None outside one
 _STAGED: contextvars.ContextVar = contextvars.ContextVar(
     "cylon_torch_staged_constants", default=None)
 
@@ -183,13 +232,18 @@ class SizeTape:
     bounds and shrinks), in the order the ops asked for them
     (:func:`settle`): recorded while the warm-up reads counts eagerly,
     given back to the same ops in the same order while the graph is
-    captured (:meth:`replaying`)."""
+    captured (:meth:`replaying`). An op of a ladder (a join under a
+    regrow) records after the ladder's own entry, and only its last
+    run's sizes stay (:func:`rung`)."""
 
     def __init__(self):
         #: ``(site, size)`` an op
         self.sizes: list = []
         #: the next size to give back; None while recording
         self.pos: "int | None" = None
+        #: while recording, where the entries of the ops inside each
+        #: enclosing :func:`settle` begin, innermost last
+        self.marks: list = []
 
     def replaying(self) -> "SizeTape":
         """A tape that gives these sizes back from the first."""
@@ -230,10 +284,27 @@ def settle(site, eager, fixed):
     if tape is None:
         return fixed(None)
     if tape.pos is None:
-        out, size = eager()
-        tape.sizes.append((site, size))
+        slot = len(tape.sizes)
+        tape.sizes.append((site, None))
+        tape.marks.append(slot + 1)
+        try:
+            out, size = eager()
+        finally:
+            tape.marks.pop()
+        tape.sizes[slot] = (site, size)
         return out
     return fixed(tape.take(site))
+
+
+def rung() -> None:
+    """A ladder's next run of its op begins: while a graph's warm-up
+    records, the sizes the ops inside the ladder's earlier runs recorded
+    are dropped, so that the capture, which runs the op once, finds only
+    the last run's. Every ladder under :func:`settle` calls it before
+    each run."""
+    tape = _TAPE.get()
+    if tape is not None and tape.pos is None and tape.marks:
+        del tape.sizes[tape.marks[-1]:]
 
 
 def own_graphs(owner: "weakref.WeakSet") -> None:
@@ -257,7 +328,9 @@ def staged(values, device, dtype=None) -> torch.Tensor:
     content, with the graph (:data:`_STAGED`); while it is captured the
     kept tensor is returned, so the capture holds no host-to-device copy
     and the constant lives as long as the graph. A constant first seen
-    inside a capture raises :class:`CaptureFailed`."""
+    inside a capture raises :class:`CaptureFailed`: it was made from
+    the data, which a replay on new inputs would not see, and not from
+    the graph's key."""
     from cylon_tpu_torch.device import from_host
 
     arr = np.ascontiguousarray(np.asarray(values))
@@ -269,6 +342,11 @@ def staged(values, device, dtype=None) -> torch.Tensor:
         hit = cache.get(key)
         if hit is not None:
             return hit
+        if not isinstance(cache, dict):
+            raise CaptureFailed(
+                f"a host constant of shape {arr.shape} that the graph's "
+                "warm-up did not stage: made from the data, not from the "
+                "static arguments, schema or dictionaries")
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise CaptureFailed(
             f"a host constant of shape {arr.shape} first seen inside a "
@@ -357,6 +435,7 @@ def regrow_eager(run, *, bounded: bool):
     def ladder():
         scale = current_scale()
         while True:
+            rung()
             with capacity_scale(scale):
                 t = run()
             try:
@@ -666,6 +745,155 @@ def _describe(args, kwargs):
     return (static_pos, static_kw, schema, shapes), leaves, pins
 
 
+def _rebind(x, new):
+    """``x`` (a call's dynamic arguments) with each of its tensors and
+    arrays replaced by the next of the iterator ``new``, in
+    :func:`_inputs`' order; everything else is kept."""
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.frame import DataFrame
+    from cylon_tpu_torch.indexing.index import BaseIndex
+    from cylon_tpu_torch.table import Table
+
+    if _is_frame(x):
+        table = _rebind(x.table, new)
+        return DataFrame._wrap(table, _rebind(x._index, new), x.env)
+    if isinstance(x, Table):
+        cols = {n: _rebind(c, new) for n, c in x.columns.items()}
+        return Table(cols, next(new))
+    if isinstance(x, Column):
+        data = next(new)
+        validity = None if x.validity is None else next(new)
+        return Column(data, validity, x.dtype, x.dictionary)
+    if isinstance(x, BaseIndex):
+        y = copy.copy(x)
+        for k, v in sorted(vars(x).items()):
+            setattr(y, k, _rebind(v, new))
+        return y
+    if isinstance(x, (list, tuple)):
+        vals = [_rebind(v, new) for v in x]
+        return vals if isinstance(x, list) else tuple(vals)
+    if isinstance(x, dict):
+        vals = {k: _rebind(x[k], new) for k in sorted(x, key=repr)}
+        return {k: vals[k] for k in x}
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return next(new)
+    return x
+
+
+def _bind(args, kwargs, leaves):
+    """``(args, kwargs)`` of a call with its leaves (:func:`_describe`)
+    replaced by ``leaves``, in order."""
+    new = iter(leaves)
+    args = [_rebind(v, new) if _is_dynamic(v) else v for v in args]
+    dyn = {k: _rebind(kwargs[k], new) for k in sorted(
+        (k for k, v in kwargs.items() if _is_dynamic(v)), key=repr)}
+    if next(new, None) is not None:
+        raise CaptureFailed("the call's inputs did not rebind in order")
+    return args, {k: dyn.get(k, v) for k, v in kwargs.items()}
+
+
+def _layout(leaves) -> tuple:
+    """What a graph sees of its inputs' memory beside their shapes: each
+    leaf's storage (numbered in order of first sight, so leaves that
+    share one show it), storage offset and strides."""
+    seen: dict = {}
+    return tuple((seen.setdefault(x.untyped_storage().data_ptr(), len(seen)),
+                  x.storage_offset(), tuple(x.stride())) for x in leaves)
+
+
+def _pin_key(p):
+    """A pin in a graph's key: a dictionary by content, an env by
+    identity (the entry holds it, so its id is not reused)."""
+    from cylon_tpu_torch.column import Dictionary
+
+    return p if isinstance(p, Dictionary) else ("id", id(p))
+
+
+#: a graph's input buffers keep each leaf's byte offset modulo this from
+#: its storage's start; both caching allocators align a storage to at
+#: least this (64 bytes on the CPU, 512 on CUDA), so a leaf keeps its
+#: address alignment
+_ALIGN = 64
+
+
+def _extent(x: torch.Tensor) -> int:
+    """Bytes from a tensor's first element to past its last (0 if
+    empty)."""
+    if x.numel() == 0:
+        return 0
+    return (sum((n - 1) * st for n, st in zip(x.shape, x.stride())) + 1) \
+        * x.element_size()
+
+
+class _InputBuffers:
+    """A graph's own copies of its inputs: one buffer a storage the
+    leaves share, holding the bytes from its first leaf's start to its
+    last leaf's end, and each leaf a view into it at its offset and
+    strides. :meth:`copy_in` copies a call's leaves in, one copy a
+    storage. The buffers are allocated outside a graph's pool."""
+
+    def __init__(self, leaves):
+        groups: dict = {}
+        for i, x in enumerate(leaves):
+            groups.setdefault(x.untyped_storage().data_ptr(), []).append(i)
+        self.leaves = [None] * len(leaves)
+        #: ``(first leaf, lo, hi, destination)``: a storage's bytes
+        #: [lo, hi) and where they go
+        self.spans = []
+        self.nbytes = 0
+        for idx in groups.values():
+            live = []
+            for i in idx:
+                x = leaves[i]
+                if x.numel():
+                    live.append(i)
+                else:
+                    self.leaves[i] = torch.empty_strided(
+                        x.shape, x.stride(), dtype=x.dtype, device=x.device)
+            if not live:
+                continue
+            offs = {i: leaves[i].storage_offset() * leaves[i].element_size()
+                    for i in live}
+            lo = min(offs.values())
+            hi = max(offs[i] + _extent(leaves[i]) for i in live)
+            base = lo - lo % _ALIGN
+            buf = torch.empty(hi - base, dtype=torch.uint8,
+                              device=leaves[live[0]].device)
+            self.nbytes += buf.numel()
+            for i in live:
+                x = leaves[i]
+                self.leaves[i] = torch.empty(
+                    0, dtype=x.dtype, device=x.device).set_(
+                    buf.untyped_storage(),
+                    (offs[i] - base) // x.element_size(), x.shape,
+                    x.stride())
+            self.spans.append((live[0], lo, hi, buf[lo - base:]))
+        #: weak references to the leaves last copied in, and their
+        #: ``_version`` then
+        self._last: list = []
+
+    def current(self, leaves) -> bool:
+        """Whether ``leaves`` are the tensors last copied in, unchanged
+        since."""
+        return len(self._last) == len(leaves) and all(
+            r() is x and x._version == v
+            for (r, v), x in zip(self._last, leaves))
+
+    def copy_in(self, leaves, force: bool = False) -> int:
+        """Copy ``leaves`` in on the current stream, unless they are
+        :meth:`current` (``force`` copies anyway); the bytes copied."""
+        if not force and self.current(leaves):
+            return 0
+        n = 0
+        for i, lo, hi, dst in self.spans:
+            src = torch.empty(0, dtype=torch.uint8, device=dst.device).set_(
+                leaves[i].untyped_storage(), lo, (hi - lo,), (1,))
+            dst.copy_(src)
+            n += hi - lo
+        self._last = [(weakref.ref(x), x._version) for x in leaves]
+        return n
+
+
 def _map_tables(out, table_fn):
     """``out`` with every table (bare or in a frame) replaced by
     ``table_fn(table)``, nested lists, tuples and dicts rebuilt, and bare
@@ -724,16 +952,14 @@ def _copy_tensors(pick):
     return table_fn
 
 
-def run_captured(fn, args=(), kwargs=None, scale: int = 1, detach=None,
+def run_captured(fn, args=(), kwargs=None, scale: int = 1,
                  tape: "SizeTape | None" = None):
     """Run the query ``fn(*args, **kwargs)`` in capture mode at
     ``scale`` and pack what its one fetch reads: returns ``(out,
     packed, env)`` (:func:`_pack`). This is the program a
     :class:`CompiledQuery` warms (``tape`` recording), captures and
     replays (``tape`` replaying); the tests run it on CPU tensors under
-    their host-read lint. ``detach``: storages (their ``data_ptr``) of
-    the inputs; a result tensor on one of them is copied, so that a
-    graph's outputs never keep its inputs alive."""
+    their host-read lint."""
     flags = []
     tok = _TAPE.set(tape)
     try:
@@ -742,16 +968,14 @@ def run_captured(fn, args=(), kwargs=None, scale: int = 1, detach=None,
             out = fn(*args, **(kwargs or {}))
             if tape is not None:
                 tape.check_done()
-            if detach:
-                out = _map_tables(out, _copy_tensors(
-                    lambda x: x.untyped_storage().data_ptr() in detach))
             packed, env = _pack(out, flags)
     finally:
         _TAPE.reset(tok)
     return out, packed, env
 
 
-#: the live graphs of each CUDA device, which share one memory pool: a
+#: the live graphs of each CUDA device (weakly: a graph whose
+#: CompiledQuery is dropped goes with it), which share one memory pool: a
 #: graph's temporaries may lie where another graph's lay, so the pools
 #: of N queries cost about the largest query's working set, not N of
 #: them. That is safe because replays take turns (:data:`_GRAPH_MU`,
@@ -759,7 +983,7 @@ def run_captured(fn, args=(), kwargs=None, scale: int = 1, detach=None,
 #: runs. A capture joins the pool of a live graph; with none live it
 #: takes a new pool, never the id of one whose graphs are all gone (its
 #: last tensors may not be collected yet, and PyTorch refuses it)
-_LIVE: dict = {}
+_LIVE: "dict[int, weakref.WeakSet]" = {}
 
 #: held while a graph is captured and while one is replayed, fetched and
 #: copied out: graphs that share a pool never run over each other
@@ -774,7 +998,10 @@ _TURN: dict = {}
 class _CudaGraph:
     """One ``torch.cuda.CUDAGraph`` in its device's shared pool
     (:data:`_LIVE`); the :data:`GRAPH_CLASS` the package uses.
-    ``device_type`` is the device whose tensors take the graph route."""
+    ``device_type`` is the device whose tensors take the graph route.
+    :meth:`capture` runs ``program`` (the query in capture mode on the
+    graph's input buffers) once into the graph and returns its result,
+    whose tensors every :meth:`replay` writes again."""
 
     device_type = "cuda"
 
@@ -783,32 +1010,31 @@ class _CudaGraph:
         self._device = torch.cuda.current_device()
         self.pool_bytes = 0
 
-    @contextlib.contextmanager
-    def capture(self):
+    def capture(self, program):
         # torch.cuda.graph empties the cache on entry too; emptied here
         # first, the reserved bytes' growth is what this capture added to
         # the pool. thread_local: another thread's work (a serve
         # engine's scheduler, a client) is not an error of this capture.
         # Called under _GRAPH_MU, as reset is
-        live = _LIVE.setdefault(self._device, [])
-        pool = live[0]._graph.pool() if live else \
+        live = _LIVE.setdefault(self._device, weakref.WeakSet())
+        other = next(iter(live), None)
+        pool = other._graph.pool() if other is not None else \
             torch.cuda.graph_pool_handle()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved()
         with torch.cuda.graph(self._graph, pool=pool,
                               capture_error_mode="thread_local"):
-            yield
+            result = program()
         self.pool_bytes = torch.cuda.memory_reserved() - before
-        live.append(self)
+        live.add(self)
+        return result
 
     def replay(self) -> None:
         self._graph.replay()
 
     def reset(self) -> None:
-        live = _LIVE.get(self._device, [])
-        if self in live:
-            live.remove(self)
+        _LIVE.get(self._device, weakref.WeakSet()).discard(self)
         self._graph.reset()
 
 
@@ -822,19 +1048,16 @@ _RELEASED = object()
 
 
 class _Entry:
-    """One captured graph: its inputs (weak references and ``_version``
-    at capture; the host objects its key names by identity, held), the
-    pool-resident result and packed words it writes, and each kernel's
-    launches a replay makes."""
+    """One captured graph: its input buffers (:class:`_InputBuffers`),
+    the host objects its key names (held), the pool-resident result and
+    packed words it writes, and each kernel's launches a replay makes."""
 
-    def __init__(self, gkey, graph, leaves, pins, out, packed, env,
-                 launches, stage, scale, on_death):
+    def __init__(self, gkey, graph, inputs, pins, out, packed, env,
+                 launches, stage, scale):
         self.gkey = gkey
         self.graph = graph
-        self.refs = [weakref.ref(x, lambda _r, e=self: on_death(e))
-                     for x in leaves]
-        self.versions = [x._version for x in leaves]
-        # held: while the graph lives, no other object takes their ids
+        self.inputs = inputs
+        # held: while the graph lives, no other env takes their ids
         self.pins = pins
         self.out, self.packed, self.env = out, packed, env
         self.launches = launches
@@ -842,23 +1065,20 @@ class _Entry:
         self.scale = scale
         self.replays = 0
 
-    def matches(self, leaves) -> bool:
-        return all(r() is x and x._version == v
-                   for r, x, v in zip(self.refs, leaves, self.versions))
-
     def release(self) -> None:
-        """Let go of the graph and every tensor of its pool; never while
-        it is replayed (:data:`_GRAPH_MU`)."""
+        """Let go of the graph, its input buffers and every tensor of its
+        pool; never while it is replayed (:data:`_GRAPH_MU`)."""
         with _GRAPH_MU:
             if self.graph is not None:
                 self.graph.reset()
             self.graph = self.out = self.packed = self.stage = None
-            self.pins = None
+            self.inputs = self.pins = None
 
     def stats(self) -> dict:
         return {"scale": self.scale, "replays": self.replays,
                 "launches": dict(self.launches),
-                "pool_bytes": getattr(self.graph, "pool_bytes", 0)}
+                "pool_bytes": getattr(self.graph, "pool_bytes", 0),
+                "input_bytes": self.inputs.nbytes if self.inputs else 0}
 
 
 def _world_size(x) -> int:
@@ -902,35 +1122,15 @@ class CompiledQuery:
         #: at; least recently used first, at most ``_MEMO_ENTRIES``
         self._scale_memo: "collections.OrderedDict" = \
             collections.OrderedDict()
-        #: (memo key, input ids, pin ids) -> _Entry, least recently
-        #: used first
+        #: (memo key, layout, pins) -> _Entry, least recently used
+        #: first
         self._graphs: "collections.OrderedDict" = collections.OrderedDict()
-        #: entries whose input died, let go at the next chance to take
-        #: the lock (a weak-reference callback may fire while it is held)
-        self._dead: collections.deque = collections.deque()
 
     @property
     def _name(self) -> str:
         return getattr(self._fn, "__name__", "?")
 
     # -- graph bookkeeping ---------------------------------------------
-    def _on_death(self, entry) -> None:
-        self._dead.append(entry)
-        self._reap()
-
-    def _reap(self) -> None:
-        while self._dead:
-            if not self._mu.acquire(blocking=False):
-                return
-            try:
-                while self._dead:
-                    e = self._dead.popleft()
-                    if self._graphs.get(e.gkey) is e:
-                        del self._graphs[e.gkey]
-                    e.release()
-            finally:
-                self._mu.release()
-
     def _drop_locked(self, gkey) -> None:
         e = self._graphs.pop(gkey, None)
         if e is not None:
@@ -941,7 +1141,6 @@ class CompiledQuery:
         with self._mu:
             while self._graphs:
                 self._graphs.popitem(last=False)[1].release()
-        self._reap()
 
     def invalidate(self) -> None:
         """Drop the memo and let go of every graph
@@ -951,12 +1150,10 @@ class CompiledQuery:
         self.release_graphs()
 
     def graph_stats(self) -> list:
-        """Per graph held: its scale, replays, launches a replay and pool
-        bytes."""
+        """Per graph held: its scale, replays, launches a replay, pool
+        bytes and input buffers' bytes."""
         with self._mu:
-            out = [e.stats() for e in self._graphs.values()]
-        self._reap()
-        return out
+            return [e.stats() for e in self._graphs.values()]
 
     # -- calls -----------------------------------------------------------
     def _eager_reason(self, args, kwargs, leaves) -> "str | None":
@@ -994,12 +1191,16 @@ class CompiledQuery:
         if evicted:
             telemetry.counter("plan.cache_evictions").inc(evicted)
 
-    def _regrow(self, scale: int) -> int:
-        """Count a whole-query overflow at ``scale``; the next scale, or
-        raise past :data:`MAX_SCALE`."""
+    def _overflowed(self, scale: int) -> None:
+        """Count a whole-query overflow at ``scale``."""
         telemetry.counter("plan.overflow_events", site="compiled").inc()
         _trace.instant("capacity.overflow", cat="capacity",
                        site="compiled", scale=scale)
+
+    def _regrow(self, scale: int) -> int:
+        """Count a whole-query overflow at ``scale``; the next scale, or
+        raise past :data:`MAX_SCALE`."""
+        self._overflowed(scale)
         if scale >= MAX_SCALE:
             raise OutOfCapacity("an op inside the compiled query "
                                 f"overflowed its bound at scale {scale}")
@@ -1059,23 +1260,17 @@ class CompiledQuery:
             return _shrink_results(out, counts)
 
     def _run_graph(self, key, leaves, pins, args, kwargs):
-        """The graph route: replay the graph of these inputs, or warm and
-        capture one."""
-        gkey = (key, tuple(id(x) for x in leaves),
-                tuple(id(p) for p in pins))
+        """The graph route: replay the graph of this key on the call's
+        inputs, or warm and capture one. A replay whose flags fire drops
+        its graph, and the call warms and captures again at its scale."""
+        gkey = (key, _layout(leaves), tuple(_pin_key(p) for p in pins))
         with self._mu:
             entry = self._graphs.get(gkey)
-            if entry is not None and not entry.matches(leaves):
-                # an input written in place, or a new tensor at a dead
-                # one's address
-                self._drop_locked(gkey)
-                entry = None
             if entry is not None:
                 self._graphs.move_to_end(gkey)
             _, scale = self._memo_lookup(key)
-        self._reap()
         if entry is not None:
-            out = self._replay(entry)
+            out = self._replay(entry, leaves)
             if out is not _RELEASED:
                 telemetry.counter("plan.cache_hits").inc()
                 if out is not _OVERFLOWED:
@@ -1083,7 +1278,10 @@ class CompiledQuery:
                 with self._mu:
                     if self._graphs.get(gkey) is entry:
                         self._drop_locked(gkey)
-                scale = self._regrow(entry.scale)
+                # the new data passed a size the warm-up recorded: its
+                # own warm-up decides the sizes, at the same scale
+                self._overflowed(entry.scale)
+                scale = entry.scale
             else:
                 telemetry.counter("plan.cache_misses").inc()
         else:
@@ -1091,10 +1289,10 @@ class CompiledQuery:
         return self._warm_and_capture(key, gkey, leaves, pins, args,
                                       kwargs, scale)
 
-    def _replay(self, entry):
-        """One graph launch, one fetch, the copy-out; :data:`_OVERFLOWED`
-        on an overflow, :data:`_RELEASED` when another thread let go of
-        the graph first."""
+    def _replay(self, entry, leaves):
+        """The call's inputs copied in, one graph launch, one fetch, the
+        copy-out; :data:`_OVERFLOWED` on an overflow, :data:`_RELEASED`
+        when another thread let go of the graph first."""
         with _GRAPH_MU:
             if entry.graph is None:
                 return _RELEASED
@@ -1106,6 +1304,7 @@ class CompiledQuery:
                 if cuda and dev.index in _TURN:
                     torch.cuda.current_stream(dev).wait_event(
                         _TURN[dev.index])
+                entry.inputs.copy_in(leaves)
                 entry.graph.replay()
                 entry.replays += 1
                 _add_launches(entry.launches)
@@ -1126,9 +1325,9 @@ class CompiledQuery:
 
     def _warm_and_capture(self, key, gkey, leaves, pins, args, kwargs,
                           scale: int):
-        """The warm-up: the query eagerly, its sizes recorded, until it
-        fits (its result is the call's); then the capture at that scale
-        and those sizes."""
+        """The warm-up: the query eagerly on the call's tensors, its sizes
+        recorded, until it fits (its result is the call's); then the
+        capture at that scale and those sizes."""
         stage: dict = {}
         while True:
             tape = SizeTape()
@@ -1153,39 +1352,48 @@ class CompiledQuery:
         del out, packed
         self._memo_settle(key, scale)
         entry = self._capture(gkey, leaves, pins, args, kwargs, scale,
-                              stage, tape.replaying())
+                              stage, tape)
         with self._mu:
             self._drop_locked(gkey)
             self._graphs[gkey] = entry
             while len(self._graphs) > GRAPH_ENTRIES:
                 self._graphs.popitem(last=False)[1].release()
-        self._reap()
         return result
 
     def _capture(self, gkey, leaves, pins, args, kwargs, scale: int,
                  stage: dict, tape: SizeTape):
+        """The query captured on its own input buffers, the call's
+        tensors copied in, at the warm-up's ``scale`` and sizes
+        (``tape``), with its constants (``stage``) frozen."""
         from cylon_tpu_torch import kernels
         from cylon_tpu_torch.kernels import build
 
         telemetry.counter("plan.compile_count").inc()
         _trace.instant("plan.compile", cat="plan", scale=scale,
                        fn=self._name)
-        detach = {x.untyped_storage().data_ptr() for x in leaves}
+        inputs = _InputBuffers(leaves)
+        inputs.copy_in(leaves)
+        bargs, bkwargs = _bind(args, kwargs, inputs.leaves)
+        frozen = types.MappingProxyType(stage)
+
+        def program():
+            tok = _STAGED.set(frozen)
+            try:
+                return run_captured(self._fn, bargs, bkwargs, scale,
+                                    tape=tape.replaying())
+            finally:
+                _STAGED.reset(tok)
+
         graph = GRAPH_CLASS()
-        tok = _STAGED.set(stage)
         try:
             # a capture runs nothing: this thread's launches into it are
             # tallied apart and count at each replay
-            with _GRAPH_MU, build.graph_tally() as tally, graph.capture():
-                out, packed, env = run_captured(self._fn, args, kwargs,
-                                                scale, detach=detach,
-                                                tape=tape)
+            with _GRAPH_MU, build.graph_tally() as tally:
+                out, packed, env = graph.capture(program)
         except Exception as exc:
             raise CaptureFailed(
                 f"capturing {self._name} at scale {scale} failed: "
                 f"{type(exc).__name__}: {exc}") from exc
-        finally:
-            _STAGED.reset(tok)
         indexed = []
         _walk_frames(out, lambda f: indexed.append(f._index is not None))
         if any(indexed):
@@ -1199,8 +1407,8 @@ class CompiledQuery:
             owner.add(self)
         launches = {w.__name__: tally.get(w.__name__, 0)
                     for w in kernels.WRAPPERS}
-        return _Entry(gkey, graph, leaves, pins, out, packed, env, launches,
-                      stage, scale, self._on_death)
+        return _Entry(gkey, graph, inputs, pins, out, packed, env, launches,
+                      stage, scale)
 
 
 #: the process-wide compiled queries: fn -> CompiledQuery
@@ -1218,6 +1426,16 @@ def shared_compiled(fn) -> CompiledQuery:
         if cq is None:
             cq = _SHARED[fn] = functools.wraps(fn)(CompiledQuery(fn))
     return cq
+
+
+def release_shared_graphs() -> None:
+    """Let go of every graph of the process-wide compiled queries and its
+    input buffers (their memos stay): a graph outlives the inputs it
+    served, so a caller done with a workload frees its memory here."""
+    with _SHARED_MU:
+        queries = list(_SHARED.values())
+    for cq in queries:
+        cq.release_graphs()
 
 
 def plan_cache_stats() -> dict:

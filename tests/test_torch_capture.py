@@ -21,11 +21,14 @@ card, so these tests hold what can be held here:
     and the graph runs at its size, and a replay whose flag fires
     regrows the whole query;
 (d) the graph cache's bookkeeping through a stand-in graph class put in
-    ``plan.GRAPH_CLASS``: a hit on the same tensors, a new capture for
-    new tensors, after an in-place write, or for another schema on the
-    same tensors (names, dictionaries), the LRU bound, ``invalidate()``,
-    a dropped input dropping its graph; the capture's launches tallied
-    apart from other threads'; and the eager route's reasons.
+    ``plan.GRAPH_CLASS``, whose replay runs the captured program again
+    on the graph's own input buffers: a hit on the same tensors, a
+    replay with the new values after an in-place write, a new capture
+    for another layout or another schema on the same tensors (names,
+    dictionaries), the LRU bound, ``invalidate()``, a graph that
+    outlives its first inputs without keeping them; the capture's
+    launches tallied apart from other threads'; and the eager route's
+    reasons. ``test_torch_rebind.py`` holds replays on new inputs.
 """
 
 import contextlib
@@ -39,6 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from cylon_tpu_torch import (CylonEnv, DataFrame, Table, ThreadWorld, frame,
                              plan, telemetry, tpch)
+from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.ops.groupby import groupby_aggregate
 from cylon_tpu_torch.ops.join import join
 from cylon_tpu_torch.ops.selection import filter_table, sort_table
@@ -278,10 +282,43 @@ def test_captured_example_equals_the_jax_example():
 
 
 # ------------------------------------------------- (d)'s stand-in graph
+def result_tensors(x) -> list:
+    """The tensors of a captured program's ``(out, packed, env)``, in a
+    fixed order: each table's columns (data, validity) and row count, a
+    frame's table, bare tensors."""
+    found = []
+
+    def visit(x):
+        if torch.is_tensor(x):
+            found.append(x)
+        elif isinstance(x, Table):
+            for c in x.columns.values():
+                found.append(c.data)
+                if c.validity is not None:
+                    found.append(c.validity)
+            found.append(x.nrows)
+        elif isinstance(x, DataFrame):
+            visit(x.table)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                visit(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+
+    visit(x)
+    return found
+
+
 class StandInGraph:
-    """A graph that runs its capture eagerly and replays nothing: the
-    result a replay reads is the one its capture computed. Counts what
-    the cache does with it."""
+    """A graph whose capture runs its program (the query in capture mode
+    on the graph's own input buffers, at its warm-up's sizes, its staged
+    constants frozen) and whose replay runs it again, writing the
+    results into the captured tensors, as a CUDA graph's replay
+    rewrites its pool. A size or constant that a replay on new data
+    would get wrong shows here: a staged constant the warm-up did not
+    make raises, an op past its recorded size flags. Counts what the
+    cache does with it."""
 
     device_type = "cpu"
     made: list = []
@@ -290,14 +327,24 @@ class StandInGraph:
         self.replays = 0
         self.reset_calls = 0
         self.pool_bytes = 0
+        self.program = self.result = None
         StandInGraph.made.append(self)
 
-    @contextlib.contextmanager
-    def capture(self):
-        yield
+    def capture(self, program):
+        self.program = program
+        self.result = program()
+        return self.result
 
     def replay(self):
         self.replays += 1
+        new = self.program()
+        old_t, new_t = result_tensors(self.result[:2]), \
+            result_tensors(new[:2])
+        assert len(old_t) == len(new_t)
+        for dst, src in zip(old_t, new_t):
+            assert dst.shape == src.shape and dst.dtype == src.dtype
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
 
     def reset(self):
         self.reset_calls += 1
@@ -346,8 +393,8 @@ def test_join_past_its_bound_regrows_the_whole_query(stand_in):
     assert [g["scale"] for g in cq.graph_stats()] == [1]
     pd.testing.assert_frame_equal(got.reset_index(drop=True), want)
     pd.testing.assert_frame_equal(cq(left, right).to_pandas(), got)
-    # a replay whose flag fires regrows the whole query: twice the
-    # scale, a new warm-up and capture
+    # a replay whose flag fires drops its graph and reruns the query: a
+    # new warm-up (whose own fetch fits) and capture at the same scale
     real, fired = plan._fetch, []
 
     def fetch(packed):
@@ -363,8 +410,9 @@ def test_join_past_its_bound_regrows_the_whole_query(stand_in):
         again = cq(left, right).to_pandas()
     finally:
         plan._fetch = real
-    assert telemetry.total("plan.capacity_rescales") == 1
-    assert [g["scale"] for g in cq.graph_stats()] == [2]
+    assert telemetry.total("plan.overflow_events") == 1
+    assert telemetry.total("plan.capacity_rescales") == 0
+    assert [g["scale"] for g in cq.graph_stats()] == [1]
     assert len(stand_in.made) == 2 and stand_in.made[0].reset_calls == 1
     pd.testing.assert_frame_equal(again, got)
     pd.testing.assert_frame_equal(cq(left, right).to_pandas(), got)
@@ -411,20 +459,28 @@ def test_replayed_results_are_copies_out_of_the_pool(stand_in):
 
 
 def test_new_tensors_or_an_in_place_write_capture_again(stand_in):
+    """New tensors of another layout (a column read through a stride)
+    capture again; an in-place write on the captured tensors replays
+    with the new values."""
     orders, items = _small()
     cq = plan.compile_query(revenue_by_key)
     cq(orders, items, cutoff=100)
-    other, _ = _small(seed=1)
-    got = cq(other, items, cutoff=100).to_pandas()
+    wide = torch.stack([orders.column("amount").data] * 2, dim=1)
+    strided = Table({"k": orders.column("k"), "day": orders.column("day"),
+                     "amount": Column(wide[:, 0], None,
+                                      orders.column("amount").dtype, None)},
+                    orders.nrows)
+    got = cq(strided, items, cutoff=100).to_pandas()
     pd.testing.assert_frame_equal(
-        got, revenue_by_key(other, items, cutoff=100).to_pandas())
+        got, revenue_by_key(orders, items, cutoff=100).to_pandas())
     assert len(stand_in.made) == 2 and len(cq.graph_stats()) == 2
     orders.column("amount").data.mul_(2.0)
     got = cq(orders, items, cutoff=100).to_pandas()
     pd.testing.assert_frame_equal(
         got, revenue_by_key(orders, items, cutoff=100).to_pandas())
-    assert len(stand_in.made) == 3
-    assert stand_in.made[0].reset_calls == 1   # the stale graph let go
+    assert len(stand_in.made) == 2
+    assert stand_in.made[0].replays == 1
+    assert stand_in.made[0].reset_calls == 0
     assert len(cq.graph_stats()) == 2
 
 
@@ -432,7 +488,7 @@ def test_another_schema_on_the_same_tensors_captures_again(stand_in):
     """A table rebuilt around the same tensors with its names swapped,
     or a column given another dictionary, is another input: its call
     captures again and gets its own answer."""
-    from cylon_tpu_torch.column import Column, Dictionary
+    from cylon_tpu_torch.column import Dictionary
 
     t = Table.from_pydict({"a": np.arange(300, dtype=np.int64) % 7,
                            "b": np.arange(300, dtype=np.int64) % 11},
@@ -516,7 +572,7 @@ def test_graphs_past_the_bound_are_let_go_oldest_first(stand_in,
                                                        monkeypatch):
     monkeypatch.setattr(plan, "GRAPH_ENTRIES", 2)
     cq = plan.compile_query(revenue_by_key)
-    inputs = [_small(seed=s) for s in range(3)]
+    inputs = [_small(seed=s, n=300 + s) for s in range(3)]
     for o, i in inputs:
         cq(o, i, cutoff=100)
     assert len(cq.graph_stats()) == 2
@@ -537,28 +593,42 @@ def test_invalidate_lets_go_of_every_graph(stand_in):
 
 
 def test_a_dropped_input_drops_its_graph(stand_in):
+    """A graph holds copies of its inputs, not the caller's tensors: a
+    dropped input is freed, and its graph stays to serve the next input
+    of its shapes."""
+    import weakref
+
     orders, items = _small()
     cq = plan.compile_query(revenue_by_key)
     cq(orders, items, cutoff=100)
-    keep, _ = _small(seed=1)
-    cq(keep, items, cutoff=100)
+    gone = weakref.ref(orders.column("amount").data)
     del orders
     gc.collect()
+    assert gone() is None
     assert len(cq.graph_stats()) == 1
-    assert stand_in.made[0].reset_calls == 1
-    assert stand_in.made[1].reset_calls == 0
+    assert stand_in.made[0].reset_calls == 0
+    keep, _ = _small(seed=1)
+    got = cq(keep, items, cutoff=100).to_pandas()
+    pd.testing.assert_frame_equal(
+        got, revenue_by_key(keep, items, cutoff=100).to_pandas())
+    assert len(stand_in.made) == 1 and stand_in.made[0].replays == 1
 
 
 def test_a_result_on_an_input_does_not_keep_it_alive(stand_in):
+    import weakref
+
     orders, items = _small()
     cq = plan.compile_query(lambda t: t)
     first = cq(orders)          # the warm run's result: the input itself
     got = cq(orders)            # a replay's: a copy
     assert got.column("k").data.data_ptr() != \
         orders.column("k").data.data_ptr()
+    pd.testing.assert_frame_equal(got.to_pandas(), orders.to_pandas())
+    gone = weakref.ref(orders.column("k").data)
     del orders, first, got
     gc.collect()
-    assert cq.graph_stats() == []
+    assert gone() is None
+    assert len(cq.graph_stats()) == 1
 
 
 def test_serve_engine_lets_go_of_its_graphs_on_close(stand_in):
@@ -611,14 +681,15 @@ def test_a_result_frame_with_an_index_refuses_to_capture(stand_in):
 
 def test_threads_sharing_a_compiled_query_keep_one_graph_an_input(
         stand_in):
-    """Twelve threads call one CompiledQuery on three input sets with a
-    short switch interval: every result is its set's, and the cache
-    ends with one graph a set (a lost update would leave a second graph
-    or a stale one)."""
+    """Twelve threads call one CompiledQuery on six input sets, two of
+    each of three shapes, with a short switch interval: every result is
+    its set's (the sets of one shape take turns in one graph's input
+    buffers), and the cache ends with one graph a shape (a lost update
+    would leave a second graph or a stale one)."""
     import sys
     import threading
 
-    sets = [_small(seed=s) for s in range(3)]
+    sets = [_small(seed=s, n=300 + s % 3) for s in range(6)]
     want = [revenue_by_key(o, i, cutoff=100).to_pandas() for o, i in sets]
     cq = plan.compile_query(revenue_by_key)
     errors = []
@@ -626,7 +697,7 @@ def test_threads_sharing_a_compiled_query_keep_one_graph_an_input(
     def worker(k):
         try:
             for r in range(6):
-                j = (k + r) % 3
+                j = (k + r) % 6
                 got = cq(*sets[j], cutoff=100).to_pandas()
                 pd.testing.assert_frame_equal(got, want[j])
         except Exception as exc:   # noqa: BLE001 -- reported below

@@ -240,9 +240,17 @@ def test_health_verdict_matches_jax(monkeypatch):
     from cylon_tpu.serve import ServeEngine as JEngine
     from cylon_tpu.serve import ServePolicy as JPolicy
 
+    from cylon_tpu.telemetry import timeseries as jseries
+    from cylon_tpu_torch.telemetry import timeseries
+
     # neither side has a card here: both skip the memory component
     monkeypatch.setattr(jfallback, "free_hbm_bytes", lambda: None)
     monkeypatch.delenv("CYLON_TPU_SERVE_STALL_AGE", raising=False)
+    # a watchdog expiry that an earlier test of this process left in
+    # either package's history window would read as this engine's
+    for tel, series in ((telemetry, timeseries), (jtel, jseries)):
+        tel.reset()
+        series.reset()
     got = _verdicts(ServeEngine, ServePolicy, DeadlineExceeded, telemetry)
     want = _verdicts(JEngine, JPolicy, JDeadline, jtel)
     jtel.reset("serve.")
