@@ -13,6 +13,8 @@ and check it.
                                         # same way
     python3 chip_smoke.py --capture-only  # phases 1, 2 and 22 alone, the
                                           # same way
+    python3 chip_smoke.py --rebind-only   # phases 1, 2 and 23 alone, the
+                                          # same way
 
 Phases, each printing one JSON line:
 
@@ -124,7 +126,7 @@ Phases, each printing one JSON line:
     coverage (at least 0.8), the exchange's true bytes against the rows
     the ranks sent, a strict-JSON Chrome trace; then the kernels at this
     phase's shapes, as in phase 10; see :func:`telemetry_phase`.
-16. spill: resilience, deadlines and the spill path. The 40M x 40M
+16. spill: resilience, deadlines and the spill path. The 20M x 20M
     out-of-core join (``ooc_join``, 8 partitions spilled to host
     memory) against numpy, prefetched and sequential, beside the in-core
     join; ``fallback.join`` by the pre-flight route and after a real
@@ -217,6 +219,15 @@ Phases, each printing one JSON line:
     the kernels at this phase's shapes, as in phase 10, and the live
     bytes back at their level before the phase, every graph let go; see
     :func:`capture_phase`.
+23. rebind: the compiled queries of phase 22 (the example, Q3 and Q5 at
+    SF 10) replayed on a second seed's tables of the same shapes, a
+    stale size and a build side past the chain width rerun, on the sort
+    and the bucketed hash route; (d) the same queries unchecked
+    (``compile_query(check=False)``), eight calls back to back with no
+    fetch and no sync, each bit for bit the checked replay's first
+    ``num_rows`` rows, set C poisoned; then the kernels at this phase's
+    shapes and the live bytes back at their level; see
+    :func:`rebind_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -228,14 +239,15 @@ or hash-join path and, as ``groupby_launches``,
 ``sort_setops_launches``, ``frame_launches``, ``tpch_launches``,
 ``telemetry_launches``, ``spill_launches``, ``views_launches``,
 ``serve_launches``, ``fleet_launches``, ``native_launches``,
-``hier_launches`` and ``capture_replay_launches``, on
+``hier_launches``, ``capture_replay_launches``,
+``rebind_replay_launches`` and ``rebind_unchecked_launches``, on
 phase 9's group-by calls, phase 12's calls, phase 13's, phase 14's,
 phase 15's compared runs, phase 16's parts (a)-(f), phase 17's parts
 (a)-(d), the engine's own requests in phase 18's parts (a)-(f), phase
 19's served requests (the engine processes' own, as each logs them at a
 clean close, and the in-process engines' of (d) and (e)), phase 20's
-join of the native-read tables, phase 21's two-tier runs and phase
-22's replays), the
+join of the native-read tables, phase 21's two-tier runs, phase 22's
+replays and phase 23's checked and unchecked replays), the
 ``nvidia-smi``
 line again, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run away from the repository, it exits
@@ -3925,15 +3937,16 @@ def telemetry_phase(torch, rate, stats, card: str, dev="cuda") -> dict:
 #: [0, rows). ``cylon_tpu/outofcore.py:188`` names the 100M x 100M join,
 #: which phase 16 ran until phase 20 needed its room under the script's
 #: 1200 s: at 100M its joins took 233 s of a 1131 s run; at 50M its five
-#: joins and the killed child took about 125 s of a 952 s run, and 40M
-#: makes room for phase 23
-SPILL_ROWS = 40_000_000
+#: joins and the killed child took about 125 s of a 952 s run; at 40M
+#: about 104 s of a 1051 s run on a slow host, and 20M makes room for
+#: phase 23's part (d)
+SPILL_ROWS = 20_000_000
 SPILL_PARTS = 8
 SPILL_CHUNK = 1 << 22
 SPILL_SEED = 0
 #: the pre-flight route's budget, ``CYLON_TPU_HBM_BUDGET_BYTES``: below
-#: the join's predicted 5.12 GB at 40M rows a side
-SPILL_BUDGET = 4 << 30
+#: the join's predicted 2.56 GB at 20M rows a side
+SPILL_BUDGET = 2 << 30
 #: the kill-and-resume run dies at this partition's durable write, so
 #: this many partitions were complete before it
 SPILL_KILL_AT = 4
@@ -4182,7 +4195,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
     """Resilience, deadlines and the spill path on the card (phase 16).
     Every line carries the card's name and power limit.
 
-    (a) The 40M x 40M out-of-core join (:data:`SPILL_ROWS` a side,
+    (a) The 20M x 20M out-of-core join (:data:`SPILL_ROWS` a side,
         keys uniform in [0, SPILL_ROWS), seed :data:`SPILL_SEED`) through
         ``ooc_join`` (:data:`SPILL_PARTS` partitions, :data:`SPILL_CHUNK`
         rows a chunk, a sink that sums ``v_l * v_r`` and digests each
@@ -4293,7 +4306,7 @@ def spill_phase(torch, rate, stats, card: str, dev="cuda") -> tuple:
 
     reset_launches()
 
-    # -- (a) the 40M x 40M out-of-core join
+    # -- (a) the 20M x 20M out-of-core join
     n = SPILL_ROWS
     t = time.perf_counter()
     left, right = spill_tables(np, n)
@@ -7337,6 +7350,17 @@ def result_bits_equal(torch, a, b) -> bool:
                             bits_of(torch, b.reshape(1))))
 
 
+def result_nbytes(out) -> int:
+    """The bytes of a query result's tensors: each table's (a frame's)
+    columns, validities and row count, or a bare tensor."""
+    t = getattr(out, "table", out)
+    if not hasattr(t, "columns"):
+        return t.numel() * t.element_size()
+    tensors = [t.nrows] + [x for c in t.columns.values()
+                           for x in (c.data, c.validity) if x is not None]
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
 def capture_phase(torch, card: str, dev="cuda") -> tuple:
     """Whole queries as one CUDA graph each (``plan.CompiledQuery``):
 
@@ -7583,10 +7607,22 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
         launches the warm-up's, equal to the default-route eager query;
         set D (17 items of one key, past ``bucket_width()``) flags, and
         its rerun takes the sort join (``join.overflow_fallbacks`` + 1)
-        with the eager answer.
+        with the eager answer;
+    (d) unchecked replays (``compile_query(check=False)``), on both
+        routes, beside each case of (a) and (c): a first call on A, then
+        :data:`REBIND_SEQUENCE` back to back under :func:`sync_guard`
+        with no fetch and no sync, one ``torch.cuda.synchronize()``
+        after; then the checked query's sequence the same way. Each
+        unchecked result's first ``num_rows`` rows are bit for bit the
+        checked replay's on the same set, its launches the graph's; on
+        the example, set C's result raises on ``num_rows`` and its graph
+        stays until ``invalidate()``. Printed: both sequences' walls
+        (CUDA events and host), the bytes a call copies out, the
+        launches a kernel.
 
     Every graph and input copy is let go at the end. Returns
-    ``(replay launches, inputs the kernels met, kept bytes before)``."""
+    ``(replay launches, inputs the kernels met, kept bytes before,
+    (d)'s launches)``."""
     import gc
 
     import numpy as np
@@ -7600,6 +7636,7 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
     rec = PathInputs()
     reset_launches()
     replay_launches = {k: 0 for k in launch_counts()}
+    unchecked_launches = {k: 0 for k in launch_counts()}
     bad = []
 
     def compiles():
@@ -7660,8 +7697,103 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
             del out
         return rows
 
+    def sequence(cq, sets, kw) -> dict:
+        """:data:`REBIND_SEQUENCE` through ``cq`` back to back under
+        :func:`sync_guard`, one synchronize after: the results, the
+        fetches, the CUDA-event and host walls (ms), the launches and the
+        error a sync raised (None)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before, outs, err = launch_counts(), [], None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        with sync_guard(torch, plan) as fetched:
+            try:
+                for s in REBIND_SEQUENCE:
+                    outs.append(cq(*sets[s], **kw))
+            except RuntimeError as exc:
+                err = f"{type(exc).__name__}: {exc}"
+            end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        after = launch_counts()
+        return {"outs": outs, "fetches": fetched[0],
+                "event_ms": start.elapsed_time(end), "host_ms": host_ms,
+                "launches": {k: after[k] - before[k] for k in after},
+                "error": err}
+
+    def unchecked(part, label, query, sets, kw, checked, hot=None,
+                  need_bucket=False):
+        """Part (d) beside a case of (a) or (c): ``query`` unchecked
+        against ``checked``, the case's query, holding its graph."""
+        cq = plan.compile_query(query, check=False)
+        with rec:
+            _, first_ms = event_wall(torch, lambda: cq(*sets["a"], **kw))
+        recorded = cq.graph_stats()[-1]["launches"]
+        c0, r0 = compiles(), cq.graph_stats()[-1]["replays"]
+        mine = sequence(cq, sets, kw)
+        replayed = cq.graph_stats()[-1]["replays"] - r0
+        theirs = sequence(checked, sets, kw)
+        heads = [result_bits_equal(torch, o, w)
+                 for o, w in zip(mine["outs"], theirs["outs"])]
+        for k in unchecked_launches:
+            unchecked_launches[k] += mine["launches"][k]
+        row = {"phase": "rebind", "part": "d", "route": part,
+               "query": label, "card": card, "first_call_a_ms": first_ms,
+               "calls": len(REBIND_SEQUENCE),
+               "unchecked_event_ms": mine["event_ms"],
+               "unchecked_host_ms": mine["host_ms"],
+               "checked_event_ms": theirs["event_ms"],
+               "checked_host_ms": theirs["host_ms"],
+               "unchecked_fetches": mine["fetches"],
+               "checked_fetches": theirs["fetches"],
+               "sync_errors": [mine["error"], theirs["error"]],
+               "graph_replays": replayed, "captures": compiles() - c0,
+               "copied_out_bytes": result_nbytes(mine["outs"][0])
+               if mine["outs"] else None,
+               "checked_copied_out_bytes": result_nbytes(theirs["outs"][0])
+               if theirs["outs"] else None,
+               "launches": mine["launches"],
+               "graph_launches_recorded": recorded,
+               "heads_bit_equal": heads}
+        del mine, theirs
+        n = len(REBIND_SEQUENCE)
+        ok = (row["sync_errors"] == [None, None]
+              and row["unchecked_fetches"] == 0
+              and row["checked_fetches"] == n
+              and replayed == n and row["captures"] == 0
+              and len(heads) == n and all(heads)
+              and row["launches"] == {k: v * n for k, v in
+                                      recorded.items()})
+        if need_bucket and not (recorded["bucket_build"] > 0
+                                and recorded["bucket_probe"] > 0):
+            ok = False
+        if hot is not None:
+            c1 = compiles()
+            with sync_guard(torch, plan) as fetched:
+                poisoned = cq(*hot, **kw)
+            torch.cuda.synchronize()
+            try:
+                poisoned.num_rows
+                raised = False
+            except ct.OutOfCapacity:
+                raised = True
+            del poisoned
+            stays = len(cq.graph_stats()) == 1 and compiles() == c1
+            row.update(set_c_fetches=fetched[0], set_c_raises=raised,
+                       set_c_graph_stays=stays)
+            ok = ok and raised and stays and fetched[0] == 0
+        cq.invalidate()
+        row["graphs_after_invalidate"] = len(cq.graph_stats())
+        ok = ok and row["graphs_after_invalidate"] == 0
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            bad.append(f"d:{part}:{label}")
+
     def case(part, label, query, sets, kw, hashed=False,
-             need_bucket=False):
+             need_bucket=False, hot=None):
         """One query through a fresh ``CompiledQuery``: the eager walls,
         the first call on A, the parent's first call on B, the replays,
         the copy-ins, the bytes. ``hashed``: under :data:`BUCKETED_ENV`,
@@ -7712,6 +7844,7 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
         if not (all(r["ok"] for r in rows) and out["equal_to_eager_a"]
                 and launches_ok):
             bad.append(f"{part}:{label}")
+        unchecked(part, label, query, sets, kw, cq, hot, need_bucket)
         return cq
 
     def rerun(part, label, cq, query, args, kw, reference, extra=None):
@@ -7747,11 +7880,11 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
                "b": example_tables(np, ct, 1, n, dev)}
     kw = {"cutoff": 180}
 
-    # -- (a) the example and Q3 / Q5 SF 10 on new tables
-    cq = case("a", "whole_query_example", fn, example, kw)
-    # -- (b) set C: every order past the cutoff and of key 7, which two
+    # -- (a) the example and Q3 / Q5 SF 10 on new tables, (d) beside
+    # each; (b) set C: every order past the cutoff and of key 7, which two
     # items hold: 2n join rows pass the recorded bound (n + 500)
     hot = example_tables(np, ct, 2, n, dev, day=300, key=7, dup=(7, 1))
+    cq = case("a", "whole_query_example", fn, example, kw, hot=hot)
 
     def hot_eager():
         with plan.capacity_scale(2):
@@ -7759,7 +7892,7 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
 
     rerun("b", "whole_query_example_stale_size", cq, fn, hot, kw, hot_eager)
     cq.invalidate()
-    del cq, hot
+    del cq
     t = time.perf_counter()
     sets = rebind_tpch_sets(dev, CAPTURE_BASELINE_SF,
                             CAPTURE_BASELINE_QUERIES)
@@ -7781,7 +7914,8 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
                   for qn in CAPTURE_BASELINE_QUERIES)):
             before = dict(replay_launches)
             cq = case("c", label, query, args, kwq, hashed=True,
-                      need_bucket=label == "whole_query_example")
+                      need_bucket=label == "whole_query_example",
+                      hot=hot if label == "whole_query_example" else None)
             hash_launches[label] = {
                 k: replay_launches[k] - before[k]
                 for k in ("bucket_build", "bucket_probe")}
@@ -7793,7 +7927,7 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
                 del dup
             cq.invalidate()
             del cq
-    del example, sets, tsets
+    del example, sets, tsets, hot
     gc.collect()
     torch.cuda.empty_cache()
     if not any(hash_launches[q]["bucket_build"] > 0
@@ -7804,11 +7938,12 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
     emit({"phase": "rebind_seconds", "card": card,
           "seconds": time.perf_counter() - t0,
           "replay_launches": replay_launches,
+          "unchecked_replay_launches": unchecked_launches,
           "hash_route_replay_launches": hash_launches,
           "kept_bytes_before": base, "failed": bad})
     if bad:
         raise SystemExit(f"rebind: {bad} failed their checks")
-    return replay_launches, rec.inputs, base
+    return replay_launches, rec.inputs, base, unchecked_launches
 
 
 def main(argv) -> int:
@@ -7874,11 +8009,13 @@ def main(argv) -> int:
         return 0
     if "--rebind-only" in argv:
         t23 = time.perf_counter()
-        rebind_launches, rebind_inputs, _ = rebind_phase(torch, card)
+        rebind_launches, rebind_inputs, _, unchecked_launches = \
+            rebind_phase(torch, card)
         path_kernel_phase(torch, rate, {}, "rebind", rebind_inputs,
                           card=card)
         emit({"phase": "rebind_only", "card": card,
               "rebind_launches": rebind_launches,
+              "unchecked_launches": unchecked_launches,
               "seconds": time.perf_counter() - t23})
         return 0
     if "--capture-only" in argv:
@@ -8029,7 +8166,8 @@ def main(argv) -> int:
                          f"phase, {capture_base} before it")
     memory_line(torch, card, "22 capture")
     t23 = time.perf_counter()
-    rebind_launches, rebind_inputs, rebind_base = rebind_phase(torch, card)
+    rebind_launches, rebind_inputs, rebind_base, unchecked_launches = \
+        rebind_phase(torch, card)
     path_kernel_phase(torch, rate, stats, "rebind", rebind_inputs,
                       card=card)
     del rebind_inputs
@@ -8077,6 +8215,8 @@ def main(argv) -> int:
             "hier_launches": hier_launches[wrapper.__name__],
             "capture_replay_launches": capture_launches[wrapper.__name__],
             "rebind_replay_launches": rebind_launches[wrapper.__name__],
+            "rebind_unchecked_launches":
+                unchecked_launches[wrapper.__name__],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": s["library_ms"], "n": n,
             "device_ms": s["kernel_device_ms"],

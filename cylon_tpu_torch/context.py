@@ -92,6 +92,11 @@ class DistConfig(CommConfig):
         return per
 
 
+#: the reference's name, kept as an alias so that PyCylon scripts port
+#: mechanically (``cylon_tpu/context.py:80-81``)
+MPIConfig = DistConfig
+
+
 class CylonEnv:
     """Parity: CylonContext + pycylon CylonEnv.
 
@@ -101,7 +106,10 @@ class CylonEnv:
     otherwise ``config`` picks one: :class:`LocalConfig` (the
     default) or :class:`DistConfig`, which initialises the default
     process group unless one exists and, on CUDA, makes the device
-    ``LOCAL_RANK`` names the current one. ``device`` is the rank's device
+    ``LOCAL_RANK`` names the current one. ``distributed=False`` makes
+    the world one rank whatever the config, and joins no process group
+    (``cylon_tpu/context.py:184``); it takes no comm, which is a world
+    already. ``device`` is the rank's device
     (``None``: CUDA), where the default backend comes from. NCCL without
     a card raises :class:`DeviceUnavailable`: it never becomes gloo.
     :attr:`device` is where an entry point that builds tables from host
@@ -113,21 +121,24 @@ class CylonEnv:
     comm with only one of them, or with sub-worlds that do not tile its
     world slice-major, raises."""
 
-    def __init__(self, comm=None, *, config: "CommConfig | None" = None,
-                 device=None):
+    def __init__(self, comm=None, distributed: bool = True, *,
+                 config: "CommConfig | None" = None, device=None):
         if isinstance(comm, CommConfig) and config is None:
             comm, config = None, comm
         if comm is not None and config is not None:
             raise InvalidArgument("CylonEnv: pass a config or a comm, "
                                   "not both")
+        if comm is not None and not distributed:
+            raise InvalidArgument("CylonEnv(distributed=False) makes a "
+                                  "world of one rank; a comm is a world")
         self._owns_group = False
         self._device = device
         self._fault_plan = None
-        if comm is None and isinstance(config, DistConfig):
-            comm = self._join_group(config, device)
-        elif comm is None and config is not None \
-                and not isinstance(config, LocalConfig):
+        if config is not None and not isinstance(config, (LocalConfig,
+                                                          DistConfig)):
             raise InvalidArgument(f"CylonEnv: unknown config {config!r}")
+        if comm is None and distributed and isinstance(config, DistConfig):
+            comm = self._join_group(config, device)
         self.comm = LocalComm() if comm is None else comm
         _check_topology(self.comm)
         self._kv: "dict[str, str]" = {}

@@ -1,11 +1,12 @@
 """Error model: the reference's ``cylon::Status`` codes as exceptions.
 
-Port of the part of ``cylon_tpu/errors.py`` that the port raises.
-The :class:`Code` numbers are the reference's
-(``cpp/src/cylon/code.hpp:20-40``), so callers can switch on ``exc.code``;
-14-17 and 8 are the JAX package's extensions for the resilience, deadline
-and serving layers (gRPC's UNAVAILABLE / DATA_LOSS / RESOURCE_EXHAUSTED
-numbers where the reference leaves them free).
+Port of the part of ``cylon_tpu/errors.py`` that the port raises, and
+every member of its :class:`Code`. The numbers are the reference's
+(``cpp/src/cylon/code.hpp:20-40``), so callers can switch on ``exc.code``
+and the serve and fleet layers and the C ABI read the same numbers in
+both packages; 14-17 and 8 are the JAX package's extensions for the
+resilience, deadline and serving layers (gRPC's UNAVAILABLE / DATA_LOSS /
+RESOURCE_EXHAUSTED numbers where the reference leaves them free).
 """
 
 import enum
@@ -23,11 +24,17 @@ class Code(enum.IntEnum):
     ResourceExhausted = 8
     UnknownError = 9
     NotImplemented = 10
+    SerializationError = 11
     GpuMemoryError = 12
+    RError = 13
     Unavailable = 14
     DataLoss = 15
     DeadlineExceeded = 16
     FailedPrecondition = 17
+    CodeGenError = 40
+    ExpressionValidationError = 41
+    ExecutionError = 42
+    AlreadyExists = 45
 
 
 class CylonError(Exception):

@@ -30,7 +30,7 @@ the port's counterpart of the JAX package's in-graph ``"hash_guarded"``
 """
 
 import os
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import torch
 
@@ -41,6 +41,9 @@ from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
 from cylon_tpu_torch.utils.logging import get_logger
 from cylon_tpu_torch.utils.tracing import span
+
+if TYPE_CHECKING:
+    from cylon_tpu_torch.config import JoinConfig
 
 #: sort key of the invalid output slots: above every u32 row or group id
 M32_MAX = 0xFFFFFFFF
@@ -99,7 +102,8 @@ def _key_list(keys) -> list:
     return [keys] if isinstance(keys, str) else list(keys or ())
 
 
-def join(left, right, *, on: "Sequence[str] | str | None" = None,
+def join(left, right, config: "JoinConfig | None" = None, *,
+         on: "Sequence[str] | str | None" = None,
          left_on: "Sequence[str] | str | None" = None,
          right_on: "Sequence[str] | str | None" = None,
          how: str = "inner", suffixes: tuple = ("_x", "_y"),
@@ -107,6 +111,9 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
          ordered: bool = True):
     """Equi-join two tables (pandas ``merge`` semantics).
 
+    ``config``, a :class:`~cylon_tpu_torch.config.JoinConfig`, takes the
+    place of ``on``, ``left_on``, ``right_on``, ``how``, ``suffixes`` and
+    ``algorithm`` when given (``cylon_tpu/ops/join.py:147-152``).
     ``out_capacity`` bounds the static result size (default
     ``left.capacity + right.capacity``, enough for any 1:N join, times
     :func:`cylon_tpu_torch.plan.current_scale`); an
@@ -115,7 +122,12 @@ def join(left, right, *, on: "Sequence[str] | str | None" = None,
     order (one stable sort of the index pairs); the row set is the same,
     and the order is still deterministic.
     """
-    if on is not None:
+    if config is not None:
+        left_on, right_on = list(config.left_on), list(config.right_on)
+        how = config.join_type.value
+        suffixes = (config.left_suffix, config.right_suffix)
+        algorithm = config.algorithm.value
+    elif on is not None:
         left_on = right_on = _key_list(on)
     else:
         left_on, right_on = _key_list(left_on), _key_list(right_on)

@@ -106,13 +106,39 @@ A :class:`CompiledQuery` keeps what the JAX one promises its callers:
 - scalar aggregates inside it stay 0-d tensors, and local result tables
   come back shrunk to the power-of-two bucket of their rows.
 
+``compile_query(check=False)`` (``CompiledQuery(fn, check=False)``,
+``shared_compiled(fn, check=False)``, a separate shared object from the
+checked one) is the JAX package's unchecked mode, for callers that
+inspect ``num_rows`` themselves: no overflow check after the call, so
+no host transfer, no regrow and no shrink.
+
+- A replay waits on the device's turn event, copies the call's tensors
+  in, launches the graph and copies the results out at their full
+  capacities, then records the turn event: no host read and no sync, so
+  a caller can enqueue many calls back to back. The flags of word 0 of
+  the packed tensor are folded into the copies on the device: where one
+  fired, each result table's (and each shard's) row count becomes
+  ``capacity + 1``, so ``num_rows`` raises :class:`OutOfCapacity`, and
+  each bare tensor NaN (floats), ``iinfo.min`` (integers) or False
+  (bool), the poison of the JAX package's scalar results. A graph whose
+  flags fired is not let go (the host never learns it):
+  :meth:`CompiledQuery.invalidate` does that.
+- A key with no graph yet warms up and captures as a checked call does,
+  and returns the warm-up's result, shrunk from the warm-up's own
+  fetch: where the JAX package's first unchecked call compiles with no
+  device sync, the port's warm-up reads sizes on the host.
+- The eager route runs the query once at the memo's scale and returns
+  its result as it comes, without settling the memo; the ops' own host
+  reads (their ladders, the exchanges' count matrices at W > 1) stay.
+
 Its telemetry is the JAX package's (``cylon_tpu/plan.py:495-571``):
 ``plan.cache_hits`` / ``plan.cache_misses`` / ``plan.cache_evictions``
 (a hit is a replay, on the call's tensors or on new ones copied in, or
 on the eager route a run at the memo's scale; a capture, or an eager run
 at a new key, counts in ``plan.compile_count`` with a ``plan.compile``
 instant), ``plan.dispatch`` and ``plan.fetch`` stage spans each under
-:func:`~cylon_tpu_torch.telemetry.memory.forensics`, and
+:func:`~cylon_tpu_torch.telemetry.memory.forensics` (an unchecked call
+has no fetch span), and
 ``plan.overflow_events`` / ``plan.capacity_rescales`` with their
 ``capacity.*`` instants: a flagged replay, or a warm-up whose fetch
 overflows, is an overflow event; only a doubled scale is a rescale. The memo
@@ -952,6 +978,28 @@ def _copy_tensors(pick):
     return table_fn
 
 
+def _poisoned_copies(packed: torch.Tensor):
+    """A ``table_fn`` for :func:`_map_tables` that copies a replay's
+    results out of the pool with the overflow flags of ``packed`` (word
+    0 of each rank's row, :func:`_pack`) folded in on the device: where
+    one fired, each table's row count becomes ``capacity + 1`` (its
+    ``num_rows`` raises :class:`OutOfCapacity`) and each bare tensor NaN,
+    ``iinfo.min`` or False (the scalar aggregates' poison). No host
+    read."""
+    from cylon_tpu_torch.ops.aggregates import _poisoned
+
+    bad = packed.reshape(-1, packed.shape[-1])[:, 0].any()
+    copy = _copy_tensors(lambda x: x.dim() > 0)
+
+    def table_fn(x):
+        if torch.is_tensor(x):
+            return _poisoned(x, bad)
+        t = copy(x)
+        return t.with_nrows(t.nrows.masked_fill(bad, t.capacity + 1))
+
+    return table_fn
+
+
 def run_captured(fn, args=(), kwargs=None, scale: int = 1,
                  tape: "SizeTape | None" = None):
     """Run the query ``fn(*args, **kwargs)`` in capture mode at
@@ -1109,10 +1157,13 @@ class CompiledQuery:
     Call it like the function. Tables, frames, tensors and arrays
     (positional or keyword, nested in dicts and lists) are the data;
     every other argument must be hashable and joins the memo key with
-    the data's schema, shapes and dtypes (:func:`_describe`)."""
+    the data's schema, shapes and dtypes (:func:`_describe`).
+    ``check=False`` is the unchecked mode of the module docstring: no
+    host read after the call, the overflow carried in the result."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, *, check: bool = True):
         self._fn = fn
+        self._check = bool(check)
         #: one lock for the memo and the graphs: a CompiledQuery is
         #: shared across threads (:func:`shared_compiled`, ``ThreadWorld``
         #: ranks, a serve engine), and each read-modify-write of them
@@ -1227,7 +1278,9 @@ class CompiledQuery:
 
     def _run_eager(self, key, args, kwargs):
         """The eager route: the query with its per-op ladders, one
-        overflow check, a whole-query regrow on an overflow."""
+        overflow check, a whole-query regrow on an overflow. Unchecked,
+        the query's result as it comes, at the memo's scale, which it
+        does not settle (``cylon_tpu/plan.py:529-530``)."""
         with self._mu:
             hit, scale = self._memo_lookup(key)
         while True:
@@ -1248,6 +1301,8 @@ class CompiledQuery:
                     capacity_scale(scale), _collect_flags(flags, reached):
                 self._inject()
                 out = self._fn(*args, **kwargs)
+            if not self._check:
+                return out
             try:
                 with _span("plan.fetch", cat="stage"), \
                         _memory.forensics("plan.fetch"):
@@ -1292,7 +1347,9 @@ class CompiledQuery:
     def _replay(self, entry, leaves):
         """The call's inputs copied in, one graph launch, one fetch, the
         copy-out; :data:`_OVERFLOWED` on an overflow, :data:`_RELEASED`
-        when another thread let go of the graph first."""
+        when another thread let go of the graph first. Unchecked, no
+        fetch: the flags are folded into the copy-out on the device
+        (:func:`_poisoned_copies`), which keeps the full capacities."""
         with _GRAPH_MU:
             if entry.graph is None:
                 return _RELEASED
@@ -1308,15 +1365,18 @@ class CompiledQuery:
                 entry.graph.replay()
                 entry.replays += 1
                 _add_launches(entry.launches)
-            with _span("plan.fetch", cat="stage"), \
-                    _memory.forensics("plan.fetch"):
-                host = _fetch(entry.packed)
-            try:
-                counts = _decide(entry.out, host, entry.env)
-            except OutOfCapacity:
-                return _OVERFLOWED
-            out = _map_tables(_shrink_results(entry.out, counts),
-                              _copy_tensors(lambda x: True))
+            if self._check:
+                with _span("plan.fetch", cat="stage"), \
+                        _memory.forensics("plan.fetch"):
+                    host = _fetch(entry.packed)
+                try:
+                    counts = _decide(entry.out, host, entry.env)
+                except OutOfCapacity:
+                    return _OVERFLOWED
+                out = _map_tables(_shrink_results(entry.out, counts),
+                                  _copy_tensors(lambda x: True))
+            else:
+                out = _map_tables(entry.out, _poisoned_copies(entry.packed))
             if cuda:
                 turn = torch.cuda.Event()
                 turn.record(torch.cuda.current_stream(dev))
@@ -1411,20 +1471,22 @@ class CompiledQuery:
                       stage, scale)
 
 
-#: the process-wide compiled queries: fn -> CompiledQuery
+#: the process-wide compiled queries: (fn, check) -> CompiledQuery
 #: (``cylon_tpu/plan.py:623``)
 _SHARED_MU = threading.Lock()
-_SHARED: "dict[object, CompiledQuery]" = {}
+_SHARED: "dict[tuple, CompiledQuery]" = {}
 
 
-def shared_compiled(fn) -> CompiledQuery:
+def shared_compiled(fn, *, check: bool = True) -> CompiledQuery:
     """Get or create the process-wide :class:`CompiledQuery` of ``fn``
-    (``cylon_tpu/plan.py:627``): every caller shares one memo and its
-    graphs."""
+    and ``check`` (``cylon_tpu/plan.py:627``): every caller shares one
+    memo and its graphs."""
+    key = (fn, bool(check))
     with _SHARED_MU:
-        cq = _SHARED.get(fn)
+        cq = _SHARED.get(key)
         if cq is None:
-            cq = _SHARED[fn] = functools.wraps(fn)(CompiledQuery(fn))
+            cq = _SHARED[key] = functools.wraps(fn)(
+                CompiledQuery(fn, check=check))
     return cq
 
 
@@ -1474,7 +1536,12 @@ def query_fingerprint(name: str, args=(), kwargs=None) -> "str | None":
     return hashlib.sha256(blob.encode("utf-8")).hexdigest()
 
 
-def compile_query(fn):
+def compile_query(fn=None, *, check: bool = True):
     """Decorator or wrapper: a :class:`CompiledQuery` of ``fn``
-    (``cylon_tpu/plan.py:766``)."""
-    return functools.wraps(fn)(CompiledQuery(fn))
+    (``cylon_tpu/plan.py:766``), as ``@compile_query`` or
+    ``@compile_query(check=False)``. ``check=False`` skips the overflow
+    check and its one host transfer, for callers that inspect
+    ``num_rows`` themselves (the module docstring's unchecked mode)."""
+    if fn is None:
+        return functools.partial(compile_query, check=check)
+    return functools.wraps(fn)(CompiledQuery(fn, check=check))

@@ -304,7 +304,7 @@ def oom_report(limit: int = 8) -> dict:
         stats = plan.plan_cache_stats()
         stats["entries_per_query"] = {
             getattr(fn, "__name__", "?"): len(cq._scale_memo)
-            for fn, cq in list(plan._SHARED.items())}
+            for (fn, _), cq in list(plan._SHARED.items())}
         rep["plan_cache"] = stats
     except Exception:
         rep["plan_cache"] = {}
