@@ -15,6 +15,8 @@ and check it.
                                           # same way
     python3 chip_smoke.py --rebind-only   # phases 1, 2 and 23 alone, the
                                           # same way
+    python3 chip_smoke.py --tracing-only  # phases 1, 2 and 24 alone, the
+                                          # same way
 
 Phases, each printing one JSON line:
 
@@ -228,6 +230,13 @@ Phases, each printing one JSON line:
     ``num_rows`` rows, set C poisoned; then the kernels at this phase's
     shapes and the live bytes back at their level; see
     :func:`rebind_phase`.
+24. tracing (``--tracing-only`` alone): the port's names for its host
+    syncs and device time: no CUDA event and no ``*.device`` series
+    with nothing armed; ``dist_join`` at a world of one on both routes
+    with one ``host.reads`` for each sync; under a profiler session the
+    join's ``join.indices`` and ``gather`` device series and a compiled
+    query's replays, one ``plan.copy_in`` device span and one ``fetch``
+    each; see :func:`tracing_phase`.
 
 After every phase a ``memory`` line (:func:`memory_line`):
 ``telemetry.memory``'s forced sample, the caching allocator's live,
@@ -7946,6 +7955,165 @@ def rebind_phase(torch, card: str, dev="cuda") -> tuple:
     return replay_launches, rec.inputs, base, unchecked_launches
 
 
+# ------------------------------------------------------------ phase 24
+#: rows a side of the tracing phase's joins
+TRACING_ROWS = 1 << 22
+#: rows of the whole-query example's orders in the tracing phase
+TRACING_ORDERS = 1 << 20
+
+
+def tracing_phase(torch, card: str, dev="cuda") -> dict:
+    """The port's own names for its host syncs and device time, on the
+    card (``utils/tracing``):
+
+    (a) with no ``torch.profiler`` session and the flight recorder off, a
+        join makes no CUDA event and no ``*.device`` series exists;
+    (b) ``dist_join`` at a world of one on each route: ``host.reads`` by
+        site, one for each sync that :func:`count_syncs` sees;
+    (c) under a profiler session, the join's ``join.indices`` and
+        ``gather`` device series, and its ``gather.bytes`` from the rows
+        it produced (80 a row: an index and a 16-byte row in and out,
+        a side), summed on the card; the whole-query example compiled, its
+        warm-up and capture with the recorder armed (no event recorded
+        or queried inside the capture), then three replays under a
+        profiler session, each with one ``plan.copy_in`` device span and
+        one ``fetch`` read."""
+    import cylon_tpu_torch as ct
+    from torch.profiler import ProfilerActivity, profile
+
+    from cylon_tpu_torch import dtypes, plan, telemetry
+    from cylon_tpu_torch.column import Column
+    from cylon_tpu_torch.utils import tracing
+
+    t0 = time.perf_counter()
+    bad = []
+    made = [0]
+    real = tracing._new_event
+
+    def counted():
+        made[0] += 1
+        return real()
+
+    tracing._new_event = counted
+    os.environ.pop("CYLON_TPU_TRACE", None)
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def table(n, **cols):
+        return ct.Table({k: Column(v, None, dtypes.from_torch_dtype(v.dtype))
+                         for k, v in cols.items()}, n)
+
+    def keyed():
+        n = TRACING_ROWS
+        return table(n, k=torch.randint(0, n, (n,), device=dev, generator=g),
+                     v=torch.rand(n, device=dev, dtype=torch.float64,
+                                  generator=g))
+
+    def device_series():
+        return {k: s.count for k, s in tracing.timings().items()
+                if k.endswith(".device")}
+
+    def reads(before):
+        return {d["labels"]["site"]: d["value"]
+                for d in telemetry.delta(before).values()
+                if d["name"] == "host.reads" and d["value"]}
+
+    left, right = keyed(), keyed()
+    env = ct.CylonEnv(device=dev)
+    cq = None
+    try:
+        # (a) off
+        telemetry.snapshot()
+        telemetry.reset("tracing.")
+        ct.dist_join(env, left, right, on="k")
+        torch.cuda.synchronize()
+        telemetry.snapshot()
+        off = {"events": made[0], "device_series": device_series()}
+        if off["events"] or off["device_series"]:
+            bad.append(f"a: unarmed device spans recorded {off}")
+        # (b) reads against syncs
+        # the process's first call under the sync debug mode syncs once
+        # more, in torch itself (torch/cuda/__init__.py): warm it up
+        routes = {"first": count_syncs(torch, lambda: ct.dist_join(
+            env, left, right, on="k"))[1]}
+        for route, impl in (("sort", "sort"), ("hash", "bucketed")):
+            os.environ["CYLON_TPU_JOIN_HASH_IMPL"] = impl
+            ct.dist_join(env, left, right, on="k", algorithm=route)
+            torch.cuda.synchronize()
+            before = telemetry.snapshot()
+            _, sites = count_syncs(torch, lambda: ct.dist_join(
+                env, left, right, on="k", algorithm=route))
+            got = reads(before)
+            routes[route] = {"syncs": sites, "reads": got}
+            if sum(sites.values()) != sum(got.values()):
+                bad.append(f"b: {route}: {sites} syncs, {got} reads")
+        os.environ.pop("CYLON_TPU_JOIN_HASH_IMPL", None)
+        # (c) armed by a profiler session
+        telemetry.reset("tracing.")
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        before = telemetry.snapshot()
+        with profile(activities=acts):
+            res = ct.dist_join(env, left, right, on="k")
+            torch.cuda.synchronize()
+        gathered = sum(d["value"] for d in telemetry.delta(before).values()
+                       if d["name"] == "gather.bytes")
+        joined = {k: s.total_s for k, s in tracing.timings().items()
+                  if k.endswith(".device")}
+        if set(joined) != {"join.indices.device", "gather.device"}:
+            bad.append(f"c: the join's device series {joined}")
+        gather_bytes = {"counted": gathered, "rows": res.num_rows,
+                        "capacity": res.capacity}
+        if gathered != 80 * res.num_rows:
+            bad.append(f"c: gather.bytes {gather_bytes}")
+        del res
+        n = TRACING_ORDERS
+        orders = table(n, k=torch.randint(0, 500, (n,), device=dev,
+                                          generator=g),
+                       day=torch.randint(0, 365, (n,), device=dev,
+                                         generator=g),
+                       amount=torch.rand(n, device=dev, dtype=torch.float64,
+                                         generator=g))
+        items = table(500, k=torch.arange(500, device=dev),
+                      label=torch.randint(0, 9, (500,), device=dev,
+                                          generator=g))
+        _, cq = example_query(plan)
+        telemetry.reset("tracing.")
+        # the warm-up and the capture with the recorder armed: the warm-up
+        # times its device spans, the capture records and queries none
+        os.environ["CYLON_TPU_TRACE"] = "1"
+        try:
+            cq(orders, items, cutoff=180)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("CYLON_TPU_TRACE", None)
+        telemetry.snapshot()
+        first = device_series()
+        before = telemetry.snapshot()
+        with profile(activities=acts):
+            for _ in range(3):
+                cq(orders, items, cutoff=180)
+            torch.cuda.synchronize()
+        replays = reads(before)
+        telemetry.snapshot()
+        captured = {k: c - first.get(k, 0)
+                    for k, c in device_series().items()}
+        if captured.get("plan.copy_in.device") != 3 \
+                or replays != {"fetch": 3}:
+            bad.append(f"c: replays {captured}, reads {replays}")
+    finally:
+        tracing._new_event = real
+        if cq is not None:
+            cq.invalidate()
+    out = {"phase": "tracing", "card": card, "off": off, "routes": routes,
+           "join_device_s": joined, "gather_bytes": gather_bytes,
+           "capture_device_series": first,
+           "replay_device_series": captured, "replay_reads": replays,
+           "seconds": time.perf_counter() - t0, "failed": bad}
+    emit(out)
+    if bad:
+        raise SystemExit(f"tracing: {bad} failed their checks")
+    return out
+
+
 def main(argv) -> int:
     import gc
 
@@ -8017,6 +8185,9 @@ def main(argv) -> int:
               "rebind_launches": rebind_launches,
               "unchecked_launches": unchecked_launches,
               "seconds": time.perf_counter() - t23})
+        return 0
+    if "--tracing-only" in argv:
+        tracing_phase(torch, card)
         return 0
     if "--capture-only" in argv:
         t22 = time.perf_counter()

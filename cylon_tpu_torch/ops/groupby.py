@@ -25,6 +25,7 @@ from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.aggregates import _moments
 from cylon_tpu_torch.ops.selection import _null_flags, take_columns
 from cylon_tpu_torch.table import Table
+from cylon_tpu_torch.utils.tracing import host_read, traced
 
 #: ops supported (parity: aggregate_kernels.hpp:40-52 + pandas extras).
 #: "sumsq" is internal: the mergeable partial of distributed var/std.
@@ -42,6 +43,7 @@ _LOGICAL = {torch.float32: dtypes.float32, torch.float64: dtypes.float64,
             torch.int64: dtypes.int64, torch.uint64: dtypes.uint64}
 
 
+@traced("groupby")
 def groupby_aggregate(table: Table, by: Sequence[str], aggs,
                       out_capacity: "int | None" = None,
                       quantile: float = 0.5) -> Table:
@@ -100,11 +102,12 @@ def _ladder(table: Table, key, bound, dispatch):
         plan.rung()
         t = dispatch(bound(scale))
         try:
-            t.num_rows   # host sync; raises on overflow
+            host_read("count", lambda: t.num_rows)   # raises on overflow
         except OutOfCapacity:
             # an upstream overflow rides carry_overflow and would raise
             # at every rung: groups never outnumber rows
-            if int(table.nrows) > cap or bound(scale) >= cap:
+            if host_read("groupby_bound", lambda: int(table.nrows)) > cap \
+                    or bound(scale) >= cap:
                 return t, bound(scale)
             scale *= 2
             continue

@@ -43,6 +43,7 @@ from cylon_tpu_torch.kernels import bucket_build, bucket_probe, row_hash
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.hash import M32, _row_words, paired_validities
 from cylon_tpu_torch.utils import pow2_bucket
+from cylon_tpu_torch.utils.tracing import host_read
 
 #: default entries per bucket: the chain budget a bucket's key
 #: multiplicities must exceed to force the sort fallback. The JAX package
@@ -204,7 +205,8 @@ def bucketed_join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows,
         lkeys, lvals, lrows, rkeys, rvals, rrows, how)
     table, overflow, _, bwords = build_phase(bkeys, bvals, brows,
                                              width=width)
-    if sort_fallback is not None and int(overflow) > 0:
+    if sort_fallback is not None and \
+            host_read("build_overflow", lambda: int(overflow)) > 0:
         return sort_fallback()
     if guard:
         plan.note_overflow(overflow > 0)
@@ -237,4 +239,5 @@ def chain_overflow(keys, validities, nrows,
     idx = torch.where(bids >= 0, bids, nb).to(torch.int64)
     counts = torch.zeros(nb + 1, dtype=torch.int32, device=bids.device)
     counts.index_add_(0, idx, torch.ones_like(bids))   # in place: fresh
-    return bool((counts[:nb] > width).any())
+    return host_read("chain_check",
+                     lambda: bool((counts[:nb] > width).any()))

@@ -40,7 +40,7 @@ from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
 from cylon_tpu_torch.utils.logging import get_logger
-from cylon_tpu_torch.utils.tracing import span
+from cylon_tpu_torch.utils.tracing import span, traced
 
 if TYPE_CHECKING:
     from cylon_tpu_torch.config import JoinConfig
@@ -102,6 +102,7 @@ def _key_list(keys) -> list:
     return [keys] if isinstance(keys, str) else list(keys or ())
 
 
+@traced("join")
 def join(left, right, config: "JoinConfig | None" = None, *,
          on: "Sequence[str] | str | None" = None,
          left_on: "Sequence[str] | str | None" = None,
@@ -169,14 +170,15 @@ def _join(left, right, left_on, right_on, how, suffixes, out_cap, ordered,
     if routine == "hash_bucketed":
         routine, guard = _guarded_route(lkeys, lvals, left.nrows, rkeys,
                                         rvals, right.nrows, how)
-    if routine == "hash_bucketed":
-        left_idx, right_idx, total = hash_join.bucketed_join_indices(
-            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
-            out_cap, ordered, guard=guard)
-    else:
-        left_idx, right_idx, total = _join_indices(
-            lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
-            out_cap, ordered, hash_first=routine == "hash_sort")
+    with span("join.indices", device=True):
+        if routine == "hash_bucketed":
+            left_idx, right_idx, total = hash_join.bucketed_join_indices(
+                lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+                out_cap, ordered, guard=guard)
+        else:
+            left_idx, right_idx, total = _join_indices(
+                lkeys, lvals, left.nrows, rkeys, rvals, right.nrows, how,
+                out_cap, ordered, hash_first=routine == "hash_sort")
     res = _assemble(left, right, list(left_on), list(right_on), suffixes,
                     left_idx, right_idx, total, how)
     return kernels.carry_overflow(res, left, right)

@@ -16,6 +16,7 @@ crossover it measured on a TPU (``PAYLOAD_SORT_MAX_WORDS``,
 carries no payload, so the port has no crossover to copy.
 """
 
+import math
 from typing import Sequence
 
 import torch
@@ -23,6 +24,8 @@ import torch
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument
 from cylon_tpu_torch.ops import kernels
+from cylon_tpu_torch.utils.tracing import (count_on_device, device_counting,
+                                           traced)
 
 
 def _packable(data: torch.Tensor) -> bool:
@@ -77,13 +80,17 @@ def _from_words(words: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return words[:, 0].to(torch.uint8).view(dt)
 
 
+@traced("gather", device=True)
 def take_columns(table, idx: torch.Tensor, nrows_out,
                  null_mask: "torch.Tensor | None" = None,
                  names: "Sequence[str] | None" = None):
     """Gather rows by index into a new table of capacity ``len(idx)``.
 
     ``null_mask`` marks output slots whose row is all-null (the unmatched
-    side of an outer join; its payload is zeroed)."""
+    side of an outer join; its payload is zeroed). Runs under the
+    device-timed span ``gather``; while that records, ``gather.bytes``
+    counts the least bytes of the call: per row of the result its 8-byte
+    index, one source row read and one output row written."""
     from cylon_tpu_torch.table import Table
 
     if table.capacity == 0:
@@ -111,6 +118,7 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
         layout.append((name, c, sl, vslot))
 
     out_words = None
+    row_bytes = 4 * w
     if word_arrays:
         packed = torch.cat(word_arrays, dim=1)
         out_words = packed.index_select(0, safe)
@@ -119,6 +127,7 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     for name, c, sl, vslot in layout:
         if sl is None:
             data = c.data.index_select(0, safe)
+            row_bytes += math.prod(c.data.shape[1:]) * c.data.element_size()
         elif c.data.dim() == 2:   # bytes: the words are the data
             data = out_words[:, sl]
         else:
@@ -132,7 +141,11 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
             data = torch.where(nm, torch.zeros((), dtype=data.dtype,
                                                device=data.device), data)
         cols[name] = Column(data, validity, c.dtype, c.dictionary)
-    return Table(cols, nrows_out)
+    out = Table(cols, nrows_out)
+    if device_counting():
+        count_on_device("gather.bytes", out.nrows, idx.shape[0],
+                        8 + 2 * row_bytes)
+    return out
 
 
 def _null_flags(c: Column) -> "torch.Tensor | None":
@@ -157,6 +170,7 @@ def permute_by_sort(table, operands, nrows_out):
     return take_columns(table, kernels.lexsort_perm(ops), nrows_out)
 
 
+@traced("filter")
 def filter_table(table, mask: torch.Tensor):
     """Keep the valid rows where ``mask`` holds, in their order (port of
     ``cylon_tpu/ops/selection.py:249``; parity: the filter path of
@@ -166,6 +180,7 @@ def filter_table(table, mask: torch.Tensor):
     return kernels.carry_overflow(take_columns(table, perm, count), table)
 
 
+@traced("sort")
 def sort_table(table, by: Sequence[str], ascending=True,
                na_position: str = "last"):
     """Lexicographic multi-column sort (port of

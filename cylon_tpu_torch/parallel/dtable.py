@@ -17,6 +17,7 @@ from cylon_tpu_torch.dtypes import Layout, string_bytes
 from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity
 from cylon_tpu_torch.ops.bytescol import WORD, pad_words, width_words
 from cylon_tpu_torch.parallel.shuffle import _pack_words, _unpack_words
+from cylon_tpu_torch.utils.tracing import host_read
 
 
 def scatter_table(env, table, local_cap: "int | None" = None):
@@ -44,10 +45,11 @@ def shard_sizes(env, table) -> tuple:
     """Every rank's valid-row count and capacity, in rank order, as two
     lists (one all-gather, one host sync). Ranks that ingest their own
     rows hold different capacities."""
-    mine = torch.stack([table.nrows.reshape(()).to(torch.int64),
-                        torch.tensor(table.capacity, dtype=torch.int64,
-                                     device=table.device)])
-    got = env.comm.all_gather(mine).reshape(-1, 2).tolist()
+    cap = host_read("stage", lambda: torch.tensor(
+        table.capacity, dtype=torch.int64, device=table.device))
+    mine = torch.stack([table.nrows.reshape(()).to(torch.int64), cap])
+    got = host_read("shard_sizes", lambda: env.comm.all_gather(
+        mine).reshape(-1, 2).tolist())
     return [c for c, _ in got], [k for _, k in got]
 
 
@@ -270,7 +272,8 @@ def world_layout_sized(env, table) -> tuple:
     from cylon_tpu_torch.ops.dictenc import merge_dictionaries, remap_codes
 
     if env.world_size == 1:
-        return table, [int(table.nrows)], [table.capacity]
+        return table, [host_read("shard_sizes", lambda: int(table.nrows))], \
+            [table.capacity]
     table, counts, caps = _in_rank0_order(env, table)
     names = table.column_names
     summary = []

@@ -167,6 +167,7 @@ from cylon_tpu_torch import telemetry
 from cylon_tpu_torch.errors import InvalidArgument, OutOfCapacity
 from cylon_tpu_torch.telemetry import memory as _memory
 from cylon_tpu_torch.telemetry import trace as _trace
+from cylon_tpu_torch.utils.tracing import host_read
 from cylon_tpu_torch.utils.tracing import span as _span
 
 __all__ = ["CaptureFailed", "CompiledQuery", "GRAPH_ENTRIES", "MAX_SCALE",
@@ -379,7 +380,7 @@ def staged(values, device, dtype=None) -> torch.Tensor:
             "capture: its warm-up run did not stage it")
     _STAGING.on = True
     try:
-        t = from_host(arr, device, dtype)
+        t = host_read("stage", lambda: from_host(arr, device, dtype))
     finally:
         _STAGING.on = False
     if cache is not None:
@@ -465,7 +466,7 @@ def regrow_eager(run, *, bounded: bool):
             with capacity_scale(scale):
                 t = run()
             try:
-                t.num_rows
+                host_read("count", lambda: t.num_rows)
             except OutOfCapacity:
                 if scale >= MAX_SCALE:
                     raise
@@ -592,8 +593,9 @@ def _fetch(packed: torch.Tensor):
     # which import this module
     from cylon_tpu_torch import watchdog
 
-    return watchdog.bounded(lambda: packed.cpu().numpy(), "overflow_fetch",
-                            detail=f"{packed.numel()} words")
+    return watchdog.bounded(
+        lambda: host_read("fetch", lambda: packed.cpu().numpy()),
+        "overflow_fetch", detail=f"{packed.numel()} words")
 
 
 def _decide(out, host, env) -> list:
@@ -1361,7 +1363,8 @@ class CompiledQuery:
                 if cuda and dev.index in _TURN:
                     torch.cuda.current_stream(dev).wait_event(
                         _TURN[dev.index])
-                entry.inputs.copy_in(leaves)
+                with _span("plan.copy_in", device=True):
+                    entry.inputs.copy_in(leaves)
                 entry.graph.replay()
                 entry.replays += 1
                 _add_launches(entry.launches)

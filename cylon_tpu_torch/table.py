@@ -25,6 +25,7 @@ from cylon_tpu_torch import dtypes
 from cylon_tpu_torch.column import Column, Dictionary
 from cylon_tpu_torch.errors import InvalidArgument, KeyError_, OutOfCapacity
 from cylon_tpu_torch.utils import pow2_bucket
+from cylon_tpu_torch.utils.tracing import host_read
 
 
 def _arrow_dict_column(arr, capacity, device) -> Column:
@@ -205,7 +206,7 @@ class Table:
         if self.capacity <= only_above:
             return self
         try:
-            n = self.num_rows
+            n = host_read("shrink", lambda: self.num_rows)
         except OutOfCapacity:
             return self
         bucket = pow2_bucket(n, min_capacity)

@@ -216,7 +216,8 @@ def _chrome_sanitize(raw: list) -> list:
     return out
 
 
-def to_chrome_trace(buffers, world: "int | None" = None) -> dict:
+def to_chrome_trace(buffers, world: "int | None" = None,
+                    origin: "float | None" = None) -> dict:
     """Chrome Trace Event Format document from per-rank event buffers.
 
     ``buffers``: the :func:`cylon_tpu_torch.telemetry.trace.rank_buffers` /
@@ -238,8 +239,14 @@ def to_chrome_trace(buffers, world: "int | None" = None) -> dict:
     router and every engine side by side on the router's clock.
 
     Timestamps are microseconds on rank 0's clock (each buffer's
-    ``clock_offset`` is subtracted). Everything is strict-JSON
-    (``json_safe``); open in Perfetto / ``chrome://tracing``.
+    ``clock_offset`` is subtracted), after the earliest event or, given
+    ``origin``, after that many seconds on the Unix clock, read on the
+    recorder's clock as it stands at the export
+    (:func:`cylon_tpu_torch.telemetry.trace.unix_skew`). ``origin`` set
+    to a ``torch.profiler`` trace's ``baseTimeNanoseconds / 1e9`` puts
+    both documents on one time axis: their ``traceEvents`` concatenate
+    into one overlay. Everything is strict-JSON (``json_safe``); open in
+    Perfetto / ``chrome://tracing``.
     """
     if buffers and isinstance(buffers, (list, tuple)) \
             and buffers and isinstance(buffers[0], dict) \
@@ -252,7 +259,12 @@ def to_chrome_trace(buffers, world: "int | None" = None) -> dict:
         for e in buf.get("events", ()):
             t = e["ts"] - off
             t0 = t if t0 is None else min(t0, t)
-    t0 = t0 or 0.0
+    if origin is None:
+        t0 = t0 or 0.0
+    else:
+        from cylon_tpu_torch.telemetry import trace as _trace
+
+        t0 = float(origin) - _trace.unix_skew()
     shard_tracks = set()
     for i, buf in enumerate(buffers):
         proc = buf.get("proc")

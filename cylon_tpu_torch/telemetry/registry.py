@@ -259,6 +259,9 @@ class MetricRegistry:
         self._metrics: "dict[tuple, object]" = {}
         self._records: "dict[str, collections.deque]" = {}
         self._armed = False
+        #: callables run before every snapshot, which bring series up to
+        #: date (the device-timed spans' pending event pairs)
+        self._flush: list = []
 
     # ------------------------------------------------- get-or-create
     def _get(self, cls, name: str, labels: dict):
@@ -322,9 +325,17 @@ class MetricRegistry:
         return [(n, dict(ls), inst) for (n, ls), inst in items
                 if name is None or n == name]
 
+    def add_flush(self, fn) -> None:
+        """Run ``fn()`` before every :meth:`snapshot` (and so every
+        :meth:`delta` and export)."""
+        self._flush.append(fn)
+
     def snapshot(self) -> dict:
         """``{series key: dump dict}`` — every entry carries ``name``
-        and ``labels`` so merges and exporters need no key parsing."""
+        and ``labels`` so merges and exporters need no key parsing. The
+        :meth:`add_flush` callables run first."""
+        for fn in self._flush:
+            fn()
         out = {}
         for (n, ls), inst in list(self._metrics.items()):
             d = inst.dump()

@@ -50,7 +50,11 @@ processes.
 Timestamps are seconds on a wall-aligned monotonic clock:
 ``perf_counter`` plus a process-constant offset captured when the
 recorder arms, so durations keep ``perf_counter`` resolution while
-cross-process merges can subtract wall-clock offsets.
+cross-process merges can subtract wall-clock offsets. ``torch.profiler``
+maps its time stamps to the Unix clock; :func:`unix_skew` says how far
+that clock has moved from the recorder's since it armed (NTP slews and
+steps), and ``to_chrome_trace(..., origin=)`` takes it off, so that a
+recorder export overlays a profiler trace of the same window.
 
 Fleet tracing: a request that crosses PROCESSES — router →
 gateway → engine scheduler → (maybe) a failover replay on a second
@@ -405,6 +409,14 @@ def since(cursor: int = 0) -> dict:
         return {"events": [], "cursor": int(cursor), "dropped": 0,
                 "armed": enabled()}
     return _RECORDER.since(cursor)
+
+
+def unix_skew() -> float:
+    """Seconds the Unix clock reads ahead of the recorder's clock now
+    (0.0 before the recorder is made): the wall clock's slews and steps
+    since the recorder took its epoch."""
+    r = _RECORDER
+    return 0.0 if r is None else time.time() - r.now()
 
 
 def dropped() -> int:

@@ -135,8 +135,9 @@ def test_unchecked_replays_fetch_nothing(stand_in, monkeypatch):
     before = totals()
     got = [unchecked(*s, cutoff=180) for s in sets + sets]
     assert fetches == []
-    # the JAX package's spans: a dispatch a call, no fetch
-    assert spans == ["plan.dispatch"] * 6
+    # the JAX package's spans: a dispatch a call, no fetch; the
+    # dispatch's device-timed copy-in inside it
+    assert spans == ["plan.dispatch", "plan.copy_in"] * 6
     assert {k: v - before[k] for k, v in totals().items()} == {
         "plan.compile_count": 0, "plan.cache_hits": 6,
         "plan.overflow_events": 0, "plan.capacity_rescales": 0}
