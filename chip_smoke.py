@@ -17,6 +17,9 @@ and check it.
                                           # same way
     python3 chip_smoke.py --tracing-only  # phases 1, 2 and 24 alone, the
                                           # same way
+    python3 chip_smoke.py --gather-only   # phases 1, 2 and phase 3's
+                                          # gather_rows cases and kernel
+                                          # graphs alone, the same way
 
 Phases, each printing one JSON line:
 
@@ -40,9 +43,13 @@ Phases, each printing one JSON line:
    2^31, at every shape and at its dispatch threshold and one pair on
    each side of it, so that both of its paths run, and a look-back call
    after a three-pass one whose carries read as the next call's flags;
-   ``row_hash``, ``scan32`` (int32 add, uint32 add that wraps, int32 and
-   float32 max) and ``pair_max_scan`` (three passes and look-back) each
-   captured alone into a CUDA graph and replayed 20 times on inputs
+   ``gather_rows`` at widths of 1 to 17 words, by int32 and int64
+   indices, monotone, random and partly out of range, from 0 to 2^25
+   rows, on a one-row source and on sources off the 16-byte alignment
+   (:func:`gather_kernel_phase`); ``row_hash``, ``scan32`` (int32 add,
+   uint32 add that wraps, int32 and float32 max), ``pair_max_scan``
+   (three passes and look-back), the bucket kernels and ``gather_rows``
+   each captured alone into a CUDA graph and replayed 20 times on inputs
    rewritten in place, every replay bit for bit the plain version);
    the time per call of the kernel, the plain
    version and one PyTorch library call (where one computes the same
@@ -288,7 +295,7 @@ REPS = 20
 #: each); on the hash_join path the bucket kernels over one side's rows
 PATH_SHAPE = {"row_hash": BENCH_ROWS, "scan32": 4 * BENCH_ROWS,
               "pair_max_scan": 4 * BENCH_ROWS, "bucket_build": DIST_ROWS,
-              "bucket_probe": DIST_ROWS}
+              "bucket_probe": DIST_ROWS, "gather_rows": 2 * DIST_ROWS}
 #: 2n is the bench's out_cap (its one max scan); 32M the dist_join
 #: phase's combined rows; the rest are ragged edges of the tiling
 TIMED = (BENCH_ROWS, 2 * BENCH_ROWS, 4 * BENCH_ROWS, 2 * DIST_ROWS)
@@ -579,11 +586,14 @@ def graph_kernel_phase(torch, stats):
     look-back at 8M: its epoch is frozen in the graph, so every replay
     must reset its flags), ``bucket_build`` (every other replay's ids in
     eight buckets, which overflow: the captured memsets must reset the
-    count) and ``bucket_probe`` on int64 keys (the one-load path). The
-    launch counters are left as they were."""
+    count), ``bucket_probe`` on int64 keys (the one-load path) and
+    ``gather_rows`` (16-byte rows by an int32 index, 20-byte rows by an
+    int64 one, a third of each index out of range, the words rewritten
+    too). The launch counters are left as they were."""
     from cylon_tpu_torch import kernels
     from cylon_tpu_torch.kernels import (bucket_build, bucket_probe,
-                                         pair_max_scan, row_hash, scan32)
+                                         gather_rows, pair_max_scan,
+                                         row_hash, scan32)
     from cylon_tpu_torch.ops.hash_join import table_slots
 
     saved = kernels.launch_counts()
@@ -649,8 +659,26 @@ def graph_kernel_phase(torch, stats):
                                   device="cuda", generator=g))
         pbids.copy_(row_hash(pwords) & (nb - 1))
 
+    gwords = {w: torch.empty((n, w), dtype=torch.int32, device="cuda")
+              for w in (4, 5)}
+    gidx = {torch.int32: torch.empty(2 * n, dtype=torch.int32,
+                                     device="cuda"),
+            torch.int64: torch.empty(2 * n, dtype=torch.int64,
+                                     device="cuda")}
+
+    def refill_gather(w, dtype):
+        words, idx = gwords[w], gidx[dtype]
+        words.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, words.shape,
+                                  dtype=torch.int32, device="cuda",
+                                  generator=g))
+        # a third of the slots out of range: the clamp reads rows 0, n - 1
+        idx.copy_(torch.randint(-n, 2 * n, idx.shape, device="cuda",
+                                generator=g))
+
     refill_bids()
     refill_probe()
+    refill_gather(4, torch.int32)
+    refill_gather(5, torch.int64)
     cases = (
         ("row_hash/16_words", lambda: row_hash(words),
          lambda: row_hash.plain(words), lambda: refill_i32(*words)),
@@ -676,6 +704,14 @@ def graph_kernel_phase(torch, stats):
          lambda: bucket_probe(pbids, pwords, table, bwords),
          lambda: bucket_probe.plain(pbids, pwords, table, bwords),
          refill_probe),
+        ("gather_rows/w4_int32",
+         lambda: gather_rows(gwords[4], gidx[torch.int32]),
+         lambda: gather_rows.plain(gwords[4], gidx[torch.int32]),
+         lambda: refill_gather(4, torch.int32)),
+        ("gather_rows/w5_int64",
+         lambda: gather_rows(gwords[5], gidx[torch.int64]),
+         lambda: gather_rows.plain(gwords[5], gidx[torch.int64]),
+         lambda: refill_gather(5, torch.int64)),
     )
     for name, kern, plain, refill in cases:
         kern()                       # built and warm before the capture
@@ -691,7 +727,9 @@ def graph_kernel_phase(torch, stats):
             bad, err = bad + b, max(err, e)
         torch.cuda.synchronize()
         row = {"phase": "kernel_graph", "name": name,
-               "n": (out[0] if isinstance(out, tuple) else out).shape[-1],
+               # a bucket table's slots, else the output's rows
+               "n": out[0].shape[-1] if isinstance(out, tuple)
+               else out.shape[0],
                "replays": GRAPH_REPLAYS, "mismatches": bad,
                "max_abs_err": err, "tolerance": 0}
         emit(row)
@@ -762,6 +800,109 @@ def pair_scratch_phase(torch, stats):
     if bad:
         raise SystemExit(f"pair_max_scan/stale_scratch: {bad} mismatches")
     stats[("pair_max_scan/stale_scratch", n)] = row
+
+
+#: gather_rows: the row widths in words (a join side's int64 key and
+#: float64 value is 4; TPC-H's device-bytes keys 5 to 8; 17 takes more
+#: than one 16-byte piece and an odd tail), the index lengths and the
+#: source rows (a join side's 2^24 rows; its gathers take 2^25 slots)
+GATHER_WIDTHS = (1, 2, 3, 4, 5, 8, 17)
+GATHER_SHAPES = (0, 1, 4097, 2 * DIST_ROWS)
+GATHER_CAP = DIST_ROWS
+
+
+def gather_kernel_phase(torch, rate, stats):
+    """gather_rows against its plain version, bit for bit, at every width
+    of :data:`GATHER_WIDTHS`, with int32 and int64 indices that are
+    monotone, random, or a third of them out of range (clamped), at every
+    length of :data:`GATHER_SHAPES` from :data:`GATHER_CAP` rows; then a
+    one-row source, and at widths 2 and 4 a source 4 bytes off the
+    16-byte alignment (the narrower loads). A call of no rows must
+    launch nothing, any other call one kernel. At 2^25 rows the random
+    int32 index at every width, and at width 4 the monotone and int64
+    ones, are timed: the kernel, the plain version and ``index_select``
+    of the clamped index, the library's gather (the call the port made
+    before), by CUDA events and device time, beside the bound: the
+    index read, the rows written and each source row the index names
+    read once (``bound_us``), and with each of those reads a whole
+    32-byte sector (``sector_bound_us``)."""
+    from cylon_tpu_torch.kernels import gather_rows
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(24)
+    cap = GATHER_CAP
+
+    def indices(n, kind, dtype):
+        if kind == "monotone":
+            x = torch.sort(torch.randint(0, cap, (n,), device="cuda",
+                                         generator=g)).values
+        elif kind == "random":
+            x = torch.randint(0, cap, (n,), device="cuda", generator=g)
+        else:
+            x = torch.randint(-cap, 2 * cap, (n,), device="cuda",
+                              generator=g)
+        return x.to(dtype)
+
+    def check(name, words, idx, timed):
+        n, w = idx.shape[0], words.shape[1]
+        before = gather_rows.launches
+        got = gather_rows(words, idx)
+        torch.cuda.synchronize()
+        launched = gather_rows.launches - before
+        bad, err = compare(torch, got, gather_rows.plain(words, idx))
+        bad += int(launched != (1 if n else 0))
+        bad += int(tuple(got.shape) != (n, w))
+        ib = idx.element_size()
+        # the source rows the index names, each read once
+        rows = torch.unique(torch.clamp(idx, 0, words.shape[0] - 1)).numel()
+        row = {"phase": "kernel", "name": name, "n": n, "cap":
+               words.shape[0], "mismatches": bad, "max_abs_err": err,
+               "tolerance": 0, "launches": launched, "rows_read": rows,
+               "bound_us": (n * (ib + 4 * w) + rows * 4 * w) / rate * 1e6,
+               "sector_bound_us": (n * (ib + 4 * w)
+                                   + rows * 32 * -(-4 * w // 32))
+               / rate * 1e6}
+        if timed:
+            safe = torch.clamp(idx, 0, words.shape[0] - 1).to(torch.int64)
+            for label, fn in (
+                    ("kernel", lambda: gather_rows(words, idx)),
+                    ("plain", lambda: gather_rows.plain(words, idx)),
+                    ("library", lambda: words.index_select(0, safe))):
+                row[f"{label}_ms"] = time_ms(torch, fn)
+                row[f"{label}_device_ms"] = device_ms(torch, fn)
+            del safe
+        emit(row)
+        if bad:
+            raise SystemExit(f"{name} at n={n}: {bad} mismatches")
+        stats[(name, n)] = row
+
+    big = 2 * DIST_ROWS
+    for w in GATHER_WIDTHS:
+        words = torch.randint(-2 ** 31, 2 ** 31 - 1, (cap, w),
+                              dtype=torch.int32, device="cuda", generator=g)
+        for n in GATHER_SHAPES:
+            for kind in ("monotone", "random", "out_of_range"):
+                for dtype in (torch.int32, torch.int64):
+                    idx = indices(n, kind, dtype)
+                    dt = str(dtype).split(".")[-1]
+                    timed = n == big and kind != "out_of_range" and (
+                        (kind == "random" and dtype == torch.int32)
+                        or w == 4)
+                    check(f"gather_rows/w{w}_{dt}_{kind}", words, idx,
+                          timed)
+                    del idx
+        one = words[:1].clone()
+        check(f"gather_rows/w{w}_cap1", one,
+              indices(4097, "out_of_range", torch.int64), False)
+        if w in (2, 4):
+            flat = torch.empty(cap * w + 1, dtype=torch.int32,
+                               device="cuda")
+            off = flat[1:].view(cap, w)   # 4 bytes past 16-byte alignment
+            off.copy_(words)
+            check(f"gather_rows/w{w}_unaligned", off,
+                  indices(big, "random", torch.int32), False)
+            del flat, off
+        del words
 
 
 def bucket_kernel_phase(torch, rate, stats):
@@ -1145,9 +1286,11 @@ def dist_join_phase(torch):
     if abs(check - want_check) > 1e-9 * abs(want_check):
         raise SystemExit("dist_join: checksum off")
     PHASE4_RESULT.update(rows=rows, checksum=check)
-    # a world of one never exchanges, so never hashes: one join's scans
+    # a world of one never exchanges, so never hashes: one join's scans,
+    # its plan gather and one row gather a side
     if launches != {"row_hash": 0, "scan32": 5, "pair_max_scan": 5,
-                    "bucket_build": 0, "bucket_probe": 0}:
+                    "bucket_build": 0, "bucket_probe": 0,
+                    "gather_rows": 3}:
         raise SystemExit(f"dist_join: launches {launches}")
     return wall
 
@@ -1157,9 +1300,10 @@ def dist_join_phase(torch):
 #: build side twice (the host chain pre-check, then the build) and the
 #: probe side once; one build, one probe; one scan32 for the emission's
 #: offsets (dist_join runs ordered=False, so no sort of the pairs, and a
-#: world of one never partitions)
+#: world of one never partitions); one row gather a side
 HASH_JOIN_LAUNCHES = {"row_hash": 3, "scan32": 1, "pair_max_scan": 0,
-                      "bucket_build": 1, "bucket_probe": 1}
+                      "bucket_build": 1, "bucket_probe": 1,
+                      "gather_rows": 2}
 
 
 def hash_join_phase(torch, sort_wall_other, profile: bool):
@@ -1318,9 +1462,11 @@ def bench_phase(torch, profile: bool):
     for i in range(depth):
         a = np.bincount(kl[i].cpu().numpy(), minlength=n).astype(np.int64)
         want += int((a * np.bincount(kr[i].cpu().numpy(), minlength=n)).sum())
+    # a stage: each side's exchange gathers its send rows, the join its
+    # plan and one row gather a side
     expect = {"row_hash": 2 * depth, "scan32": 5 * depth,
               "pair_max_scan": 5 * depth, "bucket_build": 0,
-              "bucket_probe": 0}
+              "bucket_probe": 0, "gather_rows": 5 * depth}
     emit({"phase": "bench", "rows_per_side": n, "depth": depth,
           "total_rows": total, "expected_rows": want, "times_s": times,
           "rows_per_s": depth * n / min(times), "launches": launches,
@@ -1386,9 +1532,11 @@ DECODE_SAMPLE = 4096
 #: word, two row_hash launches (16-word chunks)
 WIDE_KEY_BYTES = 80
 #: the sort join's launches at a world of one on any key: one group_sort
-#: (one add scan), the join's counts and offsets, its five fills
+#: (one add scan), the join's counts and offsets, its five fills; its
+#: plan gather and one row gather a side
 SORT_JOIN_LAUNCHES = {"row_hash": 0, "scan32": 5, "pair_max_scan": 5,
-                      "bucket_build": 0, "bucket_probe": 0}
+                      "bucket_build": 0, "bucket_probe": 0,
+                      "gather_rows": 3}
 
 
 def render_customer(torch, keys):
@@ -1946,7 +2094,7 @@ def comm_phase(torch):
     if not same or not same_stage:
         raise SystemExit("comm: NCCL and LocalComm gave other rows")
     expect = {"row_hash": 2, "scan32": 5, "pair_max_scan": 5,
-              "bucket_build": 0, "bucket_probe": 0}
+              "bucket_build": 0, "bucket_probe": 0, "gather_rows": 5}
     for name, (_, st) in stages.items():
         if st["launches"] != expect:
             raise SystemExit(f"comm: {name} stage launches "
@@ -2017,8 +2165,10 @@ def run_groupby(torch, case: str, table, by, aggs, total: dict,
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
     rows = table.num_rows
+    # a rung gathers the values into group order and the groups' keys
     expect = {"row_hash": 0, "scan32": GROUPBY_SCANS[case] * len(bounds1),
-              "pair_max_scan": 0, "bucket_build": 0, "bucket_probe": 0}
+              "pair_max_scan": 0, "bucket_build": 0, "bucket_probe": 0,
+              "gather_rows": 2 * len(bounds1)}
     same = same_bits(torch, first, second)
     row = {"phase": "groupby", "case": case, "rows": rows, "groups": groups,
            "aggregates": [list(a) for a in aggs],
@@ -8135,7 +8285,8 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from cylon_tpu_torch.kernels import (build, bucket_build, bucket_probe,
-                                         pair_max_scan, row_hash, scan32)
+                                         gather_rows, pair_max_scan,
+                                         row_hash, scan32)
 
     card = smi()
     print(card, flush=True)
@@ -8189,6 +8340,12 @@ def main(argv) -> int:
     if "--tracing-only" in argv:
         tracing_phase(torch, card)
         return 0
+    if "--gather-only" in argv:
+        stats = {}
+        gather_kernel_phase(torch, rate, stats)
+        graph_kernel_phase(torch, stats)
+        emit({"phase": "gather_only", "card": card, "cases": len(stats)})
+        return 0
     if "--capture-only" in argv:
         t22 = time.perf_counter()
         capture_launches, capture_inputs, _ = capture_phase(torch, card)
@@ -8201,6 +8358,7 @@ def main(argv) -> int:
 
     stats = kernel_phase(torch, rate)
     bucket_kernel_phase(torch, rate, stats)
+    gather_kernel_phase(torch, rate, stats)
     join_parity_phase(torch)
     memory_line(torch, card, "3 kernels")
     sort_wall = dist_join_phase(torch)
@@ -8362,7 +8520,8 @@ def main(argv) -> int:
             (scan32, "scan32/add", launches),
             (pair_max_scan, "pair_max_scan", launches),
             (bucket_build, "bucket_build", hash_launches),
-            (bucket_probe, "bucket_probe", hash_launches)):
+            (bucket_probe, "bucket_probe", hash_launches),
+            (gather_rows, "gather_rows/w4_int32_random", hash_launches)):
         n = PATH_SHAPE[wrapper.__name__]
         s = stats[(key, n)]
         entries.append({

@@ -8,12 +8,14 @@ count them) and names its plain version in ``wrapper.plain``.
 """
 
 from cylon_tpu_torch.kernels.bucket import bucket_build, bucket_probe
+from cylon_tpu_torch.kernels.gather import gather_rows
 from cylon_tpu_torch.kernels.row_hash import row_hash
 from cylon_tpu_torch.kernels.scan import (SCAN_MIN_SIZE, pair_max_scan,
                                           scan32, scan32_ok)
 
 #: every kernel wrapper of the package
-WRAPPERS = (row_hash, scan32, pair_max_scan, bucket_build, bucket_probe)
+WRAPPERS = (row_hash, scan32, pair_max_scan, bucket_build, bucket_probe,
+            gather_rows)
 
 
 def reset_launches() -> None:
@@ -26,5 +28,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["SCAN_MIN_SIZE", "WRAPPERS", "bucket_build", "bucket_probe",
-           "launch_counts", "pair_max_scan", "reset_launches", "row_hash",
-           "scan32", "scan32_ok"]
+           "gather_rows", "launch_counts", "pair_max_scan", "reset_launches",
+           "row_hash", "scan32", "scan32_ok"]

@@ -50,6 +50,9 @@ _SIGNATURES = {
                             ctypes.c_int, ctypes.c_int, _P,
                             ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_longlong, _P, _P], ctypes.c_int),
+    "cylon_gather_rows": ([_P, ctypes.c_longlong, ctypes.c_int, _P,
+                           ctypes.c_int, ctypes.c_longlong, _P, _P],
+                          ctypes.c_int),
 }
 
 _lock = threading.Lock()

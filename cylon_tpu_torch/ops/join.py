@@ -37,6 +37,7 @@ import torch
 from cylon_tpu_torch import plan, telemetry
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument
+from cylon_tpu_torch.kernels import gather_rows
 from cylon_tpu_torch.ops import bytescol, dictenc, hash_join, kernels
 from cylon_tpu_torch.ops.selection import take_columns
 from cylon_tpu_torch.utils.logging import get_logger
@@ -245,6 +246,14 @@ def _aligned_keys(left, right, left_on, right_on):
     return left, right
 
 
+def _gather_plan(cols, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (clamped) of the columns stacked side by side, in one
+    packed row gather (``kernels.gather_rows`` on the stack's 4-byte
+    words: an int64 stack enters as its int32 view)."""
+    plan_rows = torch.stack(cols, dim=1)
+    return gather_rows(plan_rows.view(torch.int32), idx).view(plan_rows.dtype)
+
+
 def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
                   ordered: bool = True, hash_first: bool = False):
     """Core: (left_idx, right_idx, total) gather plans of length out_cap;
@@ -323,13 +332,14 @@ def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
                         out_cap).clamp_(max=out_cap)
     mark = torch.full((out_cap + 1,), -1, dtype=torch.int32, device=dev)
     mark.index_put_((start,), iota_c)   # in place: fresh buffer
-    parent = kernels.fast_cummax(mark[:out_cap]).clamp_(0, hi)
+    # slots before the first run read -1: the gather clamps them to row 0
+    parent = kernels.fast_cummax(mark[:out_cap])
     # the gid column rides the packed gather only when the fullouter
     # restore needs it
     pcols = [offs, match_counts, right_start, orig_s]
     if want_gid:
         pcols.append(gid_s)
-    g = torch.stack(pcols, dim=1)[parent.to(torch.int64)]   # one row gather
+    g = _gather_plan(pcols, parent)   # one row gather
     j = torch.arange(out_cap, dtype=torch.int32, device=dev)
     within = j - g[:, 0]
     matched = g[:, 1] > 0
@@ -343,7 +353,7 @@ def _join_indices(lkeys, lvals, lrows, rkeys, rvals, rrows, how, out_cap,
         perm_s, n_extra = kernels.compact_mask(extra_mask, valid_s)
         shifted = torch.clamp(j - total, 0, hi).to(torch.int64)
         ecols = [orig_s] + ([gid_s] if want_gid else [])
-        epair = torch.stack(ecols, dim=1)[perm_s[shifted]]
+        epair = _gather_plan(ecols, perm_s[shifted])
         in_main = j < total
         left_idx = torch.where(in_main, left_idx, -1)
         right_idx = torch.where(in_main, right_idx, epair[:, 0] - cl)

@@ -23,6 +23,7 @@ import torch
 
 from cylon_tpu_torch.column import Column
 from cylon_tpu_torch.errors import InvalidArgument
+from cylon_tpu_torch.kernels import gather_rows
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.utils.tracing import (count_on_device, device_counting,
                                            traced)
@@ -96,7 +97,6 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     if table.capacity == 0:
         # no row to read: every slot reads one zero row of padding
         table = table.with_capacity(1)
-    safe = torch.clamp(idx, 0, table.capacity - 1).to(torch.int64)
     use = list(names if names is not None else table.column_names)
 
     layout = []   # (name, column, word slice | None, validity word | None)
@@ -121,11 +121,12 @@ def take_columns(table, idx: torch.Tensor, nrows_out,
     row_bytes = 4 * w
     if word_arrays:
         packed = torch.cat(word_arrays, dim=1)
-        out_words = packed.index_select(0, safe)
+        out_words = gather_rows(packed, idx)
 
     cols = {}
     for name, c, sl, vslot in layout:
-        if sl is None:
+        if sl is None:   # a 2-D column of other than int32 words
+            safe = torch.clamp(idx, 0, table.capacity - 1).to(torch.int64)
             data = c.data.index_select(0, safe)
             row_bytes += math.prod(c.data.shape[1:]) * c.data.element_size()
         elif c.data.dim() == 2:   # bytes: the words are the data
@@ -291,8 +292,21 @@ def concat_tables(tables: Sequence, capacity: "int | None" = None):
 def head(table, n: int):
     """The first ``n`` valid rows (port of
     ``cylon_tpu/ops/selection.py:381``): valid rows lead, so only the
-    count changes."""
-    return table.with_nrows(torch.clamp(table.nrows, max=n))
+    count changes. Below the capacity the first ``n`` slots are copied
+    into a table of capacity ``n``, so that a small head (a query's
+    ``LIMIT``) does not keep its source's storage alive while it is
+    kept."""
+    from cylon_tpu_torch.table import Table
+
+    if not 0 <= n < table.capacity:
+        return table.with_nrows(torch.clamp(table.nrows, max=n))
+    cut = table.with_capacity(n)
+    cols = {}
+    for name in cut.column_names:
+        c = cut.column(name)
+        cols[name] = Column(c.data.clone(), None if c.validity is None
+                            else c.validity.clone(), c.dtype, c.dictionary)
+    return Table(cols, cut.nrows)
 
 
 def sample(table, n: int):

@@ -22,6 +22,7 @@ import typing
 import torch
 
 from cylon_tpu_torch.column import Column
+from cylon_tpu_torch.kernels import gather_rows
 from cylon_tpu_torch.ops import kernels
 from cylon_tpu_torch.ops.selection import _dense
 from cylon_tpu_torch.telemetry import trace
@@ -92,8 +93,8 @@ def _exchange(comm, arrays, pid, n_local, out_cap, ledger, stage, ranks):
                   mode="exact", stage=stage)
     if ledger is not None:
         ledger.append(Stage(stage, cmat, int(packed.shape[1]), ranks))
-    got = comm.exchange(packed.index_select(0, order[:n_send]), send_counts,
-                        recv_counts)
+    got = comm.exchange(gather_rows(packed.contiguous(), order[:n_send]),
+                        send_counts, recv_counts)
     if out_cap is None:
         return (_unpack_words(got, spec),
                 torch.tensor(n_recv_true, dtype=torch.int32, device=dev))

@@ -22,6 +22,7 @@ from cylon_tpu.ops import hash_join as jhj
 from cylon_tpu.ops import kernels as jkernels
 from cylon_tpu.ops import pallas_kernels as pk
 from cylon_tpu_torch import kernels as tk
+from cylon_tpu_torch import telemetry as tel
 from cylon_tpu_torch.kernels import bucket as tbucket
 from cylon_tpu_torch.kernels import scan as tscan
 from cylon_tpu_torch.ops import hash as thash
@@ -737,6 +738,73 @@ def test_bucket_kernels_reject_bad_operands():
         tk.bucket_probe(ids, [w[:5]], table, [w])
 
 
+#: gather_rows' widths: one word to past one 16-byte piece, odd and even
+GATHER_WIDTHS = (1, 2, 3, 4, 5, 8, 17)
+
+
+def _gather_index(kind: str, cap: int, rng) -> np.ndarray:
+    n = {"empty": 0, "one": 1}.get(kind, 4097)
+    if kind == "monotone":
+        return np.sort(rng.integers(0, cap, n))
+    if kind in ("out_of_range", "cap1"):
+        return rng.integers(-cap, 2 * cap, n)
+    return rng.integers(0, cap, n)
+
+
+@pytest.mark.parametrize("kind", ["monotone", "random", "out_of_range",
+                                  "empty", "one", "cap1"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("w", GATHER_WIDTHS)
+def test_gather_rows_plain_matches_clamped_take(w, dtype, kind):
+    """The plain version is ``index_select`` of the clamped index: equal
+    to numpy's take of the clipped index and to the JAX package's
+    ``jnp.take(mode="clip")``, at every width and index kind, on no rows
+    and from a one-row source. A CPU tensor takes it, counts its rows in
+    ``gather.rows{route=plain}`` and launches nothing."""
+    rng = np.random.default_rng(w * 7 + len(kind))
+    cap = 1 if kind == "cap1" else 300
+    words = rng.integers(-2 ** 31, 2 ** 31, (cap, w)).astype(np.int32)
+    idx = _gather_index(kind, cap, rng)
+    want = np.take(words, np.clip(idx, 0, cap - 1), axis=0)
+    np.testing.assert_array_equal(
+        np.asarray(jnp.take(jnp.asarray(words), jnp.asarray(idx), axis=0,
+                            mode="clip")), want)
+    t_words = torch.from_numpy(words)
+    t_idx = torch.from_numpy(idx).to(dtype)
+    launches = tk.gather_rows.launches
+    before = tel.snapshot()
+    got = tk.gather_rows(t_words, t_idx)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (len(idx), w)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tk.gather_rows.plain(t_words, t_idx).numpy(), want)
+    assert tk.gather_rows.launches == launches
+    rows = {d["labels"]["route"]: d["value"]
+            for d in tel.delta(before).values() if d["name"] == "gather.rows"}
+    assert rows.get("plain", 0) == len(idx) and not rows.get("kernel")
+
+
+@pytest.mark.parametrize("words, idx, error", [
+    (torch.zeros((8, 6), dtype=torch.int32)[:, ::2], torch.arange(3),
+     ValueError),                                    # not contiguous
+    (torch.zeros((8, 3), dtype=torch.int32).t(), torch.arange(3),
+     ValueError),                                    # transposed
+    (torch.zeros((8, 3), dtype=torch.int64), torch.arange(3), TypeError),
+    (torch.zeros((8, 3), dtype=torch.float32), torch.arange(3), TypeError),
+    (torch.zeros(8, dtype=torch.int32), torch.arange(3), TypeError),
+    (torch.zeros((8, 3), dtype=torch.int32), torch.zeros((3, 1),
+                                                         dtype=torch.int64),
+     TypeError),                                     # a 2-D index
+    (torch.zeros((8, 3), dtype=torch.int32), torch.zeros(3), TypeError),
+    (torch.zeros((0, 3), dtype=torch.int32), torch.arange(3), ValueError),
+])
+def test_gather_rows_rejects_bad_operands(words, idx, error):
+    """The word matrix must be a contiguous [cap, w] int32 matrix, the
+    index 1-D int32 or int64, and a gather of rows needs a row to read."""
+    with pytest.raises(error):
+        tk.gather_rows(words, idx)
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """A tensor that is not on the CPU launches the kernel or raises; the
     plain version is never taken for it (``meta`` stands in for a device
@@ -753,3 +821,5 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         tk.bucket_probe(x, [x], torch.full((4, 16), -1, dtype=torch.int32,
                                            device="meta"), [x])
+    with pytest.raises(ValueError):
+        tk.gather_rows(x.view(1000, 5), x)

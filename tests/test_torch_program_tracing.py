@@ -7,7 +7,7 @@
     unchecked replay (none);
 (b) the operator spans (``join``, ``groupby``, ``filter``, ``sort``) and
     their nesting: ``join`` > ``join.indices``, ``join`` > ``gather``;
-    ``gather.bytes`` on a known table;
+    ``gather.bytes`` on a known table; ``gather.rows{route}``;
 (c) device-timed spans: with no profiler session and no recorder armed
     no CUDA event is made and no ``*.device`` series exists; armed, the
     event pairs resolve into ``<span>.device`` at a later span's exit or
@@ -277,6 +277,19 @@ def test_gather_bytes_count_only_while_device_spans_record(monkeypatch):
         monkeypatch.setattr(tracing, "_capturing", lambda: False)
         take_columns(t, idx, torch.tensor(3))
     assert gather_bytes_since(before) == [3 * (8 + 2 * 4 * 5)]
+
+
+def test_a_gather_adds_its_slots_to_the_plain_route():
+    """``take_columns`` on CPU tensors runs ``gather_rows``' plain
+    version: its index's length lands in ``gather.rows{route=plain}``
+    and nothing in the kernel route."""
+    t = sixteen_rows()
+    before = telemetry.snapshot()
+    take_columns(t, torch.tensor([3, 1, 4, 1, 5, 9, 2]), torch.tensor(5))
+    rows = {d["labels"]["route"]: d["value"]
+            for d in telemetry.delta(before).values()
+            if d["name"] == "gather.rows" and d["value"]}
+    assert rows == {"plain": 7}
 
 
 # ----------------------------------------------------- (c) device spans

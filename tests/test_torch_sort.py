@@ -160,6 +160,30 @@ def test_filter_head_sample_take_match_jax():
         _cells(jsel.take(jt, _jmask(idx)).to_pandas())
 
 
+@pytest.mark.parametrize("n, cap", [(0, 128), (5, 128), (127, 128),
+                                    (128, 128), (200, 128)])
+def test_a_head_below_the_capacity_owns_its_rows(n, cap):
+    """Below the capacity a head copies its first ``n`` slots into a table
+    of capacity ``n`` that shares no storage with its source, so keeping
+    it keeps only those rows; at or past the capacity it is the source
+    with its count clamped. Either way its rows are the source's first
+    ``n`` valid rows."""
+    t = ct.Table.from_pydict({"k": np.arange(97, dtype=np.int64),
+                              "v": np.linspace(0.0, 1.0, 97)},
+                             device="cpu").with_capacity(cap)
+    got = ct.head(t, n)
+    assert got.num_rows == min(n, 97)
+    assert got.to_pandas().equals(t.to_pandas().head(n))
+    own = n < cap
+    assert got.capacity == (n if own else cap)
+    for name in ("k", "v"):
+        src = t.column(name).data.untyped_storage().data_ptr()
+        mine = got.column(name).data.untyped_storage()
+        assert (mine.data_ptr() != src) == own
+        if own:
+            assert mine.nbytes() == 8 * n
+
+
 def _jmask(a):
     import jax.numpy as jnp
 
